@@ -1,0 +1,141 @@
+"""Model zoo: ResNet50.
+
+The JAX package's ``zoo/models.py`` ResNet50 (reference:
+deeplearning4j-zoo/.../model/ResNet50.java) with the same fields and the
+same graph (node names, layer configs, topology), so configurations and
+checkpoints carry across. The port runs the fused-block form
+(``fused_blocks=True``, ``fused_impl="pallas"``): each bottleneck is one
+``FusedBottleneckBlock`` whose convs go through the hand-written CUDA
+kernels. The per-layer (unfused) graph and the other zoo models come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.models.computation_graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    ConvolutionLayer,
+    ConvolutionMode,
+    PoolingType,
+    SpaceToDepthLayer,
+    SubsamplingLayer,
+    ZeroPaddingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.feedforward import ActivationLayer
+from deeplearning4j_tpu_torch.nn.layers.fused import FusedBottleneckBlock
+from deeplearning4j_tpu_torch.nn.layers.normalization import \
+    BatchNormalization
+from deeplearning4j_tpu_torch.nn.layers.output import (GlobalPoolingLayer,
+                                                       OutputLayer)
+from deeplearning4j_tpu_torch.ops.activations import Activation
+from deeplearning4j_tpu_torch.ops.initializers import WeightInit
+from deeplearning4j_tpu_torch.ops.losses import LossFunction
+from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs, Updater
+from deeplearning4j_tpu_torch.utils.device import DeviceLike
+
+# (filters, blocks, first stride) of the four bottleneck stages
+STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+
+
+def fold_stem_weights(w7):
+    """Fold 7×7/2 stem weights (7,7,C,O) HWIO into the exactly
+    equivalent 4×4/1 space-to-depth parameterization (4,4,4C,O):
+    ``Wf[ku, kv, (a·2+b)·C + c, o] = W7[2ku+a, 2kv+b, c, o]`` (zero
+    where 2ku+a > 6), matching ``SpaceToDepthLayer(block_size=2)``'s
+    (row, col, channel) packing."""
+    w7 = np.asarray(w7)
+    kh, kw, c, o = w7.shape
+    wf = np.zeros((4, 4, 4 * c, o), w7.dtype)
+    for ku in range(4):
+        for a in range(2):
+            u = 2 * ku + a
+            if u >= kh:
+                continue
+            for kv in range(4):
+                for b in range(2):
+                    v = 2 * kv + b
+                    if v >= kw:
+                        continue
+                    wf[ku, kv, (a * 2 + b) * c:(a * 2 + b + 1) * c] = \
+                        w7[u, v]
+    return wf
+
+
+@dataclasses.dataclass
+class ResNet50:
+    """reference: model/ResNet50.java — bottleneck-v1 ComputationGraph:
+    stem → maxpool/2 → stages [3,4,6,3] → global avg pool → softmax."""
+    num_classes: int = 200
+    height: int = 224
+    width: int = 224
+    channels: int = 3
+    seed: int = 123
+    compute_dtype: str = "float32"
+    updater: Updater = dataclasses.field(
+        default_factory=lambda: Nesterovs(1e-2, 0.9))
+    fused_blocks: bool = False     # only True is ported (see conf())
+    fused_impl: str = "pallas"
+    # space-to-depth stem: H×W×3 → H/2×W/2×12 and a 4×4/1 conv that is
+    # exactly the 7×7/2 conv (fold_stem_weights maps the weights)
+    s2d_stem: bool = False
+
+    def conf(self):
+        if not self.fused_blocks:
+            raise NotImplementedError(
+                "ResNet50(fused_blocks=False): the per-layer graph is not "
+                "ported yet; use fused_blocks=True")
+        g = (NeuralNetConfiguration.Builder()
+             .seed(self.seed)
+             .updater(self.updater)
+             .compute_dtype(self.compute_dtype)
+             .graph_builder()
+             .add_inputs("in")
+             .set_input_types(InputType.convolutional(
+                 self.height, self.width, self.channels)))
+
+        if self.s2d_stem:
+            g.add_layer("s2d", SpaceToDepthLayer(block_size=2), "in")
+            g.add_layer("s2d_pad", ZeroPaddingLayer(pad=(1, 2, 1, 2)), "s2d")
+            g.add_layer("conv1_conv", ConvolutionLayer(
+                n_out=64, kernel_size=(4, 4), stride=(1, 1),
+                convolution_mode=ConvolutionMode.TRUNCATE,
+                padding=(0, 0), has_bias=False,
+                weight_init=WeightInit.HE_NORMAL,
+                activation=Activation.IDENTITY), "s2d_pad")
+        else:
+            g.add_layer("conv1_conv", ConvolutionLayer(
+                n_out=64, kernel_size=(7, 7), stride=(2, 2),
+                convolution_mode=ConvolutionMode.SAME, has_bias=False,
+                weight_init=WeightInit.HE_NORMAL,
+                activation=Activation.IDENTITY), "in")
+        g.add_layer("conv1_bn", BatchNormalization(), "conv1_conv")
+        g.add_layer("conv1_act", ActivationLayer(activation=Activation.RELU),
+                    "conv1_bn")
+        g.add_layer("pool1", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2),
+            convolution_mode=ConvolutionMode.SAME), "conv1_act")
+        x = "pool1"
+        for si, (filters, blocks, first_stride) in enumerate(STAGES):
+            for bi in range(blocks):
+                name = f"s{si}b{bi}"
+                g.add_layer(name, FusedBottleneckBlock(
+                    filters=filters, stride=first_stride if bi == 0 else 1,
+                    downsample=bi == 0, impl=self.fused_impl), x)
+                x = name
+        g.add_layer("avgpool", GlobalPoolingLayer(
+            pooling_type=PoolingType.AVG), x)
+        g.add_layer("out", OutputLayer(n_out=self.num_classes,
+                                       loss=LossFunction.MCXENT,
+                                       activation=Activation.SOFTMAX),
+                    "avgpool")
+        g.set_outputs("out")
+        return g.build()
+
+    def init(self, device: DeviceLike = None) -> ComputationGraph:
+        return ComputationGraph(self.conf(), device=device).init()

@@ -1,0 +1,222 @@
+"""Package rules of the PyTorch/CUDA port: it imports neither JAX nor the
+JAX package, its entry points refuse to run silently on the CPU, its
+kernel wrappers never fall back, and its configurations, enums and
+initializers match the JAX package's by name."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import fused_conv as fc
+from deeplearning4j_tpu_torch.utils import device as device_mod
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = ("import sys, pkgutil, importlib\n"
+            "import deeplearning4j_tpu_torch as p, chip_smoke\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "'jax.') or m == 'deeplearning4j_tpu' or m.startswith("
+            "'deeplearning4j_tpu.')]\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+                              "HOME": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text(
+        (REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                           tmp_path):
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.models.serialization import (restore_model,
+                                                               save_model)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    rn = ResNet50(num_classes=3, height=16, width=16, fused_blocks=True)
+    path = str(tmp_path / "m.zip")
+    save_model(rn.init(device="cpu"), path)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mod.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ComputationGraph(rn.conf())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rn.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_model(path)
+    assert restore_model(path, device="cpu").device.type == "cpu"
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    x = torch.empty((1, 2, 2, 4), device="meta")
+    w = torch.empty((4, 4), device="meta")
+    s = torch.empty((4,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fc.fused_mm(x, w, s, s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fc.fused_c3(x, torch.empty((3, 3, 4, 4), device="meta"), s, s)
+
+
+def test_failed_kernel_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="build failed"):
+        cuda_build.build(["fused_mm"])
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.kernel("fused_c3")
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_library_names_follow_the_sources():
+    a = cuda_build.library_path("fused_mm")
+    assert a.parent == cuda_build.BUILD_DIR and a.suffix == ".so"
+    assert a.name.startswith("libfused_mm_")
+    assert set(cuda_build.SIGNATURES) == {"fused_mm", "fused_c3"}
+    for name in cuda_build.SIGNATURES:
+        assert (cuda_build.CSRC / f"{name}.cu").exists()
+
+
+def test_enum_members_match_jax():
+    from deeplearning4j_tpu.nn.layers.convolution import \
+        ConvolutionMode as JMode
+    from deeplearning4j_tpu.nn.layers.convolution import \
+        PoolingType as JPool
+    from deeplearning4j_tpu.ops.activations import Activation as JAct
+    from deeplearning4j_tpu.ops.initializers import WeightInit as JInit
+    from deeplearning4j_tpu.ops.losses import LossFunction as JLoss
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionMode, PoolingType)
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.ops.initializers import WeightInit
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+    for mine, theirs in ((Activation, JAct), (WeightInit, JInit),
+                         (LossFunction, JLoss), (ConvolutionMode, JMode),
+                         (PoolingType, JPool)):
+        assert {m.name: m.value for m in mine} == \
+            {m.name: m.value for m in theirs}
+
+
+@pytest.mark.parametrize("name", ["Sgd", "Nesterovs", "Adam", "AdamW",
+                                  "AdaMax", "Nadam", "AMSGrad", "RmsProp",
+                                  "AdaGrad", "AdaDelta", "NoOp",
+                                  "GradientNormalizationConfig"])
+def test_updater_configs_round_trip_with_jax(name):
+    import dataclasses
+    from deeplearning4j_tpu.optimize import updaters as jup
+    from deeplearning4j_tpu.utils import serde as jserde
+    from deeplearning4j_tpu_torch.optimize import updaters as tup
+    from deeplearning4j_tpu_torch.utils import serde as tserde
+    mine, theirs = getattr(tup, name), getattr(jup, name)
+    assert [f.name for f in dataclasses.fields(mine)] == \
+        [f.name for f in dataclasses.fields(theirs)]
+    assert tserde.to_dict(mine()) == jserde.to_dict(theirs())
+    back = jserde.from_json(tserde.to_json(mine()))
+    assert type(back) is theirs and back == theirs()
+
+
+@pytest.mark.parametrize("scheme,std", [
+    ("HE_NORMAL", lambda fi, fo: (2.0 / fi) ** 0.5),
+    ("XAVIER", lambda fi, fo: (2.0 / (fi + fo)) ** 0.5),
+    ("LECUN_NORMAL", lambda fi, fo: (1.0 / fi) ** 0.5),
+    ("HE_UNIFORM", lambda fi, fo: (6.0 / fi / 3.0) ** 0.5),
+    ("XAVIER_UNIFORM", lambda fi, fo: (6.0 / (fi + fo) / 3.0) ** 0.5)])
+def test_initializer_statistics(scheme, std):
+    from deeplearning4j_tpu_torch.ops.initializers import WeightInit
+    w = getattr(WeightInit, scheme).init(torch.Generator().manual_seed(0),
+                                         (256, 512), 256, 512)
+    assert w.dtype == torch.float32 and w.shape == (256, 512)
+    assert abs(w.mean().item()) < 0.01 * std(256, 512) * 10
+    assert w.std().item() == pytest.approx(std(256, 512), rel=0.03)
+
+
+def test_initializer_is_seeded():
+    from deeplearning4j_tpu_torch.ops.initializers import WeightInit
+    a = WeightInit.HE_NORMAL.init(torch.Generator().manual_seed(3), (4, 4),
+                                  4, 4)
+    b = WeightInit.HE_NORMAL.init(torch.Generator().manual_seed(3), (4, 4),
+                                  4, 4, dtype=torch.bfloat16)
+    assert torch.equal(a.to(torch.bfloat16), b)
+    assert torch.equal(WeightInit.IDENTITY.init(None, (3, 3), 3, 3),
+                       torch.eye(3))
+
+
+@pytest.mark.parametrize("act", ["RELU", "RELU6", "LEAKYRELU", "ELU", "SELU",
+                                 "GELU", "SIGMOID", "HARDSIGMOID", "TANH",
+                                 "HARDTANH", "RATIONALTANH", "RECTIFIEDTANH",
+                                 "SOFTMAX", "LOGSOFTMAX", "SOFTPLUS",
+                                 "SOFTSIGN", "SWISH", "MISH", "CUBE",
+                                 "THRESHOLDEDRELU", "IDENTITY"])
+def test_activations_match_jax(act):
+    import jax.numpy as jnp
+    from deeplearning4j_tpu.ops.activations import Activation as JAct
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    x = np.linspace(-4, 4, 33, dtype=np.float32).reshape(3, 11)
+    want = np.asarray(getattr(JAct, act).apply(jnp.asarray(x)))
+    got = getattr(Activation, act).apply(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_param_keys_match_jax():
+    from deeplearning4j_tpu.nn import param_keys as jpk
+    from deeplearning4j_tpu_torch.nn import param_keys as tpk
+    assert tpk.BIAS_KEYS == jpk.BIAS_KEYS
+    assert tpk.EXCLUDED_KEYS == jpk.EXCLUDED_KEYS
+    assert tpk.is_bias_key("beta") and tpk.is_weight_key("W1")
+    assert not tpk.is_weight_key("centers")
+
+
+def test_latency_ring_matches_jax():
+    from deeplearning4j_tpu.observe.latency import LatencyRing as JRing
+    from deeplearning4j_tpu_torch.observe.latency import LatencyRing
+    a, b = LatencyRing(16), JRing(16)
+    for v in np.random.default_rng(0).uniform(0, 1, 40):
+        a.record(v)
+        b.record(v)
+    assert a.quantiles() == b.quantiles() and a.count == b.count
+    assert a.delta_quantiles() == b.delta_quantiles()
+
+
+def test_configuration_round_trips_through_json():
+    from deeplearning4j_tpu_torch.nn.graph.config import \
+        ComputationGraphConfiguration
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    conf = ResNet50(height=32, width=32, fused_blocks=True,
+                    s2d_stem=True).conf()
+    back = ComputationGraphConfiguration.from_json(conf.to_json())
+    assert json.loads(back.to_json()) == json.loads(conf.to_json())
+    assert back.topological_order() == conf.topological_order()
