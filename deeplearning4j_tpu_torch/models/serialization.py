@@ -6,11 +6,14 @@ Analog of the reference's ``ModelSerializer`` (util/ModelSerializer.java
     configuration.json    — ComputationGraphConfiguration JSON (serde)
     params/<layer>/<key>.npy
     state/<layer>/<key>.npy  — non-trainable state (BN running stats)
+    updater/<path>.npy    — optimizer state leaves (optional, exact resume)
     meta.json             — model class, iteration/epoch counters
 
 so a checkpoint written by either package loads in the other. Arrays are
-stored as float32 (the master dtype both packages keep). Updater state
-is not written or read yet: it comes with the training slice.
+stored as float32 (the master dtype both packages keep). An updater path
+is the JAX package's pytree path of the leaf (``#0/.trace/<layer>/<key>``
+for the global Nesterovs trace); the port's optimizer state nests dicts
+under the same path parts (optimize/updaters.py).
 """
 
 from __future__ import annotations
@@ -58,26 +61,87 @@ def _from_numpy(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def _write_tree(zf: zipfile.ZipFile, prefix: str, tree):
-    for layer, leaves in tree.items():
-        for key, t in leaves.items():
-            buf = io.BytesIO()
-            np.save(buf, _to_numpy(t))
-            zf.writestr(f"{prefix}/{layer}/{key}.npy", buf.getvalue())
+    for key, t in flatten_paths(tree).items():
+        buf = io.BytesIO()
+        np.save(buf, _to_numpy(t))
+        zf.writestr(f"{prefix}/{key}.npy", buf.getvalue())
+
+
+def _read_flat(zf: zipfile.ZipFile, prefix: str) -> Dict[str, np.ndarray]:
+    """{path: array} of the ``prefix/<path>.npy`` entries."""
+    out = {}
+    for name in zf.namelist():
+        if name.startswith(prefix + "/") and name.endswith(".npy"):
+            with zf.open(name) as f:
+                out[name[len(prefix) + 1:-4]] = np.load(io.BytesIO(f.read()))
+    return out
 
 
 def _read_tree(zf: zipfile.ZipFile, prefix: str
                ) -> Dict[str, Dict[str, np.ndarray]]:
     out: Dict[str, Dict[str, np.ndarray]] = {}
-    for name in zf.namelist():
-        if name.startswith(prefix + "/") and name.endswith(".npy"):
-            parts = name[len(prefix) + 1:-4].split("/")
-            if len(parts) != 2:
-                raise ValueError(f"checkpoint entry {name!r} is not "
-                                 f"{prefix}/<layer>/<key>.npy")
-            with zf.open(name) as f:
-                out.setdefault(parts[0], {})[parts[1]] = \
-                    np.load(io.BytesIO(f.read()))
+    for path, a in _read_flat(zf, prefix).items():
+        parts = path.split("/")
+        if len(parts) != 2:
+            raise ValueError(f"checkpoint entry {prefix}/{path}.npy is not "
+                             f"{prefix}/<layer>/<key>.npy")
+        out.setdefault(parts[0], {})[parts[1]] = a
     return out
+
+
+def flatten_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """{path: leaf} of a nested structure, with the JAX package's path
+    encoding: a dict key as itself, a NamedTuple field as ``.name``, a
+    tuple or list index as ``#i``, joined with '/'. Empty containers
+    (optax's EmptyState, MaskedNode) have no leaves."""
+    if isinstance(tree, Mapping):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (tuple, list)):
+        items = [(f"#{i}", v) for i, v in enumerate(tree)]
+    elif tree is None:
+        return {}
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for key, v in items:
+        out.update(flatten_paths(v, f"{prefix}/{key}" if prefix else key))
+    return out
+
+
+def _unflatten_like(template, flat: Mapping[str, Any], device,
+                    what: str):
+    """``flat`` {path: array} rebuilt into ``template``'s nested dicts,
+    each leaf as a tensor of the template leaf's dtype and shape on
+    ``device``; a missing or extra path raises."""
+    want = flatten_paths(template)
+    if set(flat) != set(want):
+        raise KeyError(f"{what}: paths differ: missing "
+                       f"{sorted(set(want) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(want))}")
+
+    def build(node, prefix):
+        if isinstance(node, dict):
+            return {k: build(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in node.items()}
+        t = _from_numpy(flat[prefix], device, node.dtype)
+        if tuple(t.shape) != tuple(node.shape):
+            raise ValueError(f"{what}[{prefix!r}]: shape {tuple(t.shape)} "
+                             f"!= {tuple(node.shape)}")
+        return t
+    return build(template, "")
+
+
+def opt_state_from_jax(opt_state_np, model):
+    """The JAX model's optimizer state (numpy leaves, as
+    ``jax.device_get(model.train_state.opt_state)`` gives it) as the
+    port model's ``opt_state``, name for name; a path or shape mismatch
+    raises. Sets and returns ``model.opt_state``."""
+    flat = {k: np.asarray(v) for k, v in flatten_paths(opt_state_np).items()}
+    model.opt_state = _unflatten_like(model.opt_state, flat, model.device,
+                                      "opt_state")
+    return model.opt_state
 
 
 def params_from_jax(params_np: Mapping[str, Mapping[str, Any]],
@@ -108,8 +172,9 @@ def params_from_jax(params_np: Mapping[str, Mapping[str, Any]],
     return params, state
 
 
-def save_model(model, path: str):
-    """reference: ModelSerializer.writeModel:109 (without updater)."""
+def save_model(model, path: str, save_updater: bool = False):
+    """reference: ModelSerializer.writeModel:109; ``save_updater`` writes
+    the optimizer state too (for an exact resume)."""
     from deeplearning4j_tpu_torch.models.computation_graph import \
         ComputationGraph
     if not isinstance(model, ComputationGraph):
@@ -120,21 +185,26 @@ def save_model(model, path: str):
         zf.writestr("configuration.json", model.conf.to_json())
         _write_tree(zf, "params", model.params)
         _write_tree(zf, "state", model.model_state)
+        if save_updater:
+            _write_tree(zf, "updater", model.opt_state)
         meta = {
             "model_class": "ComputationGraph",
             "iteration": int(model.iteration),
             "epoch": int(model.epoch_count),
-            "has_updater": False,
+            "has_updater": bool(save_updater),
             "framework_version": FRAMEWORK_VERSION,
             "qkv_layout": "head_major",
         }
         zf.writestr("meta.json", json.dumps(meta))
 
 
-def restore_model(path: str, device: DeviceLike = None):
+def restore_model(path: str, device: DeviceLike = None,
+                  load_updater: bool = False):
     """Restore a ComputationGraph zip (written by either package) onto
     ``device`` (``cuda`` unless ``"cpu"`` is asked for). Every stored
-    array must match the configuration's parameters name for name."""
+    array must match the configuration's parameters name for name. With
+    ``load_updater`` and a checkpoint that has one, the optimizer state
+    is restored too (path for path)."""
     from deeplearning4j_tpu_torch.models.computation_graph import \
         ComputationGraph
     from deeplearning4j_tpu_torch.nn.graph.config import \
@@ -151,6 +221,8 @@ def restore_model(path: str, device: DeviceLike = None):
         model.init()
         params = _read_tree(zf, "params")
         state = _read_tree(zf, "state")
+        updater = (_read_flat(zf, "updater")
+                   if load_updater and meta.get("has_updater") else None)
     # layers without params/state have no entries in the zip
     for tree, template in ((params, model.params),
                            (state, model.model_state)):
@@ -162,6 +234,9 @@ def restore_model(path: str, device: DeviceLike = None):
          for k, v in params.items()},
         {k: {kk: _from_numpy(a, "cpu", None) for kk, a in v.items()}
          for k, v in state.items()})
+    if updater is not None:
+        model.opt_state = _unflatten_like(model.opt_state, updater,
+                                          model.device, "updater")
     model.iteration = int(meta.get("iteration", 0))
     model.epoch_count = int(meta.get("epoch", 0))
     return model

@@ -8,11 +8,14 @@ Layer.java:38) in the JAX package's functional form: a layer is a
 - ``initialize(generator, input_type)`` → parameter dict of tensors,
 - ``init_state(input_type)``           → non-trainable state (BN running
   stats),
-- ``apply(params, state, x, ctx)``     → ``(y, new_state)``.
+- ``apply(params, state, x, ctx)``     → ``(y, new_state)``; in training
+  (``ctx.train``) the new state carries updated running statistics.
 
-Field names match the JAX package's, so ``configuration.json`` reads and
-writes the same. ``initialize`` and ``init_state`` return CPU tensors; the
-model moves them to its device once.
+Gradients come from ``torch.autograd`` through ``apply`` (and through the
+fused conv's ``autograd.Function``), as the JAX package takes them from
+``jax.grad``. Field names match the JAX package's, so
+``configuration.json`` reads and writes the same. ``initialize`` and
+``init_state`` return CPU tensors; the model moves them to its device once.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
+from deeplearning4j_tpu_torch.nn.param_keys import is_weight_key
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.optimize.updaters import Updater
@@ -34,7 +38,11 @@ State = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LayerContext:
+    """Train/eval mode, the generator of stochastic layers (dropout) and
+    an optional input mask. A ``torch.Generator`` takes the place of the
+    JAX package's PRNG key; the two never give the same numbers."""
     train: bool = False
+    generator: Optional[torch.Generator] = None
     mask: Optional[torch.Tensor] = None    # (N, T) for sequence data
 
 
@@ -76,12 +84,39 @@ class Layer:
     def param_dtype(self) -> torch.dtype:
         return float_dtype(self.dtype)
 
-    def check_inference(self, ctx: LayerContext):
-        """The port serves; training comes with a later slice."""
-        if ctx.train:
+    def regularization_loss(self, params: Params) -> torch.Tensor:
+        """L1/L2 penalty over this layer's weight-like params (bias-like
+        keys are exempt: nn/param_keys.py), in f32."""
+        dev = next(iter(params.values())).device if params else None
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.l1 == 0.0 and self.l2 == 0.0:
+            return total
+        for key, leaf in params.items():
+            if not is_weight_key(key):
+                continue
+            if self.l1:
+                total = total + self.l1 * leaf.abs().sum()
+            if self.l2:
+                total = total + 0.5 * self.l2 * leaf.square().sum()
+        return total
+
+    def maybe_dropout(self, x: torch.Tensor,
+                      ctx: LayerContext) -> torch.Tensor:
+        """Inverted input dropout in training (``dropout`` is the DROP
+        probability), drawn from ``ctx.generator``. The other dropout
+        kinds of the JAX package (nn/dropout.py) are not ported yet."""
+        if not ctx.train:
+            return x
+        if not isinstance(self.dropout, (int, float)):
             raise NotImplementedError(
-                f"{type(self).__name__}: the training forward is not "
-                "ported yet (inference only)")
+                f"{type(self.dropout).__name__}: only float dropout is "
+                "ported")
+        if self.dropout <= 0.0:
+            return x
+        keep = 1.0 - float(self.dropout)
+        mask = torch.rand(x.shape, generator=ctx.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

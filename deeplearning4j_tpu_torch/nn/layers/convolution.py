@@ -6,7 +6,9 @@ served ResNet50 runs: ``ConvolutionLayer`` (the stem), ``SubsamplingLayer``
 Activations stay NHWC and kernels HWIO, as in the JAX package; the plain
 torch ops here (``F.conv2d``, ``F.max_pool2d``) take NCHW/OIHW, so each
 call permutes around them. ``ConvolutionMode.SAME`` pads exactly as XLA's
-'SAME' does: the odd pixel goes to the bottom/right.
+'SAME' does: the odd pixel goes to the bottom/right. In training their
+gradients come from ``torch.autograd`` of these plain ops, as the JAX
+package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -126,7 +128,7 @@ class ConvolutionLayer(FeedForwardLayer):
         return params
 
     def apply(self, params, state, x, ctx):
-        self.check_inference(ctx)
+        x = self.maybe_dropout(x, ctx)
         k, s, d, p = map(_pair, (self.kernel_size, self.stride, self.dilation,
                                  self.padding))
         (t, b), (l, r) = _pads(self.convolution_mode, x.shape[1:3], k, s, d,

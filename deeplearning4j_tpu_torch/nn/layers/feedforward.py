@@ -46,7 +46,7 @@ class DenseLayer(FeedForwardLayer):
         return y
 
     def apply(self, params, state, x, ctx):
-        self.check_inference(ctx)
+        x = self.maybe_dropout(x, ctx)
         return self.activation.apply(self.pre_output(params, x)), state
 
 

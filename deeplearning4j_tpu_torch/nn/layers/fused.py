@@ -1,19 +1,26 @@
-"""Fused ResNet bottleneck block layer (inference).
+"""Fused ResNet bottleneck block layer.
 
 One layer = the whole bottleneck residual unit
 (1×1 conv → BN → ReLU → 3×3 conv → BN → ReLU → 1×1 conv → BN →
 (+shortcut) → ReLU), run through the fused conv+BN kernels
 (ops/fused_conv.py): each BN's normalize+ReLU rides the consumer conv's
-input pass. In inference the BNs use their running statistics, folded
-into a per-channel (scale, shift) in f32 from the parameters (rounded to
-the compute dtype first, as the JAX package's ``cast_params`` does) and
-the f32 running state.
+input pass.
+
+* Training: every conv returns its output's (Σy, Σy²) from the kernel's
+  epilogue; ``stats_to_scale_shift`` turns them into the batch-statistics
+  (scale, shift) of the next kernel's prologue, and the running mean/var
+  are updated with ``decay`` (detached) into the returned state. The
+  backward runs through the backward kernels (the fused op's
+  ``autograd.Function``), differentiating through the statistics.
+* Inference: the BNs use their running statistics, folded into a
+  per-channel (scale, shift) in f32 from the parameters (rounded to the
+  compute dtype first, as the JAX package's ``cast_params`` does) and the
+  f32 running state.
 
 The port of the JAX package's ``nn/layers/fused.py``: same fields, same
 parameter and state names and layouts (W1/Wds (Cin, Cout), W2 HWIO,
 ``bn*_gamma``/``bn*_beta``, state ``bn*_mean``/``bn*_var``). Only the
-``"pallas"`` implementation is ported (``"xla"`` waits), and only the
-inference forward (training comes with the backward kernels).
+``"pallas"`` implementation is ported (``"xla"`` waits).
 """
 
 from __future__ import annotations
@@ -157,31 +164,49 @@ class FusedBottleneckBlock(Layer):
         out["in_shift"] = torch.zeros_like(out["in_scale"])
         return out
 
-    def apply(self, params, state, x, ctx):
-        self.check_inference(ctx)
+    def _batch_bn_form(self, params, state, new_state, name, stats,
+                       count):
+        """(scale, shift) of BN ``name``'s batch-statistics normalize from
+        the conv's (Σy, Σy²); the running averages go to ``new_state``."""
+        inv, shift, mean, var = fused_conv.stats_to_scale_shift(
+            stats, count, params[f"{name}_gamma"], params[f"{name}_beta"],
+            self.eps)
+        d = self.decay
+        for key, batch in (("mean", mean), ("var", var)):
+            new_state[f"{name}_{key}"] = (
+                d * state[f"{name}_{key}"] + (1 - d) * batch.detach()).float()
+        return inv, shift
 
-        def bn_form(name):
+    def apply(self, params, state, x, ctx):
+        train = ctx.train
+        new_state = dict(state) if train else state
+
+        def bn_form(name, stats, count):
+            if train:
+                return self._batch_bn_form(params, state, new_state, name,
+                                           stats, count)
             if f"{name}_scale" in state:             # folded at commit
                 return state[f"{name}_scale"], state[f"{name}_shift"]
             return self._bn_form(params, state, name)
 
         conv = fused_conv.fused_conv_bn_act
-        if "in_scale" in state:
+        if "in_scale" in state and not train:
             ones, zeros = state["in_scale"], state["in_shift"]
         else:
             cin = x.shape[-1]
             ones = torch.ones((cin,), dtype=torch.float32, device=x.device)
             zeros = torch.zeros((cin,), dtype=torch.float32, device=x.device)
+        rows = lambda y: y.numel() // y.shape[-1]
 
         # W1/Wds take the block input as it is (norm_in=False); inference
         # normalizes with running statistics, so no conv needs its stats
-        y1, _ = conv(x, params["W1"], ones, zeros, False, False,
-                     self.stride, False)
-        s1, b1 = bn_form("bn1")
-        y2, _ = conv(y1, params["W2"], s1, b1, True, True, 1, False)
-        s2, b2 = bn_form("bn2")
-        y3, _ = conv(y2, params["W3"], s2, b2, True, True, 1, False)
-        s3, b3 = bn_form("bn3")
+        y1, st1 = conv(x, params["W1"], ones, zeros, False, False,
+                       self.stride, train)
+        s1, b1 = bn_form("bn1", st1, rows(y1))
+        y2, st2 = conv(y1, params["W2"], s1, b1, True, True, 1, train)
+        s2, b2 = bn_form("bn2", st2, rows(y2))
+        y3, st3 = conv(y2, params["W3"], s2, b2, True, True, 1, train)
+        s3, b3 = bn_form("bn3", st3, rows(y3))
 
         # tail normalize + add + ReLU in the compute dtype, on (M, C) views
         f4 = y3.shape[-1]
@@ -189,11 +214,11 @@ class FusedBottleneckBlock(Layer):
         dt = y3.dtype
         main = y3.reshape(-1, f4) * s3.to(dt) + b3.to(dt)
         if self.downsample:
-            yds, _ = conv(x, params["Wds"], ones, zeros, False, False,
-                          self.stride, False)
-            sds, bds = bn_form("bnds")
+            yds, stds = conv(x, params["Wds"], ones, zeros, False, False,
+                             self.stride, train)
+            sds, bds = bn_form("bnds", stds, rows(yds))
             shortcut = yds.reshape(-1, f4) * sds.to(dt) + bds.to(dt)
         else:
             shortcut = x.reshape(-1, f4)
         out = torch.relu(main + shortcut).to(x.dtype)
-        return out.reshape(out_shape), state
+        return out.reshape(out_shape), new_state

@@ -1,10 +1,11 @@
-"""Batch normalization (inference).
+"""Batch normalization.
 
 Analog of the reference's ``BatchNormalization``
 (nn/layers/normalization/BatchNormalization.java:41). Running statistics
-live in the layer **state** dict (not params), as in the JAX package. The
-port serves, so ``apply`` normalizes with the running statistics; the
-batch-statistics forward comes with the training slice.
+live in the layer **state** dict (not params), as in the JAX package: in
+training ``apply`` normalizes with the batch statistics (f32, biased
+variance) and returns the running averages updated with ``decay`` as the
+new state; in inference it normalizes with the running statistics.
 """
 
 from __future__ import annotations
@@ -49,13 +50,22 @@ class BatchNormalization(Layer):
                 "var": torch.ones((nf,), dtype=torch.float32)}
 
     def apply(self, params, state, x, ctx):
-        if ctx.train and not self.use_global_stats_in_train:
-            self.check_inference(ctx)
-        # the inverse std in (at least) float32, then the normalize in the
-        # activation dtype — the JAX package's order of roundings
+        # statistics and the inverse std in (at least) float32, then the
+        # normalize in the activation dtype — the JAX package's roundings
         sdt = torch.promote_types(torch.float32, x.dtype)
-        inv = 1.0 / torch.sqrt(state["var"].to(sdt) + self.eps)
-        y = (x - state["mean"].to(x.dtype)) * inv.to(x.dtype)
+        if ctx.train and not self.use_global_stats_in_train:
+            dims = tuple(range(x.ndim - 1))
+            xf = x.to(sdt)
+            mean = xf.mean(dim=dims)
+            var = xf.var(dim=dims, unbiased=False)
+            d = self.decay
+            new_state = {
+                "mean": (d * state["mean"] + (1 - d) * mean.detach()).float(),
+                "var": (d * state["var"] + (1 - d) * var.detach()).float()}
+        else:
+            mean, var, new_state = state["mean"], state["var"], state
+        inv = 1.0 / torch.sqrt(var.to(sdt) + self.eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
         if not self.lock_gamma_beta:
             y = y * params["gamma"] + params["beta"]
-        return y, state
+        return y, new_state

@@ -1,9 +1,10 @@
 """Output layer and global pooling.
 
 Analogs of the reference's ``OutputLayer`` and ``GlobalPoolingLayer``
-(nn/conf/layers/). An output layer is a dense projection plus a loss; the
-port serves, so ``apply`` is the forward (projection + activation) and the
-loss comes with the training slice.
+(nn/conf/layers/). An output layer is a dense projection plus a loss;
+models call ``compute_loss`` for training and ``apply`` for inference.
+(SOFTMAX, MCXENT/NLL) pairs take the loss on the logits
+(``stable_mcxent_from_logits``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -18,9 +19,17 @@ from deeplearning4j_tpu_torch.nn.inputs import (ConvolutionalType,
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.nn.layers.convolution import PoolingType
 from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+from deeplearning4j_tpu_torch.ops import losses as L
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.losses import LossFunction
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
+
+
+def _fused_loss(activation, loss_fn, labels, logits, mask):
+    if activation is Activation.SOFTMAX and loss_fn in (
+            LossFunction.MCXENT, LossFunction.NEGATIVELOGLIKELIHOOD):
+        return L.stable_mcxent_from_logits(labels, logits, mask)
+    return None
 
 
 @register_serializable
@@ -34,6 +43,15 @@ class OutputLayer(DenseLayer):
         if isinstance(input_type, RecurrentType):
             return RecurrentType(self.n_out, input_type.timesteps)
         return FeedForwardType(self.n_out)
+
+    def compute_loss(self, params, state, x, labels, ctx):
+        x = self.maybe_dropout(x, ctx)
+        logits = self.pre_output(params, x)
+        fused = _fused_loss(self.activation, self.loss, labels, logits,
+                            ctx.mask)
+        if fused is not None:
+            return fused
+        return self.loss(labels, self.activation.apply(logits), ctx.mask)
 
 
 @register_serializable

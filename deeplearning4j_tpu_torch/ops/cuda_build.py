@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, at first use, into ``build/``
-at the checkout's root (git-ignored), and loaded with ``ctypes``. The file
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, at first use, into ``build/``
+at the checkout's root (git-ignored), and loaded with ``ctypes``. A
+library may hold several kernels' entry points (``fused_c3_bwd.cu`` holds
+the merged 3×3 backward and its two split halves). The file
 name carries a hash of every source and of the flags, so a changed source
 is rebuilt and a stale library is never loaded. ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
@@ -35,7 +37,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "fused_mm": ("dl4j_fused_mm", [_P] * 7 + [_I] * 10 + [_P]),
     "fused_c3": ("dl4j_fused_c3", [_P] * 7 + [_I] * 9 + [_P]),
+    "fused_mm_bwd": ("dl4j_fused_mm_bwd", [_P] * 11 + [_I] * 10 + [_P]),
+    "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 11 + [_I] * 9 + [_P]),
+    "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 9 + [_I] * 8 + [_P]),
+    "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),
 }
+# kernel -> the csrc/<source>.cu whose library holds its entry point
+SOURCE_OF = {name: name for name in SIGNATURES}
+SOURCE_OF.update(fused_c3_bwd_in="fused_c3_bwd", fused_c3_bwd_w="fused_c3_bwd")
+SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -62,15 +72,15 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}_{_digest()}.so"
+def library_path(source: str) -> Path:
+    return BUILD_DIR / f"lib{source}_{_digest()}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Compile every missing library of ``names`` (default: all), one
-    ``nvcc`` per source in parallel; raises with the compiler's output
-    on any failure. Returns name -> library path."""
-    names = list(SIGNATURES if names is None else names)
+    """Compile every missing library of the sources ``names`` (default:
+    all), one ``nvcc`` per source in parallel; raises with the compiler's
+    output on any failure. Returns source -> library path."""
+    names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     procs = {}
@@ -99,32 +109,35 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 def kernel(name: str):
     """The C entry point of kernel ``name``, built and loaded on first
     use; its argtypes are set and it returns ``cudaGetLastError()``."""
-    lib = _libs.get(name)
+    source = SOURCE_OF[name]
+    lib = _libs.get(source)
     if lib is None:
         with _lock:
-            lib = _libs.get(name)
+            lib = _libs.get(source)
             if lib is None:
-                path = build([name])[name]
+                path = build([source])[source]
                 lib = ctypes.CDLL(str(path))
-                sym, argtypes = SIGNATURES[name]
-                fn = getattr(lib, sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for sym, argtypes in (SIGNATURES[k] for k, src
+                                      in SOURCE_OF.items() if src == source):
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 lib.dl4j_tile_m.restype = ctypes.c_int
-                lib.dl4j_split_count.argtypes = [ctypes.c_int]
-                lib.dl4j_split_count.restype = ctypes.c_int
-                _libs[name] = lib
+                if hasattr(lib, "dl4j_split_count"):     # forward kernels
+                    lib.dl4j_split_count.argtypes = [ctypes.c_int]
+                    lib.dl4j_split_count.restype = ctypes.c_int
+                _libs[source] = lib
     return getattr(lib, SIGNATURES[name][0])
 
 
 def tile_m(name: str) -> int:
     """Rows per output tile of kernel ``name`` (its partial-stats count)."""
     kernel(name)
-    return int(_libs[name].dl4j_tile_m())
+    return int(_libs[SOURCE_OF[name]].dl4j_tile_m())
 
 
 def split_count(name: str, k: int) -> int:
     """K slices kernel ``name`` runs for a reduction depth ``k`` (its
     workspace holds that many f32 output planes when it is above 1)."""
     kernel(name)
-    return int(_libs[name].dl4j_split_count(int(k)))
+    return int(_libs[SOURCE_OF[name]].dl4j_split_count(int(k)))

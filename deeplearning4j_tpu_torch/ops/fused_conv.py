@@ -1,7 +1,7 @@
-"""Fused conv+BN kernels for ResNet bottleneck blocks (forward).
+"""Fused conv+BN kernels for ResNet bottleneck blocks, forward and backward.
 
-The port of the JAX package's ``ops/fused_conv.py`` forward. Two fusions
-per conv layer ride the one pass the conv already pays:
+The port of the JAX package's ``ops/fused_conv.py``. Two fusions per conv
+layer ride the one pass the conv already pays:
 
   * prologue: the normalize+ReLU of the PRODUCER's BatchNorm (a per-channel
     scale+shift once the statistics are known) is applied to the input
@@ -11,22 +11,23 @@ per conv layer ride the one pass the conv already pays:
     f32 accumulator while the output tile is still on chip, so a BN
     statistics pass never re-reads y.
 
-Two hand-written CUDA kernels (``csrc/``, sm_90a) do the work on the card:
-``fused_mm`` for every 1×1 conv (a matmul over the flattened NHWC rows,
-with the stride folded into the row addressing) and ``fused_c3`` for the
-3×3 SAME conv (an implicit GEMM over the 9 taps, zero border applied
-after the normalize). Beside each is its plain PyTorch version
-(``fused_mm_reference``, ``fused_c3_reference``): the wrappers use it for
-a tensor on the CPU and only there. A CUDA tensor launches the kernel or
-raises; nothing falls back.
+The backward recomputes the normalized input tile-wise (it was never
+stored), folds the statistics cotangent into dy
+(``dyc = dy + dΣ + 2·y·dΣ²``, rounded to dy's dtype) and runs the
+BN/ReLU backward (mask, Σdpre·x, Σdpre, the input rescale) in the
+bwd-input product's epilogue.
+
+Six hand-written CUDA kernels (``csrc/``, sm_90a) do the work on the card:
+``fused_mm`` / ``fused_c3`` (forward, 1×1 and 3×3) and ``fused_mm_bwd``,
+``fused_c3_bwd`` (3×3 dx, dW and the BN sums in one launch),
+``fused_c3_bwd_in`` + ``fused_c3_bwd_w`` (the same work as two launches).
+Beside each is its plain PyTorch version (``*_reference``): the wrappers
+use it for a tensor on the CPU and only there. A CUDA tensor launches the
+kernel or raises; nothing falls back.
 
 Each wrapper counts its launches in ``LAUNCHES`` (a plain integer per
 kernel, incremented once per launch and nowhere else), so a run can show
 that its main path went through the kernels.
-
-The backward kernels (the JAX package's ``_bwd_merged_kernel``,
-``_c3_bwd_*``) come with the training slice; until then the CUDA path
-refuses inputs that require a gradient.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import cuda_build
 
-LAUNCHES: Dict[str, int] = {"fused_mm": 0, "fused_c3": 0}
+LAUNCHES: Dict[str, int] = {name: 0 for name in cuda_build.SIGNATURES}
 _launch_lock = threading.Lock()
 
 
@@ -87,6 +88,12 @@ def fused_mm_reference(x, w, scale, shift, relu_in: bool = True,
     return y.to(x.dtype), (_stats(y) if want_stats else None)
 
 
+def _taps(plane, h, wd):
+    """The 9 shifted (N, H, W, C) views of a zero-padded plane, tap-major."""
+    return [plane[:, di:di + h, dj:dj + wd, :]
+            for di in range(3) for dj in range(3)]
+
+
 def fused_c3_reference(x, w, scale, shift, relu_in: bool = True,
                        norm_in: bool = True, want_stats: bool = True):
     """3×3 SAME stride-1 conv as 9 shifted matmuls on the normalized,
@@ -94,20 +101,19 @@ def fused_c3_reference(x, w, scale, shift, relu_in: bool = True,
     e = _norm_in(x, scale, shift, relu_in, norm_in).float()
     n, h, wd, cin = e.shape
     ep = F.pad(e, (0, 0, 1, 1, 1, 1))
-    wf = w.float()
+    wf = w.float().reshape(9, cin, -1)
     acc = torch.zeros((n * h * wd, w.shape[3]), dtype=torch.float32,
                       device=x.device)
-    for di in range(3):
-        for dj in range(3):
-            tap = ep[:, di:di + h, dj:dj + wd, :].reshape(-1, cin)
-            acc = acc + tap @ wf[di, dj]
+    for t, tap in enumerate(_taps(ep, h, wd)):
+        acc = acc + tap.reshape(-1, cin) @ wf[t]
     y = acc.reshape(n, h, wd, -1)
     return y.to(x.dtype), (_stats(acc) if want_stats else None)
 
 
 def _conv_reference(x, w, scale, shift, relu_in, norm_in, stride,
                     want_stats=True):
-    """The plain version of ``fused_conv_bn_act`` (either kernel)."""
+    """The plain version of ``fused_conv_bn_act``'s forward (either
+    kernel)."""
     if w.ndim == 2:
         return fused_mm_reference(x, w, scale, shift, relu_in, norm_in,
                                   stride, want_stats)
@@ -117,47 +123,159 @@ def _conv_reference(x, w, scale, shift, relu_in, norm_in, stride,
                               want_stats)
 
 
+def _dyc(dy, y, dstats):
+    """Total output cotangent dy + dΣ + 2·y·dΣ² (the statistics' chain
+    rule), summed in f32 and rounded to dy's dtype before the products."""
+    return (dy.float() + dstats[0] + 2.0 * y.float() * dstats[1]).to(dy.dtype)
+
+
+def _bn_backward(de, x, scale, shift, relu_in, norm_in):
+    """BN/ReLU backward of the prologue from de = ∂L/∂e (f32, NHWC):
+    dx in x's dtype, dscale = Σ dpre·x, dshift = Σ dpre (f32)."""
+    if not norm_in:
+        zeros = torch.zeros_like(scale)
+        return de.to(x.dtype), zeros, zeros.clone()
+    xf = x.float()
+    pre = xf * scale + shift
+    dpre = torch.where(pre > 0.0, de, 0.0) if relu_in else de
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    return ((dpre * scale).to(x.dtype), flat(dpre * xf).sum(0),
+            flat(dpre).sum(0))
+
+
+def fused_mm_bwd_reference(dy, y, x, w, dstats, scale, shift,
+                           relu_in: bool = True, norm_in: bool = True,
+                           stride: int = 1):
+    """Backward of the 1×1 conv: (dx in x's dtype and full shape — zeros
+    off the stride grid —, dW f32, dscale f32, dshift f32)."""
+    xs = x[:, ::stride, ::stride, :] if stride != 1 else x
+    cin, cout = w.shape
+    dyc = _dyc(dy, y, dstats).reshape(-1, cout).float()
+    de = (dyc @ w.float().t()).reshape(xs.shape)
+    dxs, dscale, dshift = _bn_backward(de, xs, scale, shift, relu_in, norm_in)
+    e = _norm_in(xs, scale, shift, relu_in, norm_in).reshape(-1, cin)
+    dw = e.float().t() @ dyc
+    if stride != 1:
+        dx = torch.zeros_like(x)
+        dx[:, ::stride, ::stride, :] = dxs
+    else:
+        dx = dxs
+    return dx, dw, dscale, dshift
+
+
+def fused_c3_bwd_in_reference(dy, y, x, w, dstats, scale, shift,
+                              relu_in: bool = True, norm_in: bool = True):
+    """3×3 backward-input: de = SAME conv of the zero-padded dyc with the
+    flipped, IO-swapped filter, then the BN/ReLU backward:
+    (dx, dscale, dshift)."""
+    n, h, wd, cout = dy.shape
+    cin = x.shape[3]
+    dp = F.pad(_dyc(dy, y, dstats).float(), (0, 0, 1, 1, 1, 1))
+    wt = w.float().flip(0, 1).transpose(2, 3).reshape(9, cout, cin)
+    de = torch.zeros((n * h * wd, cin), dtype=torch.float32, device=x.device)
+    for t, tap in enumerate(_taps(dp, h, wd)):
+        de = de + tap.reshape(-1, cout) @ wt[t]
+    return _bn_backward(de.reshape(x.shape), x, scale, shift, relu_in,
+                        norm_in)
+
+
+def fused_c3_bwd_w_reference(dy, y, x, dstats, scale, shift,
+                             relu_in: bool = True, norm_in: bool = True):
+    """3×3 backward-filter: dW[tap] = shifted(e)ᵀ·dyc in f32, with e
+    zero-padded AFTER the normalize: (3, 3, Cin, Cout)."""
+    n, h, wd, cout = dy.shape
+    cin = x.shape[3]
+    dyc = _dyc(dy, y, dstats).reshape(-1, cout).float()
+    ep = F.pad(_norm_in(x, scale, shift, relu_in, norm_in).float(),
+               (0, 0, 1, 1, 1, 1))
+    dw = torch.stack([tap.reshape(-1, cin).t() @ dyc
+                      for tap in _taps(ep, h, wd)])
+    return dw.reshape(3, 3, cin, cout)
+
+
+def fused_c3_bwd_reference(dy, y, x, w, dstats, scale, shift,
+                           relu_in: bool = True, norm_in: bool = True):
+    """The 3×3 backward in one call: (dx, dW f32, dscale, dshift)."""
+    dx, dscale, dshift = fused_c3_bwd_in_reference(
+        dy, y, x, w, dstats, scale, shift, relu_in, norm_in)
+    dw = fused_c3_bwd_w_reference(dy, y, x, dstats, scale, shift, relu_in,
+                                  norm_in)
+    return dx, dw, dscale, dshift
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BWD_TILE = 64            # rows and columns of a backward kernel's tile
+_DW_MIN_DEPTH = 256       # fewest rows one dW slice sums
+_DW_TARGET_BLOCKS = 264   # two blocks per SM of an H100
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_cuda_args(name, x, w, scale, shift, w_ndim):
+    """Raise on what the kernel does not take; ``w`` None checks x,
+    scale and shift alone (the 3×3 dW launch reads no weight)."""
     if x.ndim != 4:
         raise ValueError(f"{name}: x must be NHWC (4-D), got {tuple(x.shape)}")
-    if w.ndim != w_ndim:
-        raise ValueError(f"{name}: weight must be {w_ndim}-D, got "
-                         f"{tuple(w.shape)}")
     cin = x.shape[3]
-    if w.shape[-2] != cin:
-        raise ValueError(f"{name}: weight {tuple(w.shape)} does not take "
-                         f"{cin} input channels")
-    if w_ndim == 4 and tuple(w.shape[:2]) != (3, 3):
-        raise ValueError(f"{name}: weight must be (3, 3, Cin, Cout)")
-    for t, what in ((w, "weight"), (scale, "scale"), (shift, "shift")):
+    if w is not None:
+        if w.ndim != w_ndim:
+            raise ValueError(f"{name}: weight must be {w_ndim}-D, got "
+                             f"{tuple(w.shape)}")
+        if w.shape[-2] != cin:
+            raise ValueError(f"{name}: weight {tuple(w.shape)} does not "
+                             f"take {cin} input channels")
+        if w_ndim == 4 and tuple(w.shape[:2]) != (3, 3):
+            raise ValueError(f"{name}: weight must be (3, 3, Cin, Cout)")
+    tensors = [(t, what) for t, what in ((x, "x"), (w, "weight"),
+                                         (scale, "scale"), (shift, "shift"))
+               if t is not None]
+    for t, what in tensors[1:]:
         if t.device != x.device:
             raise ValueError(f"{name}: {what} is on {t.device}, x on "
                              f"{x.device}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    if x.dtype not in _DTYPES or (w is not None and w.dtype != x.dtype):
         raise TypeError(f"{name}: x and weight must share float32 or "
-                        f"bfloat16, got {x.dtype} / {w.dtype}")
+                        f"bfloat16, got {x.dtype} / "
+                        f"{None if w is None else w.dtype}")
     for t, what in ((scale, "scale"), (shift, "shift")):
         if t.dtype != torch.float32 or tuple(t.shape) != (cin,):
             raise TypeError(f"{name}: {what} must be float32 ({cin},), got "
                             f"{t.dtype} {tuple(t.shape)}")
-    for t, what in ((x, "x"), (w, "weight"), (scale, "scale"),
-                    (shift, "shift")):
+    for t, what in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w, scale, shift)):
-        raise NotImplementedError(
-            f"{name}: the backward kernel comes with the training slice; "
-            "call under torch.no_grad()/inference_mode")
     if x.numel() == 0:
         raise ValueError(f"{name}: empty input")
+
+
+def _check_grad_args(name, dy, y, dstats, x, out_shape):
+    cout = out_shape[3]
+    for t, what in ((dy, "dy"), (y, "y")):
+        if tuple(t.shape) != tuple(out_shape) or t.dtype != x.dtype:
+            raise ValueError(f"{name}: {what} must be {x.dtype} "
+                             f"{tuple(out_shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if dstats.dtype != torch.float32 or tuple(dstats.shape) != (2, cout):
+        raise TypeError(f"{name}: dstats must be float32 (2, {cout})")
+    for t, what in ((dy, "dy"), (y, "y"), (dstats, "dstats")):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, x on "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _raise_on(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    _count(name)
 
 
 def _launch(name, args, x, k, cout, m, want_stats):
@@ -171,14 +289,10 @@ def _launch(name, args, x, k, cout, m, want_stats):
     splits = cuda_build.split_count(name, k)
     if splits > 1:
         ws = torch.empty((splits, m, cout), **f32)
-    ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = cuda_build.kernel(name)(*args(ptr(partial), ptr(ws)),
+    err = cuda_build.kernel(name)(*args(_ptr(partial), _ptr(ws)),
                                   int(want_stats), _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    _count(name)
+    _raise_on(name, err)
     return partial.sum(0) if want_stats else None
 
 
@@ -231,6 +345,219 @@ def fused_c3(x, w, scale, shift, relu_in: bool = True, norm_in: bool = True,
     return y, stats
 
 
+def dw_chunk(rows: int, cols: int, depth: int) -> int:
+    """Rows of dy one dW block sums (a multiple of 16): the depth M is cut
+    into slices until the dW grid has about two blocks per SM. A function
+    of the shapes alone, so a call's bits do not vary from run to run."""
+    tiles = -(-rows // _BWD_TILE) * -(-cols // _BWD_TILE)
+    splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles),
+                        -(-depth // _DW_MIN_DEPTH)))
+    per = -(-depth // splits)
+    return -(-per // 16) * 16
+
+
+class _Bwd:
+    """Buffers and launch of one backward kernel call on the card."""
+
+    def __init__(self, name, x, m, cin, cout, dw_rows, norm_in, want_dx,
+                 want_dw):
+        self.name, self.dev = name, x.device
+        f32 = dict(dtype=torch.float32, device=x.device)
+        self.partial = (torch.empty((-(-m // cuda_build.tile_m(name)), 2,
+                                     cin), **f32)
+                        if want_dx and norm_in else None)
+        self.dw = self.ws = None
+        self.chunk = 0
+        if want_dw:
+            self.chunk = dw_chunk(dw_rows, cout, m)
+            self.dw = torch.empty((dw_rows, cout), **f32)
+            splits = -(-m // self.chunk)
+            if splits > 1:
+                self.ws = torch.empty((splits, dw_rows, cout), **f32)
+
+    def run(self, *args):
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        _raise_on(self.name, cuda_build.kernel(self.name)(*args, stream))
+
+    def sums(self, cin):
+        if self.partial is None:
+            z = torch.zeros((cin,), dtype=torch.float32, device=self.dev)
+            return z, z.clone()
+        st = self.partial.sum(0)
+        return st[0], st[1]
+
+
+def fused_mm_bwd(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
+                 norm_in: bool = True, stride: int = 1):
+    """Backward of ``fused_mm`` in one launch: dy, y (N, Ho, Wo, Cout),
+    x (N, H, W, Cin), w (Cin, Cout), dstats (2, Cout) f32 → (dx of x's
+    shape and dtype, zeros off the stride grid; dW (Cin, Cout) f32;
+    dscale, dshift (Cin,) f32)."""
+    if x.device.type == "cpu":
+        return fused_mm_bwd_reference(dy, y, x, w, dstats, scale, shift,
+                                      relu_in, norm_in, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mm_bwd: unsupported device {x.device}")
+    name = "fused_mm_bwd"
+    _check_cuda_args(name, x, w, scale, shift, 2)
+    if stride < 1:
+        raise ValueError(f"{name}: stride must be >= 1")
+    n, h, wd, cin = x.shape
+    cout = w.shape[1]
+    ho, wo = -(-h // stride), -(-wd // stride)
+    _check_grad_args(name, dy, y, dstats, x, (n, ho, wo, cout))
+    with torch.cuda.device(x.device):
+        dx = (torch.zeros_like(x) if stride != 1 else torch.empty_like(x))
+        b = _Bwd(name, x, n * ho * wo, cin, cout, cin, norm_in, True,
+                 True)
+        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+              dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+              dx.data_ptr(), b.dw.data_ptr(), _ptr(b.ws), _ptr(b.partial),
+              n, h, wd, cin, cout, stride, int(norm_in), int(relu_in),
+              b.chunk, _DTYPES[x.dtype])
+        dscale, dshift = b.sums(cin)
+    return dx, b.dw, dscale, dshift
+
+
+def _c3_bwd_prep(name, dy, y, x, w, dstats, scale, shift):
+    """Checks of a 3×3 backward launch; returns (N, H, W, Cin, Cout)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_cuda_args(name, x, w, scale, shift, 4)
+    cout = dy.shape[3] if dy.ndim == 4 else -1
+    if w is not None and w.shape[3] != cout:
+        raise ValueError(f"{name}: dy has {cout} channels, weight "
+                         f"{tuple(w.shape)}")
+    _check_grad_args(name, dy, y, dstats, x, tuple(x.shape[:3]) + (cout,))
+    return tuple(x.shape) + (cout,)
+
+
+def fused_c3_bwd(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
+                 norm_in: bool = True):
+    """Backward of ``fused_c3`` in one launch (dx tiles and dW tiles in
+    one grid over the same dy/y/x): (dx in x's dtype, dW (3, 3, Cin,
+    Cout) f32, dscale, dshift (Cin,) f32)."""
+    if x.device.type == "cpu":
+        return fused_c3_bwd_reference(dy, y, x, w, dstats, scale, shift,
+                                      relu_in, norm_in)
+    name = "fused_c3_bwd"
+    n, h, wd, cin, cout = _c3_bwd_prep(name, dy, y, x, w, dstats, scale,
+                                       shift)
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        b = _Bwd(name, x, n * h * wd, cin, cout, 9 * cin, norm_in, True,
+                 True)
+        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+              dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+              dx.data_ptr(), b.dw.data_ptr(), _ptr(b.ws), _ptr(b.partial),
+              n, h, wd, cin, cout, int(norm_in), int(relu_in), b.chunk,
+              _DTYPES[x.dtype])
+        dscale, dshift = b.sums(cin)
+    return dx, b.dw.reshape(3, 3, cin, cout), dscale, dshift
+
+
+def fused_c3_bwd_in(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
+                    norm_in: bool = True):
+    """3×3 backward-input launch: (dx in x's dtype, dscale, dshift)."""
+    if x.device.type == "cpu":
+        return fused_c3_bwd_in_reference(dy, y, x, w, dstats, scale, shift,
+                                         relu_in, norm_in)
+    name = "fused_c3_bwd_in"
+    n, h, wd, cin, cout = _c3_bwd_prep(name, dy, y, x, w, dstats, scale,
+                                       shift)
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        b = _Bwd(name, x, n * h * wd, cin, cout, 9 * cin, norm_in, True,
+                 False)
+        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+              dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+              dx.data_ptr(), _ptr(b.partial), n, h, wd, cin, cout,
+              int(norm_in), int(relu_in), _DTYPES[x.dtype])
+        dscale, dshift = b.sums(cin)
+    return dx, dscale, dshift
+
+
+def fused_c3_bwd_w(dy, y, x, dstats, scale, shift, relu_in: bool = True,
+                   norm_in: bool = True):
+    """3×3 backward-filter launch: dW (3, 3, Cin, Cout) f32."""
+    if x.device.type == "cpu":
+        return fused_c3_bwd_w_reference(dy, y, x, dstats, scale, shift,
+                                        relu_in, norm_in)
+    name = "fused_c3_bwd_w"
+    n, h, wd, cin, cout = _c3_bwd_prep(name, dy, y, x, None, dstats, scale,
+                                       shift)
+    with torch.cuda.device(x.device):
+        b = _Bwd(name, x, n * h * wd, cin, cout, 9 * cin, norm_in, False,
+                 True)
+        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), dstats.data_ptr(),
+              scale.data_ptr(), shift.data_ptr(), b.dw.data_ptr(),
+              _ptr(b.ws), n, h, wd, cin, cout, int(norm_in), int(relu_in),
+              b.chunk, _DTYPES[x.dtype])
+    return b.dw.reshape(3, 3, cin, cout)
+
+
+# ---------------------------------------------------------------------------
+# the op: forward kernels, backward kernels, autograd between them
+# ---------------------------------------------------------------------------
+
+# 3×3 backward route, carried over from the JAX package's rule: one merged
+# launch up to this many input channels (with the normalize), two above.
+# The JAX package's threshold is a TPU VMEM budget, not an H100
+# measurement; it is kept so every kernel of the JAX path has its
+# counterpart on this one.
+C3_MERGED_MAX_CIN = 384
+
+
+def _forward(x, w, scale, shift, relu_in, norm_in, stride, want_stats):
+    if w.ndim == 2:
+        return fused_mm(x, w, scale, shift, relu_in, norm_in, stride,
+                        want_stats)
+    if stride != 1:
+        raise ValueError("the fused 3×3 conv is stride-1 only")
+    return fused_c3(x, w, scale, shift, relu_in, norm_in, want_stats)
+
+
+def _backward(dy, dstats, x, w, scale, shift, y, relu_in, norm_in, stride):
+    """(dx, dW f32, dscale, dshift) through the route the JAX package's
+    ``_fused_bwd_rule`` takes."""
+    if w.ndim == 2:
+        return fused_mm_bwd(dy, y, x, w, dstats, scale, shift, relu_in,
+                            norm_in, stride)
+    if x.shape[3] <= C3_MERGED_MAX_CIN and norm_in:
+        return fused_c3_bwd(dy, y, x, w, dstats, scale, shift, relu_in,
+                            norm_in)
+    dx, dscale, dshift = fused_c3_bwd_in(dy, y, x, w, dstats, scale, shift,
+                                         relu_in, norm_in)
+    dw = fused_c3_bwd_w(dy, y, x, dstats, scale, shift, relu_in, norm_in)
+    return dx, dw, dscale, dshift
+
+
+class _FusedConvBnAct(torch.autograd.Function):
+    """Differentiable in ``y`` and ``stats``; saves (x, w, scale, shift,
+    y) like the JAX package's ``_fused_fwd_rule``: the normalized input
+    is recomputed by the backward kernels, never stored."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, relu_in, norm_in, stride):
+        y, stats = _forward(x, w, scale, shift, relu_in, norm_in, stride,
+                            True)
+        ctx.save_for_backward(x, w, scale, shift, y)
+        ctx.flags = (relu_in, norm_in, stride)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, dy, dstats):
+        x, w, scale, shift, y = ctx.saved_tensors
+        relu_in, norm_in, stride = ctx.flags
+        dy = torch.zeros_like(y) if dy is None else dy.contiguous()
+        dstats = (torch.zeros((2, y.shape[-1]), dtype=torch.float32,
+                              device=y.device) if dstats is None
+                  else dstats.float().contiguous())
+        dx, dw, dscale, dshift = _backward(dy, dstats, x, w, scale, shift,
+                                           y, relu_in, norm_in, stride)
+        return dx, dw.to(w.dtype), dscale, dshift, None, None, None
+
+
 def fused_conv_bn_act(x, w, scale, shift, relu_in: bool = True,
                       norm_in: bool = True, stride: int = 1,
                       want_stats: bool = True):
@@ -240,13 +567,16 @@ def fused_conv_bn_act(x, w, scale, shift, relu_in: bool = True,
     ``stride``); ``w`` (3, 3, Cin, Cout) the SAME 3×3 kernel. Returns
     ``(y, stats)`` with ``stats`` float32 (2, Cout); inference, which
     normalizes with running statistics, passes ``want_stats=False`` and
-    gets None (the kernels then skip the statistics epilogue)."""
-    if w.ndim == 2:
-        return fused_mm(x, w, scale, shift, relu_in, norm_in, stride,
-                        want_stats)
-    if stride != 1:
-        raise ValueError("the fused 3×3 conv is stride-1 only")
-    return fused_c3(x, w, scale, shift, relu_in, norm_in, want_stats)
+    gets None (the kernels then skip the statistics epilogue). When an
+    input requires a gradient, both outputs are differentiable and the
+    backward runs through the backward kernels."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, shift)):
+        y, stats = _FusedConvBnAct.apply(x, w, scale, shift, relu_in,
+                                         norm_in, stride)
+        return y, (stats if want_stats else None)
+    return _forward(x, w, scale, shift, relu_in, norm_in, stride,
+                    want_stats)
 
 
 # ---------------------------------------------------------------------------

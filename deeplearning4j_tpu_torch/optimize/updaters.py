@@ -1,22 +1,68 @@
-"""Updater (optimizer) configurations.
+"""Updaters (optimizers).
 
 The serializable config dataclasses of the JAX package's updater family
 (reference: ``org.nd4j.linalg.learning.config.IUpdater`` — Sgd, Adam,
 Nesterovs, RmsProp, AdaGrad, ...), with the same names and fields, so a
-``configuration.json`` written by either package loads in the other. The
-update math comes with the training slice; learning-rate schedules come
-with it too, so ``learning_rate`` is a float here.
+``configuration.json`` written by either package loads in the other.
+
+The update math of ``Sgd``, ``Nesterovs`` and ``NoOp`` is ported as
+functional updates on dicts of tensors with optax's semantics
+(``to_transform``): ``init(params) -> state`` and
+``update(grads, state, params) -> (updates, new_state)``, applied as
+``p + u``. The state nests dicts keyed by optax's pytree path parts
+(``#0``, ``.trace``), so it flattens to the same checkpoint names as the
+JAX package's ``updater/<path>.npy``. The other updaters' math and
+learning-rate schedules (``optimize/schedules.py``) are not ported yet:
+``learning_rate`` is a float here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
 
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
+
+Tree = Dict[str, Any]
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the tensor leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+class GradientTransformation(NamedTuple):
+    """optax's (init, update) pair on nested dicts of tensors."""
+    init: Callable[[Tree], Tree]
+    update: Callable[[Tree, Tree, Tree], Tuple[Tree, Tree]]
+
+
+def _scale(step: float, grads: Tree) -> Tree:
+    """optax's ``scale(-learning_rate)``: step · g per leaf."""
+    return tree_map(lambda g: step * g, grads)
+
+
+def _lr(updater) -> float:
+    lr = updater.learning_rate
+    if not isinstance(lr, (int, float)):
+        raise NotImplementedError(
+            f"{type(updater).__name__}: learning-rate schedules are not "
+            "ported yet")
+    return float(lr)
 
 
 class Updater:
     """Base class for serializable updater configs."""
+
+    def to_transform(self) -> GradientTransformation:
+        raise NotImplementedError(
+            f"{type(self).__name__}: the update math is not ported yet "
+            "(Sgd, Nesterovs and NoOp are)")
 
     @property
     def has_state(self) -> bool:
@@ -28,6 +74,13 @@ class Updater:
 class Sgd(Updater):
     learning_rate: float = 1e-3
 
+    def to_transform(self):
+        """``optax.sgd(lr)``: u = -lr · g, no state."""
+        lr = _lr(self)
+        return GradientTransformation(
+            lambda params: {},
+            lambda grads, state, params=None: (_scale(-lr, grads), state))
+
     @property
     def has_state(self) -> bool:
         return False
@@ -38,6 +91,22 @@ class Sgd(Updater):
 class Nesterovs(Updater):
     learning_rate: float = 0.1
     momentum: float = 0.9
+
+    def to_transform(self):
+        """``optax.sgd(lr, momentum, nesterov=True)``: t ← g + μ·t,
+        u = -lr · (g + μ·t), with the trace t in the params' dtype under
+        optax's state path ``#0/.trace``."""
+        lr, mu = _lr(self), float(self.momentum)
+        f = lambda g, t: g + mu * t
+
+        def init(params):
+            return {"#0": {".trace": tree_map(torch.zeros_like, params)}}
+
+        def update(grads, state, params=None):
+            trace = tree_map(f, grads, state["#0"][".trace"])
+            return (_scale(-lr, tree_map(f, grads, trace)),
+                    {"#0": {".trace": trace}})
+        return GradientTransformation(init, update)
 
 
 @register_serializable
@@ -112,6 +181,13 @@ class AdaDelta(Updater):
 @dataclasses.dataclass(frozen=True)
 class NoOp(Updater):
     """Frozen parameters — the reference uses NoOp for FrozenLayer."""
+
+    def to_transform(self):
+        """``optax.set_to_zero()``."""
+        return GradientTransformation(
+            lambda params: {},
+            lambda grads, state, params=None: (
+                tree_map(torch.zeros_like, grads), state))
 
     @property
     def has_state(self) -> bool:

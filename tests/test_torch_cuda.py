@@ -6,7 +6,9 @@ NVIDIA GPU with ``nvcc`` and skip without one; run them on the card with
 Tolerances of a kernel against its plain version on the card: float32 y
 rtol/atol 1e-4, bfloat16 y rtol/atol 1e-2 (one bf16 rounding of the same
 f32 sum taken in another order), statistics 1e-4 relative to their
-largest entry plus 1e-3.
+largest entry plus 1e-3. Backward: dx as y; dW, dscale and dshift (f32
+sums over M of the same rounded factors, in another order) 1e-4 relative
+to their largest entry plus 1e-5.
 """
 
 import numpy as np
@@ -94,8 +96,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         fc.fused_mm(x.transpose(1, 2), wt, s, b)
     with pytest.raises(ValueError):
         fc.fused_mm(x, wt.cpu(), s, b)
-    with pytest.raises(NotImplementedError):
-        fc.fused_mm(x, wt.requires_grad_(), s, b)
+    dy = torch.zeros((2, 4, 4, 8), device=card)
+    with pytest.raises(TypeError):                 # dstats must be (2, Cout)
+        fc.fused_mm_bwd(dy, dy, x, wt, torch.zeros(8, device=card), s, b)
+    with pytest.raises(ValueError):                # dy of the wrong shape
+        fc.fused_mm_bwd(dy[:1], dy, x, wt, torch.zeros((2, 8), device=card),
+                        s, b)
 
 
 def test_served_slice_model_on_the_card(card):
@@ -109,7 +115,9 @@ def test_served_slice_model_on_the_card(card):
     with ServingEngine(m, batch_limit=4, feature_shape=(32, 32, 3),
                        precision="bf16", warmup=False) as eng:
         got = eng.output(x)
-    assert fc.LAUNCHES == {"fused_mm": 72, "fused_c3": 32}   # 2 batches
+    assert fc.LAUNCHES == {"fused_mm": 72, "fused_c3": 32,  # 2 batches
+                           "fused_mm_bwd": 0, "fused_c3_bwd": 0,
+                           "fused_c3_bwd_in": 0, "fused_c3_bwd_w": 0}
     np.testing.assert_array_equal(got, m.output(x).float().cpu().numpy())
 
 
@@ -121,3 +129,84 @@ def test_without_statistics(card, kernel):
     y, st = fn(x, wt, s, b, want_stats=False)
     assert st is None
     assert torch.equal(y, fn(x, wt, s, b)[0])
+
+
+def _grad_inputs(card, x, cout, dtype, seed=1):
+    """dy and y of x's plane with ``cout`` channels, and dstats."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    shape = tuple(x.shape[:3]) + (cout,)
+    return (torch.randn(shape, generator=g, device=card).to(dtype),
+            torch.randn(shape, generator=g, device=card).to(dtype),
+            0.1 * torch.randn((2, cout), generator=g, device=card))
+
+
+def _check_bwd(got, ref, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == r.dtype and a.shape == r.shape, i
+        if i == 0:                                     # dx
+            torch.testing.assert_close(a.float(), r.float(), rtol=tol,
+                                       atol=tol * r.float().abs().max())
+        else:                                          # f32 sums over M
+            assert (a - r).abs().max() <= 1e-4 * r.abs().max() + 1e-5, i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout,stride,norm", [
+    (2, 5, 7, 24, 40, 1, True), (3, 9, 9, 64, 130, 2, False),
+    (4, 16, 16, 256, 64, 1, True),         # M = 1024: dW in M slices
+    (32, 4, 4, 1024, 2048, 2, False)])     # the stage-3 projection
+def test_fused_mm_bwd_matches_plain(card, n, h, w, cin, cout, stride, norm,
+                                    dtype):
+    x, wt, s, b = _inputs(card, (n, h, w, cin), (cin, cout), dtype)
+    dy, y, dst = _grad_inputs(card, x[:, ::stride, ::stride], cout, dtype)
+    before = fc.LAUNCHES["fused_mm_bwd"]
+    got = fc.fused_mm_bwd(dy, y, x, wt, dst, s, b, True, norm, stride)
+    assert fc.LAUNCHES["fused_mm_bwd"] == before + 1
+    _check_bwd(got, fc.fused_mm_bwd_reference(dy, y, x, wt, dst, s, b, True,
+                                              norm, stride), dtype)
+    if stride != 1:                 # off the stride grid dx stays zero
+        off = got[0].clone()
+        off[:, ::stride, ::stride] = 0
+        assert not off.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (2, 5, 7, 24, 40), (3, 1, 3, 8, 72), (32, 16, 16, 64, 64),
+    (32, 2, 2, 512, 512)])
+def test_fused_c3_bwd_routes_match_plain(card, n, h, w, cin, cout, dtype):
+    x, wt, s, b = _inputs(card, (n, h, w, cin), (3, 3, cin, cout), dtype)
+    dy, y, dst = _grad_inputs(card, x, cout, dtype)
+    ref = fc.fused_c3_bwd_reference(dy, y, x, wt, dst, s, b)
+    _check_bwd(fc.fused_c3_bwd(dy, y, x, wt, dst, s, b), ref, dtype)
+    dx, dsc, dsh = fc.fused_c3_bwd_in(dy, y, x, wt, dst, s, b)
+    dw = fc.fused_c3_bwd_w(dy, y, x, dst, s, b)
+    _check_bwd((dx, dw, dsc, dsh), ref, dtype)
+
+
+def test_backward_is_deterministic(card):
+    x, wt, s, b = _inputs(card, (32, 8, 8, 128), (3, 3, 128, 128),
+                          torch.bfloat16)
+    dy, y, dst = _grad_inputs(card, x, 128, torch.bfloat16)
+    runs = [fc.fused_c3_bwd(dy, y, x, wt, dst, s, b) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], r))
+
+
+def test_train_steps_on_the_card_launch_every_kernel(card):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    m = ResNet50(num_classes=10, height=32, width=32, fused_blocks=True,
+                 s2d_stem=True, compute_dtype="bfloat16").init()
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 4)]
+    fc.reset_launch_counts()
+    m.fit(DataSet(x, y))
+    assert fc.LAUNCHES == {"fused_mm": 36, "fused_c3": 16,
+                           "fused_mm_bwd": 36, "fused_c3_bwd": 13,
+                           "fused_c3_bwd_in": 3, "fused_c3_bwd_w": 3}
+    assert m.iteration == 1 and np.isfinite(m.score())
+    assert all(v.dtype == torch.float32 and v.is_cuda
+               for lp in m.params.values() for v in lp.values())

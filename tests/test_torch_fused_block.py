@@ -103,13 +103,19 @@ def test_kernel_calls_describe_the_forward():
     assert calls[3].w_shape == (16, 32) and not calls[3].norm_in
 
 
-def test_training_forward_is_not_ported():
+def test_training_forward_runs_and_xla_is_not_ported():
+    """The train forward normalizes with batch statistics and returns new
+    running statistics (held against the JAX block in
+    test_torch_train_block.py); ``impl="xla"`` is not ported."""
     tb = FusedBottleneckBlock(filters=4, stride=1, downsample=True)
     it = ConvolutionalType(4, 4, 8)
     p = tb.initialize(torch.Generator().manual_seed(0), it)
-    with pytest.raises(NotImplementedError):
-        tb.apply(p, tb.init_state(it), torch.zeros((1, 4, 4, 8)),
-                 LayerContext(train=True))
+    st = tb.init_state(it)
+    x = torch.randn((2, 4, 4, 8), generator=torch.Generator().manual_seed(1))
+    y, new = tb.apply(p, st, x, LayerContext(train=True))
+    assert y.shape == (2, 4, 4, 16) and torch.isfinite(y).all()
+    assert set(new) == set(st) and new is not st
+    assert not torch.equal(new["bn1_mean"], st["bn1_mean"])
     with pytest.raises(NotImplementedError):
         FusedBottleneckBlock(impl="xla")
 

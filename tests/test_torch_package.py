@@ -27,7 +27,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'deeplearning4j_tpu' or m.startswith("
             "'deeplearning4j_tpu.')]\n"
-            "print(bad)\n")
+            "print(bad)\n"
+            "need = {'deeplearning4j_tpu_torch.' + m for m in ("
+            "'optimize.solver', 'datasets.dataset', 'models.base', "
+            "'ops.losses', 'ops.fused_conv')}\n"
+            "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
@@ -76,6 +80,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         rn.init()
     with pytest.raises(RuntimeError, match="CUDA"):
         restore_model(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_model(path, load_updater=True)
     assert restore_model(path, device="cpu").device.type == "cpu"
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
 
@@ -88,6 +94,14 @@ def test_wrappers_never_fall_back_off_the_cpu():
         fc.fused_mm(x, w, s, s)
     with pytest.raises(ValueError, match="unsupported device"):
         fc.fused_c3(x, torch.empty((3, 3, 4, 4), device="meta"), s, s)
+    w3 = torch.empty((3, 3, 4, 4), device="meta")
+    d = torch.empty((2, 4), device="meta")
+    for fn, args in ((fc.fused_mm_bwd, (x, x, x, w, d, s, s)),
+                     (fc.fused_c3_bwd, (x, x, x, w3, d, s, s)),
+                     (fc.fused_c3_bwd_in, (x, x, x, w3, d, s, s)),
+                     (fc.fused_c3_bwd_w, (x, x, x, d, s, s))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*args)
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
@@ -106,9 +120,14 @@ def test_library_names_follow_the_sources():
     a = cuda_build.library_path("fused_mm")
     assert a.parent == cuda_build.BUILD_DIR and a.suffix == ".so"
     assert a.name.startswith("libfused_mm_")
-    assert set(cuda_build.SIGNATURES) == {"fused_mm", "fused_c3"}
-    for name in cuda_build.SIGNATURES:
-        assert (cuda_build.CSRC / f"{name}.cu").exists()
+    assert set(cuda_build.SIGNATURES) == {
+        "fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
+        "fused_c3_bwd_in", "fused_c3_bwd_w"}
+    assert cuda_build.SOURCES == ("fused_mm", "fused_c3", "fused_mm_bwd",
+                                  "fused_c3_bwd")
+    assert cuda_build.SOURCE_OF["fused_c3_bwd_w"] == "fused_c3_bwd"
+    for src in cuda_build.SOURCES:
+        assert (cuda_build.CSRC / f"{src}.cu").exists()
 
 
 def test_enum_members_match_jax():

@@ -75,7 +75,8 @@ def _jax_acts(jm, x):
 
 def _torch_acts(tm, x):
     with torch.inference_mode():
-        acts = tm._walk(tm.params, tm.model_state, {"in": torch.from_numpy(x)})
+        acts, _ = tm._walk(tm.params, tm.model_state,
+                           {"in": torch.from_numpy(x)})
     return {k: acts[k].float().numpy() for k in ("avgpool", "out")}
 
 
