@@ -22,6 +22,11 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    dW, dscale, dshift), run twice for bitwise-equal results, and timed
    beside its bound, its plain version and a library yardstick
    (``torch.matmul`` for 1×1, cuDNN's ``convolution_backward`` for 3×3).
+   Then ``lstm_fwd`` and ``lstm_bwd`` at the LSTM slice shape (T 60, N 128,
+   H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
+   bf16, masked and unmasked: against their plain versions, bitwise on a
+   second run, timed beside their bound, the latency floor (T × one grid
+   barrier, measured) and cuDNN's LSTM layer (unmasked).
 4. slice — the full-width ResNet50 (64×64×3, 200 classes, s2d stem,
    fused blocks, bf16) built on the card from a seed, served through
    ``ServingEngine`` to four client threads; every answer is held against
@@ -36,6 +41,18 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    loss is finite and the best after the first is below the first; step
    ms, images/s and peak memory; and the f32 model's gradients at batch 8
    through the kernels against the same step on the plain versions.
+
+6. lstm_serve — the committed TextGenerationLSTM (f32) scores 128
+   corpus windows of 60 chars through ``output()`` (probabilities against
+   the plain path, cross-entropy < 2.5) and generates 200 chars greedily
+   through ``rnn_time_step`` (each step held against the plain path
+   teacher-forced on the same tokens); exactly 2 ``lstm_fwd`` launches per
+   call; sequences/s, ms per call and ms per char.
+7. lstm_train — the same model from seed 123, batch 128 × 60 corpus
+   windows, Adam(2e-3) + clip 5, 24 steps in K = 4 step calls: exactly
+   2 ``lstm_fwd`` + 2 ``lstm_bwd`` launches per step, the loss falls, and
+   one f32 step matches the plain path (loss, gradients); step ms, chars/s
+   and peak memory.
 
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
@@ -90,11 +107,15 @@ SOURCES = {"fused_mm": _CSRC + "fused_mm.cu",
            "fused_mm_bwd": _CSRC + "fused_mm_bwd.cu",
            "fused_c3_bwd": _CSRC + "fused_c3_bwd.cu",
            "fused_c3_bwd_in": _CSRC + "fused_c3_bwd.cu",
-           "fused_c3_bwd_w": _CSRC + "fused_c3_bwd.cu"}
+           "fused_c3_bwd_w": _CSRC + "fused_c3_bwd.cu",
+           "lstm_fwd": _CSRC + "lstm_fwd.cu",
+           "lstm_bwd": _CSRC + "lstm_bwd.cu"}
 _TPU = "deeplearning4j_tpu/ops/fused_conv.py:"
 REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "fused_mm_bwd": _TPU + "230", "fused_c3_bwd": _TPU + "379",
-            "fused_c3_bwd_in": _TPU + "317", "fused_c3_bwd_w": _TPU + "348"}
+            "fused_c3_bwd_in": _TPU + "317", "fused_c3_bwd_w": _TPU + "348",
+            "lstm_fwd": "deeplearning4j_tpu/ops/pallas_lstm.py:109",
+            "lstm_bwd": "deeplearning4j_tpu/ops/pallas_lstm.py:206"}
 FORWARD = ("fused_mm", "fused_c3")
 BACKWARD = ("fused_mm_bwd", "fused_c3_bwd", "fused_c3_bwd_in",
             "fused_c3_bwd_w")
@@ -103,6 +124,28 @@ N_REQUESTS = 64          # requests of 1-48 rows from four client threads
 SLICE = dict(num_classes=200, height=64, width=64, channels=3,
              fused_blocks=True, fused_impl="pallas", s2d_stem=True,
              compute_dtype="bfloat16")
+# the LSTM kernels' shapes (T, N, H): the slice (TextGenerationLSTM at
+# batch 128) and the repo's LSTM throughput geometry
+# (benchmarks/baseline_suite.py:381-446)
+LSTM_SHAPES = {"slice": (60, 128, 256), "benchmark": (128, 256, 512)}
+# LSTM kernel vs plain version, |diff| relative to max(1, max|ref|) per
+# output: f32 1e-4 (the same f32 products summed in another order, carried
+# through T ticks); bf16 3e-2 (a sum-order difference can flip one bf16
+# rounding of h, ~4e-3 at |h| < 1, and the flipped value feeds every later
+# tick)
+LSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the f32 pretrained model through the kernels vs the plain path: softmax
+# probabilities |diff| <= 1e-4, in scoring and at every generation step;
+# a differing argmax is allowed only where the plain top-2 gap is below it
+LSTM_PROB_TOL = 1e-4
+LSTM_SERVE_WINDOWS, GEN_PROMPT, GEN_CHARS = 128, 20, 200
+# training: seed 123, batch 128 x 60, Adam(2e-3) + clip 5, K = 4 steps per
+# call, 24 steps; one f32 step's gradients through the kernels vs the plain
+# versions within relative L2 1e-3 per parameter (the same f32 products
+# summed in other orders through 60 ticks, with no BN or ReLU to amplify
+# them as in the ResNet check above; the loss within LOSS_RTOL)
+LSTM_TRAIN_BATCH, LSTM_TRAIN_K, LSTM_TRAIN_CALLS = 128, 4, 6
+LSTM_GRAD_RTOL = 1e-3
 
 
 def log(msg=""):
@@ -399,7 +442,7 @@ def phase_kernels(report):
         raise AssertionError(f"{len(bad)} kernel calls disagree with the "
                              "plain version beyond tolerance or differ "
                              "between two runs")
-    summary = {name: _summary(name, rows) for name in SOURCES}
+    summary = {name: _summary(name, rows) for name in FORWARD + BACKWARD}
     report["kernels"] = summary
     return summary
 
@@ -760,9 +803,363 @@ def phase_train(report, card, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the LSTM slice (TPU kernels 7-8): kernels, scoring/generation, training
+# ---------------------------------------------------------------------------
+
+def plain_lstm():
+    """Both fused-LSTM wrappers patched to their plain versions."""
+    import contextlib
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(fl, "lstm_fwd",
+                                          fl.lstm_fwd_reference))
+    stack.enter_context(mock.patch.object(fl, "lstm_bwd",
+                                          fl.lstm_bwd_reference))
+    return stack
+
+
+def lstm_cost(t, n, h, dtype, masked, part):
+    """(flops, bytes) of one call: every input read once, every output
+    written once; the forward's product 2·T·N·H·4H, the backward's two."""
+    isz = 2 if dtype == "bfloat16" else 4
+    m = t * n if masked else 0
+    state = isz * 4 * n * h                 # h0, c0 in; hT, cT out (or d*)
+    if part == "lstm_fwd":
+        nbytes = isz * (2 * t * n * 4 * h + 3 * t * n * h + h * 4 * h + m)
+        return 2.0 * t * n * h * 4 * h, nbytes + state
+    nbytes = (isz * (2 * t * n * 4 * h + 4 * t * n * h + h * 4 * h + m)
+              + 4 * h * 4 * h)
+    return 4.0 * t * n * h * 4 * h, nbytes + state
+
+
+def barrier_ms(n, h):
+    """Mean ms of one grid-wide barrier on lstm_fwd's grid at (n, h)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    probe = cuda_build.helper("lstm_fwd", "dl4j_lstm_barrier_probe")
+
+    def run(iters):
+        err = probe(n, h, iters, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"barrier probe failed with CUDA error {err}")
+    return (cuda_time(lambda: run(1000), iters=5) -
+            cuda_time(lambda: run(0), iters=5)) / 1000
+
+
+def _lstm_err(got, ref):
+    """Largest |kernel - plain| over the outputs, each relative to
+    max(1, its largest reference magnitude)."""
+    return max((a.float() - r.float()).abs().max().item() /
+               max(1.0, r.float().abs().max().item())
+               for a, r in zip(got, ref))
+
+
+def check_lstm_shape(where, t, n, h, dtype, masked, gen, floor_ms):
+    """Rows of lstm_fwd and lstm_bwd at one shape: against the plain
+    version, bitwise on a second run, timed beside the bound, the latency
+    floor and (unmasked) cuDNN's LSTM layer."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    dt = getattr(torch, dtype)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    zx = r(t, n, 4 * h).to(dt)
+    wh = (r(h, 4 * h) / math.sqrt(h)).to(dt)
+    h0, c0 = (0.5 * r(n, h)).to(dt), (0.5 * r(n, h)).to(dt)
+    mask3 = ((torch.rand(t, n, 1, generator=gen, device="cuda") > 0.2)
+             .to(dt) if masked else None)
+    fargs = (zx, h0, c0, wh, mask3)
+    ys, gates, tcs, ccs, _, _ = fl.lstm_fwd_reference(*fargs)
+    bargs = (r(t, n, h).to(dt), r(n, h).to(dt), r(n, h).to(dt), gates, tcs,
+             torch.cat([c0[None], ccs[:-1]]), torch.cat([h0[None], ys[:-1]]),
+             mask3, wh)
+    rows = []
+    for name, args, plain in (("lstm_fwd", fargs, fl.lstm_fwd_reference),
+                              ("lstm_bwd", bargs, fl.lstm_bwd_reference)):
+        kern = lambda: getattr(fl, name)(*args)
+        got, again, ref = kern(), kern(), plain(*args)
+        torch.cuda.synchronize()
+        err = _lstm_err(got, ref)
+        row = {"kernel": name, "where": where, "dtype": dtype,
+               "shape": [t, n, h], "masked": masked, "max_abs_err": err,
+               "ok": err <= LSTM_TOL[dtype],
+               "bitwise_repeat": all(torch.equal(a, b)
+                                     for a, b in zip(got, again)),
+               "ms": cuda_time(kern, iters=10),
+               "plain_ms": cuda_time(lambda: plain(*args), iters=3,
+                                     warmup=1),
+               "latency_floor_ms": t * floor_ms, "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound(
+            *lstm_cost(t, n, h, dtype, masked, name), dtype)
+        rows.append(row)
+    if not masked:
+        _cudnn_yardstick(rows, t, n, h, dt, gen)
+    return rows
+
+
+def _cudnn_yardstick(rows, t, n, h, dt, gen):
+    """cuDNN's LSTM layer (torch.nn.LSTM, weights permuted from [i|f|o|g]
+    to its [i|f|g|o]) against the port's layer (torch.matmul projection +
+    lstm_fwd), forward, and its backward alone against lstm_bwd's call:
+    library_ms of the two rows. The port never calls cuDNN."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = r(t, n, h).to(dt)
+    wx, wh = (r(h, 4 * h) / math.sqrt(h)).to(dt), \
+        (r(h, 4 * h) / math.sqrt(h)).to(dt)
+    b = (0.1 * r(4 * h)).to(dt)
+    h0, c0 = (0.5 * r(n, h)).to(dt), (0.5 * r(n, h)).to(dt)
+    perm = torch.cat([torch.arange(0, 2 * h), torch.arange(3 * h, 4 * h),
+                      torch.arange(2 * h, 3 * h)]).cuda()
+    lstm = torch.nn.LSTM(h, h).to(device="cuda", dtype=dt)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.t()[perm])
+        lstm.weight_hh_l0.copy_(wh.t()[perm])
+        lstm.bias_ih_l0.copy_(b[perm])
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()       # cuDNN's packed weights, as it runs best
+    state = (h0[None], c0[None])
+    port = lambda: fl.lstm_fused(torch.matmul(x, wx) + b, h0, c0, wh)
+    with torch.no_grad():
+        ref = lstm(x, state)[0]
+        got = port()[0]
+        fwd_ms = cuda_time(lambda: lstm(x, state))
+        layer_ms = cuda_time(port)
+    xg = x.clone().requires_grad_()
+    out = lstm(xg, state)[0]
+    dy = r(t, n, h).to(dt)
+    bwd_ms = cuda_time(lambda: torch.autograd.grad(
+        out, [xg] + list(lstm.parameters()), dy, retain_graph=True))
+    fwd_row, bwd_row = rows
+    fwd_row.update(library_ms=fwd_ms, port_layer_ms=layer_ms,
+                   cudnn_max_abs_err=(got.float() - ref.float())
+                   .abs().max().item())
+    bwd_row.update(library_ms=bwd_ms)
+
+
+def phase_lstm_kernels(gen):
+    """lstm_fwd and lstm_bwd at the slice shape and the benchmark
+    geometry, f32 and bf16, masked and unmasked."""
+    rows = []
+    for where, (t, n, h) in LSTM_SHAPES.items():
+        floor = barrier_ms(n, h)
+        log(f"  grid barrier on lstm_fwd's grid at N={n}, H={h}: "
+            f"{1e3 * floor:.2f} us")
+        for dtype in ("float32", "bfloat16"):
+            for masked in (False, True):
+                for r in check_lstm_shape(where, t, n, h, dtype, masked,
+                                          gen, floor):
+                    r["barrier_ms"] = floor
+                    rows.append(r)
+                    lib = ("-" if r["library_ms"] is None
+                           else f"{r['library_ms']:.4f}")
+                    log(f"  {r['kernel']:15s} {dtype:8s} T,N,H={t},{n},{h} "
+                        f"mask={int(masked)} err={r['max_abs_err']:.3g} "
+                        f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                        f"lib={lib} bound={r['bound_ms']:.4f} "
+                        f"({r['bound_by']}) floor={r['latency_floor_ms']:.4f}"
+                        f"{'' if r['ok'] else '  <-- DISAGREES'}"
+                        f"{'' if r['bitwise_repeat'] else '  <-- NOT BITWISE'}")
+    return rows
+
+
+def _lstm_summary(name, rows):
+    """One LSTM kernel's line: per call at the slice shape in f32,
+    unmasked, as the scoring and training paths call it."""
+    r = next(r for r in rows if r["kernel"] == name and r["where"] ==
+             "slice" and r["dtype"] == "float32" and not r["masked"])
+    out = {"name": name, "route": "cuda", "source": SOURCES[name],
+           "replaces": REPLACES[name],
+           "max_abs_err": max(x["max_abs_err"] for x in rows
+                              if x["kernel"] == name)}
+    out.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "latency_floor_ms")})
+    return out
+
+
+def corpus_windows(n, t, rng=None):
+    """(one-hot x (n, t, 77), next-char ids (n, t)) from the committed
+    corpus: consecutive windows, or random starts with ``rng``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.generation.decode import Vocab
+    corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "resources", "pretrained", "corpus.txt")
+    with open(corpus, encoding="utf-8") as f:
+        ids = np.array(Vocab.load().encode(f.read()))
+    starts = (np.arange(n) * t if rng is None
+              else rng.integers(0, len(ids) - t - 1, n))
+    x = np.eye(77, dtype=np.float32)[np.stack([ids[s:s + t]
+                                               for s in starts])]
+    return x, np.stack([ids[s + 1:s + t + 1] for s in starts]), ids
+
+
+def phase_lstm_serve(report, card, profile=False):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.generation.decode import Vocab
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+
+    model = TextGenerationLSTM().init_pretrained()      # cuda, f32
+    x_np, y, ids = corpus_windows(LSTM_SERVE_WINDOWS, 60)
+    x = torch.from_numpy(x_np).cuda()
+    eye = torch.eye(77, device="cuda")
+    prompt = ids[:GEN_PROMPT].tolist()
+
+    fl.reset_launch_counts()
+    probs = model.output(x)
+    torch.cuda.synchronize()
+    after_score = dict(fl.LAUNCHES)
+    # greedy generation through rnn_time_step: the prompt in one call,
+    # then one call per generated char fed back
+    t0 = time.perf_counter()
+    out, carries = model.rnn_time_step(eye[prompt][None])
+    step_probs, tokens = [out[0, -1]], []
+    for i in range(GEN_CHARS):
+        tokens.append(int(step_probs[-1].argmax()))
+        if i + 1 < GEN_CHARS:
+            out, carries = model.rnn_time_step(eye[tokens[-1]][None],
+                                               carries)
+            step_probs.append(out[0, -1])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(fl.LAUNCHES)
+    log(f"  launches: {after_score} after one output() call, {launches} "
+        f"after {GEN_CHARS} rnn_time_step calls more")
+    if after_score != {"lstm_fwd": 2, "lstm_bwd": 0} or launches != {
+            "lstm_fwd": 2 + 2 * GEN_CHARS, "lstm_bwd": 0}:
+        raise AssertionError("lstm_fwd must launch exactly twice per "
+                             "output() and per rnn_time_step call")
+
+    with plain_lstm():
+        probs_p = model.output(x)
+        seq = prompt + tokens[:-1]
+        forced, _ = model.rnn_time_step(eye[seq][None])
+    prob_err = (probs - probs_p).abs().max().item()
+    p_true = probs.cpu().numpy()[np.arange(len(y))[:, None],
+                                 np.arange(60)[None, :], y]
+    xent = float(-np.mean(np.log(np.maximum(p_true, 1e-9))))
+    kern = torch.stack(step_probs)
+    plain = forced[0, GEN_PROMPT - 1:]
+    gen_err = (kern - plain).abs().max().item()
+    top2 = plain.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    differ = (kern.argmax(-1) != plain.argmax(-1)).cpu().numpy()
+    near = [int(i) for i in np.nonzero(gap < LSTM_PROB_TOL)[0]]
+    bad = [int(i) for i in np.nonzero(differ & (gap >= LSTM_PROB_TOL))[0]]
+    log(f"  output() on {len(y)} corpus windows: probabilities vs plain "
+        f"|diff| {prob_err:.3g}, per-char cross-entropy {xent:.4f}")
+    log(f"  {GEN_CHARS} greedy chars: {Vocab.load().decode(tokens)!r}")
+    log(f"  generation vs plain teacher-forced on the same tokens: "
+        f"|diff| {gen_err:.3g}, argmax differs at {int(differ.sum())} "
+        f"steps, near ties (top-2 gap < {LSTM_PROB_TOL}) at {near}")
+    if prob_err > LSTM_PROB_TOL or gen_err > LSTM_PROB_TOL or bad:
+        raise AssertionError("the LSTM kernels disagree with the plain path "
+                             "in scoring or generation")
+    if not xent < 2.5:
+        raise AssertionError(f"per-char cross-entropy {xent} >= 2.5")
+
+    out_ms = cuda_time(lambda: model.output(x), iters=10)
+    log(f"  output() at {len(y)} x 60: {out_ms:.3f} ms, "
+        f"{1e3 * len(y) / out_ms:.1f} sequences/s; generation "
+        f"{1e3 * gen_s / GEN_CHARS:.3f} ms per char [{card}]")
+    if profile:
+        with torch.inference_mode():
+            report["lstm_serve_profile"] = profile_calls(
+                lambda: model.output(x), card,
+                f"f32 output() calls at {len(y)} x 60")
+    report["lstm_serve"] = {
+        "windows": len(y), "prob_diff": prob_err, "xent": xent,
+        "gen_chars": GEN_CHARS, "gen_prob_diff": gen_err,
+        "gen_argmax_differs": int(differ.sum()), "gen_near_ties": near,
+        "output_ms": out_ms, "sequences_per_s": 1e3 * len(y) / out_ms,
+        "ms_per_char": 1e3 * gen_s / GEN_CHARS, "launches": launches}
+    return launches
+
+
+def phase_lstm_train(report, card, profile=False):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+
+    b, k, t = LSTM_TRAIN_BATCH, LSTM_TRAIN_K, 60
+    model = TextGenerationLSTM(seed=123).init()         # cuda, f32
+    x_np, y_ids, _ = corpus_windows(b, t, np.random.default_rng(123))
+    y_np = np.eye(77, dtype=np.float32)[y_ids]
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    xk = x.unsqueeze(0).expand(k, *x.shape).contiguous()
+    yk = y.unsqueeze(0).expand(k, *y.shape).contiguous()
+    scan = model._build_scan_train_step()
+
+    def call():
+        model.train_state, losses = scan(model.train_state, xk, yk)
+        return losses
+
+    fl.reset_launch_counts()
+    losses = [call()]
+    torch.cuda.synchronize()
+    launches = dict(fl.LAUNCHES)
+    log(f"  launches over one {k}-step call: {launches}")
+    if launches != {"lstm_fwd": 2 * k, "lstm_bwd": 2 * k}:
+        raise AssertionError(f"expected {2 * k} lstm_fwd and {2 * k} "
+                             "lstm_bwd launches")
+    losses.append(call())                     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(LSTM_TRAIN_CALLS - 2):
+        losses.append(call())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ((LSTM_TRAIN_CALLS - 2) * k)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).float().cpu().numpy()
+    log(f"  train step at batch {b} x {t}: {step_ms:.3f} ms, "
+        f"{1e3 * b * t / step_ms:.1f} chars/s, peak memory "
+        f"{peak / 2**20:.1f} MiB [{card}]")
+    log(f"  losses over {len(losses)} steps: "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    if not np.isfinite(losses).all() or not losses[1:].min() < losses[0]:
+        raise AssertionError("the train loss did not fall (or is not "
+                             "finite)")
+    if profile:
+        report["lstm_train_profile"] = profile_calls(
+            call, card, f"{k}-step f32 train calls at batch {b}", n=2,
+            warmup=1)
+
+    # one f32 step through the kernels against the plain versions
+    m32 = TextGenerationLSTM(seed=123).init()
+    args = m32._step_args(DataSet(x_np, y_np))
+    loss_k, _, g_k = solver.value_and_grad(m32._loss, m32.train_state, *args)
+    with plain_lstm():
+        loss_p, _, g_p = solver.value_and_grad(m32._loss, m32.train_state,
+                                               *args)
+    err = grad_errors(g_k, g_p)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"  f32 step, kernels vs plain: loss rel {loss_err:.3g}, gradients "
+        f"rel L2 worst {err['worst']:.3g} ({err['name']}), median "
+        f"{err['median']:.3g}, all {err['all']:.3g}")
+    if loss_err > LOSS_RTOL or err["worst"] > LSTM_GRAD_RTOL:
+        raise AssertionError("the f32 train step through the LSTM kernels "
+                             "disagrees with the plain path")
+    report["lstm_train"] = {
+        "batch": b, "timesteps": t, "k": k, "steps": len(losses),
+        "losses": losses.tolist(), "step_ms": step_ms,
+        "chars_per_s": 1e3 * b * t / step_ms, "peak_memory_bytes": peak,
+        "launches": launches, "f32_loss_rel_err": loss_err,
+        "f32_grad_rel_l2": err}
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,slice,train",
+    ap.add_argument("--phases", default="env,build,kernels,slice,train,"
+                    "lstm_serve,lstm_train",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward and the train "
@@ -800,6 +1197,16 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         log("[kernels] every path shape at batch 32, f32 and bf16")
         summary = phase_kernels(report)
+        log("[kernels] lstm_fwd and lstm_bwd at (T, N, H) = "
+            f"{list(LSTM_SHAPES.values())}, f32 and bf16, masked or not")
+        rows = phase_lstm_kernels(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        report["lstm_kernel_calls"] = rows
+        if not all(r["ok"] and r["bitwise_repeat"] for r in rows):
+            raise AssertionError("an LSTM kernel disagrees with its plain "
+                                 "version or differs between two runs")
+        for name in ("lstm_fwd", "lstm_bwd"):
+            summary[name] = _lstm_summary(name, rows)
 
     launches = {name: 0 for name in SOURCES}
     if "slice" in phases:
@@ -811,6 +1218,16 @@ def main(argv=None) -> int:
             f"K={TRAIN_K} steps per call")
         for name, n in phase_train(report, card, args.profile).items():
             launches[name] += n
+    if "lstm_serve" in phases:
+        log(f"[lstm_serve] pretrained TextGenerationLSTM f32: output() on "
+            f"{LSTM_SERVE_WINDOWS} windows of 60, {GEN_CHARS} greedy chars")
+        for name, n in phase_lstm_serve(report, card, args.profile).items():
+            launches[name] += n
+    if "lstm_train" in phases:
+        log(f"[lstm_train] TextGenerationLSTM f32, batch {LSTM_TRAIN_BATCH}"
+            f" x 60, Adam(2e-3) + clip 5, K={LSTM_TRAIN_K} steps per call")
+        for name, n in phase_lstm_train(report, card, args.profile).items():
+            launches[name] += n
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -820,7 +1237,9 @@ def main(argv=None) -> int:
     for name, k in summary.items():
         entry = {key: k[key] for key in
                  ("name", "route", "source", "replaces")}
-        # the served traffic's launches plus the train phase's K-step call
+        # the main paths' launches: served traffic and the K-step train
+        # call (conv kernels); scoring, generation and the K-step train
+        # call (LSTM kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

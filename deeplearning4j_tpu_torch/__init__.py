@@ -13,7 +13,12 @@ backward kernels ``fused_mm_bwd``, ``fused_c3_bwd``, ``fused_c3_bwd_in``
 and ``fused_c3_bwd_w``), served by ``parallel.serving.ServingEngine`` and
 trained by ``ComputationGraph.fit`` / ``optimize.solver``; checkpoints
 (with optimizer state) are the JAX package's zip format
-(``models.serialization``).
+(``models.serialization``). The char-level ``zoo.models.TextGenerationLSTM``
+→ ``models.MultiLayerNetwork`` → ``nn.layers.recurrent.LSTM`` →
+``ops.fused_lstm`` (kernels ``lstm_fwd`` and ``lstm_bwd``) scores
+(``output``), generates greedily (``rnn_time_step``,
+``generation.decode.reference_decode``) and trains with Adam and value
+clipping.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.

@@ -23,6 +23,9 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.optimize.solver import TrainState
+
+Tree = Dict[str, Dict[str, torch.Tensor]]
 
 
 def compute_cast(x: torch.Tensor, dt: str) -> torch.Tensor:
@@ -43,9 +46,10 @@ def cast_params(lp: Dict[str, torch.Tensor], dt: str
 
 
 class BaseModel:
-    """The fit core shared by the models; a subclass provides ``init``,
-    ``train_state``, ``_build_train_step``, ``_step_args`` and
-    ``compute_loss``."""
+    """The fit core shared by the models (parameters, state, optimizer
+    state and iteration as one ``train_state``; ``fit``, ``score``,
+    ``set_params``); a subclass provides ``init``, ``_build_train_step``,
+    ``_step_args`` and ``compute_loss``."""
 
     def __init__(self):
         self._train_step = None
@@ -79,9 +83,60 @@ class BaseModel:
             return float(self._last_loss)
         return float(self.compute_loss(dataset))
 
+    @property
+    def train_state(self) -> TrainState:
+        """(params, model_state, opt_state, iteration) as one value, the
+        shape the train steps take and return."""
+        return TrainState(self.params, self.model_state, self.opt_state,
+                          self.iteration)
+
+    @train_state.setter
+    def train_state(self, ts: TrainState):
+        self.params, self.model_state, self.opt_state, self.iteration = ts
+
+    def set_params(self, params: Tree, model_state: Optional[Tree] = None):
+        """Replace parameters (and state) with tensors of the same names
+        and shapes as this model's; a missing, extra or mis-shaped leaf
+        raises. Floating leaves keep the incoming dtype."""
+        if self.params is None:
+            self.init()
+        self.params = conform(self.params, params, self.device, "params")
+        if model_state is not None:
+            self.model_state = conform(self.model_state, model_state,
+                                        self.device, "state")
+
+    def num_params(self) -> int:
+        return sum(v.numel() for lp in (self.params or {}).values()
+                   for v in lp.values())
+
     def _as_tensor(self, a) -> Optional[torch.Tensor]:
         if a is None:
             return None
         if isinstance(a, torch.Tensor):
             return a.to(self.device)
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+
+def conform(template: Tree, new: Tree, device: torch.device,
+             what: str) -> Tree:
+    """``new`` checked name for name and shape for shape against
+    ``template``, moved to ``device``."""
+    if set(new) != set(template):
+        raise KeyError(f"{what}: layer names differ: missing "
+                       f"{sorted(set(template) - set(new))}, unexpected "
+                       f"{sorted(set(new) - set(template))}")
+    out: Tree = {}
+    for layer, tl in template.items():
+        nl = new[layer]
+        if set(nl) != set(tl):
+            raise KeyError(f"{what}[{layer!r}]: keys differ: missing "
+                           f"{sorted(set(tl) - set(nl))}, unexpected "
+                           f"{sorted(set(nl) - set(tl))}")
+        out[layer] = {}
+        for k, t in tl.items():
+            v = torch.as_tensor(nl[k])
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{what}[{layer!r}][{k!r}]: shape "
+                                 f"{tuple(v.shape)} != {tuple(t.shape)}")
+            out[layer][k] = v.to(device)
+    return out

@@ -23,18 +23,15 @@ from typing import Dict, Optional
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
-from deeplearning4j_tpu_torch.models.base import (BaseModel, cast_params,
-                                                  compute_cast)
+from deeplearning4j_tpu_torch.models.base import (BaseModel, Tree,
+                                                  cast_params, compute_cast)
 from deeplearning4j_tpu_torch.nn.graph.config import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
-from deeplearning4j_tpu_torch.optimize.solver import (TrainState,
-                                                      build_optimizer,
+from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
                                                       make_scan_train_step,
                                                       make_train_step)
 from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
-
-Tree = Dict[str, Dict[str, torch.Tensor]]
 
 
 class ComputationGraph(BaseModel):
@@ -87,32 +84,6 @@ class ComputationGraph(BaseModel):
             {n.name: n.layer.updater for n in self._layer_nodes},
             {n.name: n.layer.frozen for n in self._layer_nodes},
             g.updater, g.gradient_normalization)
-
-    @property
-    def train_state(self) -> TrainState:
-        """(params, model_state, opt_state, iteration) as one value, the
-        shape the train steps take and return."""
-        return TrainState(self.params, self.model_state, self.opt_state,
-                          self.iteration)
-
-    @train_state.setter
-    def train_state(self, ts: TrainState):
-        self.params, self.model_state, self.opt_state, self.iteration = ts
-
-    def set_params(self, params: Tree, model_state: Optional[Tree] = None):
-        """Replace parameters (and state) with tensors of the same names
-        and shapes as this model's; a missing, extra or mis-shaped leaf
-        raises. Floating leaves keep the incoming dtype."""
-        if self.params is None:
-            self.init()
-        self.params = _conform(self.params, params, self.device, "params")
-        if model_state is not None:
-            self.model_state = _conform(self.model_state, model_state,
-                                        self.device, "state")
-
-    def num_params(self) -> int:
-        return sum(v.numel() for lp in (self.params or {}).values()
-                   for v in lp.values())
 
     # ---- forward --------------------------------------------------------
     def _walk(self, params: Tree, model_state: Tree,
@@ -281,27 +252,3 @@ class ComputationGraph(BaseModel):
         lines.append(f"total params: {self.num_params()}")
         return "\n".join(lines)
 
-
-def _conform(template: Tree, new: Tree, device: torch.device,
-             what: str) -> Tree:
-    """``new`` checked name for name and shape for shape against
-    ``template``, moved to ``device``."""
-    if set(new) != set(template):
-        raise KeyError(f"{what}: layer names differ: missing "
-                       f"{sorted(set(template) - set(new))}, unexpected "
-                       f"{sorted(set(new) - set(template))}")
-    out: Tree = {}
-    for layer, tl in template.items():
-        nl = new[layer]
-        if set(nl) != set(tl):
-            raise KeyError(f"{what}[{layer!r}]: keys differ: missing "
-                           f"{sorted(set(tl) - set(nl))}, unexpected "
-                           f"{sorted(set(nl) - set(tl))}")
-        out[layer] = {}
-        for k, t in tl.items():
-            v = torch.as_tensor(nl[k])
-            if tuple(v.shape) != tuple(t.shape):
-                raise ValueError(f"{what}[{layer!r}][{k!r}]: shape "
-                                 f"{tuple(v.shape)} != {tuple(t.shape)}")
-            out[layer][k] = v.to(device)
-    return out

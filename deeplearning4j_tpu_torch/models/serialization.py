@@ -3,7 +3,8 @@
 Analog of the reference's ``ModelSerializer`` (util/ModelSerializer.java
 — writeModel:109), in the layout the JAX package writes and reads:
 
-    configuration.json    — ComputationGraphConfiguration JSON (serde)
+    configuration.json    — MultiLayerConfiguration or
+                            ComputationGraphConfiguration JSON (serde)
     params/<layer>/<key>.npy
     state/<layer>/<key>.npy  — non-trainable state (BN running stats)
     updater/<path>.npy    — optimizer state leaves (optional, exact resume)
@@ -39,8 +40,10 @@ def _ensure_registry():
     import deeplearning4j_tpu_torch.nn.layers.fused  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.normalization  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.output  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.layers.recurrent  # noqa: F401
     import deeplearning4j_tpu_torch.nn.graph.vertices  # noqa: F401
     import deeplearning4j_tpu_torch.nn.preprocessors  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.config  # noqa: F401
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -172,13 +175,28 @@ def params_from_jax(params_np: Mapping[str, Mapping[str, Any]],
     return params, state
 
 
+def _model_classes():
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.graph.config import \
+        ComputationGraphConfiguration
+    return {"ComputationGraph": (ComputationGraph,
+                                 ComputationGraphConfiguration),
+            "MultiLayerNetwork": (MultiLayerNetwork,
+                                  MultiLayerConfiguration)}
+
+
 def save_model(model, path: str, save_updater: bool = False):
     """reference: ModelSerializer.writeModel:109; ``save_updater`` writes
     the optimizer state too (for an exact resume)."""
-    from deeplearning4j_tpu_torch.models.computation_graph import \
-        ComputationGraph
-    if not isinstance(model, ComputationGraph):
-        raise TypeError("save_model: only ComputationGraph is ported")
+    kind = next((name for name, (cls, _) in _model_classes().items()
+                 if isinstance(model, cls)), None)
+    if kind is None:
+        raise TypeError(f"save_model: {type(model).__name__} is not a "
+                        "ComputationGraph or MultiLayerNetwork")
     if model.params is None:
         model.init()
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
@@ -188,7 +206,7 @@ def save_model(model, path: str, save_updater: bool = False):
         if save_updater:
             _write_tree(zf, "updater", model.opt_state)
         meta = {
-            "model_class": "ComputationGraph",
+            "model_class": kind,
             "iteration": int(model.iteration),
             "epoch": int(model.epoch_count),
             "has_updater": bool(save_updater),
@@ -198,37 +216,41 @@ def save_model(model, path: str, save_updater: bool = False):
         zf.writestr("meta.json", json.dumps(meta))
 
 
-def restore_model(path: str, device: DeviceLike = None,
-                  load_updater: bool = False):
-    """Restore a ComputationGraph zip (written by either package) onto
-    ``device`` (``cuda`` unless ``"cpu"`` is asked for). Every stored
-    array must match the configuration's parameters name for name. With
-    ``load_updater`` and a checkpoint that has one, the optimizer state
-    is restored too (path for path)."""
-    from deeplearning4j_tpu_torch.models.computation_graph import \
-        ComputationGraph
-    from deeplearning4j_tpu_torch.nn.graph.config import \
-        ComputationGraphConfiguration
+def _restore(path: str, expected: Optional[str], device: DeviceLike,
+             load_updater: bool):
+    """Restore a zip written by either package onto ``device`` (``cuda``
+    unless ``"cpu"`` is asked for). Every stored parameter must match the
+    configuration's name for name. State is read for the names the
+    model's ``init`` makes, as the JAX package reads it: an LSTM's last
+    carry, which a fit leaves in the state, is not restored. With
+    ``load_updater`` and a checkpoint that has one, the optimizer state is
+    restored too, path for path."""
     _ensure_registry()
     with zipfile.ZipFile(path, "r") as zf:
         meta = json.loads(zf.read("meta.json"))
-        if meta["model_class"] != "ComputationGraph":
-            raise TypeError(f"checkpoint holds a {meta['model_class']}; "
-                            "only ComputationGraph is ported")
-        conf = ComputationGraphConfiguration.from_json(
-            zf.read("configuration.json").decode())
-        model = ComputationGraph(conf, device=device)
+        kind = meta["model_class"]
+        if kind not in _model_classes() or (expected is not None
+                                            and kind != expected):
+            raise TypeError(f"checkpoint holds a {kind}, not a "
+                            f"{expected or 'ported model class'}")
+        cls, conf_cls = _model_classes()[kind]
+        conf = conf_cls.from_json(zf.read("configuration.json").decode())
+        model = cls(conf, device=device)
         model.init()
         params = _read_tree(zf, "params")
         state = _read_tree(zf, "state")
         updater = (_read_flat(zf, "updater")
                    if load_updater and meta.get("has_updater") else None)
     # layers without params/state have no entries in the zip
-    for tree, template in ((params, model.params),
-                           (state, model.model_state)):
-        for layer, leaves in template.items():
-            if not leaves:
-                tree.setdefault(layer, {})
+    for layer, leaves in model.params.items():
+        if not leaves:
+            params.setdefault(layer, {})
+    missing = [f"{layer}/{k}" for layer, leaves in model.model_state.items()
+               for k in leaves if k not in state.get(layer, {})]
+    if missing:
+        raise KeyError(f"checkpoint missing state arrays: {missing}")
+    state = {layer: {k: state[layer][k] for k in leaves}
+             for layer, leaves in model.model_state.items()}
     model.set_params(
         {k: {kk: _from_numpy(a, "cpu", None) for kk, a in v.items()}
          for k, v in params.items()},
@@ -240,3 +262,16 @@ def restore_model(path: str, device: DeviceLike = None,
     model.iteration = int(meta.get("iteration", 0))
     model.epoch_count = int(meta.get("epoch", 0))
     return model
+
+
+def restore_model(path: str, device: DeviceLike = None,
+                  load_updater: bool = False):
+    """Restore a ComputationGraph or MultiLayerNetwork zip, by the class
+    its ``meta.json`` names (reference: ModelGuesser)."""
+    return _restore(path, None, device, load_updater)
+
+
+def restore_multi_layer_network(path: str, device: DeviceLike = None,
+                                load_updater: bool = False):
+    """reference: ModelSerializer.restoreMultiLayerNetwork."""
+    return _restore(path, "MultiLayerNetwork", device, load_updater)

@@ -1,6 +1,7 @@
-"""Output layer and global pooling.
+"""Output layers and global pooling.
 
-Analogs of the reference's ``OutputLayer`` and ``GlobalPoolingLayer``
+Analogs of the reference's ``OutputLayer``, ``RnnOutputLayer`` and
+``GlobalPoolingLayer``
 (nn/conf/layers/). An output layer is a dense projection plus a loss;
 models call ``compute_loss`` for training and ``apply`` for inference.
 (SOFTMAX, MCXENT/NLL) pairs take the loss on the logits
@@ -52,6 +53,19 @@ class OutputLayer(DenseLayer):
         if fused is not None:
             return fused
         return self.loss(labels, self.activation.apply(logits), ctx.mask)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class RnnOutputLayer(OutputLayer):
+    """Per-timestep output (reference: RnnOutputLayer). Input (N, T, F),
+    labels (N, T, n_out), mask (N, T); the loss is the mean over the
+    (unmasked) N·T steps."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps if isinstance(input_type, RecurrentType) \
+            else None
+        return RecurrentType(self.n_out, t)
 
 
 @register_serializable

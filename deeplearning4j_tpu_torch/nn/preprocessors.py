@@ -69,6 +69,9 @@ def infer_preprocessor(prev: InputType, layer) -> Preprocessor | None:
     if isinstance(prev, ConvolutionalFlatType) and isinstance(layer,
                                                               conv_like):
         return UnflattenToCnn(prev.height, prev.width, prev.channels)
-    if isinstance(prev, ConvolutionalType) and isinstance(layer, DenseLayer):
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+
+    if isinstance(prev, ConvolutionalType) and isinstance(
+            layer, DenseLayer) and not isinstance(layer, RnnOutputLayer):
         return CnnToFeedForward(prev.height, prev.width, prev.channels)
     return None

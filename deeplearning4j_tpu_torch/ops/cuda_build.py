@@ -4,7 +4,9 @@ Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, at first use, into ``build/``
 at the checkout's root (git-ignored), and loaded with ``ctypes``. A
 library may hold several kernels' entry points (``fused_c3_bwd.cu`` holds
-the merged 3×3 backward and its two split halves). The file
+the merged 3×3 backward and its two split halves) and helpers that size
+a kernel's scratch (``dl4j_tile_m``, ``dl4j_split_count``,
+``dl4j_lstm_bwd_row_tiles``), each bound where its library has it. The file
 name carries a hash of every source and of the flags, so a changed source
 is rebuilt and a stale library is never loaded. ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
@@ -41,11 +43,18 @@ SIGNATURES = {
     "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 11 + [_I] * 9 + [_P]),
     "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 9 + [_I] * 8 + [_P]),
     "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),
+    "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 5 + [_P]),
+    "lstm_bwd": ("dl4j_lstm_bwd", [_P] * 15 + [_I] * 5 + [_P]),
 }
 # kernel -> the csrc/<source>.cu whose library holds its entry point
 SOURCE_OF = {name: name for name in SIGNATURES}
 SOURCE_OF.update(fused_c3_bwd_in="fused_c3_bwd", fused_c3_bwd_w="fused_c3_bwd")
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
+
+# scratch-sizing helpers a library may export (int -> int)
+_HELPERS = {"dl4j_tile_m": [], "dl4j_split_count": [_I],
+            "dl4j_lstm_bwd_row_tiles": [_I, _I],
+            "dl4j_lstm_barrier_probe": [_I, _I, _I, _P]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -122,22 +131,34 @@ def kernel(name: str):
                     fn = getattr(lib, sym)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                lib.dl4j_tile_m.restype = ctypes.c_int
-                if hasattr(lib, "dl4j_split_count"):     # forward kernels
-                    lib.dl4j_split_count.argtypes = [ctypes.c_int]
-                    lib.dl4j_split_count.restype = ctypes.c_int
+                for sym, argtypes in _HELPERS.items():
+                    if hasattr(lib, sym):
+                        fn = getattr(lib, sym)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
                 _libs[source] = lib
     return getattr(lib, SIGNATURES[name][0])
 
 
+def helper(name: str, sym: str):
+    """The helper ``sym`` of kernel ``name``'s library (built and loaded
+    on first use)."""
+    kernel(name)
+    return getattr(_libs[SOURCE_OF[name]], sym)
+
+
 def tile_m(name: str) -> int:
     """Rows per output tile of kernel ``name`` (its partial-stats count)."""
-    kernel(name)
-    return int(_libs[SOURCE_OF[name]].dl4j_tile_m())
+    return int(helper(name, "dl4j_tile_m")())
 
 
 def split_count(name: str, k: int) -> int:
     """K slices kernel ``name`` runs for a reduction depth ``k`` (its
     workspace holds that many f32 output planes when it is above 1)."""
-    kernel(name)
-    return int(_libs[SOURCE_OF[name]].dl4j_split_count(int(k)))
+    return int(helper(name, "dl4j_split_count")(int(k)))
+
+
+def lstm_bwd_row_tiles(n: int, h: int) -> int:
+    """Row tiles of ``lstm_bwd``'s plan at batch ``n`` and hidden ``h``
+    (its workspace holds that many (H, 4H) f32 dWh planes)."""
+    return int(helper("lstm_bwd", "dl4j_lstm_bwd_row_tiles")(int(n), int(h)))

@@ -25,6 +25,7 @@ from deeplearning4j_tpu_torch.optimize.updaters import (
     NoOp,
     Tree,
     Updater,
+    chain,
     tree_map,
 )
 
@@ -72,10 +73,10 @@ def build_optimizer(
 ) -> GradientTransformation:
     """The gradient transformation of a model: layers with
     ``updater=None`` use the global updater; frozen layers get NoOp
-    (reference: FrozenLayer wraps the layer with a NoOp updater)."""
-    if grad_norm is not None and grad_norm.kind != "none":
-        raise NotImplementedError(
-            f"gradient normalization {grad_norm.kind!r} is not ported yet")
+    (reference: FrozenLayer wraps the layer with a NoOp updater); a
+    gradient normalization is chained before it (``clip_value`` is
+    ported, other kinds raise ``NotImplementedError``)."""
+    clip = None if grad_norm is None else grad_norm.to_transform()
     groups = {"__global__": global_updater.to_transform()}
     labels: Dict[str, str] = {}
     for name in layer_names:
@@ -88,8 +89,11 @@ def build_optimizer(
         else:
             labels[name] = "__global__"
     if set(labels.values()) <= {"__global__"}:
-        return groups["__global__"]
-    return multi_transform(groups, labels)
+        tx = groups["__global__"]
+    else:
+        tx = multi_transform(groups, labels)
+    # the normalization runs before the updater, as optax.chain(clip, tx)
+    return tx if clip is None else chain(clip, tx)
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:

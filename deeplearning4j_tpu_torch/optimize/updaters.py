@@ -5,13 +5,16 @@ The serializable config dataclasses of the JAX package's updater family
 Nesterovs, RmsProp, AdaGrad, ...), with the same names and fields, so a
 ``configuration.json`` written by either package loads in the other.
 
-The update math of ``Sgd``, ``Nesterovs`` and ``NoOp`` is ported as
-functional updates on dicts of tensors with optax's semantics
+The update math of ``Sgd``, ``Nesterovs``, ``Adam`` and ``NoOp``, and the
+``clip_value`` gradient normalization, are ported as functional updates
+on dicts of tensors with optax's semantics
 (``to_transform``): ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, new_state)``, applied as
 ``p + u``. The state nests dicts keyed by optax's pytree path parts
 (``#0``, ``.trace``), so it flattens to the same checkpoint names as the
-JAX package's ``updater/<path>.npy``. The other updaters' math and
+JAX package's ``updater/<path>.npy`` (``chain`` keys each transform's
+state by its position, ``#i``, as ``optax.chain``'s tuple does). The
+other updaters' math, the other normalization kinds and
 learning-rate schedules (``optimize/schedules.py``) are not ported yet:
 ``learning_rate`` is a float here.
 """
@@ -47,6 +50,21 @@ def _scale(step: float, grads: Tree) -> Tree:
     return tree_map(lambda g: step * g, grads)
 
 
+def chain(*txs: GradientTransformation) -> GradientTransformation:
+    """``optax.chain``: each transform in turn on the previous one's
+    updates; the state keys each transform's state by its position."""
+    def init(params):
+        return {f"#{i}": tx.init(params) for i, tx in enumerate(txs)}
+
+    def update(grads, state, params=None):
+        new_state = {}
+        for i, tx in enumerate(txs):
+            grads, new_state[f"#{i}"] = tx.update(grads, state[f"#{i}"],
+                                                  params)
+        return grads, new_state
+    return GradientTransformation(init, update)
+
+
 def _lr(updater) -> float:
     lr = updater.learning_rate
     if not isinstance(lr, (int, float)):
@@ -62,7 +80,7 @@ class Updater:
     def to_transform(self) -> GradientTransformation:
         raise NotImplementedError(
             f"{type(self).__name__}: the update math is not ported yet "
-            "(Sgd, Nesterovs and NoOp are)")
+            "(Sgd, Nesterovs, Adam and NoOp are)")
 
     @property
     def has_state(self) -> bool:
@@ -116,6 +134,41 @@ class Adam(Updater):
     beta1: float = 0.9
     beta2: float = 0.999
     epsilon: float = 1e-8
+
+    def to_transform(self):
+        """``optax.adam(lr, b1, b2, eps)``: mu ← (1-b1)·g + b1·mu,
+        nu ← (1-b2)·g² + b2·nu, count ← count + 1 (int32), then
+        u = -lr · m̂ / (√v̂ + eps) with m̂ = mu / (1 - b1^count) and
+        v̂ = nu / (1 - b2^count), the powers taken in f32. The state is
+        optax's ``#0/.count``, ``#0/.mu``, ``#0/.nu`` (``scale_by_adam``
+        first in the chain, the learning-rate scale stateless)."""
+        lr, b1, b2 = _lr(self), float(self.beta1), float(self.beta2)
+        eps = float(self.epsilon)
+
+        def init(params):
+            leaf = next((v for lp in params.values() for v in lp.values()),
+                        None)
+            dev = None if leaf is None else leaf.device
+            return {"#0": {
+                ".count": torch.zeros((), dtype=torch.int32, device=dev),
+                ".mu": tree_map(torch.zeros_like, params),
+                ".nu": tree_map(torch.zeros_like, params)}}
+
+        def update(grads, state, params=None):
+            st = state["#0"]
+            mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads,
+                          st[".mu"])
+            nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                          st[".nu"])
+            count = st[".count"] + 1
+            cf = count.to(torch.float32)
+            bc1 = 1 - torch.pow(torch.tensor(b1, device=cf.device), cf)
+            bc2 = 1 - torch.pow(torch.tensor(b2, device=cf.device), cf)
+            updates = tree_map(
+                lambda m, v: -lr * ((m / bc1.to(m.dtype)) / (
+                    torch.sqrt(v / bc2.to(v.dtype)) + eps)), mu, nu)
+            return updates, {"#0": {".count": count, ".mu": mu, ".nu": nu}}
+        return GradientTransformation(init, update)
 
 
 @register_serializable
@@ -201,3 +254,20 @@ class GradientNormalizationConfig:
     ``GradientNormalization`` enum (nn/conf/GradientNormalization.java)."""
     kind: str = "none"  # none|renormalize_l2|clip_value|clip_l2_per_layer|clip_l2_global
     threshold: float = 1.0
+
+    def to_transform(self):
+        """None for ``none``; ``optax.clip(threshold)`` for ``clip_value``
+        (each element clamped to ±threshold, no state). The other kinds
+        are not ported yet."""
+        if self.kind == "none":
+            return None
+        if self.kind == "clip_value":
+            thr = float(self.threshold)
+            return GradientTransformation(
+                lambda params: {},
+                lambda grads, state, params=None: (
+                    tree_map(lambda g: torch.clamp(g, -thr, thr), grads),
+                    state))
+        raise NotImplementedError(
+            f"gradient normalization {self.kind!r} is not ported yet "
+            "(clip_value is)")

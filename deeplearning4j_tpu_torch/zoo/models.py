@@ -1,22 +1,33 @@
-"""Model zoo: ResNet50.
+"""Model zoo: ResNet50 and TextGenerationLSTM.
 
-The JAX package's ``zoo/models.py`` ResNet50 (reference:
-deeplearning4j-zoo/.../model/ResNet50.java) with the same fields and the
-same graph (node names, layer configs, topology), so configurations and
-checkpoints carry across. The port runs the fused-block form
-(``fused_blocks=True``, ``fused_impl="pallas"``): each bottleneck is one
-``FusedBottleneckBlock`` whose convs go through the hand-written CUDA
-kernels. The per-layer (unfused) graph and the other zoo models come with
-later slices.
+The JAX package's ``zoo/models.py`` entries (reference:
+deeplearning4j-zoo/.../model/) with the same fields and the same
+configurations (layer names, layer configs, topology), so configurations
+and checkpoints carry across:
+
+- ``ResNet50`` in its fused-block form (``fused_blocks=True``,
+  ``fused_impl="pallas"``): each bottleneck is one
+  ``FusedBottleneckBlock`` whose convs go through the conv kernels;
+- ``TextGenerationLSTM``, the char-level 2×LSTM(256) whose recurrences go
+  through the fused LSTM kernels, with ``init_pretrained`` restoring the
+  committed self-trained weights.
+
+The per-layer (unfused) ResNet50 and the other zoo models come with later
+slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 from deeplearning4j_tpu_torch.models.computation_graph import ComputationGraph
+from deeplearning4j_tpu_torch.models.multi_layer_network import \
+    MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.convolution import (
@@ -32,11 +43,14 @@ from deeplearning4j_tpu_torch.nn.layers.fused import FusedBottleneckBlock
 from deeplearning4j_tpu_torch.nn.layers.normalization import \
     BatchNormalization
 from deeplearning4j_tpu_torch.nn.layers.output import (GlobalPoolingLayer,
-                                                       OutputLayer)
+                                                       OutputLayer,
+                                                       RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.ops.losses import LossFunction
-from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs, Updater
+from deeplearning4j_tpu_torch.optimize.updaters import (Adam, Nesterovs,
+                                                       Updater)
 from deeplearning4j_tpu_torch.utils.device import DeviceLike
 
 # (filters, blocks, first stride) of the four bottleneck stages
@@ -139,3 +153,68 @@ class ResNet50:
 
     def init(self, device: DeviceLike = None) -> ComputationGraph:
         return ComputationGraph(self.conf(), device=device).init()
+
+
+# the committed zoo artifacts, read as data by their paths in the repository
+WEIGHTS_DIR = (Path(__file__).resolve().parents[2] / "deeplearning4j_tpu" /
+               "zoo" / "weights")
+
+
+def adler32(path) -> int:
+    v = 1
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            v = zlib.adler32(chunk, v)
+    return v
+
+
+@dataclasses.dataclass
+class TextGenerationLSTM:
+    """reference: model/TextGenerationLSTM.java — char-level 2×LSTM(256)
+    under a per-timestep softmax, Adam(2e-3) with value clipping at 5.
+    ``PRETRAINED`` is the committed self-trained char-level checkpoint
+    (corpus ``tests/resources/pretrained/corpus.txt``, vocab
+    ``textgen_vocab.json`` beside it: char → input index, 0 = unknown)."""
+    PRETRAINED = {"resource": "textgen_lstm.zip", "checksum": 3656007127}
+    vocab_size: int = 77
+    timesteps: int = 60
+    lstm_units: int = 256
+    seed: int = 123
+
+    def conf(self):
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(Adam(2e-3))
+                .gradient_normalization("clip_value", 5.0)
+                .list()
+                .layer(LSTM(n_out=self.lstm_units,
+                            activation=Activation.TANH))
+                .layer(LSTM(n_out=self.lstm_units,
+                            activation=Activation.TANH))
+                .layer(RnnOutputLayer(n_out=self.vocab_size,
+                                      loss=LossFunction.MCXENT,
+                                      activation=Activation.SOFTMAX))
+                .set_input_type(InputType.recurrent(self.vocab_size,
+                                                    self.timesteps))
+                .build())
+
+    def init(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        return MultiLayerNetwork(self.conf(), device=device).init()
+
+    def init_pretrained(self, path: Optional[str] = None,
+                        device: DeviceLike = None) -> MultiLayerNetwork:
+        """Restore the committed checkpoint after checking its Adler32
+        checksum (reference: ZooModel.initPretrained:51; the JAX package's
+        resource path), or the zip at ``path``. Nothing is downloaded."""
+        from deeplearning4j_tpu_torch.models.serialization import \
+            restore_multi_layer_network
+        if path is None:
+            spec = self.PRETRAINED
+            path = WEIGHTS_DIR / spec["resource"]
+            if not path.exists():
+                raise FileNotFoundError(f"pretrained resource missing: {path}")
+            v = adler32(path)
+            if v != spec["checksum"]:
+                raise IOError(f"pretrained resource {spec['resource']}: "
+                              f"Adler32 {v} != expected {spec['checksum']}")
+        return restore_multi_layer_network(str(path), device=device)

@@ -210,3 +210,84 @@ def test_train_steps_on_the_card_launch_every_kernel(card):
     assert m.iteration == 1 and np.isfinite(m.score())
     assert all(v.dtype == torch.float32 and v.is_cuda
                for lp in m.params.values() for v in lp.values())
+
+
+# ---- the fused LSTM kernels (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu) --------
+# Kernel vs plain version on the card, relative to the largest reference
+# magnitude: float32 1e-4 (the same f32 products summed in other orders,
+# carried through the recurrence); bfloat16 outputs 3e-2 (a sum-order
+# difference can flip one bf16 rounding of h, about 4e-3 at |h| < 1,
+# and the flipped value feeds every later tick).
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _lstm_inputs(card, t, n, h, dtype, masked, seed=0):
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    g = torch.Generator(device=card).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    zx = r(t, n, 4 * h).to(dtype)
+    wh = (r(h, 4 * h) / h ** 0.5).to(dtype)
+    h0, c0 = r(n, h).to(dtype), r(n, h).to(dtype)
+    mask3 = ((torch.rand(t, n, 1, generator=g, device=card) > 0.2)
+             .to(dtype) if masked else None)
+    return fl, zx, h0, c0, wh, mask3
+
+
+def _lstm_close(got, ref, dtype):
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = LSTM_TOL[dtype] * max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t,n,h", [(7, 4, 8), (5, 3, 40), (9, 300, 48),
+                                   (60, 128, 256)])
+def test_lstm_fwd_matches_plain(card, t, n, h, masked, dtype):
+    fl, zx, h0, c0, wh, mask3 = _lstm_inputs(card, t, n, h, dtype, masked)
+    before = fl.LAUNCHES["lstm_fwd"]
+    got = fl.lstm_fwd(zx, h0, c0, wh, mask3)
+    assert fl.LAUNCHES["lstm_fwd"] == before + 1
+    _lstm_close(got, fl.lstm_fwd_reference(zx, h0, c0, wh, mask3), dtype)
+    again = fl.lstm_fwd(zx, h0, c0, wh, mask3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t,n,h", [(7, 4, 8), (5, 3, 40), (9, 300, 48),
+                                   (60, 128, 256)])
+def test_lstm_bwd_matches_plain(card, t, n, h, masked, dtype):
+    fl, zx, h0, c0, wh, mask3 = _lstm_inputs(card, t, n, h, dtype, masked)
+    ys, gates, tcs, ccs, _, _ = fl.lstm_fwd_reference(zx, h0, c0, wh, mask3)
+    g = torch.Generator(device=card).manual_seed(1)
+    dys = torch.randn(ys.shape, generator=g, device=card).to(dtype)
+    dhT, dcT = (torch.randn(h0.shape, generator=g, device=card).to(dtype)
+                for _ in range(2))
+    hprev = torch.cat([h0[None], ys[:-1]])
+    cprev = torch.cat([c0[None], ccs[:-1]])
+    args = (dys, dhT, dcT, gates, tcs, cprev, hprev, mask3, wh)
+    got = fl.lstm_bwd(*args)
+    _lstm_close(got, fl.lstm_bwd_reference(*args), dtype)
+    again = fl.lstm_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_lstm_model_on_the_card_launches_both_kernels(card):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    m = TextGenerationLSTM(vocab_size=11, timesteps=9, lstm_units=32).init()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 11, (6, 10))
+    eye = np.eye(11, dtype=np.float32)
+    fl.reset_launch_counts()
+    probs = m.output(eye[ids[:, :9]])
+    assert fl.LAUNCHES == {"lstm_fwd": 2, "lstm_bwd": 0}
+    _, carries = m.rnn_time_step(eye[ids[:, 0]])
+    assert fl.LAUNCHES == {"lstm_fwd": 4, "lstm_bwd": 0}
+    m.fit(DataSet(eye[ids[:, :9]], eye[ids[:, 1:]]))
+    assert fl.LAUNCHES == {"lstm_fwd": 6, "lstm_bwd": 2}
+    assert probs.is_cuda and probs.shape == (6, 9, 11)
+    assert np.isfinite(m.score()) and set(carries) == {"layer_0", "layer_1"}

@@ -30,7 +30,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "print(bad)\n"
             "need = {'deeplearning4j_tpu_torch.' + m for m in ("
             "'optimize.solver', 'datasets.dataset', 'models.base', "
-            "'ops.losses', 'ops.fused_conv')}\n"
+            "'ops.losses', 'ops.fused_conv', 'ops.fused_lstm', "
+            "'nn.layers.recurrent', 'models.multi_layer_network', "
+            "'generation.decode')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -86,6 +88,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_lstm_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.serialization import (
+        restore_model, restore_multi_layer_network, save_model)
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    tg = TextGenerationLSTM(vocab_size=5, timesteps=4, lstm_units=3)
+    path = str(tmp_path / "lstm.zip")
+    save_model(tg.init(device="cpu"), path, save_updater=True)
+    _no_cuda(monkeypatch)
+    for make in (lambda: MultiLayerNetwork(tg.conf()), tg.init,
+                 TextGenerationLSTM().init_pretrained,
+                 lambda: restore_model(path),
+                 lambda: restore_multi_layer_network(path,
+                                                     load_updater=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert restore_multi_layer_network(path, device="cpu").device.type == \
+        "cpu"
+    assert TextGenerationLSTM().init_pretrained(device="cpu").device.type \
+        == "cpu"
+
+
+def test_textgen_pretrained_checksum_enforced(monkeypatch):
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    monkeypatch.setattr(TextGenerationLSTM, "PRETRAINED", dict(
+        TextGenerationLSTM.PRETRAINED, checksum=1234))
+    with pytest.raises(IOError, match="Adler32"):
+        TextGenerationLSTM().init_pretrained(device="cpu")
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     x = torch.empty((1, 2, 2, 4), device="meta")
     w = torch.empty((4, 4), device="meta")
@@ -102,6 +136,16 @@ def test_wrappers_never_fall_back_off_the_cpu():
                      (fc.fused_c3_bwd_w, (x, x, x, d, s, s))):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(*args)
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    zx = torch.empty((3, 2, 16), device="meta")
+    hs = torch.empty((2, 4), device="meta")
+    seq = torch.empty((3, 2, 4), device="meta")
+    wh = torch.empty((4, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fl.lstm_fwd(zx, hs, hs, wh)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fl.lstm_bwd(seq, hs, hs, zx, seq, seq, seq, None, wh)
+    assert fl.LAUNCHES == {"lstm_fwd": 0, "lstm_bwd": 0}
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
@@ -122,9 +166,9 @@ def test_library_names_follow_the_sources():
     assert a.name.startswith("libfused_mm_")
     assert set(cuda_build.SIGNATURES) == {
         "fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
-        "fused_c3_bwd_in", "fused_c3_bwd_w"}
+        "fused_c3_bwd_in", "fused_c3_bwd_w", "lstm_fwd", "lstm_bwd"}
     assert cuda_build.SOURCES == ("fused_mm", "fused_c3", "fused_mm_bwd",
-                                  "fused_c3_bwd")
+                                  "fused_c3_bwd", "lstm_fwd", "lstm_bwd")
     assert cuda_build.SOURCE_OF["fused_c3_bwd_w"] == "fused_c3_bwd"
     for src in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{src}.cu").exists()

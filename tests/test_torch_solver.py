@@ -77,6 +77,8 @@ def _assert_same_state(got, want):
     ("Sgd", dict(learning_rate=0.05)),
     ("Nesterovs", dict(learning_rate=1e-2, momentum=0.9)),
     ("Nesterovs", dict(learning_rate=0.3, momentum=0.5)),
+    ("Adam", dict(learning_rate=2e-3)),
+    ("Adam", dict(learning_rate=0.1, beta1=0.8, beta2=0.99, epsilon=1e-6)),
     ("NoOp", {})])
 def test_updater_matches_optax_over_three_steps(name, kw):
     rng = np.random.default_rng(0)
@@ -92,11 +94,32 @@ def test_updater_matches_optax_over_three_steps(name, kw):
 
 def test_unported_updaters_and_clipping_raise():
     with pytest.raises(NotImplementedError):
-        tup.Adam().to_transform()
+        tup.AdamW().to_transform()
     with pytest.raises(NotImplementedError):
         tsolver.build_optimizer(("a",), {}, {}, tup.Sgd(0.1),
                                 tup.GradientNormalizationConfig(
-                                    "clip_value", 1.0))
+                                    "clip_l2_global", 1.0))
+
+
+@pytest.mark.parametrize("threshold", [0.5, 5.0])
+def test_clip_then_adam_matches_optax_chain(threshold):
+    """build_optimizer chains clip_value before the updater, as the JAX
+    package's optax.chain(clip, adam) does: same parameters and the same
+    state paths (#1/#0/.count, .mu, .nu) after three steps."""
+    rng = np.random.default_rng(1)
+    params = _tree(rng)
+    grads = [_tree(rng, scale=3.0) for _ in range(3)]
+    names = tuple(SHAPES)
+    gn = dict(kind="clip_value", threshold=threshold)
+    want_p, want_s = _run_optax(jsolver.build_optimizer(
+        names, {}, {}, jup.Adam(2e-3), jup.GradientNormalizationConfig(**gn)),
+        params, grads)
+    got_p, got_s = _run_port(tsolver.build_optimizer(
+        names, {}, {}, tup.Adam(2e-3), tup.GradientNormalizationConfig(**gn)),
+        params, grads)
+    _assert_close(got_p, want_p)
+    _assert_same_state(got_s, want_s)
+    assert "#1/#0/.count" in flatten_paths(got_s)
 
 
 def test_build_optimizer_with_override_and_frozen_layer_matches_jax():
