@@ -26,7 +26,15 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
    bf16, masked and unmasked: against their plain versions, bitwise on a
    second run, timed beside their bound, the latency floor (T × one grid
-   barrier, measured) and cuDNN's LSTM layer (unmasked).
+   barrier, measured) and cuDNN's LSTM layer (unmasked). Then
+   ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` at the BERT-base
+   slice shape (N 64, T 128, H 12, Dh 64; f32 and bf16; unmasked, a ragged
+   key mask, causal), the long-sequence geometry (T 1024/2048/4096 at N
+   16/8/4, bf16, causal or not) and one edge shape (T 37, Dh 16, f32,
+   causal, with fully masked rows), on strided views of one packed
+   projection: against their plain versions, bitwise on a second run,
+   timed beside their bound, the plain versions and
+   ``F.scaled_dot_product_attention`` (whose backend is reported).
 4. slice — the full-width ResNet50 (64×64×3, 200 classes, s2d stem,
    fused blocks, bf16) built on the card from a seed, served through
    ``ServingEngine`` to four client threads; every answer is held against
@@ -53,6 +61,19 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    2 ``lstm_fwd`` + 2 ``lstm_bwd`` launches per step, the loss falls, and
    one f32 step matches the plain path (loss, gradients); step ms, chars/s
    and peak memory.
+8. bert_serve — the BERT-base-geometry stack (embedding 30522 → 768,
+   learned positions, 12 pre-LN blocks of width 768 with 12 heads,
+   ``RnnOutputLayer(30522)``; benchmarks/baseline_suite.py:159-213) built
+   on the card from seed 123 in bf16: ``output()`` on 64 × 128 integer
+   ids and on a ragged batch with a features mask, exactly 12
+   ``flash_fwd`` launches per call; the f32 stack through the kernels
+   against the plain path (probabilities); tokens/s, ms per call, peak
+   memory.
+9. bert_train — the same stack, Adam(1e-4), bf16, one fixed random batch
+   of 32 × 128, K = 4 steps per call, 24 steps: exactly K × 12 launches of
+   each flash kernel per call, the loss starts near ln 30522 and falls, one
+   f32 step matches the plain path (loss, gradients); step ms, tokens/s,
+   peak memory.
 
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
@@ -109,13 +130,19 @@ SOURCES = {"fused_mm": _CSRC + "fused_mm.cu",
            "fused_c3_bwd_in": _CSRC + "fused_c3_bwd.cu",
            "fused_c3_bwd_w": _CSRC + "fused_c3_bwd.cu",
            "lstm_fwd": _CSRC + "lstm_fwd.cu",
-           "lstm_bwd": _CSRC + "lstm_bwd.cu"}
+           "lstm_bwd": _CSRC + "lstm_bwd.cu",
+           "flash_fwd": _CSRC + "flash_fwd.cu",
+           "flash_bwd_dkv": _CSRC + "flash_bwd.cu",
+           "flash_bwd_dq": _CSRC + "flash_bwd.cu"}
 _TPU = "deeplearning4j_tpu/ops/fused_conv.py:"
 REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "fused_mm_bwd": _TPU + "230", "fused_c3_bwd": _TPU + "379",
             "fused_c3_bwd_in": _TPU + "317", "fused_c3_bwd_w": _TPU + "348",
             "lstm_fwd": "deeplearning4j_tpu/ops/pallas_lstm.py:109",
-            "lstm_bwd": "deeplearning4j_tpu/ops/pallas_lstm.py:206"}
+            "lstm_bwd": "deeplearning4j_tpu/ops/pallas_lstm.py:206",
+            "flash_fwd": "deeplearning4j_tpu/ops/pallas_kernels.py:40",
+            "flash_bwd_dkv": "deeplearning4j_tpu/ops/pallas_kernels.py:180",
+            "flash_bwd_dq": "deeplearning4j_tpu/ops/pallas_kernels.py:230"}
 FORWARD = ("fused_mm", "fused_c3")
 BACKWARD = ("fused_mm_bwd", "fused_c3_bwd", "fused_c3_bwd_in",
             "fused_c3_bwd_w")
@@ -146,6 +173,36 @@ LSTM_SERVE_WINDOWS, GEN_PROMPT, GEN_CHARS = 128, 20, 200
 # them as in the ResNet check above; the loss within LOSS_RTOL)
 LSTM_TRAIN_BATCH, LSTM_TRAIN_K, LSTM_TRAIN_CALLS = 128, 4, 6
 LSTM_GRAD_RTOL = 1e-3
+ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# the flash kernels' shapes (N, T, H, Dh): the BERT-base slice at the
+# serving batch (and, further down, at the train batch), the long-sequence
+# geometry of benchmarks/attn_crossover.py:55-56 ((N, T), H 12, Dh 64) and
+# one edge
+ATTN_SLICE = (64, 128, 12, 64)
+ATTN_LONG = ((16, 1024), (8, 2048), (4, 4096))
+ATTN_EDGE = (2, 37, 3, 16)
+# flash kernel vs plain version, |diff| relative to max(1, max|ref|):
+# f32 2e-5 (tests/test_pallas_kernels.py's bound: the same f32 products
+# summed in another order); bf16 2^-7, one bf16 ulp at the largest
+# magnitude (the same f32 values, then one rounding that a last-bit
+# difference can flip); lse (f32 in both) 2e-5
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+# the BERT-base geometry (benchmarks/baseline_suite.py:159-213, widths of
+# modelimport/bert.py:27-28): 12 pre-LN blocks of width 768 with 12 heads,
+# vocabulary 30522, sequence 128; random weights from seed 123
+BERT = dict(vocab=30522, width=768, heads=12, blocks=12, seq=128)
+BERT_SEED = 123
+BERT_SERVE_BATCH = 64
+BERT_TRAIN_BATCH, BERT_TRAIN_K, BERT_TRAIN_CALLS = 32, 4, 6   # 24 steps
+# the f32 stack through the kernels vs the plain versions: each position's
+# probabilities within BERT_PROB_TOL of that position's largest probability
+# (an absolute limit would sit above the mean probability 1/30522, so it is
+# relative to the row; 5e-5 is about 12x the 4.04e-06 measured on an H100,
+# a forward that ignores the key mask reads 0.958); one train step's loss
+# within LOSS_RTOL and each parameter's gradient within relative L2 1e-4
+# (the same f32 products summed in other orders through 12 blocks; no ReLU
+# masks or max-pool choices to amplify them, unlike the ResNet check)
+BERT_PROB_TOL, BERT_GRAD_RTOL = 5e-5, 1e-4
 
 
 def log(msg=""):
@@ -668,14 +725,15 @@ def grad_errors(got, ref):
     """Relative L2 errors of gradient dicts: per parameter (worst, its
     name, median) and over all parameters at once."""
     import numpy as np
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
     errs, num, den = {}, 0.0, 0.0
-    for ln, lp in ref.items():
-        for key, r in lp.items():
-            d = (got[ln][key] - r).double()
-            num += float((d * d).sum())
-            den += float((r.double() ** 2).sum())
-            errs[f"{ln}/{key}"] = (d.norm() / r.double().norm().clamp_min(
-                1e-30)).item()
+    got = flatten_paths(got)
+    for path, r in flatten_paths(ref).items():
+        d = (got[path] - r).double()
+        num += float((d * d).sum())
+        den += float((r.double() ** 2).sum())
+        errs[path] = (d.norm() / r.double().norm().clamp_min(
+            1e-30)).item()
     name = max(errs, key=errs.get)
     return {"worst": errs[name], "name": name,
             "median": float(np.median(list(errs.values()))),
@@ -1156,10 +1214,414 @@ def phase_lstm_train(report, card, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the attention slice (TPU kernels 9-11): kernels, serving, training
+# ---------------------------------------------------------------------------
+
+def plain_flash():
+    """The three flash wrappers patched to their plain versions."""
+    import contextlib
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    stack = contextlib.ExitStack()
+    for name in ATTN_KERNELS:
+        stack.enter_context(mock.patch.object(
+            fa, name, getattr(fa, name + "_reference")))
+    return stack
+
+
+def attn_inputs(n, t, h, dh, dtype, mode, gen):
+    """q, k, v as the strided views of one packed (N, T, H, 3, Dh)
+    projection (as SelfAttentionLayer cuts them), dO, the key mask and the
+    causal flag of one ``mode``: "none", "masked" (ragged key lengths),
+    "causal", or "edge" (causal, one fully masked batch row, and the first
+    key of another masked so its first query sees no key)."""
+    import torch
+    dt = getattr(torch, dtype)
+    qkv = torch.randn((n, t, h, 3, dh), generator=gen, device="cuda").to(dt)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    do = torch.randn((n, t, h, dh), generator=gen, device="cuda").to(dt)
+    mask = None
+    if mode in ("masked", "edge"):
+        lengths = torch.randint(1, t + 1, (n,), generator=gen,
+                                device="cuda")
+        mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+                ).float()
+        if mode == "edge":
+            mask[0] = 0.0
+            mask[1, 0] = 0.0
+    return q, k, v, do, mask, mode in ("causal", "edge")
+
+
+def attn_cost(kernel, q, mask, causal):
+    """(flops, bytes) of one call: 4, 8 or 6 · H · Dh FLOP per live
+    (query, key) pair (a valid key, and not after the query when causal),
+    counted from this call's mask; q, k, v (and dO) read once, the mask,
+    lse (and delta) read or written once, the outputs written once."""
+    import torch
+    n, t, h, dh = q.shape
+    isz = q.element_size()
+    valid = (torch.ones((n, t), device=q.device) if mask is None
+             else (mask > 0).float())
+    if causal:
+        live = float((valid * (t - torch.arange(t, device=q.device))).sum())
+    else:
+        live = float(t * valid.sum())
+    elem, rows = n * t * h * dh, 4 * n * h * t
+    mbytes = 0 if mask is None else 4 * n * t
+    flops = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}[kernel] \
+        * h * dh * live
+    nbytes = {"flash_fwd": isz * 4 * elem + rows,
+              "flash_bwd_dkv": isz * 6 * elem + 2 * rows,
+              "flash_bwd_dq": isz * 5 * elem + 2 * rows}[kernel]
+    return flops, nbytes + mbytes
+
+
+def sdpa_backend(fn):
+    """The name of the longest device kernel of one call of ``fn``: which
+    of F.scaled_dot_product_attention's backends ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "device_time_total", 0.0), e.key)
+            for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return max(rows)[1][:80] if rows else "not seen by the profiler"
+
+
+def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
+    """Rows of the three flash kernels at one shape: against their plain
+    versions, bitwise on a second run, timed beside the bound, the plain
+    version and F.scaled_dot_product_attention (forward; its autograd
+    backward, which computes dq, dk and dv together, for both backward
+    rows)."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, mask, causal = attn_inputs(n, t, h, dh, dtype, mode, gen)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, mask, causal)
+    delta = fa.attention_delta(do, ref_out)
+    bargs = (q, k, v, mask, do, ref_lse, delta, causal)
+    runs = {"flash_fwd": (q, k, v, mask, causal), "flash_bwd_dkv": bargs,
+            "flash_bwd_dq": bargs}
+
+    # the library yardstick on (N, H, T, Dh) views of the same tensors
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    am = None
+    if mask is not None:
+        am = (mask > 0)[:, None, None, :]
+        if causal:
+            am = am & torch.ones((t, t), dtype=torch.bool,
+                                 device="cuda").tril()
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, attn_mask=am, is_causal=causal and am is None)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+    og = sdpa(qg, kg, vg)
+    lib_bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), doh,
+                                          retain_graph=True)
+    lib = {"flash_fwd": lambda: sdpa(qh, kh, vh),
+           "flash_bwd_dkv": lib_bwd, "flash_bwd_dq": lib_bwd}
+    long = t >= 1024
+    iters, plain_iters = (5, 2) if long else (20, 3)
+    rows = []
+    for name, args in runs.items():
+        kern = lambda: getattr(fa, name)(*args)
+        plain = lambda: getattr(fa, name + "_reference")(*args)
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if name == "flash_bwd_dq":
+            got, again, ref = (got,), (again,), (ref,)
+        errs = [(a.float() - r.float()).abs().max().item() /
+                max(1.0, r.float().abs().max().item())
+                for a, r in zip(got, ref)]
+        tol = [2e-5 if name == "flash_fwd" and i == 1 else ATTN_TOL[dtype]
+               for i in range(len(errs))]          # lse is f32
+        row = {"kernel": name, "where": where, "dtype": dtype, "mode": mode,
+               "shape": [n, t, h, dh], "max_abs_err": max(errs),
+               "ok": all(e <= b for e, b in zip(errs, tol)),
+               "bitwise_repeat": all(torch.equal(a, b)
+                                     for a, b in zip(got, again)),
+               "ms": cuda_time(kern, iters=iters, warmup=2),
+               "plain_ms": cuda_time(plain, iters=plain_iters, warmup=1),
+               "library_ms": cuda_time(lib[name], iters=iters, warmup=2)}
+        row["bound_ms"], row["bound_by"] = bound(
+            *attn_cost(name, q, mask, causal), dtype)
+        rows.append(row)
+    rows[0]["sdpa_backend"] = sdpa_backend(lib["flash_fwd"])
+    rows[1]["sdpa_backend"] = rows[2]["sdpa_backend"] = sdpa_backend(lib_bwd)
+    return rows
+
+
+def phase_attn_kernels(gen):
+    """The flash kernels at the BERT slice shape (f32 and bf16; unmasked,
+    ragged key mask, causal), the long-sequence geometry (bf16, causal or
+    not), one edge shape and bert_train's shape."""
+    shapes = [("slice", ATTN_SLICE, dtype, mode)
+              for dtype in ("float32", "bfloat16")
+              for mode in ("none", "masked", "causal")]
+    shapes += [("long", (n, t, 12, 64), "bfloat16", mode)
+               for n, t in ATTN_LONG for mode in ("none", "causal")]
+    shapes.append(("edge", ATTN_EDGE, "float32", "edge"))
+    # bert_train's calls: bf16, unmasked, at the train batch
+    shapes.append(("train", (BERT_TRAIN_BATCH,) + ATTN_SLICE[1:], "bfloat16",
+                   "none"))
+    rows = []
+    for where, (n, t, h, dh), dtype, mode in shapes:
+        for r in check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
+            rows.append(r)
+            log(f"  {r['kernel']:15s} {dtype:8s} N,T,H,Dh={n},{t},{h},{dh} "
+                f"{mode:6s} err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
+                f"plain={r['plain_ms']:.4f} sdpa={r['library_ms']:.4f} "
+                f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"[{r['sdpa_backend']}]"
+                f"{'' if r['ok'] else '  <-- DISAGREES'}"
+                f"{'' if r['bitwise_repeat'] else '  <-- NOT BITWISE'}")
+    return rows
+
+
+def _attn_summary(name, rows):
+    """One flash kernel's line: per call at the shape its main path gives
+    it, bf16 and unmasked: the served full batch for flash_fwd, the train
+    batch for the backward kernels, which only bert_train runs; the error
+    is the largest over every call, relative to max(1, max|ref|)."""
+    where = "slice" if name == "flash_fwd" else "train"
+    r = next(r for r in rows if r["kernel"] == name and r["where"] == where
+             and r["dtype"] == "bfloat16" and r["mode"] == "none")
+    out = {"name": name, "route": "cuda", "source": SOURCES[name],
+           "replaces": REPLACES[name],
+           "max_abs_err": max(x["max_abs_err"] for x in rows
+                              if x["kernel"] == name)}
+    out.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")})
+    return out
+
+
+def bert_model(compute_dtype, seed=BERT_SEED, device=None):
+    """The BERT-base-geometry stack of benchmarks/baseline_suite.py:159-213
+    (bert_train), built by the port on ``device`` (the card by default)
+    from ``seed``."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        LearnedPositionalEmbedding, TransformerEncoderBlock)
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import \
+        EmbeddingSequenceLayer
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    c = BERT
+    b = (NeuralNetConfiguration.Builder().seed(seed).updater(Adam(1e-4))
+         .compute_dtype(compute_dtype).list()
+         .layer(EmbeddingSequenceLayer(n_in=c["vocab"], n_out=c["width"]))
+         .layer(LearnedPositionalEmbedding(max_len=c["seq"])))
+    for _ in range(c["blocks"]):
+        b = b.layer(TransformerEncoderBlock(n_out=c["width"],
+                                            n_heads=c["heads"], ffn_mult=4))
+    conf = (b.layer(RnnOutputLayer(n_out=c["vocab"]))
+            .set_input_type(InputType.recurrent(1, c["seq"])).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def ragged_mask(n, t, rng, min_len=16):
+    import numpy as np
+    lengths = rng.integers(min_len, t + 1, n)
+    lengths[0] = t
+    return (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+
+
+def row_rel_err(p, ref):
+    """The largest |p - ref| of each position over that position's largest
+    reference probability, maximised over positions."""
+    return ((p - ref).abs().amax(-1) / ref.amax(-1)).max().item()
+
+
+def _flash_launches(fa):
+    return {k: fa.LAUNCHES[k] for k in ATTN_KERNELS}
+
+
+def phase_bert_serve(report, card, profile=False):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    c, b = BERT, BERT_SERVE_BATCH
+    t0 = time.perf_counter()
+    model = bert_model("bfloat16")
+    log(f"  model: {model.num_params()} params on {model.device}, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, c["vocab"], (b, c["seq"]))).cuda()
+    fmask = torch.from_numpy(ragged_mask(b, c["seq"], rng)).cuda()
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    probs = model.output(ids)
+    torch.cuda.synchronize()
+    after_full = _flash_launches(fa)
+    probs_m = model.output(ids, mask=fmask)
+    torch.cuda.synchronize()
+    launches = _flash_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches: {after_full} after one output() call, {launches} "
+        "after a second on a ragged batch with a features mask")
+    per_call = c["blocks"]
+    if after_full != {"flash_fwd": per_call, "flash_bwd_dkv": 0,
+                      "flash_bwd_dq": 0} or launches["flash_fwd"] != \
+            2 * per_call or launches["flash_bwd_dkv"] + \
+            launches["flash_bwd_dq"]:
+        raise AssertionError(f"expected exactly {per_call} flash_fwd "
+                             "launches per output() call")
+    for what, p in (("full", probs), ("masked", probs_m)):
+        pf = p.float()
+        if tuple(p.shape) != (b, c["seq"], c["vocab"]) or \
+                not torch.isfinite(pf).all() or \
+                (pf.sum(-1) - 1).abs().max().item() > 2e-2:
+            raise AssertionError(f"{what} output: not finite probabilities "
+                                 f"of shape {(b, c['seq'], c['vocab'])}")
+
+    # the f32 model through the kernels against the plain versions; the
+    # control is a forward that ignores the key mask, a fault the check
+    # must see
+    m32 = bert_model("float32")
+    m32.set_params(model.params, model.model_state)
+    small, small_mask = ids[:4], fmask[:4]
+    no_mask = lambda q, k, v, mask=None, causal=False: \
+        fa.flash_fwd_reference(q, k, v, None, causal)
+    with torch.inference_mode():
+        p_k = m32.output(small, mask=small_mask)
+        with plain_flash():
+            p_p = m32.output(small, mask=small_mask)
+            with mock.patch.object(fa, "flash_fwd", no_mask):
+                p_c = m32.output(small, mask=small_mask)
+    prob_err, control = row_rel_err(p_k, p_p), row_rel_err(p_c, p_p)
+    log(f"  f32 kernels vs plain on 4 x {c['seq']} (ragged): probabilities "
+        f"|diff| / row max {prob_err:.3g} (absolute "
+        f"{(p_k - p_p).abs().max().item():.3g}); control, the key mask "
+        f"ignored: {control:.3g} (absolute "
+        f"{(p_c - p_p).abs().max().item():.3g})")
+    if not prob_err <= BERT_PROB_TOL:
+        raise AssertionError("the f32 BERT stack through the flash kernels "
+                             "disagrees with the plain path")
+    if not control > BERT_PROB_TOL:
+        raise AssertionError("the probability check cannot tell a forward "
+                             "that ignores the key mask from the plain path")
+    del m32, p_k, p_p, p_c
+
+    out_ms = cuda_time(lambda: model.output(ids), iters=10)
+    masked_ms = cuda_time(lambda: model.output(ids, mask=fmask), iters=10)
+    log(f"  output() at {b} x {c['seq']}: {out_ms:.3f} ms, "
+        f"{1e3 * b * c['seq'] / out_ms:.1f} tokens/s (ragged with mask "
+        f"{masked_ms:.3f} ms), peak memory {peak / 2**20:.1f} MiB [{card}]")
+    if profile:
+        with torch.inference_mode():
+            report["bert_serve_profile"] = profile_calls(
+                lambda: model.output(ids), card,
+                f"bf16 output() calls at {b} x {c['seq']}", n=5)
+    report["bert_serve"] = {
+        "batch": b, "seq": c["seq"], "params": model.num_params(),
+        "output_ms": out_ms, "masked_output_ms": masked_ms,
+        "tokens_per_s": 1e3 * b * c["seq"] / out_ms,
+        "peak_memory_bytes": peak, "launches": launches,
+        "f32_prob_row_rel_diff": prob_err,
+        "control_prob_row_rel_diff": control}
+    return launches
+
+
+def phase_bert_train(report, card, profile=False):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.optimize import solver
+    c, b, k = BERT, BERT_TRAIN_BATCH, BERT_TRAIN_K
+    model = bert_model("bfloat16")
+    rng = np.random.default_rng(0)
+    ids_np = rng.integers(0, c["vocab"], (b, c["seq"]))
+    lab_np = rng.integers(0, c["vocab"], (b, c["seq"]))
+    ids = torch.from_numpy(ids_np).cuda()
+    y = torch.zeros((b, c["seq"], c["vocab"]), device="cuda")
+    y.scatter_(2, torch.from_numpy(lab_np).cuda()[..., None], 1.0)
+    xk = ids.unsqueeze(0).expand(k, *ids.shape)
+    yk = y.unsqueeze(0).expand(k, *y.shape)
+    scan = model._build_scan_train_step()
+
+    def call():
+        model.train_state, losses = scan(model.train_state, xk, yk)
+        return losses
+
+    fa.reset_launch_counts()
+    losses = [call()]
+    torch.cuda.synchronize()
+    launches = _flash_launches(fa)
+    log(f"  launches over one {k}-step call: {launches}")
+    if launches != {name: k * c["blocks"] for name in ATTN_KERNELS}:
+        raise AssertionError(f"expected {k} x {c['blocks']} launches of each "
+                             "flash kernel")
+    losses.append(call())                     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(BERT_TRAIN_CALLS - 2):
+        losses.append(call())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ((BERT_TRAIN_CALLS - 2) * k)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).float().cpu().numpy()
+    tokens = b * c["seq"]
+    log(f"  train step at batch {b} x {c['seq']}: {step_ms:.3f} ms, "
+        f"{1e3 * tokens / step_ms:.1f} tokens/s, peak memory "
+        f"{peak / 2**20:.1f} MiB [{card}]")
+    log(f"  losses over {len(losses)} steps: "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    if not np.isfinite(losses).all() or not losses[1:].min() < losses[0] \
+            or abs(losses[0] - math.log(c["vocab"])) > 1.0:
+        raise AssertionError("the train loss did not start near ln(vocab) "
+                             "and fall (or is not finite)")
+    if profile:
+        report["bert_train_profile"] = profile_calls(
+            call, card, f"{k}-step bf16 train calls at batch {b}", n=2,
+            warmup=1)
+    del xk, yk, y
+
+    # one f32 step at a small ragged batch: kernels against plain versions
+    m32 = bert_model("float32")
+    m32.set_params(model.params)
+    fm = ragged_mask(4, c["seq"], rng)
+    y4 = np.zeros((4, c["seq"], c["vocab"]), np.float32)
+    y4[np.arange(4)[:, None], np.arange(c["seq"])[None, :],
+       lab_np[:4]] = 1.0
+    args = m32._step_args(DataSet(ids_np[:4], y4, fm))
+    loss_k, _, g_k = solver.value_and_grad(m32._loss, m32.train_state, *args)
+    with plain_flash():
+        loss_p, _, g_p = solver.value_and_grad(m32._loss, m32.train_state,
+                                               *args)
+    err = grad_errors(g_k, g_p)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"  f32 step at 4 x {c['seq']} (ragged), kernels vs plain: loss rel "
+        f"{loss_err:.3g}, gradients rel L2 worst {err['worst']:.3g} "
+        f"({err['name']}), median {err['median']:.3g}, all "
+        f"{err['all']:.3g}")
+    if loss_err > LOSS_RTOL or err["worst"] > BERT_GRAD_RTOL:
+        raise AssertionError("the f32 train step through the flash kernels "
+                             "disagrees with the plain path")
+    report["bert_train"] = {
+        "batch": b, "seq": c["seq"], "k": k, "steps": len(losses),
+        "losses": losses.tolist(), "step_ms": step_ms,
+        "tokens_per_s": 1e3 * tokens / step_ms, "peak_memory_bytes": peak,
+        "launches": launches, "f32_loss_rel_err": loss_err,
+        "f32_grad_rel_l2": err}
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
-                    "lstm_serve,lstm_train",
+                    "lstm_serve,lstm_train,bert_serve,bert_train",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward and the train "
@@ -1207,6 +1669,19 @@ def main(argv=None) -> int:
                                  "version or differs between two runs")
         for name in ("lstm_fwd", "lstm_bwd"):
             summary[name] = _lstm_summary(name, rows)
+        log("[kernels] flash_fwd, flash_bwd_dkv and flash_bwd_dq at "
+            f"(N, T, H, Dh) = {ATTN_SLICE} (f32 and bf16; unmasked, ragged "
+            f"key mask, causal), (N, T) = {list(ATTN_LONG)} bf16 causal or "
+            f"not, {ATTN_EDGE} f32 causal with masked rows, and batch "
+            f"{BERT_TRAIN_BATCH} bf16 unmasked (bert_train's calls)")
+        rows = phase_attn_kernels(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        report["attn_kernel_calls"] = rows
+        if not all(r["ok"] and r["bitwise_repeat"] for r in rows):
+            raise AssertionError("a flash kernel disagrees with its plain "
+                                 "version or differs between two runs")
+        for name in ATTN_KERNELS:
+            summary[name] = _attn_summary(name, rows)
 
     launches = {name: 0 for name in SOURCES}
     if "slice" in phases:
@@ -1228,6 +1703,19 @@ def main(argv=None) -> int:
             f" x 60, Adam(2e-3) + clip 5, K={LSTM_TRAIN_K} steps per call")
         for name, n in phase_lstm_train(report, card, args.profile).items():
             launches[name] += n
+    bert = (f"{BERT['blocks']} x {BERT['width']}/{BERT['heads']} heads, "
+            f"vocab {BERT['vocab']}, seq {BERT['seq']}")
+    if "bert_serve" in phases:
+        log(f"[bert_serve] BERT-base geometry ({bert}) bf16: output() on "
+            f"{BERT_SERVE_BATCH} x {BERT['seq']} ids")
+        for name, n in phase_bert_serve(report, card, args.profile).items():
+            launches[name] += n
+    if "bert_train" in phases:
+        log(f"[bert_train] BERT-base geometry ({bert}) bf16, Adam(1e-4), "
+            f"batch {BERT_TRAIN_BATCH} x {BERT['seq']}, K={BERT_TRAIN_K} "
+            "steps per call")
+        for name, n in phase_bert_train(report, card, args.profile).items():
+            launches[name] += n
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1239,7 +1727,8 @@ def main(argv=None) -> int:
                  ("name", "route", "source", "replaces")}
         # the main paths' launches: served traffic and the K-step train
         # call (conv kernels); scoring, generation and the K-step train
-        # call (LSTM kernels)
+        # call (LSTM kernels); two output() calls and the K-step train
+        # call (flash kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

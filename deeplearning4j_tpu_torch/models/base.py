@@ -17,15 +17,18 @@ listeners, telemetry and flight recorder are not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.optimize.solver import TrainState
+from deeplearning4j_tpu_torch.optimize.updaters import tree_leaves, tree_map
 
-Tree = Dict[str, Dict[str, torch.Tensor]]
+# params[layer][key], where a layer's params may nest further
+# (params[block]["attn"]["Wqkv"])
+Tree = Dict[str, Dict[str, Any]]
 
 
 def compute_cast(x: torch.Tensor, dt: str) -> torch.Tensor:
@@ -35,14 +38,14 @@ def compute_cast(x: torch.Tensor, dt: str) -> torch.Tensor:
     return x
 
 
-def cast_params(lp: Dict[str, torch.Tensor], dt: str
-                ) -> Dict[str, torch.Tensor]:
-    """A layer's float params in the compute dtype (a no-op for params
-    already held in it, e.g. a serving engine's committed bf16 copy)."""
+def cast_params(lp: Dict[str, Any], dt: str) -> Dict[str, Any]:
+    """A layer's float params (nested dicts too) in the compute dtype (a
+    no-op for params already held in it, e.g. a serving engine's
+    committed bf16 copy)."""
     if dt != "bfloat16":
         return lp
-    return {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
-            for k, v in lp.items()}
+    return tree_map(lambda v: v.to(torch.bfloat16) if v.is_floating_point()
+                    else v, lp)
 
 
 class BaseModel:
@@ -106,8 +109,7 @@ class BaseModel:
                                         self.device, "state")
 
     def num_params(self) -> int:
-        return sum(v.numel() for lp in (self.params or {}).values()
-                   for v in lp.values())
+        return sum(v.numel() for v in tree_leaves(self.params or {}))
 
     def _as_tensor(self, a) -> Optional[torch.Tensor]:
         if a is None:
@@ -118,25 +120,23 @@ class BaseModel:
 
 
 def conform(template: Tree, new: Tree, device: torch.device,
-             what: str) -> Tree:
-    """``new`` checked name for name and shape for shape against
-    ``template``, moved to ``device``."""
-    if set(new) != set(template):
-        raise KeyError(f"{what}: layer names differ: missing "
-                       f"{sorted(set(template) - set(new))}, unexpected "
-                       f"{sorted(set(new) - set(template))}")
-    out: Tree = {}
-    for layer, tl in template.items():
-        nl = new[layer]
-        if set(nl) != set(tl):
-            raise KeyError(f"{what}[{layer!r}]: keys differ: missing "
-                           f"{sorted(set(tl) - set(nl))}, unexpected "
-                           f"{sorted(set(nl) - set(tl))}")
-        out[layer] = {}
-        for k, t in tl.items():
-            v = torch.as_tensor(nl[k])
-            if tuple(v.shape) != tuple(t.shape):
-                raise ValueError(f"{what}[{layer!r}][{k!r}]: shape "
-                                 f"{tuple(v.shape)} != {tuple(t.shape)}")
-            out[layer][k] = v.to(device)
+            what: str) -> Tree:
+    """``new`` checked name for name (at every level of nesting) and shape
+    for shape against ``template``, moved to ``device``."""
+    if not isinstance(new, dict) or set(new) != set(template):
+        got = set(new) if isinstance(new, dict) else set()
+        raise KeyError(f"{what}: names differ: missing "
+                       f"{sorted(set(template) - got)}, unexpected "
+                       f"{sorted(got - set(template))}")
+    out = {}
+    for k, t in template.items():
+        where = f"{what}[{k!r}]"
+        if isinstance(t, dict):
+            out[k] = conform(t, new[k], device, where)
+            continue
+        v = torch.as_tensor(new[k])
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{where}: shape {tuple(v.shape)} != "
+                             f"{tuple(t.shape)}")
+        out[k] = v.to(device)
     return out

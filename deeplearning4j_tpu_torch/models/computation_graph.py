@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
                                                       make_scan_train_step,
                                                       make_train_step)
+from deeplearning4j_tpu_torch.optimize.updaters import tree_map
 from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -64,9 +65,9 @@ class ComputationGraph(BaseModel):
             it = self.conf.layer_input_type(node.name)
             layer = node.layer
             lp = layer.initialize(gen, it) if layer.has_params else {}
-            params[node.name] = {k: v.to(self.device) for k, v in lp.items()}
-            state[node.name] = {k: v.to(self.device)
-                                for k, v in layer.init_state(it).items()}
+            params[node.name] = tree_map(lambda v: v.to(self.device), lp)
+            state[node.name] = tree_map(lambda v: v.to(self.device),
+                                        layer.init_state(it))
         self.params, self.model_state = params, state
         self._tx = self._make_tx()
         self.opt_state = self._tx.init(params)

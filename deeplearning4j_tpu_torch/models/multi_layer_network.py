@@ -68,9 +68,9 @@ class MultiLayerNetwork(BaseModel):
         state: Tree = {}
         for layer, it in zip(self.layers, self._input_types):
             lp = layer.initialize(gen, it) if layer.has_params else {}
-            params[layer.name] = {k: v.to(self.device) for k, v in lp.items()}
-            state[layer.name] = {k: v.to(self.device)
-                                 for k, v in layer.init_state(it).items()}
+            params[layer.name] = tree_map(lambda v: v.to(self.device), lp)
+            state[layer.name] = tree_map(lambda v: v.to(self.device),
+                                         layer.init_state(it))
         self.params, self.model_state = params, state
         self._tx = self._make_tx()
         self.opt_state = self._tx.init(params)

@@ -35,6 +35,7 @@ FRAMEWORK_VERSION = "0.2.0"
 def _ensure_registry():
     """Import every module that registers a serializable config type, so
     a checkpoint loads in a fresh interpreter."""
+    import deeplearning4j_tpu_torch.nn.layers.attention  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.convolution  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.feedforward  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.fused  # noqa: F401
@@ -77,18 +78,6 @@ def _read_flat(zf: zipfile.ZipFile, prefix: str) -> Dict[str, np.ndarray]:
         if name.startswith(prefix + "/") and name.endswith(".npy"):
             with zf.open(name) as f:
                 out[name[len(prefix) + 1:-4]] = np.load(io.BytesIO(f.read()))
-    return out
-
-
-def _read_tree(zf: zipfile.ZipFile, prefix: str
-               ) -> Dict[str, Dict[str, np.ndarray]]:
-    out: Dict[str, Dict[str, np.ndarray]] = {}
-    for path, a in _read_flat(zf, prefix).items():
-        parts = path.split("/")
-        if len(parts) != 2:
-            raise ValueError(f"checkpoint entry {prefix}/{path}.npy is not "
-                             f"{prefix}/<layer>/<key>.npy")
-        out.setdefault(parts[0], {})[parts[1]] = a
     return out
 
 
@@ -153,19 +142,22 @@ def params_from_jax(params_np: Mapping[str, Mapping[str, Any]],
                     dtype: Optional[torch.dtype] = None,
                     model=None) -> Tuple[dict, dict]:
     """The JAX package's ``train_state.params`` / ``model_state`` (nested
-    dicts of numpy arrays) as the port's dicts of tensors: a name-for-
-    name, layout-preserving copy. ``dtype`` casts the floating params
+    dicts of numpy arrays, at any depth: a transformer block's params
+    nest) as the port's dicts of tensors: a name-for-name,
+    layout-preserving copy. ``dtype`` casts the floating params
     (the BN running state stays float32, as in the JAX package). With
     ``model``, every name and shape is checked against it and a mismatch
     raises."""
-    def conv(tree, dt):
+    def conv(tree, dt, depth=0):
         out = {}
-        for layer, leaves in tree.items():
-            if not isinstance(leaves, Mapping):
-                raise TypeError(f"layer {layer!r}: expected a dict of "
-                                "arrays (params[layer][key])")
-            out[str(layer)] = {str(k): _from_numpy(v, device, dt)
-                               for k, v in leaves.items()}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                out[str(k)] = conv(v, dt, depth + 1)
+            elif depth == 0:
+                raise TypeError(f"layer {k!r}: expected a dict of arrays "
+                                "(params[layer][key])")
+            else:
+                out[str(k)] = _from_numpy(v, device, dt)
         return out
     params = conv(params_np, dtype)
     state = conv(state_np, None)
@@ -216,6 +208,49 @@ def save_model(model, path: str, save_updater: bool = False):
         zf.writestr("meta.json", json.dumps(meta))
 
 
+def _attention_heads(model) -> Dict[str, Tuple[int, int]]:
+    """{layer name: (n_heads, n_out)} of the model's attention layers."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        SelfAttentionLayer, TransformerEncoderBlock)
+    layers = (model.layers if hasattr(model, "layers")
+              else [n.layer for n in model.conf.nodes
+                    if getattr(n, "layer", None) is not None])
+    return {l.name: (l.n_heads, l.n_out) for l in layers
+            if isinstance(l, (SelfAttentionLayer, TransformerEncoderBlock))}
+
+
+def _repack_qkv(path: str, leaf: np.ndarray, heads) -> np.ndarray:
+    """``leaf`` re-packed from which-major ([q|k|v] column blocks) to
+    head-major ((head, which, dh)) columns when its path names an
+    attention layer and ends in Wqkv or bqkv; else as it was."""
+    parts = path.split("/")
+    layer = next((p for p in parts if p in heads), None)
+    if layer is None or parts[-1] not in ("Wqkv", "bqkv"):
+        return leaf
+    n_heads, n_out = heads[layer]
+    dh = n_out // n_heads
+    if parts[-1] == "Wqkv" and leaf.ndim == 2 and leaf.shape[1] == 3 * n_out:
+        f = leaf.shape[0]
+        return (leaf.reshape(f, 3, n_heads, dh).transpose(0, 2, 1, 3)
+                .reshape(f, 3 * n_out))
+    if parts[-1] == "bqkv" and leaf.ndim == 1 and leaf.shape[0] == 3 * n_out:
+        return leaf.reshape(3, n_heads, dh).transpose(1, 0, 2).reshape(-1)
+    return leaf
+
+
+def _migrate_qkv(model, flat: Dict[str, np.ndarray]
+                 ) -> Dict[str, np.ndarray]:
+    """Upgrade a pre-0.2.0 checkpoint's {path: array}: every leaf whose
+    path names an attention layer and ends in Wqkv/bqkv (a layer's own,
+    a block's under ``attn``, and the Adam moments that mirror them)
+    re-packed from which-major to head-major columns; other leaves as
+    they were. The JAX package's ``_migrate_qkv_layout`` (params) and
+    ``_migrate_qkv_opt_state`` (optimizer state) in one, since the port
+    migrates both as flat paths."""
+    heads = _attention_heads(model)
+    return {k: _repack_qkv(k, a, heads) for k, a in flat.items()}
+
+
 def _restore(path: str, expected: Optional[str], device: DeviceLike,
              load_updater: bool):
     """Restore a zip written by either package onto ``device`` (``cuda``
@@ -224,7 +259,9 @@ def _restore(path: str, expected: Optional[str], device: DeviceLike,
     model's ``init`` makes, as the JAX package reads it: an LSTM's last
     carry, which a fit leaves in the state, is not restored. With
     ``load_updater`` and a checkpoint that has one, the optimizer state is
-    restored too, path for path."""
+    restored too, path for path. A checkpoint without the
+    ``qkv_layout: head_major`` tag (framework 0.1.0) has its attention
+    layers' packed QKV columns, and their Adam moments, migrated."""
     _ensure_registry()
     with zipfile.ZipFile(path, "r") as zf:
         meta = json.loads(zf.read("meta.json"))
@@ -237,25 +274,23 @@ def _restore(path: str, expected: Optional[str], device: DeviceLike,
         conf = conf_cls.from_json(zf.read("configuration.json").decode())
         model = cls(conf, device=device)
         model.init()
-        params = _read_tree(zf, "params")
-        state = _read_tree(zf, "state")
+        params = _read_flat(zf, "params")
+        state = _read_flat(zf, "state")
         updater = (_read_flat(zf, "updater")
                    if load_updater and meta.get("has_updater") else None)
-    # layers without params/state have no entries in the zip
-    for layer, leaves in model.params.items():
-        if not leaves:
-            params.setdefault(layer, {})
-    missing = [f"{layer}/{k}" for layer, leaves in model.model_state.items()
-               for k in leaves if k not in state.get(layer, {})]
+    missing = sorted(set(flatten_paths(model.model_state)) - set(state))
     if missing:
         raise KeyError(f"checkpoint missing state arrays: {missing}")
-    state = {layer: {k: state[layer][k] for k in leaves}
-             for layer, leaves in model.model_state.items()}
-    model.set_params(
-        {k: {kk: _from_numpy(a, "cpu", None) for kk, a in v.items()}
-         for k, v in params.items()},
-        {k: {kk: _from_numpy(a, "cpu", None) for kk, a in v.items()}
-         for k, v in state.items()})
+    state = {k: state[k] for k in flatten_paths(model.model_state)}
+    if meta.get("qkv_layout") != "head_major":
+        # a pre-0.2.0 checkpoint: which-major packed QKV columns
+        params = _migrate_qkv(model, params)
+        if updater is not None:
+            updater = _migrate_qkv(model, updater)
+    model.params = _unflatten_like(model.params, params, model.device,
+                                   "params")
+    model.model_state = _unflatten_like(model.model_state, state,
+                                        model.device, "state")
     if updater is not None:
         model.opt_state = _unflatten_like(model.opt_state, updater,
                                           model.device, "updater")

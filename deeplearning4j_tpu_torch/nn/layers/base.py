@@ -29,7 +29,7 @@ from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.param_keys import is_weight_key
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
-from deeplearning4j_tpu_torch.optimize.updaters import Updater
+from deeplearning4j_tpu_torch.optimize.updaters import Updater, named_leaves
 from deeplearning4j_tpu_torch.utils.device import float_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -86,12 +86,14 @@ class Layer:
 
     def regularization_loss(self, params: Params) -> torch.Tensor:
         """L1/L2 penalty over this layer's weight-like params (bias-like
-        keys are exempt: nn/param_keys.py), in f32."""
-        dev = next(iter(params.values())).device if params else None
+        keys are exempt: nn/param_keys.py), in f32. Nested params (a
+        transformer block's) are classified by their leaf key."""
+        leaves = list(named_leaves(params))
+        dev = leaves[0][1].device if leaves else None
         total = torch.zeros((), dtype=torch.float32, device=dev)
         if self.l1 == 0.0 and self.l2 == 0.0:
             return total
-        for key, leaf in params.items():
+        for key, leaf in leaves:
             if not is_weight_key(key):
                 continue
             if self.l1:

@@ -1,8 +1,10 @@
-"""Dense and activation layers.
+"""Dense, activation and embedding layers.
 
-Analogs of the reference's ``DenseLayer`` and ``ActivationLayer``
-(nn/conf/layers/), the two of the JAX package's ``nn/layers/feedforward.py``
-that the served ResNet50 runs (the output layer is a dense layer).
+Analogs of the reference's ``DenseLayer``, ``ActivationLayer`` and
+``EmbeddingSequenceLayer`` (nn/conf/layers/), the three of the JAX
+package's ``nn/layers/feedforward.py`` that the ported models run (the
+ResNet50's output layer is a dense layer; the transformer stack starts
+with the embedding).
 """
 
 from __future__ import annotations
@@ -73,3 +75,35 @@ class ActivationLayer(Layer):
             if self.activation == Activation.ELU:
                 return F.elu(x, self.alpha), state
         return self.activation.apply(x), state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class EmbeddingSequenceLayer(FeedForwardLayer):
+    """Sequence of indices (N, T) (or (N, T, 1)) → (N, T, n_out) rows of
+    W (n_in, n_out) (reference: EmbeddingSequenceLayer). Ids are passed as
+    an integer tensor (or float32, exact below 2^24); a bfloat16 feature
+    tensor raises, since bf16 rounds every id above 256."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps if isinstance(input_type, RecurrentType) \
+            else None
+        return RecurrentType(self.n_out, t)
+
+    def initialize(self, generator, input_type):
+        if self.n_in is None:
+            raise ValueError("EmbeddingSequenceLayer requires explicit n_in")
+        dt = self.param_dtype()
+        return {"W": self.weight_init.init(generator, (self.n_in, self.n_out),
+                                           self.n_in, self.n_out, dt)}
+
+    def apply(self, params, state, x, ctx):
+        if x.dtype in (torch.bfloat16, torch.float16):
+            raise TypeError(
+                f"EmbeddingSequenceLayer: token ids arrived as {x.dtype}, "
+                "which rounds ids above 256; pass them as an integer tensor "
+                "(a float feature array is cast to the compute dtype)")
+        idx = x.to(torch.long)
+        if idx.ndim == 3 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        return params["W"][idx], state

@@ -1,7 +1,9 @@
-"""Batch normalization.
+"""Batch and layer normalization.
 
 Analog of the reference's ``BatchNormalization``
-(nn/layers/normalization/BatchNormalization.java:41). Running statistics
+(nn/layers/normalization/BatchNormalization.java:41), and the JAX
+package's ``LayerNormalization`` (no reference analog; the transformer
+blocks need it). Running statistics
 live in the layer **state** dict (not params), as in the JAX package: in
 training ``apply`` normalizes with the batch statistics (f32, biased
 variance) and returns the running averages updated with ``decay`` as the
@@ -69,3 +71,30 @@ class BatchNormalization(Layer):
         if not self.lock_gamma_beta:
             y = y * params["gamma"] + params["beta"]
         return y, new_state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class LayerNormalization(Layer):
+    """Per-example normalization over the feature axis: single-pass
+    moments E[x²] − E[x]² in (at least) f32, clamped at 0, the normalized
+    value rounded back to x's dtype before the affine ``gamma``/``beta``,
+    as in the JAX package."""
+    eps: float = 1e-5
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def initialize(self, generator, input_type):
+        nf = input_type.shape()[-1]
+        dt = self.param_dtype()
+        return {"gamma": torch.ones((nf,), dtype=dt),
+                "beta": torch.zeros((nf,), dtype=dt)}
+
+    def apply(self, params, state, x, ctx):
+        xf = x.to(torch.promote_types(torch.float32, x.dtype))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True)
+                              - mean * mean, 0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        return y * params["gamma"] + params["beta"], state

@@ -4,7 +4,8 @@ Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, at first use, into ``build/``
 at the checkout's root (git-ignored), and loaded with ``ctypes``. A
 library may hold several kernels' entry points (``fused_c3_bwd.cu`` holds
-the merged 3×3 backward and its two split halves) and helpers that size
+the merged 3×3 backward and its two split halves, ``flash_bwd.cu`` the
+two attention backward passes) and helpers that size
 a kernel's scratch (``dl4j_tile_m``, ``dl4j_split_count``,
 ``dl4j_lstm_bwd_row_tiles``), each bound where its library has it. The file
 name carries a hash of every source and of the flags, so a changed source
@@ -33,7 +34,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every kernel entry point (ctypes would otherwise pass each
 # argument as a 32-bit int and cut the pointers)
 SIGNATURES = {
@@ -45,10 +46,17 @@ SIGNATURES = {
     "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),
     "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 5 + [_P]),
     "lstm_bwd": ("dl4j_lstm_bwd", [_P] * 15 + [_I] * 5 + [_P]),
+    # the flash kernels take each strided input's (n, t, h) strides
+    "flash_fwd": ("dl4j_flash_fwd", [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P]),
+    "flash_bwd_dkv": ("dl4j_flash_bwd_dkv",
+                      [_P] * 9 + [_I] * 7 + [_L] * 12 + [_P]),
+    "flash_bwd_dq": ("dl4j_flash_bwd_dq",
+                     [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P]),
 }
 # kernel -> the csrc/<source>.cu whose library holds its entry point
 SOURCE_OF = {name: name for name in SIGNATURES}
-SOURCE_OF.update(fused_c3_bwd_in="fused_c3_bwd", fused_c3_bwd_w="fused_c3_bwd")
+SOURCE_OF.update(fused_c3_bwd_in="fused_c3_bwd", fused_c3_bwd_w="fused_c3_bwd",
+                 flash_bwd_dkv="flash_bwd", flash_bwd_dq="flash_bwd")
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 
 # scratch-sizing helpers a library may export (int -> int)

@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.optimize.updaters import (
     Tree,
     Updater,
     chain,
+    tree_leaves,
     tree_map,
 )
 
@@ -112,15 +113,12 @@ def value_and_grad(loss_fn: LossFn, ts: TrainState, features, labels,
         p.is_floating_point()), ts.params)
     loss, new_ms = loss_fn(work, ts.model_state, features, labels, fmask,
                            lmask, generator, ts.iteration)
-    leaves = [(ln, k, p) for ln, lp in work.items() for k, p in lp.items()
-              if p.requires_grad]
-    grads = torch.autograd.grad(loss, [p for _, _, p in leaves],
+    leaves = [p for p in tree_leaves(work) if p.requires_grad]
+    grads = torch.autograd.grad(loss, leaves,
                                 allow_unused=True) if leaves else ()
-    found = {(ln, k): g for (ln, k, _), g in zip(leaves, grads)
-             if g is not None}
-    gtree = {ln: {k: found[(ln, k)] if (ln, k) in found
-                  else torch.zeros_like(p) for k, p in lp.items()}
-             for ln, lp in ts.params.items()}
+    found = {id(p): g for p, g in zip(leaves, grads) if g is not None}
+    gtree = tree_map(lambda w, p: found[id(w)] if id(w) in found
+                     else torch.zeros_like(p), work, ts.params)
     return loss.detach(), new_ms, gtree
 
 

@@ -39,6 +39,22 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The tensor leaves of nested dicts, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def named_leaves(tree: Tree):
+    """(leaf key, leaf) of nested dicts: the key is the last path part."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from named_leaves(v)
+        else:
+            yield k, v
+
+
 class GradientTransformation(NamedTuple):
     """optax's (init, update) pair on nested dicts of tensors."""
     init: Callable[[Tree], Tree]

@@ -291,3 +291,145 @@ def test_lstm_model_on_the_card_launches_both_kernels(card):
     assert fl.LAUNCHES == {"lstm_fwd": 6, "lstm_bwd": 2}
     assert probs.is_cuda and probs.shape == (6, 9, 11)
     assert np.isfinite(m.score()) and set(carries) == {"layer_0", "layer_1"}
+
+
+# ---- the flash attention kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) --
+# Kernel vs plain version on the card, relative to max(1, the largest
+# reference magnitude): float32 2e-5 (tests/test_pallas_kernels.py's bound:
+# the same f32 products summed in another order); bfloat16 2^-7, one bf16
+# ulp at the largest magnitude (the same f32 values, then one rounding that
+# a last-bit difference can flip).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+FLASH_SHAPES = [(2, 37, 3, 16), (2, 130, 2, 64), (1, 64, 1, 128),
+                (3, 200, 2, 4), (2, 5, 2, 100)]
+
+
+def _flash_inputs(card, n, t, h, dh, dtype, masked, seed=0):
+    """q, k, v as the strided views of one packed (N, T, H, 3, Dh)
+    projection (as SelfAttentionLayer cuts them), a key mask with one
+    fully masked batch row, and dO."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn((n, t, h, 3, dh), generator=g, device=card).to(dtype)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=g, device=card) > 0.3).float()
+        mask[-1] = 0.0
+    do = torch.randn((n, t, h, dh), generator=g, device=card).to(dtype)
+    return q, k, v, mask, do
+
+
+def _flash_close(got, ref, dtype):
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = FLASH_TOL[dtype] * max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,t,h,dh", FLASH_SHAPES)
+def test_flash_kernels_match_plain(card, n, t, h, dh, masked, causal,
+                                   dtype):
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, do = _flash_inputs(card, n, t, h, dh, dtype, masked)
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_fwd(q, k, v, mask, causal)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, mask, causal)
+    _flash_close((out,), (ref_out,), dtype)
+    assert (lse - ref_lse).abs().max().item() <= 2e-5 * max(
+        1.0, ref_lse.abs().max().item())
+    delta = fa.attention_delta(do, ref_out)
+    args = (q, k, v, mask, do, ref_lse, delta, causal)
+    dkv = fa.flash_bwd_dkv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    _flash_close(dkv, fa.flash_bwd_dkv_reference(*args), dtype)
+    _flash_close((dq,), (fa.flash_bwd_dq_reference(*args),), dtype)
+    assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in fa.LAUNCHES} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    # a second call gives the same bits
+    assert all(torch.equal(a, b) for a, b in
+               zip((out, lse), fa.flash_fwd(q, k, v, mask, causal)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(dkv + (dq,), fa.flash_bwd_dkv(*args)
+                   + (fa.flash_bwd_dq(*args),)))
+    if masked:
+        assert not out[-1].any() and (lse[-1] == fa._NEG).all()
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, _ = _flash_inputs(card, 1, 8, 1, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="Dh"):
+        big = torch.zeros((1, 8, 1, 129), device=card)
+        fa.flash_fwd(big, big, big)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous last"):
+        t = torch.zeros((1, 8, 1, 32), device=card)[..., ::2]
+        fa.flash_fwd(t, t, t)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_fwd(q, k, v, torch.ones((1, 8), device=card,
+                                         dtype=torch.bfloat16))
+
+
+def test_attention_layers_on_the_card_launch_every_flash_kernel(card):
+    from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        TransformerEncoderBlock
+    from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    block = TransformerEncoderBlock(n_in=64, n_out=64, n_heads=4)
+    params = {k: v.to(card).requires_grad_() if not isinstance(v, dict)
+              else {kk: vv.to(card).requires_grad_() for kk, vv in v.items()}
+              for k, v in block.initialize(torch.Generator().manual_seed(0),
+                                           RecurrentType(64, 20)).items()}
+    x = torch.randn((3, 20, 64), device=card)
+    mask = torch.ones((3, 20), device=card)
+    mask[1, 12:] = 0.0
+    fa.reset_launch_counts()
+    y, _ = block.apply(params, {}, x, LayerContext(mask=mask))
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkv": 0,
+                           "flash_bwd_dq": 0}
+    y.sum().backward()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkv": 1,
+                           "flash_bwd_dq": 1}
+    assert params["attn"]["Wqkv"].grad is not None
+    assert not y[1, 12:].any()
+
+
+def test_transformer_stack_on_the_card_trains_through_the_kernels(card):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        LearnedPositionalEmbedding, TransformerEncoderBlock)
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import \
+        EmbeddingSequenceLayer
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(3).updater(Adam(1e-3))
+            .compute_dtype("bfloat16").list()
+            .layer(EmbeddingSequenceLayer(n_in=50, n_out=64))
+            .layer(LearnedPositionalEmbedding(max_len=24))
+            .layer(TransformerEncoderBlock(n_out=64, n_heads=4))
+            .layer(TransformerEncoderBlock(n_out=64, n_heads=4))
+            .layer(RnnOutputLayer(n_out=50))
+            .set_input_type(InputType.recurrent(1, 24)).build())
+    m = MultiLayerNetwork(conf).init()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 50, (4, 24))
+    y = np.eye(50, dtype=np.float32)[rng.integers(0, 50, (4, 24))]
+    fa.reset_launch_counts()
+    probs = m.output(ids)
+    assert fa.LAUNCHES["flash_fwd"] == 2 and probs.is_cuda
+    m.fit(DataSet(ids, y))
+    assert fa.LAUNCHES == {"flash_fwd": 4, "flash_bwd_dkv": 2,
+                           "flash_bwd_dq": 2}
+    assert np.isfinite(m.score())

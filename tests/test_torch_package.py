@@ -32,7 +32,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "'optimize.solver', 'datasets.dataset', 'models.base', "
             "'ops.losses', 'ops.fused_conv', 'ops.fused_lstm', "
             "'nn.layers.recurrent', 'models.multi_layer_network', "
-            "'generation.decode')}\n"
+            "'generation.decode', 'ops.flash_attention', "
+            "'nn.layers.attention')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -112,6 +113,18 @@ def test_lstm_entry_points_default_to_cuda_and_raise_without_it(
         == "cpu"
 
 
+def test_attention_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from deeplearning4j_tpu_torch.models.serialization import \
+        restore_multi_layer_network
+    path = str(REPO / "tests" / "resources" / "regression" / "attn_v1.zip")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_multi_layer_network(path)
+    assert restore_multi_layer_network(path, device="cpu").device.type == \
+        "cpu"
+
+
 def test_textgen_pretrained_checksum_enforced(monkeypatch):
     from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
     monkeypatch.setattr(TextGenerationLSTM, "PRETRAINED", dict(
@@ -146,6 +159,17 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fl.lstm_bwd(seq, hs, hs, zx, seq, seq, seq, None, wh)
     assert fl.LAUNCHES == {"lstm_fwd": 0, "lstm_bwd": 0}
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q = torch.empty((2, 5, 3, 8), device="meta")
+    rows = torch.empty((2, 3, 5), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_fwd(q, q, q)
+    for fn in (fa.flash_bwd_dkv, fa.flash_bwd_dq):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, q, q, None, q, rows, rows)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(q, q, q)
+    assert set(fa.LAUNCHES.values()) == {0}
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
@@ -166,10 +190,13 @@ def test_library_names_follow_the_sources():
     assert a.name.startswith("libfused_mm_")
     assert set(cuda_build.SIGNATURES) == {
         "fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
-        "fused_c3_bwd_in", "fused_c3_bwd_w", "lstm_fwd", "lstm_bwd"}
+        "fused_c3_bwd_in", "fused_c3_bwd_w", "lstm_fwd", "lstm_bwd",
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"}
     assert cuda_build.SOURCES == ("fused_mm", "fused_c3", "fused_mm_bwd",
-                                  "fused_c3_bwd", "lstm_fwd", "lstm_bwd")
+                                  "fused_c3_bwd", "lstm_fwd", "lstm_bwd",
+                                  "flash_fwd", "flash_bwd")
     assert cuda_build.SOURCE_OF["fused_c3_bwd_w"] == "fused_c3_bwd"
+    assert cuda_build.SOURCE_OF["flash_bwd_dq"] == "flash_bwd"
     for src in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{src}.cu").exists()
 
