@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
 
 1. environment — card name and power limit, torch/CUDA versions; TF32 off.
 2. build — ``nvcc`` builds every kernel of the path from ``csrc/`` (one
-   process per source, all at once).
+   process per source, all at once); prints each kernel's registers and
+   spills from ``-Xptxas -v`` and, by ``cuobjdump -sass``, the HMMA
+   (tensor-core) instructions in the libraries of ``fused_c3_bwd_in`` and
+   ``flash_fwd`` (it fails if they hold none).
 3. kernels — ``fused_mm`` and ``fused_c3`` at every distinct shape the
    ResNet50 gives them at batch 32, in float32 and bfloat16, held against
    their plain PyTorch versions on the card; kernel, plain and
@@ -21,7 +24,10 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    + ``fused_c3_bwd_w`` in two), each held against its plain version (dx,
    dW, dscale, dshift), run twice for bitwise-equal results, and timed
    beside its bound, its plain version and a library yardstick
-   (``torch.matmul`` for 1×1, cuDNN's ``convolution_backward`` for 3×3).
+   (``torch.matmul`` for 1×1, cuDNN's ``convolution_backward`` for 3×3);
+   ``fused_c3_bwd_in`` also at the train phase's batch 128. The rows of
+   ``fused_c3_bwd_in`` and ``flash_fwd`` also carry their kernels' device
+   time by ``torch.profiler`` beside their library's.
    Then ``lstm_fwd`` and ``lstm_bwd`` at the LSTM slice shape (T 60, N 128,
    H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
    bf16, masked and unmasked: against their plain versions, bitwise on a
@@ -143,6 +149,10 @@ REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "flash_fwd": "deeplearning4j_tpu/ops/pallas_kernels.py:40",
             "flash_bwd_dkv": "deeplearning4j_tpu/ops/pallas_kernels.py:180",
             "flash_bwd_dq": "deeplearning4j_tpu/ops/pallas_kernels.py:230"}
+# the libraries whose bf16 kernels multiply on the tensor cores, and the
+# two kernels redesigned for them, whose rows also carry device times
+MMA_SOURCES = ("fused_c3_bwd", "flash_fwd")
+REDESIGNED = ("fused_c3_bwd_in", "flash_fwd")
 FORWARD = ("fused_mm", "fused_c3")
 BACKWARD = ("fused_mm_bwd", "fused_c3_bwd", "fused_c3_bwd_in",
             "fused_c3_bwd_w")
@@ -217,6 +227,57 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(text):
+    """[(entry function, registers, "stores/loads" spill bytes)] from the
+    ``-Xptxas -v`` output of one build."""
+    import re
+    rows, fn, spills = [], "?", "?"
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            fn = entry.group(1)
+        elif spill:
+            spills = f"{spill.group(1)}/{spill.group(2)}"
+        elif regs:
+            rows.append((fn, int(regs.group(1)), spills))
+            spills = "?"
+    return rows
+
+
+def hmma_counts(cuda_build, sources):
+    """{source: {function: HMMA instructions}} in each built library's SASS
+    (``cuobjdump -sass``), the proof that its tensor-core kernels use the
+    tensor cores; raises if a library has none. Logs "not measured" where
+    the toolkit has no cuobjdump."""
+    import shutil
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        log("  HMMA count: not measured (no cuobjdump)")
+        return None
+    out = {}
+    for src in sources:
+        sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(
+            src))], capture_output=True, text=True, check=True,
+            timeout=120).stdout
+        counts, fn = {}, "?"
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif "HMMA" in line:
+                counts[fn] = counts.get(fn, 0) + 1
+        out[src] = counts
+        log(f"  {src}: {sum(counts.values())} HMMA in SASS: " + ", ".join(
+            f"{f[:48]} {n}" for f, n in counts.items()))
+        if not counts:
+            raise AssertionError(f"{src}: no HMMA instruction in its SASS")
+    return out
+
+
 def cuda_time(fn, iters=20, warmup=3):
     """Mean ms of ``fn()`` on the card (CUDA events around ``iters``)."""
     import torch
@@ -248,6 +309,18 @@ def path_calls(conf, batch):
     return calls
 
 
+def call_macs(call):
+    """Multiply-adds of one product of the call (x·W, or dx or dW of its
+    backward): a 3×3 SAME tap that falls outside the image multiplies a
+    zero and is not counted, so an image row or column of h pixels has
+    3h − 2 inside taps (all 9 taps per pixel only far from the border)."""
+    n, h, w, cin = call.x_shape
+    cout = call.w_shape[-1]
+    if call.kernel == "fused_c3":              # stride 1
+        return n * (3 * h - 2) * (3 * w - 2) * cin * cout
+    return n * -(-h // call.stride) * -(-w // call.stride) * cin * cout
+
+
 def call_cost(call, dtype):
     """(flops, bytes) the call must do: each input read once (the rows a
     strided 1×1 needs), each output written once."""
@@ -257,7 +330,7 @@ def call_cost(call, dtype):
     ho, wo = -(-h // call.stride), -(-w // call.stride)
     m = n * ho * wo
     k = cin * (9 if call.kernel == "fused_c3" else 1)
-    flops = 2.0 * m * k * cout
+    flops = 2.0 * call_macs(call)
     x_bytes = (n * h * w * cin if call.kernel == "fused_c3" else m * cin)
     nbytes = isz * (x_bytes + k * cout + m * cout) + 4 * (2 * cin + 2 * cout)
     return flops, nbytes
@@ -292,10 +365,12 @@ def check_kernel_call(call, dtype, gen):
                "max_abs_err": dy.max().item(), "stats_max_abs_err": ds,
                "ok": y_ok and s_ok}
 
+        # the yardstick's operands in cuDNN's layout, made once outside
+        # the timed call: x as a channels_last view, W copied to match
         e = fc._norm_in(x, s, b, call.relu_in, call.norm_in)
-        e_nchw = e.permute(0, 3, 1, 2)              # channels_last view
+        e_nchw = e.permute(0, 3, 1, 2)
         w_oihw = (w.reshape(1, 1, *w.shape) if w.ndim == 2 else w) \
-            .permute(3, 2, 0, 1)
+            .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         pad = 1 if call.kernel == "fused_c3" else 0
 
         # timed as the served path calls it (inference: no statistics);
@@ -314,10 +389,10 @@ def check_kernel_call(call, dtype, gen):
 
 
 def bwd_cost(call, dtype, part="both"):
-    """(flops, bytes) of a backward call: dx and dW products 2·M·K·Cout
-    each; dy, y, x and W read once, dx (x's full shape) and the f32 dW
-    written once, plus the per-channel vectors. ``part`` "dx" or "dw"
-    counts one launch of the split route."""
+    """(flops, bytes) of a backward call: dx and dW products 2·macs each
+    (``call_macs``: the taps inside the image); dy, y, x and W read once,
+    dx (x's full shape) and the f32 dW written once, plus the per-channel
+    vectors. ``part`` "dx" or "dw" counts one launch of the split route."""
     n, h, w, cin = call.x_shape
     cout = call.w_shape[-1]
     isz = 2 if dtype == "bfloat16" else 4
@@ -328,7 +403,7 @@ def bwd_cost(call, dtype, part="both"):
     reads = isz * (2 * m * cout + x_rows * cin) + 4 * (2 * cout + 2 * cin)
     dx = isz * (n * h * w * cin + k * cout) + 4 * 2 * cin
     dw = 4 * k * cout
-    flops = {"both": 4.0, "dx": 2.0, "dw": 2.0}[part] * m * k * cout
+    flops = {"both": 4.0, "dx": 2.0, "dw": 2.0}[part] * call_macs(call)
     nbytes = reads + {"both": dx + dw, "dx": dx, "dw": dw}[part]
     return flops, nbytes
 
@@ -359,10 +434,10 @@ def _bwd_ok(got, ref, dtype, with_dx):
     return ok
 
 
-def check_backward_call(call, dtype, gen):
+def check_backward_call(call, dtype, gen, only=None):
     """Rows for the backward of one path call: ``fused_mm_bwd`` for a 1×1
     call; ``fused_c3_bwd``, ``fused_c3_bwd_in`` and ``fused_c3_bwd_w`` for
-    a 3×3 call (both routes)."""
+    a 3×3 call (both routes), or only the kernels named in ``only``."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_conv as fc
     dt = getattr(torch, dtype)
@@ -380,7 +455,9 @@ def check_backward_call(call, dtype, gen):
     dst = 1e-3 * torch.randn((2, cout), generator=gen, device="cuda")
     flags = (call.relu_in, call.norm_in)
 
-    # the library yardstick's inputs: dyc and the normalized input
+    # the library yardstick's inputs, made once outside the timed call:
+    # dyc and the normalized input (channels_last views for cuDNN, W
+    # copied to match, so the timed call holds no layout copy)
     xs = x[:, ::call.stride, ::call.stride] if call.stride != 1 else x
     dyc = fc._dyc(dy, y, dst)
     e = fc._norm_in(xs, s, b, *flags)
@@ -395,7 +472,8 @@ def check_backward_call(call, dtype, gen):
                                               *flags, call.stride))}
     else:
         dyc_c, e_c = (t.permute(0, 3, 1, 2) for t in (dyc, e))
-        w_oihw = wt.permute(3, 2, 0, 1)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
         conv_bwd = lambda mask: lambda: torch.ops.aten.convolution_backward(
             dyc_c, e_c, w_oihw, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
             1, mask)
@@ -415,6 +493,8 @@ def check_backward_call(call, dtype, gen):
         }
     rows = []
     for name, (part, with_dx, kern, plain) in runs.items():
+        if only is not None and name not in only:
+            continue
         got, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
         row = {"kernel": name, "dtype": dtype, "x": list(call.x_shape),
@@ -426,17 +506,26 @@ def check_backward_call(call, dtype, gen):
         row["ms"] = cuda_time(kern)
         row["plain_ms"] = cuda_time(plain)
         row["library_ms"] = cuda_time(library[part])
+        if name in REDESIGNED:
+            row["device_ms"] = device_ms(kern)
+            row["library_device_ms"] = device_ms(library[part])
         row["bound_ms"], row["bound_by"] = bound(*bwd_cost(call, dtype, part),
                                                  dtype)
         rows.append(row)
     return rows
 
 
+def _device_note(row):
+    return ("" if "device_ms" not in row else
+            f" device={row['device_ms']:.4f} lib_device="
+            f"{row['library_device_ms']:.4f}")
+
+
 def _summary(name, rows, launches=None):
     """One kernel's line: per bf16 train step (or served forward) at batch
     32, the sum over the path's calls of (value per call x calls)."""
     rs = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"
-          and r["on_path"]]
+          and r["on_path"] and r["batch"] == 32]
     tot = lambda key: sum(r[key] * r["per_step"] for r in rs)
     by_ops = sum(r["bound_ms"] * r["per_step"] for r in rs
                  if r["bound_by"] == "operations")
@@ -455,17 +544,24 @@ def _summary(name, rows, launches=None):
     return out
 
 
+def _merged(fc, call):
+    """Whether the train path takes the one-launch 3×3 backward route for
+    ``call`` (fc._backward's rule)."""
+    return call.x_shape[3] <= fc.C3_MERGED_MAX_CIN and call.norm_in
+
+
 def phase_kernels(report):
     import torch
     from deeplearning4j_tpu_torch.ops import fused_conv as fc
     from deeplearning4j_tpu_torch.zoo.models import ResNet50
-    calls = path_calls(ResNet50(**SLICE).conf(), 32)
+    conf = ResNet50(**SLICE).conf()
+    calls = path_calls(conf, 32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for call, count in calls.items():
         for dtype in ("float32", "bfloat16"):
             r = check_kernel_call(call, dtype, gen)
-            r.update(per_step=count, on_path=True)
+            r.update(per_step=count, on_path=True, batch=32)
             rows.append(r)
             log(f"  {r['kernel']:15s} {dtype:8s} x={tuple(r['x'])} "
                 f"w={tuple(r['w'])} s={r['stride']} norm={int(r['norm_in'])}"
@@ -475,12 +571,19 @@ def phase_kernels(report):
                 f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
                 f"bound={r['bound_ms']:.4f} ({r['bound_by']})"
                 f"{'' if r['ok'] else '  <-- DISAGREES'}")
-    for call, count in calls.items():
-        # the route the train path takes (fc._backward's rule)
-        merged = call.x_shape[3] <= fc.C3_MERGED_MAX_CIN and call.norm_in
+    # the train phase's own batch for the split route's dx half
+    train_calls = {call: count for call, count in
+                   path_calls(conf, TRAIN_BATCH).items()
+                   if call.kernel == "fused_c3" and not _merged(fc, call)}
+    backward = [(call, count, 32, None) for call, count in calls.items()]
+    backward += [(call, count, TRAIN_BATCH, ("fused_c3_bwd_in",))
+                 for call, count in train_calls.items()]
+    for call, count, batch, only in backward:
+        merged = _merged(fc, call)
         for dtype in ("float32", "bfloat16"):
-            for r in check_backward_call(call, dtype, gen):
+            for r in check_backward_call(call, dtype, gen, only):
                 r["per_step"] = count
+                r["batch"] = batch
                 r["on_path"] = (r["kernel"] == "fused_mm_bwd" or merged ==
                                 (r["kernel"] == "fused_c3_bwd"))
                 rows.append(r)
@@ -490,6 +593,7 @@ def phase_kernels(report):
                     f"err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
                     f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
                     f"bound={r['bound_ms']:.4f} ({r['bound_by']})"
+                    f"{_device_note(r)}"
                     f"{'' if r['ok'] else '  <-- DISAGREES'}"
                     f"{'' if r['bitwise_repeat'] else '  <-- NOT BITWISE'}")
     report["kernel_calls"] = rows
@@ -1292,6 +1396,35 @@ def sdpa_backend(fn):
     return max(rows)[1][:80] if rows else "not seen by the profiler"
 
 
+def device_ms(fn, n=10):
+    """Device time (ms) of one call of ``fn`` by torch.profiler: the mean
+    time of each kernel it launches, summed over its kernels (each
+    launched once a call, as the two redesigned wrappers' and their
+    yardsticks' are; a mean per launch, because the trace can miss the
+    first launch of its window). Where a call's wall time (``cuda_time``)
+    is bound by the host, this is what its kernels cost the card. A trace
+    that recorded no kernel at all is taken again, up to three times, and
+    then reads NaN (not measured), never 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        # "Activity Buffer Request" is the tracer's own device activity
+        ms = sum(getattr(e, "device_time_total", 0.0) / max(1, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"
+                 and not e.key.startswith("Activity Buffer")) / 1e3
+        if ms > 0:
+            return ms
+    return math.nan
+
+
 def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
     """Rows of the three flash kernels at one shape: against their plain
     versions, bitwise on a second run, timed beside the bound, the plain
@@ -1349,6 +1482,9 @@ def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
                "library_ms": cuda_time(lib[name], iters=iters, warmup=2)}
         row["bound_ms"], row["bound_by"] = bound(
             *attn_cost(name, q, mask, causal), dtype)
+        if name in REDESIGNED:
+            row["device_ms"] = device_ms(kern, n=iters)
+            row["library_device_ms"] = device_ms(lib[name], n=iters)
         rows.append(row)
     rows[0]["sdpa_backend"] = sdpa_backend(lib["flash_fwd"])
     rows[1]["sdpa_backend"] = rows[2]["sdpa_backend"] = sdpa_backend(lib_bwd)
@@ -1375,8 +1511,8 @@ def phase_attn_kernels(gen):
             log(f"  {r['kernel']:15s} {dtype:8s} N,T,H,Dh={n},{t},{h},{dh} "
                 f"{mode:6s} err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
                 f"plain={r['plain_ms']:.4f} sdpa={r['library_ms']:.4f} "
-                f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
-                f"[{r['sdpa_backend']}]"
+                f"bound={r['bound_ms']:.4f} ({r['bound_by']})"
+                f"{_device_note(r)} [{r['sdpa_backend']}]"
                 f"{'' if r['ok'] else '  <-- DISAGREES'}"
                 f"{'' if r['bitwise_repeat'] else '  <-- NOT BITWISE'}")
     return rows
@@ -1650,10 +1786,12 @@ def main(argv=None) -> int:
         cuda_build.build()
         report["build_seconds"] = time.perf_counter() - t0
         log(f"[build] {report['build_seconds']:.1f}s")
+        report["ptxas"] = {}
         for name, (sec, text) in cuda_build.build_log.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+            report["ptxas"][name] = ptxas_report(text)
+            for fn, regs, spills in report["ptxas"][name]:
+                log(f"  {name}: {fn[:60]} registers={regs} spills={spills}")
+        report["hmma"] = hmma_counts(cuda_build, MMA_SOURCES)
 
     summary = {}
     if "kernels" in phases:

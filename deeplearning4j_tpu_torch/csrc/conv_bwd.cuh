@@ -2,10 +2,12 @@
 // shared by fused_mm_bwd.cu (1x1 conv) and fused_c3_bwd.cu (3x3 SAME conv).
 //
 // Replaces the TPU kernels deeplearning4j_tpu/ops/fused_conv.py:
-// _bwd_merged_kernel (1x1), _c3_bwd_merged_kernel (3x3, one pass),
-// _c3_bwd_in_kernel and _c3_bwd_w_kernel (3x3, two passes). With the
-// forward's saved (x, W, scale, shift, y) and the cotangents (dy, dstats)
-// they compute, per dy row m (an output pixel) and channel:
+// _bwd_merged_kernel (1x1), _c3_bwd_merged_kernel (3x3, one pass) and
+// _c3_bwd_w_kernel (the dW half of the 3x3 two-pass route; its dx half,
+// _c3_bwd_in_kernel, is c3_bwd_in.cuh's, which keeps this file's dyc rule,
+// epilogue and, for f32, its FMA tile). With the forward's saved (x, W,
+// scale, shift, y) and the cotangents (dy, dstats) they compute, per dy
+// row m (an output pixel) and channel:
 //
 //   dyc = dy + dS + 2 * y * dS2, rounded to dy's dtype  (statistics chain)
 //   e   = relu?(x * scale + shift), rounded to x's dtype (recomputed prologue)
@@ -29,8 +31,8 @@
 // over M, the longest axis. What the design does about that:
 //   * one launch holds two kinds of 64x64 tiles over the same dy/y/x:
 //     dx tiles (with the BN/ReLU backward and its sums in the epilogue)
-//     and dW tiles, so both products fill the card together (the split
-//     route launches each kind alone);
+//     and dW tiles, so both products fill the card together (the dW
+//     launch of the 3x3 split route runs dW tiles alone);
 //   * dW cuts M into slices of dw_chunk rows (the caller picks the count
 //     from the shapes alone, about two blocks per SM); each slice writes
 //     its own f32 plane and a second kernel adds the planes in slice order;

@@ -8,10 +8,12 @@
 // (N, H, T) f32; the key mask is (N, Tk) f32, a key valid where it is > 0,
 // or null (every key valid).
 //
-// Tiles. A block of 256 threads owns one 64-row tile of queries (forward,
-// dq) or keys (dk/dv) of one (batch row, head) and loops over the other
-// side's 64-row tiles, which replaces the TPU kernels' sequential grid
-// dimension. Tiles are staged in shared memory as f32, row stride
+// Tiles. A block owns one 64-row tile of queries (forward, dq) or keys
+// (dk/dv) of one (batch row, head) and loops over the other side's 64-row
+// tiles, which replaces the TPU kernels' sequential grid dimension. The
+// bf16 forward keeps its tiles in bf16 for the tensor cores (its layout is
+// described in flash_fwd.cu). In the f32 forward and the backward a block
+// has 256 threads and tiles are staged in shared memory as f32, row stride
 // DMAX + 1 (DMAX = Dh rounded up to 32, 64 or 128; the columns past Dh
 // and the rows past T are zero), so a warp reads one column of 16 rows or
 // 16 columns of one row without a bank conflict. Thread (ty, tx) = (t/16,
@@ -58,6 +60,7 @@ struct Params {
   int n, tq, tk, h, dh, causal;
   long long qs[3], ks[3], vs[3], ds[3];   // (n, t, h) strides, elements
   float scale;
+  int vec;   // forward, bf16: q, k, v bases and strides allow 16-byte loads
 };
 
 __device__ __forceinline__ float load(const float* p, size_t i) {

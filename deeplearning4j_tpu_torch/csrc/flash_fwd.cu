@@ -6,26 +6,43 @@
 // diagonal set to kNeg, running (m, l, acc) in f32, out = acc / l in q's
 // dtype and lse = m + log(l) in f32; a row with no valid key gives out 0
 // and lse kNeg. Products are of the inputs' values summed in f32 and p
-// stays f32, as in the TPU kernel (no TF32, no bf16 rounding of p).
+// keeps f32 accuracy, as in the TPU kernel (no TF32).
 //
 // What bounds it on the H100. 4·N·H·Tq·Tk·Dh FLOP (about half with the
 // causal mask) against reading q, k, v and the mask once and writing out
 // and lse once: at the BERT-base slice (N 64, T 128, H 12, Dh 64) 3.2
 // GFLOP and 50 MB in bf16, so the memory's 3.35 TB/s (15 us) bounds it
-// before the tensor cores' 989 TF/s (3.3 us) do; this first version
-// does the products as f32 FMA on shared-memory tiles, bound by 67 TF/s
-// (48 us there) and in practice by the shared-memory reads each FMA makes.
+// before the tensor cores' 989 TF/s (3.3 us) do. In f32 the FMA units'
+// 67 TF/s (48 us) bound it.
 //
-// What the design does about it (flash.cuh): the (Tq, Tk) scores never
-// reach device memory; each block stages its query tile once and each key
+// bf16 (fwd_mma_kernel), the FlashAttention-2 layout: 4 warps own the
+// block's 64 query rows, 16 each, and read their Q fragments from shared
+// memory at each step, which leaves the registers to the accumulators.
+// S = Q K^T runs on mma.sync m16n8k16 (bf16 products are exact, summed in
+// f32); the online softmax runs on the accumulator fragments, the row
+// max and sum reduced over each quad of lanes by shuffles (one fixed
+// order, so every lane of a row holds the same bits). P·V keeps p at f32
+// accuracy: p = hi + lo with hi = bf16(p), lo = bf16(p - hi), and two
+// MMAs add hi·V and lo·V into the f32 accumulator (V is exact in bf16;
+// the error is near 2^-17 of p). K and V tiles are staged as bf16 by
+// 16-byte cp.async into rows padded to DMAX + 8 elements, so ldmatrix
+// (K plain as QK^T's B operand, V with .trans as P·V's) has no bank
+// conflicts, in two stages: tile k + 1 loads while tile k computes. Where
+// the wrapper finds the bases or strides unfit for 16-byte loads (Dh not a
+// multiple of 8, say) the same kernel stages with 2-byte loads.
+//
+// f32 (fwd_kernel, flash.cuh): the products are f32 FMA on f32
+// shared-memory tiles; each block stages its query tile once and each key
 // tile once, keeps its accumulator in registers (a 4 x Dh/16 register
-// tile per thread) and reads every staged value for 4 products. The row
-// max and sum are reduced over the 16 threads of a row by warp shuffles.
-// Causal tiles above the diagonal are skipped. mma.sync or wgmma on the
-// bf16 inputs with TMA-staged tiles is the later, faster version.
-// Built with nvcc into a shared library with a plain C interface and
-// called through ctypes (ops/flash_attention.py:flash_fwd).
+// tile per thread) and reads every staged value for 4 products.
+//
+// Both: the (Tq, Tk) scores never reach device memory, causal tiles above
+// the diagonal are skipped, every sum has a fixed order and no float
+// atomics are used, so a second call gives the same bits. Built with nvcc
+// into a shared library with a plain C interface and called through
+// ctypes (ops/flash_attention.py:flash_fwd).
 #include "flash.cuh"
+#include "mma.cuh"
 
 namespace dl4j {
 namespace flash {
@@ -130,21 +147,278 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem<DMAX>();
-  static const cudaError_t granted = allow_smem(fwd_kernel<T, DMAX>, smem);
+  static const cudaError_t granted = allow_smem(fwd_kernel<float, DMAX>, smem);
   if (granted != cudaSuccess) return granted;
   const dim3 grid((p.tq + kB - 1) / kB, p.h, p.n);
-  fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(p);
+  fwd_kernel<float, DMAX><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_fwd(const Params& p, cudaStream_t stream) {
-  if (p.dh <= 32) return launch_fwd<T, 32>(p, stream);
-  if (p.dh <= 64) return launch_fwd<T, 64>(p, stream);
-  if (p.dh <= 128) return launch_fwd<T, 128>(p, stream);
+// ---- bf16: tensor-core body ----------------------------------------------
+
+constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
+
+template <int DMAX>
+__host__ __device__ constexpr int mma_row() {   // staged row stride, bf16
+  return DMAX + 8;
+}
+
+template <int DMAX>
+constexpr size_t mma_smem() {   // Q, two stages of K and V, key validity
+  return sizeof(__nv_bfloat16) * 5 * kB * mma_row<DMAX>() +
+         sizeof(float) * 2 * kB;
+}
+
+// rows [row0, row0 + kB) of batch row b, head hh of a strided bf16
+// (N, T, H, Dh) view into dst (kB x mma_row bf16), zero past T and Dh:
+// 16-byte cp.async when vec (Dh % 8 == 0, aligned bases and strides; the
+// caller commits and waits), else 2-byte loads and stores
+template <int DMAX>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           const long long* s, int b, int hh,
+                                           int row0, int t_len, int dh,
+                                           bool vec) {
+  const size_t base = static_cast<size_t>(b) * s[0] +
+                      static_cast<size_t>(hh) * s[2];
+  if (vec) {
+    constexpr int kChunks = DMAX / 8;
+    for (int i = threadIdx.x; i < kB * kChunks; i += kMmaThreads) {
+      const int r = i / kChunks, d = (i % kChunks) * 8, t = row0 + r;
+      const bool ok = t < t_len && d < dh;
+      const __nv_bfloat16* g =
+          ok ? src + base + static_cast<size_t>(t) * s[1] + d : src;
+      mma::cp_async16(dst + r * mma_row<DMAX>() + d, g, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kB * DMAX; i += kMmaThreads) {
+    const int r = i / DMAX, d = i % DMAX, t = row0 + r;
+    __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
+    if (t < t_len && d < dh) v = src[base + static_cast<size_t>(t) * s[1] + d];
+    dst[r * mma_row<DMAX>() + d] = v;
+  }
+}
+
+// p's hi and lo bf16 pairs of one A register (two neighbouring keys)
+__device__ __forceinline__ void split_p(float p0, float p1, unsigned& hi,
+                                        unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = mma::pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// blocks an SM keeps resident: caps the registers so the staging of some
+// blocks hides behind the products of others
+template <int DMAX>
+__host__ __device__ constexpr int mma_min_blocks() {
+  return DMAX <= 64 ? 3 : 2;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DMAX>())
+    fwd_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kRow = mma_row<DMAX>();
+  constexpr int kD16 = DMAX / 16;   // k-steps of QK^T; pairs of d tiles
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kB * kRow;       // two stages
+  __nv_bfloat16* Vs = Ks + 2 * kB * kRow;   // two stages
+  float* kval = reinterpret_cast<float*>(Vs + 2 * kB * kRow);   // two stages
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
+  const int q0 = blockIdx.x * kB, hh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool vec = p.vec != 0;
+  // this thread's two query rows (fragment rows g and g + 8)
+  const int qr[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+
+  int nk = (p.tk + kB - 1) / kB;
+  if (p.causal) {
+    // key tiles that start after the tile's last query hold no live score
+    const int last = (q0 + kB - 1) / kB + 1;
+    nk = nk < last ? nk : last;
+  }
+  stage_bf16<DMAX>(Qs, q, p.qs, b, hh, q0, p.tq, p.dh, vec);
+  stage_bf16<DMAX>(Ks, k, p.ks, b, hh, 0, p.tk, p.dh, vec);
+  stage_bf16<DMAX>(Vs, v, p.vs, b, hh, 0, p.tk, p.dh, vec);
+  load_key_valid(kval, p, b, 0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {   // tile kt + 1 loads while tile kt computes
+      const int nxt = cur ^ 1;
+      stage_bf16<DMAX>(Ks + nxt * kB * kRow, k, p.ks, b, hh, (kt + 1) * kB,
+                       p.tk, p.dh, vec);
+      stage_bf16<DMAX>(Vs + nxt * kB * kRow, v, p.vs, b, hh, (kt + 1) * kB,
+                       p.tk, p.dh, vec);
+      load_key_valid(kval + nxt * kB, p, b, (kt + 1) * kB);
+      mma::cp_async_commit();
+    }
+    const __nv_bfloat16* Kc = Ks + cur * kB * kRow;
+    const __nv_bfloat16* Vc = Vs + cur * kB * kRow;
+    const float* kv = kval + cur * kB;
+    const int k0 = kt * kB;
+
+    // s = q k^T: 8 key tiles of 8, over Dh in steps of 16
+    float s[kB / 8][4];
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kD16; ++ks) {
+      // every fragment of the step first (Q's from shared memory again,
+      // which leaves its registers to the accumulators), then 8 products
+      unsigned qf[4], bf[kB / 16][4];
+      mma::ldsm_x4(qf, Qs + (16 * warp + (lane & 15)) * kRow + 16 * ks +
+                           (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < kB / 16; ++jp)
+        mma::ldsm_x4(bf[jp], Kc + (16 * jp + (lane & 7) +
+                                   ((lane >> 4) << 3)) * kRow +
+                                 16 * ks + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int jp = 0; jp < kB / 16; ++jp) {
+        mma::mma_bf16(s[2 * jp], qf, bf[jp][0], bf[jp][1]);
+        mma::mma_bf16(s[2 * jp + 1], qf, bf[jp][2], bf[jp][3]);
+      }
+    }
+
+    // online softmax on the fragments: element e of key tile j is row
+    // qr[e / 2], key k0 + 8 j + 2 t4 + e % 2. A tile of valid keys that
+    // no causal diagonal reaches is only scaled.
+    const bool plain = p.mask == nullptr && k0 + kB <= p.tk &&
+                       (!p.causal || k0 + kB - 1 <= q0);
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = plain ? s[j][e] * p.scale
+                        : masked_score(s[j][e], p, kv,
+                                       8 * j + 2 * t4 + (e & 1), k0,
+                                       qr[e >> 1]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+      sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+      l[r] = l[r] * alpha[r] + sum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    // o += p v, p = hi + lo: keys in steps of 16, Dh in pairs of 8-tiles
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) {
+      unsigned ah[4], al[4];
+      split_p(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      split_p(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+      // all of the step's V fragments, then the hi products, then the lo
+      // ones, so no product waits on the one before it
+      unsigned vb[kD16][4];
+#pragma unroll
+      for (int dp = 0; dp < kD16; ++dp)
+        mma::ldsm_x4_trans(vb[dp], Vc + (16 * kk + (lane & 7) +
+                                         ((lane >> 3) & 1) * 8) * kRow +
+                                       16 * dp + (lane >> 4) * 8);
+#pragma unroll
+      for (int dp = 0; dp < kD16; ++dp) {
+        mma::mma_bf16(o[2 * dp], ah, vb[dp][0], vb[dp][1]);
+        mma::mma_bf16(o[2 * dp + 1], ah, vb[dp][2], vb[dp][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < kD16; ++dp) {
+        mma::mma_bf16(o[2 * dp], al, vb[dp][0], vb[dp][1]);
+        mma::mma_bf16(o[2 * dp + 1], al, vb[dp][2], vb[dp][3]);
+      }
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();   // tile kt + 1 is staged; tile kt's readers are done
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = qr[r];
+    if (t >= p.tq) continue;
+    const bool valid = m[r] > kNeg * 0.5f;
+    const float l_safe = l[r] > 0.0f ? l[r] : 1.0f;
+    const size_t row =
+        ((static_cast<size_t>(b) * p.tq + t) * p.h + hh) * p.dh;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float v0 = valid ? o[j][2 * r] / l_safe : 0.0f;
+      const float v1 = valid ? o[j][2 * r + 1] / l_safe : 0.0f;
+      if (c + 1 < p.dh && (p.dh & 1) == 0) {   // both, 4-byte aligned
+        *reinterpret_cast<unsigned*>(out + row + c) = mma::pack_bf16(v0, v1);
+      } else {
+        if (c < p.dh) store(out, row + c, v0);
+        if (c + 1 < p.dh) store(out, row + c + 1, v1);
+      }
+    }
+    if (t4 == 0)
+      p.lse_out[(static_cast<size_t>(b) * p.h + hh) * p.tq + t] =
+          valid ? m[r] + logf(l_safe) : kNeg;
+  }
+}
+
+template <int DMAX>
+cudaError_t launch_fwd_mma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem<DMAX>();
+  static const cudaError_t granted = allow_smem(fwd_mma_kernel<DMAX>, smem);
+  if (granted != cudaSuccess) return granted;
+  const dim3 grid((p.tq + kB - 1) / kB, p.h, p.n);
+  fwd_mma_kernel<DMAX><<<grid, kMmaThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+inline cudaError_t dispatch_fwd(const Params& p, bool bf16,
+                                cudaStream_t stream) {
+  if (p.dh <= 32)
+    return bf16 ? launch_fwd_mma<32>(p, stream) : launch_fwd<32>(p, stream);
+  if (p.dh <= 64)
+    return bf16 ? launch_fwd_mma<64>(p, stream) : launch_fwd<64>(p, stream);
+  if (p.dh <= 128)
+    return bf16 ? launch_fwd_mma<128>(p, stream) : launch_fwd<128>(p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -154,7 +428,7 @@ cudaError_t dispatch_fwd(const Params& p, cudaStream_t stream) {
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const void* mask, void* out, void* lse, int n,
                               int tq, int tk, int h, int dh, int causal,
-                              int bf16, long long qsn, long long qst,
+                              int bf16, int vec, long long qsn, long long qst,
                               long long qsh, long long ksn, long long kst,
                               long long ksh, long long vsn, long long vst,
                               long long vsh, void* stream) {
@@ -178,7 +452,7 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
   p.scale = softmax_scale(dh);
   if (n <= 0 || tq <= 0 || tk <= 0 || h <= 0 || dh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? dispatch_fwd<__nv_bfloat16>(p, s)
-                               : dispatch_fwd<float>(p, s));
+  p.vec = vec;
+  return static_cast<int>(
+      dispatch_fwd(p, bf16 != 0, static_cast<cudaStream_t>(stream)));
 }

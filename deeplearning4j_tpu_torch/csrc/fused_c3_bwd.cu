@@ -2,9 +2,11 @@
 // backward, as one launch (replaces the TPU kernel
 // deeplearning4j_tpu/ops/fused_conv.py:_c3_bwd_merged_kernel) or as its
 // two halves (replace :_c3_bwd_in_kernel and :_c3_bwd_w_kernel). The
-// kernel body, what bounds it on the H100 and what its design does about
-// that are in conv_bwd.cuh. Built with nvcc into a shared library with a
-// plain C interface and called through ctypes (ops/fused_conv.py).
+// merged kernel and the dW half are conv_bwd.cuh's (FMA tiles; their
+// bound and design are described there); the dx half is c3_bwd_in.cuh's
+// (split-K, bf16 tensor cores). Built with nvcc into a shared library with
+// a plain C interface and called through ctypes (ops/fused_conv.py).
+#include "c3_bwd_in.cuh"
 #include "conv_bwd.cuh"
 
 extern "C" int dl4j_tile_m() { return dl4j::kTileM; }
@@ -40,18 +42,33 @@ extern "C" int dl4j_fused_c3_bwd(const void* dy, const void* y, const void* x,
   return launch<dl4j::kPartDx | dl4j::kPartDw>(p, dw, ws, is_bf16, stream);
 }
 
-// The dx half: dx and the BN sums (arguments as above).
+// The dx half: dx and the BN sums (arguments as above, but ws is the
+// (slices, N * H * W, Cin) f32 scratch of the K slices, each slice_depth
+// deep; partial is (ceil(M / tile_rows), 2, Cin) f32 when norm_in; sums
+// (2, Cin) f32 receives (dscale, dshift), zeros without norm_in; dyc is an
+// (M, Cout) bf16 scratch, 16-byte aligned, for bf16 inputs (else null)).
 extern "C" int dl4j_fused_c3_bwd_in(const void* dy, const void* y,
                                     const void* x, const void* w,
                                     const float* dst, const float* scale,
-                                    const float* shift, void* dx,
-                                    float* partial, int n, int h, int wd,
+                                    const float* shift, void* dx, float* ws,
+                                    float* partial, float* sums, void* dyc,
+                                    int n, int h, int wd,
                                     int cin, int cout, int norm_in,
-                                    int relu_in, int is_bf16, void* stream) {
-  const dl4j::BwdArgs p =
-      dl4j::bwd_args(dy, y, x, w, dst, scale, shift, dx, partial, n, h, wd,
-                     cin, cout, 1, norm_in, relu_in, 0);
-  return launch<dl4j::kPartDx>(p, nullptr, nullptr, is_bf16, stream);
+                                    int relu_in, int slices, int slice_depth,
+                                    int tile_rows, int is_bf16,
+                                    void* stream) {
+  dl4j::bwd_in::InArgs a;
+  a.p = dl4j::bwd_args(dy, y, x, w, dst, scale, shift, dx, partial, n, h, wd,
+                       cin, cout, 1, norm_in, relu_in, 0);
+  a.ws = ws;
+  a.sums = sums;
+  a.dyc = static_cast<__nv_bfloat16*>(dyc);
+  a.slices = slices;
+  a.slice_depth = slice_depth;
+  a.tile_rows = tile_rows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return dl4j::bwd_in::launch_bwd_in<__nv_bfloat16>(a, s);
+  return dl4j::bwd_in::launch_bwd_in<float>(a, s);
 }
 
 // The dW half (arguments as above; the weight is not read).

@@ -42,12 +42,12 @@ SIGNATURES = {
     "fused_c3": ("dl4j_fused_c3", [_P] * 7 + [_I] * 9 + [_P]),
     "fused_mm_bwd": ("dl4j_fused_mm_bwd", [_P] * 11 + [_I] * 10 + [_P]),
     "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 11 + [_I] * 9 + [_P]),
-    "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 9 + [_I] * 8 + [_P]),
+    "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 12 + [_I] * 11 + [_P]),
     "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),
     "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 5 + [_P]),
     "lstm_bwd": ("dl4j_lstm_bwd", [_P] * 15 + [_I] * 5 + [_P]),
     # the flash kernels take each strided input's (n, t, h) strides
-    "flash_fwd": ("dl4j_flash_fwd", [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P]),
+    "flash_fwd": ("dl4j_flash_fwd", [_P] * 6 + [_I] * 8 + [_L] * 9 + [_P]),
     "flash_bwd_dkv": ("dl4j_flash_bwd_dkv",
                       [_P] * 9 + [_I] * 7 + [_L] * 12 + [_P]),
     "flash_bwd_dq": ("dl4j_flash_bwd_dq",
@@ -146,6 +146,14 @@ def kernel(name: str):
                         fn.restype = ctypes.c_int
                 _libs[source] = lib
     return getattr(lib, SIGNATURES[name][0])
+
+
+def current_stream(device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (a CUDA ``torch.device`` with its index), as an int: what a launch
+    takes, without building a ``torch.cuda.Stream`` object."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def helper(name: str, sym: str):

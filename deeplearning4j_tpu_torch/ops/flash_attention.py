@@ -15,11 +15,13 @@ saw a valid key gives out = 0 and lse = ``_NEG``, and the backward zeroes
 p where lse <= ``_NEG`` / 2.
 
 Three hand-written CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-sm_90a) do the work on the card. They read q, k, v and dO through their
-strides, so the views ``SelfAttentionLayer`` cuts from its packed
-projection need no copy, take their own 64-row tiles and mask the ragged
-edge themselves: the TPU block sizes and Mosaic padding rules are not
-carried over. Beside each is its plain PyTorch version
+sm_90a) do the work on the card; the forward multiplies bf16 inputs on
+the tensor cores, staging with 16-byte loads where ``vector_loads``
+allows. They read q, k, v and dO through their strides, so the views
+``SelfAttentionLayer`` cuts from its packed projection need no copy,
+take their own 64-row tiles and mask the ragged edge themselves: the TPU
+block sizes and Mosaic padding rules are not carried over. Beside each is
+its plain PyTorch version
 (``flash_fwd_reference``, ``flash_bwd_dkv_reference``,
 ``flash_bwd_dq_reference``): the wrappers use it for a tensor on the CPU
 and only there. A CUDA tensor launches the kernel or raises; nothing falls
@@ -233,6 +235,18 @@ def _device(name, q):
         raise ValueError(f"{name}: unsupported device {q.device}")
 
 
+def vector_loads(q, k, v) -> bool:
+    """Whether ``flash_fwd``'s bf16 kernel may stage q, k and v with
+    16-byte loads: Dh a multiple of 8 and every base address and (n, t, h)
+    stride a multiple of 16 bytes. The views of the packed (N, T, H, 3, Dh)
+    projection pass at Dh 64; the kernel stages with 2-byte loads where
+    they do not."""
+    vec = 16 // q.element_size()
+    return q.shape[3] % vec == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % vec == 0 for st in t.stride()[:3])
+        for t in (q, k, v))
+
+
 def flash_fwd(q, k, v, mask=None, causal: bool = False):
     """``flash_fwd_reference`` as one launch of ``csrc/flash_fwd.cu`` for
     CUDA tensors: q (N, Tq, H, Dh), k and v (N, Tk, H, Dh) in one dtype
@@ -247,11 +261,12 @@ def flash_fwd(q, k, v, mask=None, causal: bool = False):
     lse = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
     strides = (_strides("flash_fwd", "q", q) + _strides("flash_fwd", "k", k)
                + _strides("flash_fwd", "v", v))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bf16 = q.dtype == torch.bfloat16        # the f32 body ignores vec
     err = cuda_build.kernel("flash_fwd")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
-        n, tq, tk, h, dh, int(causal), int(q.dtype == torch.bfloat16),
-        *strides, stream)
+        n, tq, tk, h, dh, int(causal), int(bf16),
+        int(bf16 and vector_loads(q, k, v)), *strides,
+        cuda_build.current_stream(q.device))
     _raise_on("flash_fwd", err, (n, tq, h, dh))
     _count("flash_fwd")
     return out, lse
@@ -275,7 +290,7 @@ def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool = False):
                                             do, lse, delta)
     dk = torch.empty((n, tk, h, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = cuda_build.current_stream(q.device)
     err = cuda_build.kernel("flash_bwd_dkv")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dk), _ptr(dv), n, tq, tk, h, dh, int(causal),
@@ -295,7 +310,7 @@ def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool = False):
     (n, tq, tk, h, dh), strides = _bwd_args("flash_bwd_dq", q, k, v, mask,
                                             do, lse, delta)
     dq = torch.empty((n, tq, h, dh), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = cuda_build.current_stream(q.device)
     err = cuda_build.kernel("flash_bwd_dq")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dq), n, tq, tk, h, dh, int(causal),

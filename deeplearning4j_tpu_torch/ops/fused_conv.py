@@ -20,7 +20,9 @@ bwd-input product's epilogue.
 Six hand-written CUDA kernels (``csrc/``, sm_90a) do the work on the card:
 ``fused_mm`` / ``fused_c3`` (forward, 1×1 and 3×3) and ``fused_mm_bwd``,
 ``fused_c3_bwd`` (3×3 dx, dW and the BN sums in one launch),
-``fused_c3_bwd_in`` + ``fused_c3_bwd_w`` (the same work as two launches).
+``fused_c3_bwd_in`` + ``fused_c3_bwd_w`` (the same work as two launches;
+``fused_c3_bwd_in`` splits its 9·Cout depth into the slices of
+``dx_slices`` and multiplies bf16 on the tensor cores).
 Beside each is its plain PyTorch version (``*_reference``): the wrappers
 use it for a tensor on the CPU and only there. A CUDA tensor launches the
 kernel or raises; nothing falls back.
@@ -32,8 +34,9 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -213,6 +216,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_TILE = 64            # rows and columns of a backward kernel's tile
 _DW_MIN_DEPTH = 256       # fewest rows one dW slice sums
 _DW_TARGET_BLOCKS = 264   # two blocks per SM of an H100
+_DX_MIN_DEPTH = 256       # shallowest K slice of fused_c3_bwd_in worth a block
+DX_STEP = 32              # depth of one fused_c3_bwd_in step (two MMA k16s)
+DX_SUM_ROWS = 16          # rows of one fused_c3_bwd_in partial-sum tile
 
 
 def _ptr(t):
@@ -291,9 +297,9 @@ def _launch(name, args, x, k, cout, m, want_stats):
     splits = cuda_build.split_count(name, k)
     if splits > 1:
         ws = torch.empty((splits, m, cout), **f32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = cuda_build.kernel(name)(*args(_ptr(partial), _ptr(ws)),
-                                  int(want_stats), _DTYPES[x.dtype], stream)
+                                  int(want_stats), _DTYPES[x.dtype],
+                                  cuda_build.current_stream(x.device))
     _raise_on(name, err)
     return partial.sum(0) if want_stats else None
 
@@ -358,6 +364,49 @@ def dw_chunk(rows: int, cols: int, depth: int) -> int:
     return -(-per // 16) * 16
 
 
+def dx_slices(m: int, cin: int, depth: int) -> Tuple[int, int]:
+    """(count, depth of each) of the K slices ``fused_c3_bwd_in`` cuts its
+    depth 9·Cout into: slices are added until its grid of 64×64 (M, Cin)
+    tiles × slices has about two blocks per SM, none shallower than about
+    256; each is a multiple of ``DX_STEP`` deep, the last one shorter. A
+    function of the shapes alone, so a call's bits do not vary from run to
+    run."""
+    tiles = -(-m // _BWD_TILE) * -(-cin // _BWD_TILE)
+    want = max(1, min(-(-_DW_TARGET_BLOCKS // tiles),
+                      -(-depth // _DX_MIN_DEPTH)))
+    per = -(-(-(-depth // want)) // DX_STEP) * DX_STEP
+    return -(-depth // per), per
+
+
+class DxPlan(NamedTuple):
+    """How ``fused_c3_bwd_in`` cuts one call: its K slices and the offsets,
+    in f32 elements, of its scratch in one f32 buffer (each 16-byte
+    aligned), which starts with the (slices, M, Cin) f32 planes of de, one
+    per K slice."""
+    slices: int       # K slices
+    depth: int        # depth of each (the last one shorter)
+    row_tiles: int    # (Σdpre·x, Σdpre) tiles of DX_SUM_ROWS rows, or 0
+    partial: int      # (row_tiles, 2, Cin) f32: the sums of each row tile
+    sums: int         # (2, Cin) f32: partial added over the tiles in order
+    dyc: int          # (M, Cout) bf16: dyc, for bf16 inputs
+    size: int         # f32 elements in all
+
+
+@functools.lru_cache(maxsize=256)
+def dx_plan(m: int, cin: int, cout: int, norm_in: bool,
+            bf16: bool) -> DxPlan:
+    """The ``DxPlan`` of one ``fused_c3_bwd_in`` call; a function of the
+    shapes alone."""
+    slices, depth = dx_slices(m, cin, 9 * cout)
+    tiles = -(-m // DX_SUM_ROWS) if norm_in else 0
+    seg = lambda n: -(-n // 4) * 4                 # whole 16-byte units
+    partial = seg(slices * m * cin)
+    sums = partial + seg(tiles * 2 * cin)
+    dyc = sums + seg(2 * cin)
+    size = dyc + (seg(-(-m * cout // 2)) if bf16 else 0)
+    return DxPlan(slices, depth, tiles, partial, sums, dyc, size)
+
+
 class _Bwd:
     """Buffers and launch of one backward kernel call on the card."""
 
@@ -378,8 +427,8 @@ class _Bwd:
                 self.ws = torch.empty((splits, dw_rows, cout), **f32)
 
     def run(self, *args):
-        stream = torch.cuda.current_stream(self.dev).cuda_stream
-        _raise_on(self.name, cuda_build.kernel(self.name)(*args, stream))
+        _raise_on(self.name, cuda_build.kernel(self.name)(
+            *args, cuda_build.current_stream(self.dev)))
 
     def sums(self, cin):
         if self.partial is None:
@@ -460,22 +509,30 @@ def fused_c3_bwd(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
 
 def fused_c3_bwd_in(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
                     norm_in: bool = True):
-    """3×3 backward-input launch: (dx in x's dtype, dscale, dshift)."""
+    """3×3 backward-input launch: (dx in x's dtype, dscale, dshift); on
+    the card dscale and dshift are views of the call's f32 scratch
+    (``dx_plan``)."""
     if x.device.type == "cpu":
         return fused_c3_bwd_in_reference(dy, y, x, w, dstats, scale, shift,
                                          relu_in, norm_in)
     name = "fused_c3_bwd_in"
     n, h, wd, cin, cout = _c3_bwd_prep(name, dy, y, x, w, dstats, scale,
                                        shift)
+    bf16 = x.dtype == torch.bfloat16
+    plan = dx_plan(n * h * wd, cin, cout, bool(norm_in), bf16)
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
-        b = _Bwd(name, x, n * h * wd, cin, cout, 9 * cin, norm_in, True,
-                 False)
-        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
-              dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-              dx.data_ptr(), _ptr(b.partial), n, h, wd, cin, cout,
-              int(norm_in), int(relu_in), _DTYPES[x.dtype])
-        dscale, dshift = b.sums(cin)
+        buf = torch.empty(plan.size, dtype=torch.float32, device=x.device)
+        at = buf.data_ptr()
+        _raise_on(name, cuda_build.kernel(name)(
+            dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+            dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            dx.data_ptr(), at, at + 4 * plan.partial if norm_in else None,
+            at + 4 * plan.sums, at + 4 * plan.dyc if bf16 else None, n, h,
+            wd, cin, cout, int(norm_in), int(relu_in), plan.slices,
+            plan.depth, DX_SUM_ROWS, _DTYPES[x.dtype],
+            cuda_build.current_stream(x.device)))
+    dscale, dshift = buf[plan.sums:plan.sums + 2 * cin].view(2, cin).unbind(0)
     return dx, dscale, dshift
 
 

@@ -193,7 +193,7 @@ def lstm_fwd(zx, h0, c0, wh, mask3=None):
     c_t = torch.empty_like(c0)
     # ping-pong exchange of h (rounded to Wh's dtype), read by every block
     xbuf = torch.empty((2, n, nh), dtype=torch.float32, device=zx.device)
-    stream = torch.cuda.current_stream(zx.device).cuda_stream
+    stream = cuda_build.current_stream(zx.device)
     err = cuda_build.kernel("lstm_fwd")(
         _ptr(zx), _ptr(h0), _ptr(c0), _ptr(wh), _ptr(mask3), _ptr(ys),
         _ptr(gates), _ptr(tcs), _ptr(ccs), _ptr(h_t), _ptr(c_t), _ptr(xbuf),
@@ -238,7 +238,7 @@ def lstm_bwd(dys, dhT, dcT, gates, tcs, cprev, hprev, mask3, wh):
     # each row tile's dWh partial, summed in row-tile order by the kernel
     ws = torch.empty((cuda_build.lstm_bwd_row_tiles(n, nh), nh, 4 * nh),
                      dtype=torch.float32, device=dys.device)
-    stream = torch.cuda.current_stream(dys.device).cuda_stream
+    stream = cuda_build.current_stream(dys.device)
     err = cuda_build.kernel("lstm_bwd")(
         _ptr(dys), _ptr(dhT), _ptr(dcT), _ptr(gates), _ptr(tcs), _ptr(cprev),
         _ptr(hprev), _ptr(mask3), _ptr(wh), _ptr(dzx), _ptr(dwh), _ptr(dh0),

@@ -167,3 +167,19 @@ def test_reference_shapes_and_dtypes():
     dq = fa.flash_bwd_dq_reference(q, k, v, m.float(), g, lse, delta)
     for a in (dq, dk, dv):
         assert a.dtype == torch.bfloat16 and a.shape == (N, 37, H, DH)
+
+
+@pytest.mark.parametrize("dh,offset,want", [
+    (64, 0, True), (16, 0, True), (100, 0, False), (4, 0, False),
+    (64, 1, False)])
+def test_vector_loads_follows_the_views_alignment(dh, offset, want):
+    # q, k, v as SelfAttentionLayer cuts them from a packed (N, T, H, 3, Dh)
+    # projection; ``offset`` shifts the packed tensor by whole elements
+    n, t, h = 2, 8, 3
+    buf = torch.zeros(offset + n * t * h * 3 * dh, dtype=torch.bfloat16)
+    qkv = buf[offset:].view(n, t, h, 3, dh)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    assert fa.vector_loads(q, k, v) is want
+    f32 = qkv.float()
+    assert fa.vector_loads(f32[:, :, :, 0], f32[:, :, :, 1],
+                           f32[:, :, :, 2]) is (dh % 4 == 0)

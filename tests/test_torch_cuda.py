@@ -185,6 +185,43 @@ def test_fused_c3_bwd_routes_match_plain(card, n, h, w, cin, cout, dtype):
     _check_bwd((dx, dw, dsc, dsh), ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (32, 2, 2, 512, 512),       # stage 4 at the kernels phase's batch
+    (128, 2, 2, 512, 512),      # and at the train phase's
+    (3, 3, 5, 520, 72)])        # M, Cin and 9·Cout fit no tile or slice
+def test_fused_c3_bwd_in_matches_plain_and_repeats(card, n, h, w, cin, cout,
+                                                  dtype):
+    x, wt, s, b = _inputs(card, (n, h, w, cin), (3, 3, cin, cout), dtype)
+    dy, y, dst = _grad_inputs(card, x, cout, dtype)
+    before = fc.LAUNCHES["fused_c3_bwd_in"]
+    got = fc.fused_c3_bwd_in(dy, y, x, wt, dst, s, b)
+    assert fc.LAUNCHES["fused_c3_bwd_in"] == before + 1
+    _check_bwd(got, fc.fused_c3_bwd_in_reference(dy, y, x, wt, dst, s, b),
+               dtype)
+    again = fc.fused_c3_bwd_in(dy, y, x, wt, dst, s, b)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout,shift,norm", [
+    (13, 0, True),              # Cout % 8 != 0: 2-byte staging
+    (64, 1, True),              # dy and y one element off 16 bytes
+    (40, 0, False)])            # no normalize: dx = de, no sums
+def test_fused_c3_bwd_in_scalar_staging_matches_plain(card, cout, shift,
+                                                      norm, dtype):
+    x, wt, s, b = _inputs(card, (4, 3, 6, 24), (3, 3, 24, cout), dtype)
+    dy0, y0, dst = _grad_inputs(card, x, cout, dtype)
+    if shift:
+        dy, y = (torch.empty(t.numel() + shift, dtype=dtype, device=card)
+                 [shift:].view(t.shape).copy_(t) for t in (dy0, y0))
+    else:
+        dy, y = dy0, y0
+    got = fc.fused_c3_bwd_in(dy, y, x, wt, dst, s, b, True, norm)
+    _check_bwd(got, fc.fused_c3_bwd_in_reference(dy0, y0, x, wt, dst, s, b,
+                                                 True, norm), dtype)
+
+
 def test_backward_is_deterministic(card):
     x, wt, s, b = _inputs(card, (32, 8, 8, 128), (3, 3, 128, 128),
                           torch.bfloat16)
@@ -356,6 +393,71 @@ def test_flash_kernels_match_plain(card, n, t, h, dh, masked, causal,
                    + (fa.flash_bwd_dq(*args),)))
     if masked:
         assert not out[-1].any() and (lse[-1] == fa._NEG).all()
+
+
+@pytest.mark.parametrize("n", [64, 32])       # served and trained BERT
+def test_flash_fwd_bert_shapes_bf16(card, n):
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, _ = _flash_inputs(card, n, 128, 12, 64, torch.bfloat16,
+                                  False)
+    assert fa.vector_loads(q, k, v)
+    out, lse = fa.flash_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v)
+    _flash_close((out,), (ref_out,), torch.bfloat16)
+    assert (lse - ref_lse).abs().max().item() <= 2e-5 * max(
+        1.0, ref_lse.abs().max().item())
+    assert all(torch.equal(a, b) for a, b in
+               zip((out, lse), fa.flash_fwd(q, k, v)))
+
+
+def _bf16_ulps(got, ref):
+    """|got − ref| in bf16 ulps of |ref|, elementwise, with |ref| floored
+    at 2^-8 of its largest magnitude (below that an ulp is finer than the
+    f32 sums' own rounding)."""
+    r = ref.float()
+    a = torch.maximum(r.abs(), r.abs().max() * 2.0 ** -8)
+    ulp = torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+    return (got.float() - r).abs() / ulp
+
+
+def test_flash_fwd_bf16_keeps_p_at_f32_accuracy(card):
+    """The bf16 kernel adds p·V with p = hi + lo in bf16 (f32 accuracy):
+    each output is within one bf16 ulp of the plain version's (f32
+    arithmetic on the same bf16 inputs, rounded once). A control that
+    rounds p to bf16 once, as a kernel without the lo products would, must
+    exceed that limit, so the check can see the difference."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, _ = _flash_inputs(card, 64, 128, 12, 64, torch.bfloat16,
+                                  False)
+    out, _ = fa.flash_fwd(q, k, v)
+    ref, _ = fa.flash_fwd_reference(q, k, v)
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    s = qf @ kf.transpose(-1, -2) / 8.0
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    control = ((p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True)
+               ).permute(0, 2, 1, 3).to(torch.bfloat16)
+    kernel_ulps = _bf16_ulps(out, ref).max().item()
+    control_ulps = _bf16_ulps(control, ref).max().item()
+    print(f"flash_fwd bf16 (64, 128, 12, 64): max |out - ref| {kernel_ulps}"
+          f" ulp; p rounded to bf16 once: {control_ulps} ulp")
+    assert kernel_ulps <= 1.0
+    assert control_ulps > 1.0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_unaligned_views_stage_with_2_byte_loads(card, causal):
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    n, t, h, dh = 2, 130, 3, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    buf = torch.randn(1 + n * t * h * 3 * dh, generator=g, device=card)
+    qkv = buf.to(torch.bfloat16)[1:].view(n, t, h, 3, dh)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    assert not fa.vector_loads(q, k, v)
+    out, lse = fa.flash_fwd(q, k, v, None, causal)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, None, causal)
+    _flash_close((out,), (ref_out,), torch.bfloat16)
+    assert (lse - ref_lse).abs().max().item() <= 2e-5 * max(
+        1.0, ref_lse.abs().max().item())
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -201,3 +201,50 @@ def test_dw_chunk_is_a_function_of_the_shapes():
     # many tiles already: one slice over all of M
     assert fc.dw_chunk(9 * 512, 512, 512) >= 512
     assert fc.dw_chunk(64, 64, 7) == 16
+
+
+def test_dx_slices_is_a_function_of_the_shapes():
+    # stage 4's 3×3 backward-input at batch 32 and 128: M = 4·B rows,
+    # Cin 512, depth 9·512; 16 and 64 tiles of 64×64
+    assert fc.dx_slices(128, 512, 4608) == (16, 288)
+    assert fc.dx_slices(512, 512, 4608) == (5, 928)
+    assert fc.dx_slices(128, 512, 4608) == fc.dx_slices(128, 512, 4608)
+    for m, cin in ((128, 512), (512, 512)):
+        tiles = -(-m // 64) * -(-cin // 64)
+        slices = fc.dx_slices(m, cin, 4608)[0]
+        assert 132 <= tiles * slices <= 2 * 264       # about two per SM
+    # many tiles already: one slice over the whole depth
+    assert fc.dx_slices(32768, 512, 4608) == (1, 4608)
+
+
+@pytest.mark.parametrize("m,cin,depth", [
+    (128, 512, 4608), (512, 512, 4608), (45, 520, 648), (1, 8, 9),
+    (7, 3, 117), (200, 64, 9 * 1000), (32768, 64, 576)])
+def test_dx_slices_cover_the_depth(m, cin, depth):
+    slices, per = fc.dx_slices(m, cin, depth)
+    assert per % fc.DX_STEP == 0 and fc.DX_STEP % 16 == 0   # MMA k16 steps
+    assert slices >= 1 and (slices - 1) * per < depth <= slices * per
+    bounds = [(s * per, min(depth, (s + 1) * per)) for s in range(slices)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == depth
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(e > b for b, e in bounds)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(128, 512, 512), (45, 520, 72),
+                                        (17, 8, 13)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dx_plan_matches_the_row_tiles(m, cin, cout, bf16):
+    plan = fc.dx_plan(m, cin, cout, True, bf16)
+    assert (plan.slices, plan.depth) == fc.dx_slices(m, cin, 9 * cout)
+    # one (Σdpre·x, Σdpre) row per DX_SUM_ROWS-row tile of the epilogue
+    tiles = plan.row_tiles
+    assert (tiles - 1) * fc.DX_SUM_ROWS < m <= tiles * fc.DX_SUM_ROWS
+    # disjoint, ordered, 16-byte aligned segments of one f32 buffer
+    ends = [plan.slices * m * cin, plan.partial + tiles * 2 * cin,
+            plan.sums + 2 * cin, plan.dyc + (-(-m * cout // 2) if bf16 else 0)]
+    starts = [0, plan.partial, plan.sums, plan.dyc]
+    assert all(a % 4 == 0 for a in starts)
+    assert all(e <= b for e, b in zip(ends, starts[1:]))
+    assert ends[-1] <= plan.size < ends[-1] + 4
+    no_norm = fc.dx_plan(m, cin, cout, False, bf16)
+    assert no_norm.row_tiles == 0 and no_norm.partial == no_norm.sums
