@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
 2. build — ``nvcc`` builds every kernel of the path from ``csrc/`` (one
    process per source, all at once); prints each kernel's registers and
    spills from ``-Xptxas -v`` and, by ``cuobjdump -sass``, the HMMA
-   (tensor-core) instructions in the libraries of ``fused_c3_bwd_in`` and
-   ``flash_fwd`` (it fails if they hold none).
+   (tensor-core) instructions in the libraries of ``fused_c3``,
+   ``fused_c3_bwd`` (with ``fused_c3_bwd_in``) and ``flash_fwd`` (it fails
+   if one holds none).
 3. kernels — ``fused_mm`` and ``fused_c3`` at every distinct shape the
    ResNet50 gives them at batch 32, in float32 and bfloat16, held against
    their plain PyTorch versions on the card; kernel, plain and
@@ -20,14 +21,15 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    events around back-to-back calls as the path makes them, beside each
    call's bound. Then the backward kernels at the same shapes on random
    dy, y and dstats: ``fused_mm_bwd`` for every 1×1 call, and at every 3×3
-   shape BOTH routes (``fused_c3_bwd`` in one launch, ``fused_c3_bwd_in``
+   shape BOTH routes (``fused_c3_bwd`` in one call, ``fused_c3_bwd_in``
    + ``fused_c3_bwd_w`` in two), each held against its plain version (dx,
    dW, dscale, dshift), run twice for bitwise-equal results, and timed
    beside its bound, its plain version and a library yardstick
    (``torch.matmul`` for 1×1, cuDNN's ``convolution_backward`` for 3×3);
-   ``fused_c3_bwd_in`` also at the train phase's batch 128. The rows of
-   ``fused_c3_bwd_in`` and ``flash_fwd`` also carry their kernels' device
-   time by ``torch.profiler`` beside their library's.
+   all three 3×3 backward kernels also at the train phase's batch 128,
+   where the two routes are compared per shape. The rows of the six conv
+   kernels and ``flash_fwd`` also carry their kernels' device time by
+   ``torch.profiler`` beside their library's.
    Then ``lstm_fwd`` and ``lstm_bwd`` at the LSTM slice shape (T 60, N 128,
    H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
    bf16, masked and unmasked: against their plain versions, bitwise on a
@@ -150,9 +152,12 @@ REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "flash_bwd_dkv": "deeplearning4j_tpu/ops/pallas_kernels.py:180",
             "flash_bwd_dq": "deeplearning4j_tpu/ops/pallas_kernels.py:230"}
 # the libraries whose bf16 kernels multiply on the tensor cores, and the
-# two kernels redesigned for them, whose rows also carry device times
-MMA_SOURCES = ("fused_c3_bwd", "flash_fwd")
-REDESIGNED = ("fused_c3_bwd_in", "flash_fwd")
+# kernels whose rows also carry device times (every conv kernel: their
+# walls at the path shapes are bound by the wrappers' host work; and the
+# redesigned flash_fwd)
+MMA_SOURCES = ("fused_c3", "fused_c3_bwd", "flash_fwd")
+DEVICE_TIMED = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
+                "fused_c3_bwd_in", "fused_c3_bwd_w", "flash_fwd")
 FORWARD = ("fused_mm", "fused_c3")
 BACKWARD = ("fused_mm_bwd", "fused_c3_bwd", "fused_c3_bwd_in",
             "fused_c3_bwd_w")
@@ -379,8 +384,13 @@ def check_kernel_call(call, dtype, gen):
         res["ms"] = cuda_time(lambda: fc.fused_conv_bn_act(*path_args))
         res["ms_with_stats"] = cuda_time(lambda: fc.fused_conv_bn_act(*args))
         res["plain_ms"] = cuda_time(lambda: fc._conv_reference(*path_args))
-        res["library_ms"] = cuda_time(lambda: F.conv2d(
-            e_nchw, w_oihw, stride=call.stride, padding=pad))
+        library = lambda: F.conv2d(e_nchw, w_oihw, stride=call.stride,
+                                   padding=pad)
+        res["library_ms"] = cuda_time(library)
+        if call.kernel in DEVICE_TIMED:
+            res["device_ms"] = device_ms(
+                lambda: fc.fused_conv_bn_act(*path_args))
+            res["library_device_ms"] = device_ms(library)
     flops, nbytes = call_cost(call, dtype)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     res["bound_ms"] = 1e3 * max(t_ops, t_bytes)
@@ -434,10 +444,10 @@ def _bwd_ok(got, ref, dtype, with_dx):
     return ok
 
 
-def check_backward_call(call, dtype, gen, only=None):
+def check_backward_call(call, dtype, gen):
     """Rows for the backward of one path call: ``fused_mm_bwd`` for a 1×1
     call; ``fused_c3_bwd``, ``fused_c3_bwd_in`` and ``fused_c3_bwd_w`` for
-    a 3×3 call (both routes), or only the kernels named in ``only``."""
+    a 3×3 call (both routes)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_conv as fc
     dt = getattr(torch, dtype)
@@ -493,8 +503,6 @@ def check_backward_call(call, dtype, gen, only=None):
         }
     rows = []
     for name, (part, with_dx, kern, plain) in runs.items():
-        if only is not None and name not in only:
-            continue
         got, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
         row = {"kernel": name, "dtype": dtype, "x": list(call.x_shape),
@@ -506,7 +514,7 @@ def check_backward_call(call, dtype, gen, only=None):
         row["ms"] = cuda_time(kern)
         row["plain_ms"] = cuda_time(plain)
         row["library_ms"] = cuda_time(library[part])
-        if name in REDESIGNED:
+        if name in DEVICE_TIMED:
             row["device_ms"] = device_ms(kern)
             row["library_device_ms"] = device_ms(library[part])
         row["bound_ms"], row["bound_by"] = bound(*bwd_cost(call, dtype, part),
@@ -541,11 +549,39 @@ def _summary(name, rows, launches=None):
            "library_ms": tot("library_ms")}
     if name in FORWARD:
         out["ms_with_stats"] = tot("ms_with_stats")
+    if rs and all("device_ms" in r for r in rs):
+        out["device_ms"] = tot("device_ms")
+        out["library_device_ms"] = tot("library_device_ms")
+    return out
+
+
+def route_table(rows):
+    """The two 3×3 backward routes per shape at the train batch: one call
+    of ``fused_c3_bwd`` against ``fused_c3_bwd_in`` + ``fused_c3_bwd_w``,
+    wall and device ms (logged; the route rule is ``fc._backward``'s)."""
+    out = []
+    by = {(r["kernel"], r["dtype"], tuple(r["x"])): r for r in rows
+          if r["batch"] == TRAIN_BATCH}
+    for (kern, dtype, x), r in by.items():
+        if kern != "fused_c3_bwd":
+            continue
+        i, w = by[("fused_c3_bwd_in", dtype, x)], by[("fused_c3_bwd_w",
+                                                       dtype, x)]
+        row = {"dtype": dtype, "x": list(x), "merged_ms": r["ms"],
+               "split_ms": i["ms"] + w["ms"],
+               "merged_device_ms": r["device_ms"],
+               "split_device_ms": i["device_ms"] + w["device_ms"],
+               "on_path": "merged" if r["on_path"] else "split"}
+        out.append(row)
+        log(f"  route {dtype:8s} x={x}: merged {row['merged_ms']:.4f} ms "
+            f"(device {row['merged_device_ms']:.4f}), split "
+            f"{row['split_ms']:.4f} ms (device "
+            f"{row['split_device_ms']:.4f}); the path takes {row['on_path']}")
     return out
 
 
 def _merged(fc, call):
-    """Whether the train path takes the one-launch 3×3 backward route for
+    """Whether the train path takes the one-call 3×3 backward route for
     ``call`` (fc._backward's rule)."""
     return call.x_shape[3] <= fc.C3_MERGED_MAX_CIN and call.norm_in
 
@@ -570,18 +606,19 @@ def phase_kernels(report):
                 f"stats_ms={r['ms_with_stats']:.4f} "
                 f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
                 f"bound={r['bound_ms']:.4f} ({r['bound_by']})"
+                f"{_device_note(r)}"
                 f"{'' if r['ok'] else '  <-- DISAGREES'}")
-    # the train phase's own batch for the split route's dx half
+    # the train phase's own batch for every 3×3 call, both routes
     train_calls = {call: count for call, count in
                    path_calls(conf, TRAIN_BATCH).items()
-                   if call.kernel == "fused_c3" and not _merged(fc, call)}
-    backward = [(call, count, 32, None) for call, count in calls.items()]
-    backward += [(call, count, TRAIN_BATCH, ("fused_c3_bwd_in",))
+                   if call.kernel == "fused_c3"}
+    backward = [(call, count, 32) for call, count in calls.items()]
+    backward += [(call, count, TRAIN_BATCH)
                  for call, count in train_calls.items()]
-    for call, count, batch, only in backward:
+    for call, count, batch in backward:
         merged = _merged(fc, call)
         for dtype in ("float32", "bfloat16"):
-            for r in check_backward_call(call, dtype, gen, only):
+            for r in check_backward_call(call, dtype, gen):
                 r["per_step"] = count
                 r["batch"] = batch
                 r["on_path"] = (r["kernel"] == "fused_mm_bwd" or merged ==
@@ -597,6 +634,7 @@ def phase_kernels(report):
                     f"{'' if r['ok'] else '  <-- DISAGREES'}"
                     f"{'' if r['bitwise_repeat'] else '  <-- NOT BITWISE'}")
     report["kernel_calls"] = rows
+    report["c3_routes"] = route_table(rows)
     bad = [r for r in rows if not r["ok"] or not r.get("bitwise_repeat",
                                                         True)]
     if bad:
@@ -604,6 +642,12 @@ def phase_kernels(report):
                              "plain version beyond tolerance or differ "
                              "between two runs")
     summary = {name: _summary(name, rows) for name in FORWARD + BACKWARD}
+    for name, k in summary.items():
+        log(f"  {name:15s} per bf16 step at batch 32: {k['ms']:.4f} ms "
+            f"(library {k['library_ms']:.4f}), device "
+            f"{k.get('device_ms', math.nan):.4f} (library "
+            f"{k.get('library_device_ms', math.nan):.4f}), bound "
+            f"{k['bound_ms']:.4f}")
     report["kernels"] = summary
     return summary
 
@@ -1399,7 +1443,7 @@ def sdpa_backend(fn):
 def device_ms(fn, n=10):
     """Device time (ms) of one call of ``fn`` by torch.profiler: the mean
     time of each kernel it launches, summed over its kernels (each
-    launched once a call, as the two redesigned wrappers' and their
+    launched once a call, as the device-timed wrappers' and their
     yardsticks' are; a mean per launch, because the trace can miss the
     first launch of its window). Where a call's wall time (``cuda_time``)
     is bound by the host, this is what its kernels cost the card. A trace
@@ -1482,7 +1526,7 @@ def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
                "library_ms": cuda_time(lib[name], iters=iters, warmup=2)}
         row["bound_ms"], row["bound_by"] = bound(
             *attn_cost(name, q, mask, causal), dtype)
-        if name in REDESIGNED:
+        if name in DEVICE_TIMED:
             row["device_ms"] = device_ms(kern, n=iters)
             row["library_device_ms"] = device_ms(lib[name], n=iters)
         rows.append(row)

@@ -420,14 +420,12 @@ __global__ void __launch_bounds__(kEpiThreads) dx_sums_kernel(InArgs a) {
   a.sums[p.cin + c] = q;
 }
 
-__host__ inline bool aligned16(const void* q) {
-  return (reinterpret_cast<uintptr_t>(q) & 15u) == 0;
-}
+using mma::aligned16;
 
-// Both kernels on `stream`; returns cudaGetLastError() (an invalid plan or
-// shape: cudaErrorInvalidValue, nothing launched).
+// The plan's and buffers' checks (cudaErrorInvalidValue when they fail,
+// else 0) and the copy flags, shared with c3_bwd.cuh's merged launch.
 template <typename T>
-inline int launch_bwd_in(InArgs a, cudaStream_t stream) {
+inline int check_in(const InArgs& a) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs& p = a.p;
   const long long depth = 9LL * p.cout;
@@ -441,35 +439,62 @@ inline int launch_bwd_in(InArgs a, cudaStream_t stream) {
   if (p.dx == nullptr || a.ws == nullptr || a.sums == nullptr ||
       (p.norm_in && p.partial == nullptr) || (kBf16 && a.dyc == nullptr))
     return bad;
-  const int tiles_n = (p.cin + kTile - 1) / kTile;
-  if (tiles_n > 65535) return bad;
+  if ((p.cin + kTile - 1) / kTile > 65535) return bad;
+  return 0;
+}
+
+inline void set_flags(InArgs& a) {
+  const BwdArgs& p = a.p;
   a.vec = p.cout % 8 == 0 && aligned16(a.dyc) && aligned16(p.w);
   a.dyc_vec = p.cout % 8 == 0 && aligned16(p.dy) && aligned16(p.y) &&
               aligned16(p.dst) && aligned16(a.dyc);
   a.epi_vec = p.cin % 4 == 0 && aligned16(a.ws);
-  const dim3 grid((p.M + kTile - 1) / kTile, tiles_n, a.slices);
-  cudaError_t err;
-  if constexpr (kBf16) {
+}
+
+// dyc (bf16) and the K-sliced product into the planes of ws
+template <typename T>
+inline int launch_in_product(const InArgs& a, cudaStream_t stream) {
+  const BwdArgs& p = a.p;
+  const dim3 grid((p.M + kTile - 1) / kTile, (p.cin + kTile - 1) / kTile,
+                  a.slices);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const long long chunks = ((long long)p.M * p.cout + 7) / 8;
     const long long blocks = (chunks + kEpiThreads - 1) / kEpiThreads;
     dyc_kernel<<<static_cast<unsigned>(blocks < 1024 ? blocks : 1024),
                  kEpiThreads, 0, stream>>>(a);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     dx_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(a);
   } else {
     dx_fma_kernel<<<grid, kThreads, 0, stream>>>(a);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the planes added in slice order with the BN/ReLU backward, then the sums
+template <typename T>
+inline int launch_in_epilogue(const InArgs& a, cudaStream_t stream) {
+  const BwdArgs& p = a.p;
   const dim3 egrid((p.M + a.tile_rows - 1) / a.tile_rows,
                    (p.cin + kEpiCols - 1) / kEpiCols);
   dx_epilogue_kernel<T><<<egrid, kEpiThreads, 0, stream>>>(a);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dx_sums_kernel<<<(p.cin + kEpiThreads - 1) / kEpiThreads, kEpiThreads, 0,
                    stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Every kernel on `stream`; returns cudaGetLastError() (an invalid plan or
+// shape: cudaErrorInvalidValue, nothing launched).
+template <typename T>
+inline int launch_bwd_in(InArgs a, cudaStream_t stream) {
+  int err = check_in<T>(a);
+  if (err != 0) return err;
+  set_flags(a);
+  err = launch_in_product<T>(a, stream);
+  if (err != 0) return err;
+  return launch_in_epilogue<T>(a, stream);
 }
 
 }  // namespace bwd_in

@@ -1,11 +1,14 @@
 // fused_c3_bwd, fused_c3_bwd_in, fused_c3_bwd_w: the 3x3 SAME conv + BN
-// backward, as one launch (replaces the TPU kernel
+// backward, in one call (replaces the TPU kernel
 // deeplearning4j_tpu/ops/fused_conv.py:_c3_bwd_merged_kernel) or as its
 // two halves (replace :_c3_bwd_in_kernel and :_c3_bwd_w_kernel). The
-// merged kernel and the dW half are conv_bwd.cuh's (FMA tiles; their
-// bound and design are described there); the dx half is c3_bwd_in.cuh's
-// (split-K, bf16 tensor cores). Built with nvcc into a shared library with
-// a plain C interface and called through ctypes (ops/fused_conv.py).
+// one-call backward is c3_bwd.cuh's for bf16 (split products on the bf16
+// tensor cores) and conv_bwd.cuh's merged FMA kernel for f32; the dx half
+// is c3_bwd_in.cuh's (split-K, bf16 tensor cores); the dW half is
+// conv_bwd.cuh's (FMA tiles). Their bounds and designs are described in
+// those headers. Built with nvcc into a shared library with a plain C
+// interface and called through ctypes (ops/fused_conv.py).
+#include "c3_bwd.cuh"
 #include "c3_bwd_in.cuh"
 #include "conv_bwd.cuh"
 
@@ -26,20 +29,41 @@ int launch(const dl4j::BwdArgs& p, float* dw, float* ws, int is_bf16,
 
 // dy, y: (N, H, W, Cout); x: (N, H, W, Cin); w: (3, 3, Cin, Cout);
 // dst: (2, Cout) f32; scale/shift: (Cin,) f32. dx: x's shape and dtype;
-// dw: (3, 3, Cin, Cout) f32; ws: (ceil(M / dw_chunk), 9 * Cin, Cout) f32,
-// or null when that is 1; partial: (ceil(M / tile_m), 2, Cin) f32 when
-// norm_in. Returns cudaGetLastError().
+// dw: (3, 3, Cin, Cout) f32; dw_ws: (ceil(M / dw_chunk), 9 * Cin, Cout)
+// f32, or null when that is 1. f32 (conv_bwd.cuh's merged kernel):
+// partial is (ceil(M / tile_m), 2, Cin) f32 when norm_in, and ws, sums,
+// dyc, slices, slice_depth and tile_rows are not read. bf16 (c3_bwd.cuh):
+// ws, partial, sums, dyc, slices, slice_depth and tile_rows are the dx
+// product's, as for dl4j_fused_c3_bwd_in below, and dw_chunk is a
+// multiple of 32. Returns cudaGetLastError().
 extern "C" int dl4j_fused_c3_bwd(const void* dy, const void* y, const void* x,
                                  const void* w, const float* dst,
                                  const float* scale, const float* shift,
-                                 void* dx, float* dw, float* ws,
-                                 float* partial, int n, int h, int wd,
-                                 int cin, int cout, int norm_in, int relu_in,
-                                 int dw_chunk, int is_bf16, void* stream) {
-  const dl4j::BwdArgs p =
-      dl4j::bwd_args(dy, y, x, w, dst, scale, shift, dx, partial, n, h, wd,
-                     cin, cout, 1, norm_in, relu_in, dw_chunk);
-  return launch<dl4j::kPartDx | dl4j::kPartDw>(p, dw, ws, is_bf16, stream);
+                                 void* dx, float* dw, float* dw_ws, float* ws,
+                                 float* partial, float* sums, void* dyc,
+                                 int n, int h, int wd, int cin, int cout,
+                                 int norm_in, int relu_in, int dw_chunk,
+                                 int slices, int slice_depth, int tile_rows,
+                                 int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    const dl4j::BwdArgs p =
+        dl4j::bwd_args(dy, y, x, w, dst, scale, shift, dx, partial, n, h, wd,
+                       cin, cout, 1, norm_in, relu_in, dw_chunk);
+    return dl4j::launch_conv_bwd<float, true,
+                                 dl4j::kPartDx | dl4j::kPartDw>(p, dw, dw_ws,
+                                                                s);
+  }
+  dl4j::bwd_in::InArgs a;
+  a.p = dl4j::bwd_args(dy, y, x, w, dst, scale, shift, dx, partial, n, h, wd,
+                       cin, cout, 1, norm_in, relu_in, 0);
+  a.ws = ws;
+  a.sums = sums;
+  a.dyc = static_cast<__nv_bfloat16*>(dyc);
+  a.slices = slices;
+  a.slice_depth = slice_depth;
+  a.tile_rows = tile_rows;
+  return dl4j::c3_bwd::launch_merged(a, dw, dw_ws, dw_chunk, s);
 }
 
 // The dx half: dx and the BN sums (arguments as above, but ws is the

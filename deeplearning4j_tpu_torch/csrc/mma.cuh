@@ -1,8 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy helpers for sm_90a, as
 // inline PTX: mma.sync m16n8k16 with bf16 operands and f32 accumulators,
 // ldmatrix (plain and transposed) and 16-byte cp.async with zero fill.
-// Shared by c3_bwd_in.cuh (the 3x3 conv's backward-input) and
-// flash_fwd.cu (the attention forward).
+// Shared by c3_fwd.cuh (the 3x3 conv's forward), c3_bwd_in.cuh and
+// c3_bwd.cuh (its backward) and flash_fwd.cu (the attention forward).
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = 0..7, t = 0..3):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
@@ -17,8 +17,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace dl4j {
 namespace mma {
+
+// whether a pointer allows 16-byte loads and copies
+__host__ __device__ inline bool aligned16(const void* q) {
+  return (reinterpret_cast<uintptr_t>(q) & 15u) == 0;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -77,6 +84,36 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// relu?(x * s + b) in f32 without FMA contraction (the plain versions
+// round the product first): the conv kernels' input prologue
+__device__ __forceinline__ float norm_relu(float x, float s, float b,
+                                           int relu) {
+  const float e = __fadd_rn(__fmul_rn(x, s), b);
+  return relu ? fmaxf(e, 0.0f) : e;
+}
+
+// 8 consecutive floats from a 16-byte aligned address into registers
+__device__ __forceinline__ void ldg_f8(float (&r)[8], const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+}
+
+// 8 bf16 (one 16-byte chunk) through norm_relu, rounded back to bf16
+__device__ __forceinline__ uint4 norm_relu8(uint4 v, const float (&s)[8],
+                                            const float (&b)[8], int relu) {
+  const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&v);
+  unsigned o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    o[e] = pack_bf16(
+        norm_relu(__bfloat162float(e8[2 * e]), s[2 * e], b[2 * e], relu),
+        norm_relu(__bfloat162float(e8[2 * e + 1]), s[2 * e + 1],
+                  b[2 * e + 1], relu));
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 }  // namespace mma

@@ -31,7 +31,8 @@ from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
                                                       make_scan_train_step,
                                                       make_train_step)
-from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+from deeplearning4j_tpu_torch.optimize.updaters import (tree_leaves,
+                                                         tree_map)
 from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -124,7 +125,7 @@ class ComputationGraph(BaseModel):
         inputs = dict(zip(self.conf.network_inputs, features))
         acts, new_state = self._walk(params, model_state, inputs, True,
                                      generator, stop_before_loss=True)
-        leaves = [v for lp in params.values() for v in lp.values()]
+        leaves = tree_leaves(params)
         acc = (torch.promote_types(torch.float32, leaves[0].dtype)
                if leaves else torch.float32)
         total = torch.zeros((), dtype=acc, device=self.device)

@@ -19,6 +19,7 @@ a machine with a card and ``nvcc`` ever builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,7 +42,7 @@ SIGNATURES = {
     "fused_mm": ("dl4j_fused_mm", [_P] * 7 + [_I] * 10 + [_P]),
     "fused_c3": ("dl4j_fused_c3", [_P] * 7 + [_I] * 9 + [_P]),
     "fused_mm_bwd": ("dl4j_fused_mm_bwd", [_P] * 11 + [_I] * 10 + [_P]),
-    "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 11 + [_I] * 9 + [_P]),
+    "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 14 + [_I] * 12 + [_P]),
     "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 12 + [_I] * 11 + [_P]),
     "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),
     "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 5 + [_P]),
@@ -163,14 +164,18 @@ def helper(name: str, sym: str):
     return getattr(_libs[SOURCE_OF[name]], sym)
 
 
+@functools.lru_cache(maxsize=None)
 def tile_m(name: str) -> int:
-    """Rows per output tile of kernel ``name`` (its partial-stats count)."""
+    """Rows per output tile of kernel ``name`` (its partial-stats count);
+    fixed once its library is loaded, so asked once a process."""
     return int(helper(name, "dl4j_tile_m")())
 
 
+@functools.lru_cache(maxsize=4096)
 def split_count(name: str, k: int) -> int:
     """K slices kernel ``name`` runs for a reduction depth ``k`` (its
-    workspace holds that many f32 output planes when it is above 1)."""
+    workspace holds that many f32 output planes when it is above 1); a
+    function of its arguments, asked once a process for each."""
     return int(helper(name, "dl4j_split_count")(int(k)))
 
 

@@ -18,11 +18,12 @@ BN/ReLU backward (mask, Σdpre·x, Σdpre, the input rescale) in the
 bwd-input product's epilogue.
 
 Six hand-written CUDA kernels (``csrc/``, sm_90a) do the work on the card:
-``fused_mm`` / ``fused_c3`` (forward, 1×1 and 3×3) and ``fused_mm_bwd``,
-``fused_c3_bwd`` (3×3 dx, dW and the BN sums in one launch),
-``fused_c3_bwd_in`` + ``fused_c3_bwd_w`` (the same work as two launches;
-``fused_c3_bwd_in`` splits its 9·Cout depth into the slices of
-``dx_slices`` and multiplies bf16 on the tensor cores).
+``fused_mm`` / ``fused_c3`` (forward, 1×1 and 3×3; ``fused_c3`` multiplies
+bf16 on the tensor cores) and ``fused_mm_bwd``, ``fused_c3_bwd`` (3×3 dx,
+dW and the BN sums in one call; bf16 on the tensor cores, its scratch laid
+out by ``c3_bwd_plan``), ``fused_c3_bwd_in`` + ``fused_c3_bwd_w`` (the same
+work as two calls; ``fused_c3_bwd_in`` splits its 9·Cout depth into the
+slices of ``dx_slices`` and multiplies bf16 on the tensor cores).
 Beside each is its plain PyTorch version (``*_reference``): the wrappers
 use it for a tensor on the CPU and only there. A CUDA tensor launches the
 kernel or raises; nothing falls back.
@@ -227,36 +228,36 @@ def _ptr(t):
 
 def _check_cuda_args(name, x, w, scale, shift, w_ndim):
     """Raise on what the kernel does not take; ``w`` None checks x,
-    scale and shift alone (the 3×3 dW launch reads no weight)."""
+    scale and shift alone (the 3×3 dW launch reads no weight). Each call
+    of a wrapper on the card pays for these checks, so they read each
+    attribute once."""
     if x.ndim != 4:
         raise ValueError(f"{name}: x must be NHWC (4-D), got {tuple(x.shape)}")
-    cin = x.shape[3]
+    cin, dev, dt = x.shape[3], x.device, x.dtype
     if w is not None:
-        if w.ndim != w_ndim:
+        shape = w.shape
+        if len(shape) != w_ndim:
             raise ValueError(f"{name}: weight must be {w_ndim}-D, got "
-                             f"{tuple(w.shape)}")
-        if w.shape[-2] != cin:
-            raise ValueError(f"{name}: weight {tuple(w.shape)} does not "
+                             f"{tuple(shape)}")
+        if shape[-2] != cin:
+            raise ValueError(f"{name}: weight {tuple(shape)} does not "
                              f"take {cin} input channels")
-        if w_ndim == 4 and tuple(w.shape[:2]) != (3, 3):
+        if w_ndim == 4 and (shape[0] != 3 or shape[1] != 3):
             raise ValueError(f"{name}: weight must be (3, 3, Cin, Cout)")
-    tensors = [(t, what) for t, what in ((x, "x"), (w, "weight"),
-                                         (scale, "scale"), (shift, "shift"))
-               if t is not None]
-    for t, what in tensors[1:]:
-        if t.device != x.device:
-            raise ValueError(f"{name}: {what} is on {t.device}, x on "
-                             f"{x.device}")
-    if x.dtype not in _DTYPES or (w is not None and w.dtype != x.dtype):
+    for t, what in ((w, "weight"), (scale, "scale"), (shift, "shift")):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name}: {what} is on {t.device}, x on {dev}")
+    if dt not in _DTYPES or (w is not None and w.dtype != dt):
         raise TypeError(f"{name}: x and weight must share float32 or "
-                        f"bfloat16, got {x.dtype} / "
+                        f"bfloat16, got {dt} / "
                         f"{None if w is None else w.dtype}")
     for t, what in ((scale, "scale"), (shift, "shift")):
-        if t.dtype != torch.float32 or tuple(t.shape) != (cin,):
+        if t.dtype != torch.float32 or t.shape != (cin,):
             raise TypeError(f"{name}: {what} must be float32 ({cin},), got "
                             f"{t.dtype} {tuple(t.shape)}")
-    for t, what in tensors:
-        if not t.is_contiguous():
+    for t, what in ((x, "x"), (w, "weight"), (scale, "scale"),
+                    (shift, "shift")):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     if x.numel() == 0:
         raise ValueError(f"{name}: empty input")
@@ -286,17 +287,17 @@ def _raise_on(name, err):
     _count(name)
 
 
-def _launch(name, args, x, k, cout, m, want_stats):
-    """Allocate the kernel's statistics and split-K buffers, launch it on
-    the current stream, raise on a launch error; returns the stats."""
+def _launch(name, args, x, slices, cout, m, want_stats):
+    """Allocate the kernel's statistics buffer and, for ``slices`` above
+    1, its split-K scratch of f32 planes; launch it on the current stream,
+    raise on a launch error; returns the stats."""
     f32 = dict(dtype=torch.float32, device=x.device)
     partial = ws = None
     if want_stats:
         partial = torch.empty((-(-m // cuda_build.tile_m(name)), 2, cout),
                               **f32)
-    splits = cuda_build.split_count(name, k)
-    if splits > 1:
-        ws = torch.empty((splits, m, cout), **f32)
+    if slices > 1:
+        ws = torch.empty((slices, m, cout), **f32)
     err = cuda_build.kernel(name)(*args(_ptr(partial), _ptr(ws)),
                                   int(want_stats), _DTYPES[x.dtype],
                                   cuda_build.current_stream(x.device))
@@ -326,7 +327,8 @@ def fused_mm(x, w, scale, shift, relu_in: bool = True, norm_in: bool = True,
         stats = _launch("fused_mm", lambda p, ws: (
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             y.data_ptr(), p, ws, n, h, wd, cin, cout, stride, int(norm_in),
-            int(relu_in)), x, cin, cout, n * ho * wo, want_stats)
+            int(relu_in)), x, cuda_build.split_count("fused_mm", cin), cout,
+            n * ho * wo, want_stats)
     return y, stats
 
 
@@ -344,12 +346,16 @@ def fused_c3(x, w, scale, shift, relu_in: bool = True, norm_in: bool = True,
     _check_cuda_args("fused_c3", x, w, scale, shift, 4)
     n, h, wd, cin = x.shape
     cout = w.shape[3]
+    # f32 adds its K slices from f32 planes in device memory; bf16 in the
+    # shared memory of a thread-block cluster, with no scratch
+    slices = (cuda_build.split_count("fused_c3", 9 * cin)
+              if x.dtype == torch.float32 else 1)
     with torch.cuda.device(x.device):
         y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
         stats = _launch("fused_c3", lambda p, ws: (
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             y.data_ptr(), p, ws, n, h, wd, cin, cout, int(norm_in),
-            int(relu_in)), x, 9 * cin, cout, n * h * wd, want_stats)
+            int(relu_in)), x, slices, cout, n * h * wd, want_stats)
     return y, stats
 
 
@@ -405,6 +411,51 @@ def dx_plan(m: int, cin: int, cout: int, norm_in: bool,
     dyc = sums + seg(2 * cin)
     size = dyc + (seg(-(-m * cout // 2)) if bf16 else 0)
     return DxPlan(slices, depth, tiles, partial, sums, dyc, size)
+
+
+class C3BwdPlan(NamedTuple):
+    """How the bf16 ``fused_c3_bwd`` cuts one call: the dx product's K
+    slices (as ``DxPlan``), the dW product's pixel slices, and the offsets,
+    in f32 elements, of its scratch and outputs in one f32 buffer (each
+    16-byte aligned), which starts with the (slices, M, Cin) f32 planes of
+    de."""
+    slices: int       # K slices of the dx product
+    depth: int        # depth of each (the last one shorter)
+    tile_rows: int    # rows of one (Σdpre·x, Σdpre) tile, a multiple of 16
+    row_tiles: int    # those tiles, or 0 without the normalize
+    dw_chunk: int     # pixels one dW slice sums, a multiple of DX_STEP
+    dw_slices: int    # dW slices
+    dw_ws: int        # (dw_slices, 9·Cin, Cout) f32 planes, when above 1
+    dw: int           # (9·Cin, Cout) f32: dW
+    partial: int      # (row_tiles, 2, Cin) f32
+    sums: int         # (2, Cin) f32: (dscale, dshift)
+    dyc: int          # (M, Cout) bf16
+    size: int         # f32 elements in all
+
+
+@functools.lru_cache(maxsize=256)
+def c3_bwd_plan(m: int, cin: int, cout: int, norm_in: bool) -> C3BwdPlan:
+    """The ``C3BwdPlan`` of one bf16 ``fused_c3_bwd`` call: the dx slices
+    of ``dx_slices``; row tiles of the BN sums no more than about two per
+    SM (each is added in order by one thread per channel, so their count
+    bounds the sums' last pass; at least DX_SUM_ROWS rows); dW slices of
+    ``dw_chunk`` pixels rounded up to a whole ``DX_STEP``. A function of
+    the shapes alone."""
+    slices, depth = dx_slices(m, cin, 9 * cout)
+    rows = -(-m // _DW_TARGET_BLOCKS)
+    rows = max(DX_SUM_ROWS, -(-rows // DX_SUM_ROWS) * DX_SUM_ROWS)
+    chunk = -(-dw_chunk(9 * cin, cout, m) // DX_STEP) * DX_STEP
+    dw_slices = -(-m // chunk)
+    tiles = -(-m // rows) if norm_in else 0
+    seg = lambda n: -(-n // 4) * 4                 # whole 16-byte units
+    dw_ws = seg(slices * m * cin)
+    dw = dw_ws + (seg(dw_slices * 9 * cin * cout) if dw_slices > 1 else 0)
+    partial = dw + seg(9 * cin * cout)
+    sums = partial + seg(tiles * 2 * cin)
+    dyc = sums + seg(2 * cin)
+    size = dyc + seg(-(-m * cout // 2))
+    return C3BwdPlan(slices, depth, rows, tiles, chunk, dw_slices, dw_ws,
+                     dw, partial, sums, dyc, size)
 
 
 class _Bwd:
@@ -485,26 +536,48 @@ def _c3_bwd_prep(name, dy, y, x, w, dstats, scale, shift):
 
 def fused_c3_bwd(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
                  norm_in: bool = True):
-    """Backward of ``fused_c3`` in one launch (dx tiles and dW tiles in
-    one grid over the same dy/y/x): (dx in x's dtype, dW (3, 3, Cin,
-    Cout) f32, dscale, dshift (Cin,) f32)."""
+    """Backward of ``fused_c3`` in one call: (dx in x's dtype, dW (3, 3,
+    Cin, Cout) f32, dscale, dshift (Cin,) f32). bf16 runs the split
+    products on the tensor cores (``c3_bwd_plan``; on the card dW, dscale
+    and dshift are views of the call's f32 scratch), f32 the merged FMA
+    kernel (dx tiles and dW tiles in one grid)."""
     if x.device.type == "cpu":
         return fused_c3_bwd_reference(dy, y, x, w, dstats, scale, shift,
                                       relu_in, norm_in)
     name = "fused_c3_bwd"
     n, h, wd, cin, cout = _c3_bwd_prep(name, dy, y, x, w, dstats, scale,
                                        shift)
+    m = n * h * wd
+    flags = (int(norm_in), int(relu_in))
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
-        b = _Bwd(name, x, n * h * wd, cin, cout, 9 * cin, norm_in, True,
-                 True)
-        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
-              dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-              dx.data_ptr(), b.dw.data_ptr(), _ptr(b.ws), _ptr(b.partial),
-              n, h, wd, cin, cout, int(norm_in), int(relu_in), b.chunk,
-              _DTYPES[x.dtype])
-        dscale, dshift = b.sums(cin)
-    return dx, b.dw.reshape(3, 3, cin, cout), dscale, dshift
+        if x.dtype == torch.bfloat16:
+            plan = c3_bwd_plan(m, cin, cout, bool(norm_in))
+            buf = torch.empty(plan.size, dtype=torch.float32,
+                              device=x.device)
+            at = buf.data_ptr()
+            _raise_on(name, cuda_build.kernel(name)(
+                dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+                dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                dx.data_ptr(), at + 4 * plan.dw,
+                at + 4 * plan.dw_ws if plan.dw_slices > 1 else None, at,
+                at + 4 * plan.partial if norm_in else None,
+                at + 4 * plan.sums, at + 4 * plan.dyc, n, h, wd, cin, cout,
+                *flags, plan.dw_chunk, plan.slices, plan.depth,
+                plan.tile_rows, 1, cuda_build.current_stream(x.device)))
+            dw = buf[plan.dw:plan.dw + 9 * cin * cout]
+            dscale, dshift = buf[plan.sums:plan.sums + 2 * cin].view(
+                2, cin).unbind(0)
+        else:
+            b = _Bwd(name, x, m, cin, cout, 9 * cin, norm_in, True, True)
+            b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+                  dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                  dx.data_ptr(), b.dw.data_ptr(), _ptr(b.ws), None,
+                  _ptr(b.partial), None, None, n, h, wd, cin, cout, *flags,
+                  b.chunk, 0, 0, 0, 0)
+            dw = b.dw
+            dscale, dshift = b.sums(cin)
+    return dx, dw.view(3, 3, cin, cout), dscale, dshift
 
 
 def fused_c3_bwd_in(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
@@ -559,11 +632,12 @@ def fused_c3_bwd_w(dy, y, x, dstats, scale, shift, relu_in: bool = True,
 # the op: forward kernels, backward kernels, autograd between them
 # ---------------------------------------------------------------------------
 
-# 3×3 backward route, carried over from the JAX package's rule: one merged
-# launch up to this many input channels (with the normalize), two above.
-# The JAX package's threshold is a TPU VMEM budget, not an H100
-# measurement; it is kept so every kernel of the JAX path has its
-# counterpart on this one.
+# 3×3 backward route, carried over from the JAX package's rule: one
+# fused_c3_bwd call up to this many input channels (with the normalize),
+# fused_c3_bwd_in + fused_c3_bwd_w above. The JAX package's threshold is a
+# TPU VMEM budget. On an H100 the bf16 fused_c3_bwd is faster at every
+# 3×3 shape of the ResNet50 path (PERF.md §6); the rule is kept so the two
+# kernels of the JAX path's split route run on this path too.
 C3_MERGED_MAX_CIN = 384
 
 

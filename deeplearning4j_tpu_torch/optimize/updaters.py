@@ -162,9 +162,8 @@ class Adam(Updater):
         eps = float(self.epsilon)
 
         def init(params):
-            leaf = next((v for lp in params.values() for v in lp.values()),
-                        None)
-            dev = None if leaf is None else leaf.device
+            leaves = tree_leaves(params)
+            dev = leaves[0].device if leaves else None
             return {"#0": {
                 ".count": torch.zeros((), dtype=torch.int32, device=dev),
                 ".mu": tree_map(torch.zeros_like, params),

@@ -73,13 +73,75 @@ def test_fused_c3_matches_plain(card, n, h, w, cin, cout, dtype):
     _check(y, st, *fc.fused_c3_reference(x, wt, s, b, True, True), dtype)
 
 
-@pytest.mark.parametrize("cin", [32, 512])      # one K slice, eight
-def test_rows_do_not_depend_on_the_batch(card, cin):
-    x, wt, s, b = _inputs(card, (8, 4, 4, cin), (3, 3, cin, 48),
+# the four 3×3 calls of the ResNet50 path at batch 32 (N, H, W, Cin, Cout)
+C3_PATH = [(32, 16, 16, 64, 64), (32, 8, 8, 128, 128), (32, 4, 4, 256, 256),
+           (32, 2, 2, 512, 512)]
+
+
+def _unaligned(t):
+    """A contiguous copy of t that starts one element past 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout,stage", [
+    *[s + ("vec",) for s in C3_PATH],
+    (1, 8, 8, 128, 128, "vec"),            # batch 1
+    (3, 5, 7, 24, 40, "vec"),              # M = 105: no whole 64-row tile
+    (2, 4, 6, 5, 16, "vec"),               # Cin % 8: 2-byte x staging
+    (2, 4, 4, 16, 12, "vec"),              # Cout % 8: 2-byte W staging
+    (2, 3, 3, 328, 24, "vec"),             # K = 2952: a cluster of 6
+    (2, 2, 3, 600, 40, "vec"),             # K = 5400: 8 slices, the cap
+    (2, 4, 4, 64, 64, "unaligned")])       # x one element off 16 bytes
+def test_fused_c3_path_and_edge_shapes_match_plain_and_repeat(
+        card, n, h, w, cin, cout, stage, dtype):
+    x, wt, s, b = _inputs(card, (n, h, w, cin), (3, 3, cin, cout), dtype)
+    if stage == "unaligned":
+        x = _unaligned(x)
+    before = fc.LAUNCHES["fused_c3"]
+    y, st = fc.fused_c3(x, wt, s, b, True, True)
+    assert fc.LAUNCHES["fused_c3"] == before + 1
+    _check(y, st, *fc.fused_c3_reference(x, wt, s, b, True, True), dtype)
+    again = fc.fused_c3(x, wt, s, b, True, True)
+    assert torch.equal(y, again[0]) and torch.equal(st, again[1])
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(8, 4, 4, 32, 48),
+                                            (8, 4, 4, 512, 48)] + C3_PATH)
+def test_rows_do_not_depend_on_the_batch(card, n, h, w, cin, cout):
+    """K's slices depend on K alone: the rows of a smaller (or padded)
+    batch are the same bits as those of a bigger one."""
+    x, wt, s, b = _inputs(card, (8, h, w, cin), (3, 3, cin, cout),
                           torch.bfloat16)
     y8, _ = fc.fused_c3(x, wt, s, b)
     y3, _ = fc.fused_c3(x[:3].contiguous(), wt, s, b)
     assert torch.equal(y8[:3], y3)
+    y1, _ = fc.fused_c3(x[5:6].contiguous(), wt, s, b, want_stats=False)
+    assert torch.equal(y8[5:6], y1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c3_border_is_zero_after_the_normalize(card, dtype):
+    """With shift > 0, relu(x·scale + shift) is nonzero on the border's
+    taps had the border been padded before the normalize; both kernels must
+    match the plain versions (padding after), and a control that pads
+    first must be outside the tolerance, so the check can see it."""
+    import torch.nn.functional as F
+    x, wt, s, b = _inputs(card, (4, 4, 4, 64), (3, 3, 64, 64), dtype)
+    b = b.abs() + 0.5
+    y, st = fc.fused_c3(x, wt, s, b)
+    yr, sr = fc.fused_c3_reference(x, wt, s, b)
+    _check(y, st, yr, sr, dtype)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    e = torch.relu(xp * s + b).to(dtype).float()            # padded first
+    ctrl = F.conv2d(e.permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1))
+    ctrl = ctrl.permute(0, 2, 3, 1)
+    assert (ctrl - yr.float()).abs().max() > 10 * (1e-2 if dtype ==
+                                                   torch.bfloat16 else 1e-4)
+    dy, yy, dst = _grad_inputs(card, x, 64, dtype)
+    ref = fc.fused_c3_bwd_reference(dy, yy, x, wt, dst, s, b)
+    _check_bwd(fc.fused_c3_bwd(dy, yy, x, wt, dst, s, b), ref, dtype)
 
 
 def test_stats_are_deterministic(card):
@@ -220,6 +282,33 @@ def test_fused_c3_bwd_in_scalar_staging_matches_plain(card, cout, shift,
     got = fc.fused_c3_bwd_in(dy, y, x, wt, dst, s, b, True, norm)
     _check_bwd(got, fc.fused_c3_bwd_in_reference(dy0, y0, x, wt, dst, s, b,
                                                  True, norm), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout,stage", [
+    *[s + ("vec",) for s in C3_PATH],
+    *[(128,) + s[1:] + ("vec",) for s in C3_PATH[:3]],   # train batch
+    (1, 8, 8, 128, 128, "vec"),            # batch 1
+    (3, 5, 7, 24, 40, "vec"),              # M = 105: no whole 64-row tile
+    (2, 4, 6, 5, 16, "vec"),               # Cin % 8: 2-byte x staging
+    (4, 3, 6, 24, 13, "vec"),              # Cout % 8: 2-byte dyc staging
+    (2, 4, 4, 64, 64, "unaligned")])       # x, dy, y one element off
+def test_fused_c3_bwd_matches_plain_and_repeats(card, n, h, w, cin, cout,
+                                               stage, dtype):
+    x, wt, s, b = _inputs(card, (n, h, w, cin), (3, 3, cin, cout), dtype)
+    dy, y, dst = _grad_inputs(card, x, cout, dtype)
+    if stage == "unaligned":
+        x, dy, y = _unaligned(x), _unaligned(dy), _unaligned(y)
+    before = fc.LAUNCHES["fused_c3_bwd"]
+    got = fc.fused_c3_bwd(dy, y, x, wt, dst, s, b)
+    assert fc.LAUNCHES["fused_c3_bwd"] == before + 1
+    _check_bwd(got, fc.fused_c3_bwd_reference(dy, y, x, wt, dst, s, b),
+               dtype)
+    again = fc.fused_c3_bwd(dy, y, x, wt, dst, s, b)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    nn = fc.fused_c3_bwd(dy, y, x, wt, dst, s, b, True, False)   # no norm
+    _check_bwd(nn, fc.fused_c3_bwd_reference(dy, y, x, wt, dst, s, b, True,
+                                             False), dtype)
 
 
 def test_backward_is_deterministic(card):

@@ -248,3 +248,51 @@ def test_dx_plan_matches_the_row_tiles(m, cin, cout, bf16):
     assert ends[-1] <= plan.size < ends[-1] + 4
     no_norm = fc.dx_plan(m, cin, cout, False, bf16)
     assert no_norm.row_tiles == 0 and no_norm.partial == no_norm.sums
+
+
+@pytest.mark.parametrize("m,cin,cout", [
+    (8192, 64, 64), (2048, 128, 128), (512, 256, 256), (128, 512, 512),
+    (32768, 64, 64), (70, 24, 40), (9, 5, 13)])
+def test_c3_bwd_plan_shares_the_dx_slices_and_cuts_dw_by_pixels(m, cin,
+                                                                cout):
+    plan = fc.c3_bwd_plan(m, cin, cout, True)
+    # the dx product is the split route's: the same K slices
+    dx = fc.dx_plan(m, cin, cout, True, True)
+    assert (plan.slices, plan.depth) == (dx.slices, dx.depth)
+    # BN-sum row tiles of whole 16-row groups that cover M, no more than
+    # about two per SM once M is large (each is added in order)
+    rows, tiles = plan.tile_rows, plan.row_tiles
+    assert rows % fc.DX_SUM_ROWS == 0 and rows >= fc.DX_SUM_ROWS
+    assert (tiles - 1) * rows < m <= tiles * rows
+    assert tiles <= 264 or rows == fc.DX_SUM_ROWS
+    # dW slices: whole MMA steps of pixels that cover M, about as many
+    # as dw_chunk gives, none empty
+    assert plan.dw_chunk % fc.DX_STEP == 0
+    assert plan.dw_chunk >= fc.dw_chunk(9 * cin, cout, m)
+    assert (plan.dw_slices - 1) * plan.dw_chunk < m <= \
+        plan.dw_slices * plan.dw_chunk
+    # disjoint, ordered, 16-byte aligned segments of one f32 buffer
+    dw_planes = plan.dw_slices * 9 * cin * cout if plan.dw_slices > 1 else 0
+    starts = [0, plan.dw_ws, plan.dw, plan.partial, plan.sums, plan.dyc]
+    ends = [plan.slices * m * cin, plan.dw_ws + dw_planes,
+            plan.dw + 9 * cin * cout, plan.partial + plan.row_tiles * 2 * cin,
+            plan.sums + 2 * cin, plan.dyc + -(-m * cout // 2)]
+    assert all(a % 4 == 0 for a in starts)
+    assert all(e <= b for e, b in zip(ends, starts[1:]))
+    assert ends[-1] <= plan.size < ends[-1] + 4
+    no_norm = fc.c3_bwd_plan(m, cin, cout, False)
+    assert no_norm.row_tiles == 0 and no_norm.partial == no_norm.sums
+
+
+def test_c3_bwd_plan_is_a_function_of_the_shapes():
+    # the path's merged-route shapes at batch 32: about two blocks per SM
+    # in each product
+    for m, cin in ((8192, 64), (2048, 128), (512, 256)):
+        plan = fc.c3_bwd_plan(m, cin, cin, True)
+        assert plan == fc.c3_bwd_plan(m, cin, cin, True)
+        dw_tiles = -(-9 * cin // 64) * -(-cin // 64)
+        assert 132 <= dw_tiles * plan.dw_slices <= 2 * 264
+        dx_tiles = -(-m // 64) * -(-cin // 64)
+        assert 132 <= dx_tiles * plan.slices <= 2 * 264
+    # stage 4 at batch 32: one dW slice (576 tiles already)
+    assert fc.c3_bwd_plan(128, 512, 512, True).dw_slices == 1
