@@ -11,15 +11,16 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
 2. build — ``nvcc`` builds every kernel of the path from ``csrc/`` (one
    process per source, all at once); prints each kernel's registers and
    spills from ``-Xptxas -v`` and, by ``cuobjdump -sass``, the HMMA
-   (tensor-core) instructions in the libraries of ``fused_c3``,
-   ``fused_c3_bwd`` (with ``fused_c3_bwd_in``) and ``flash_fwd`` (it fails
-   if one holds none).
+   (tensor-core) instructions in the libraries of ``fused_mm``,
+   ``fused_c3``, ``fused_mm_bwd``, ``fused_c3_bwd`` (with
+   ``fused_c3_bwd_in``) and ``flash_fwd`` (it fails if one holds none).
 3. kernels — ``fused_mm`` and ``fused_c3`` at every distinct shape the
    ResNet50 gives them at batch 32, in float32 and bfloat16, held against
-   their plain PyTorch versions on the card; kernel, plain and
-   library-yardstick (cuDNN conv of the normalized input) times, by CUDA
-   events around back-to-back calls as the path makes them, beside each
-   call's bound. Then the backward kernels at the same shapes on random
+   their plain PyTorch versions on the card and run twice for
+   bitwise-equal results; kernel, plain and library-yardstick (cuDNN conv
+   of the normalized input) times, by CUDA events around back-to-back calls
+   as the path makes them, beside each call's bound. Then the backward
+   kernels at the same shapes on random
    dy, y and dstats: ``fused_mm_bwd`` for every 1×1 call, and at every 3×3
    shape BOTH routes (``fused_c3_bwd`` in one call, ``fused_c3_bwd_in``
    + ``fused_c3_bwd_w`` in two), each held against its plain version (dx,
@@ -27,9 +28,11 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    beside its bound, its plain version and a library yardstick
    (``torch.matmul`` for 1×1, cuDNN's ``convolution_backward`` for 3×3);
    all three 3×3 backward kernels also at the train phase's batch 128,
-   where the two routes are compared per shape. The rows of the six conv
-   kernels and ``flash_fwd`` also carry their kernels' device time by
-   ``torch.profiler`` beside their library's.
+   where the two routes are compared per shape, and ``fused_mm`` and
+   ``fused_mm_bwd`` at every 1×1 call of batch 128 in bf16. The rows of the
+   six conv kernels and ``flash_fwd`` also carry their kernels' device time
+   by ``torch.profiler`` beside their library's, and the CUDA launches
+   (kernels and memsets on the card) one wrapper call makes.
    Then ``lstm_fwd`` and ``lstm_bwd`` at the LSTM slice shape (T 60, N 128,
    H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
    bf16, masked and unmasked: against their plain versions, bitwise on a
@@ -155,7 +158,8 @@ REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
 # kernels whose rows also carry device times (every conv kernel: their
 # walls at the path shapes are bound by the wrappers' host work; and the
 # redesigned flash_fwd)
-MMA_SOURCES = ("fused_c3", "fused_c3_bwd", "flash_fwd")
+MMA_SOURCES = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
+               "flash_fwd")
 DEVICE_TIMED = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
                 "fused_c3_bwd_in", "fused_c3_bwd_w", "flash_fwd")
 FORWARD = ("fused_mm", "fused_c3")
@@ -357,6 +361,7 @@ def check_kernel_call(call, dtype, gen):
 
     with torch.inference_mode():
         y, st = fc.fused_conv_bn_act(*args)
+        again = fc.fused_conv_bn_act(*args)
         yr, str_ = fc._conv_reference(*args)
         torch.cuda.synchronize()
         rtol, atol = Y_TOL[dtype]
@@ -368,7 +373,9 @@ def check_kernel_call(call, dtype, gen):
                "x": list(call.x_shape), "w": list(call.w_shape),
                "stride": call.stride, "norm_in": call.norm_in,
                "max_abs_err": dy.max().item(), "stats_max_abs_err": ds,
-               "ok": y_ok and s_ok}
+               "ok": y_ok and s_ok,
+               "bitwise_repeat": (torch.equal(y, again[0])
+                                  and torch.equal(st, again[1]))}
 
         # the yardstick's operands in cuDNN's layout, made once outside
         # the timed call: x as a channels_last view, W copied to match
@@ -388,7 +395,7 @@ def check_kernel_call(call, dtype, gen):
                                    padding=pad)
         res["library_ms"] = cuda_time(library)
         if call.kernel in DEVICE_TIMED:
-            res["device_ms"] = device_ms(
+            res["device_ms"], res["launches_per_call"] = device_trace(
                 lambda: fc.fused_conv_bn_act(*path_args))
             res["library_device_ms"] = device_ms(library)
     flops, nbytes = call_cost(call, dtype)
@@ -515,7 +522,7 @@ def check_backward_call(call, dtype, gen):
         row["plain_ms"] = cuda_time(plain)
         row["library_ms"] = cuda_time(library[part])
         if name in DEVICE_TIMED:
-            row["device_ms"] = device_ms(kern)
+            row["device_ms"], row["launches_per_call"] = device_trace(kern)
             row["library_device_ms"] = device_ms(library[part])
         row["bound_ms"], row["bound_by"] = bound(*bwd_cost(call, dtype, part),
                                                  dtype)
@@ -526,7 +533,8 @@ def check_backward_call(call, dtype, gen):
 def _device_note(row):
     return ("" if "device_ms" not in row else
             f" device={row['device_ms']:.4f} lib_device="
-            f"{row['library_device_ms']:.4f}")
+            f"{row['library_device_ms']:.4f} launches="
+            f"{row['launches_per_call']:g}")
 
 
 def _summary(name, rows, launches=None):
@@ -594,30 +602,36 @@ def phase_kernels(report):
     calls = path_calls(conf, 32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for call, count in calls.items():
-        for dtype in ("float32", "bfloat16"):
-            r = check_kernel_call(call, dtype, gen)
-            r.update(per_step=count, on_path=True, batch=32)
-            rows.append(r)
-            log(f"  {r['kernel']:15s} {dtype:8s} x={tuple(r['x'])} "
-                f"w={tuple(r['w'])} s={r['stride']} norm={int(r['norm_in'])}"
-                f" err={r['max_abs_err']:.3g} stats_err="
-                f"{r['stats_max_abs_err']:.3g} ms={r['ms']:.4f} "
-                f"stats_ms={r['ms_with_stats']:.4f} "
-                f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
-                f"bound={r['bound_ms']:.4f} ({r['bound_by']})"
-                f"{_device_note(r)}"
-                f"{'' if r['ok'] else '  <-- DISAGREES'}")
-    # the train phase's own batch for every 3×3 call, both routes
-    train_calls = {call: count for call, count in
-                   path_calls(conf, TRAIN_BATCH).items()
-                   if call.kernel == "fused_c3"}
+    # the train phase's own batch: every 3×3 call (both routes, f32 and
+    # bf16) and every 1×1 call (bf16, forward and backward)
+    train_calls = path_calls(conf, TRAIN_BATCH)
+    forward = [(call, count, 32, dtype) for call, count in calls.items()
+               for dtype in ("float32", "bfloat16")]
+    forward += [(call, count, TRAIN_BATCH, "bfloat16")
+                for call, count in train_calls.items()
+                if call.kernel == "fused_mm"]
+    for call, count, batch, dtype in forward:
+        r = check_kernel_call(call, dtype, gen)
+        r.update(per_step=count, on_path=True, batch=batch)
+        rows.append(r)
+        log(f"  {r['kernel']:15s} {dtype:8s} x={tuple(r['x'])} "
+            f"w={tuple(r['w'])} s={r['stride']} norm={int(r['norm_in'])}"
+            f" err={r['max_abs_err']:.3g} stats_err="
+            f"{r['stats_max_abs_err']:.3g} ms={r['ms']:.4f} "
+            f"stats_ms={r['ms_with_stats']:.4f} "
+            f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
+            f"bound={r['bound_ms']:.4f} ({r['bound_by']})"
+            f"{_device_note(r)}"
+            f"{'' if r['ok'] else '  <-- DISAGREES'}"
+            f"{'' if r['bitwise_repeat'] else '  <-- NOT BITWISE'}")
     backward = [(call, count, 32) for call, count in calls.items()]
     backward += [(call, count, TRAIN_BATCH)
                  for call, count in train_calls.items()]
     for call, count, batch in backward:
         merged = _merged(fc, call)
-        for dtype in ("float32", "bfloat16"):
+        dtypes = (("bfloat16",) if batch == TRAIN_BATCH
+                  and call.kernel == "fused_mm" else ("float32", "bfloat16"))
+        for dtype in dtypes:
             for r in check_backward_call(call, dtype, gen):
                 r["per_step"] = count
                 r["batch"] = batch
@@ -1440,33 +1454,41 @@ def sdpa_backend(fn):
     return max(rows)[1][:80] if rows else "not seen by the profiler"
 
 
-def device_ms(fn, n=10):
-    """Device time (ms) of one call of ``fn`` by torch.profiler: the mean
-    time of each kernel it launches, summed over its kernels (each
-    launched once a call, as the device-timed wrappers' and their
-    yardsticks' are; a mean per launch, because the trace can miss the
-    first launch of its window). Where a call's wall time (``cuda_time``)
-    is bound by the host, this is what its kernels cost the card. A trace
-    that recorded no kernel at all is taken again, up to three times, and
-    then reads NaN (not measured), never 0."""
+def device_trace(fn, n=10):
+    """(device ms, CUDA launches) of one call of ``fn`` by torch.profiler.
+    The ms are the mean time of each kernel it launches, summed over its
+    kernels (each launched once a call, as the device-timed wrappers' and
+    their yardsticks' are; a mean per launch, because the trace can miss
+    the first launch of its window). Where a call's wall time
+    (``cuda_time``) is bound by the host, this is what its kernels cost the
+    card. The launches are the kernels and memsets the trace saw on the
+    card, over ``n`` calls, rounded to a whole number a call. A trace that
+    recorded no kernel at all is taken again, up to five times, and then
+    reads NaN (not measured), never 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         # "Activity Buffer Request" is the tracer's own device activity
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"
+                  and not e.key.startswith("Activity Buffer")]
         ms = sum(getattr(e, "device_time_total", 0.0) / max(1, e.count)
-                 for e in prof.key_averages()
-                 if e.device_type.name == "CUDA"
-                 and not e.key.startswith("Activity Buffer")) / 1e3
+                 for e in events) / 1e3
         if ms > 0:
-            return ms
-    return math.nan
+            return ms, round(sum(e.count for e in events) / n)
+    return math.nan, math.nan
+
+
+def device_ms(fn, n=10):
+    """The device ms of ``device_trace``."""
+    return device_trace(fn, n)[0]
 
 
 def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
@@ -1527,7 +1549,8 @@ def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
         row["bound_ms"], row["bound_by"] = bound(
             *attn_cost(name, q, mask, causal), dtype)
         if name in DEVICE_TIMED:
-            row["device_ms"] = device_ms(kern, n=iters)
+            row["device_ms"], row["launches_per_call"] = device_trace(
+                kern, n=iters)
             row["library_device_ms"] = device_ms(lib[name], n=iters)
         rows.append(row)
     rows[0]["sdpa_backend"] = sdpa_backend(lib["flash_fwd"])

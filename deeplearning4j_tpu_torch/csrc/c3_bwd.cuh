@@ -40,6 +40,8 @@
 //     rules out 16-byte copies: the same kernels, selected by flags;
 //   * no float atomics: every sum has one fixed order, so two calls on the
 //     same inputs give the same bits.
+// The dW tile (dw_tile) is a template on its A side: mm_bwd.cuh runs it
+// with the 1x1's stride-grid rows in place of the taps.
 #pragma once
 
 #include <cstdint>
@@ -66,6 +68,7 @@ struct DwArgs {
   int chunk;                 // pixels a slice sums, a multiple of kDepth
   int a_vec;  // 16-byte loads of x (Cin % 8 == 0; x, scale, shift aligned)
   int b_vec;  // 16-byte copies of dyc (Cout % 8 == 0, dyc aligned)
+  int Wo, plane, stride;  // 1x1 (mm_bwd.cuh): dy's row width, Ho * Wo
 };
 
 // This thread's pixels: p = tid / 8 and p + 16 of each step, tracked as
@@ -105,35 +108,35 @@ struct Pixels {
   }
 };
 
-// dW: one 64 x 64 tile of (9 Cin, Cout) over one slice of the pixels.
-__global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kDepth * kRow];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kStages][kDepth * kRow];
-  const int r0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int kb = blockIdx.z * d.chunk;
-  const int ke = min(d.M, kb + d.chunk);
-  const int steps = (ke - kb + kDepth - 1) / kDepth;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int p = threadIdx.x >> 3, q8 = 8 * (threadIdx.x & 7);
-
-  // A: rows r0 + q8 .. + 7, one tap's 8 channels when a_vec
-  const int r = r0 + q8;
-  const int tap = r / d.cin, c = r - tap * d.cin;
-  const int ti = tap / 3 - 1, tj = tap % 3 - 1;
-  const long long toff = (long long)(ti * d.W + tj) * d.cin + c;
+// The A side of the 3x3's dW tile (rows tap * Cin + c): this thread's rows
+// r .. r + 7 (r = r0 + 8 (tid % 8)), one tap's 8 channels when a_vec, at
+// its pixels p and p + 16 of each step, shifted by the tap; zeros outside
+// the image, written AFTER the normalize.
+struct C3ERows {
+  int r, ti, tj;
+  long long toff;   // element offset of the tap's shift and channel
+  bool rows_ok;     // 16-byte path and r inside the rows
   float sc[8], sh[8];
-  const bool rows_ok = d.a_vec && r < d.rows;
-  if (rows_ok && d.norm_in) {
-    mma::ldg_f8(sc, d.scale + c);
-    mma::ldg_f8(sh, d.shift + c);
-  }
-  Pixels px(d, kb);
+  Pixels px;
+  unsigned ok;      // bit s: chunk s was loaded
   uint4 v[2];
-  unsigned ok = 0u;
+
+  __device__ C3ERows(const DwArgs& d, int r0, int kb) : px(d, kb) {
+    r = r0 + 8 * (threadIdx.x & 7);
+    const int tap = r / d.cin, c = r - tap * d.cin;
+    ti = tap / 3 - 1;
+    tj = tap % 3 - 1;
+    toff = (long long)(ti * d.W + tj) * d.cin + c;
+    rows_ok = d.a_vec && r < d.rows;
+    if (rows_ok && d.norm_in) {
+      mma::ldg_f8(sc, d.scale + c);
+      mma::ldg_f8(sh, d.shift + c);
+    }
+    ok = 0u;
+  }
 
   // the current step's x chunks (16-byte path), inside the image and slice
-  auto load = [&]() {
+  __device__ __forceinline__ void load(const DwArgs& d, int ke) {
     ok = 0u;
     if (!rows_ok) return;
 #pragma unroll
@@ -145,10 +148,13 @@ __global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
         ok |= 1u << s;
       }
     }
-  };
+  }
+
   // the current step's e into A buffer a (zeros outside), then the next
   // step's pixels; the 2-byte path loads here, element by element
-  auto store = [&](__nv_bfloat16* a) {
+  __device__ __forceinline__ void store(const DwArgs& d, __nv_bfloat16* a,
+                                        int ke) {
+    const int p = threadIdx.x >> 3, q8 = 8 * (threadIdx.x & 7);
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       __nv_bfloat16* dst = a + (p + 16 * s) * kRow + q8;
@@ -179,7 +185,29 @@ __global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
       }
     }
     px.advance(d);
-  };
+  }
+};
+
+// Shared memory of one dW tile: e's two buffers, then dyc's ring
+constexpr int kDwElems = (2 + kStages) * kDepth * kRow;
+
+// dW: the 64 x 64 tile (bx, by) of (rows, Cout) over pixel slice bz, into
+// its plane of d.out. E stages A (C3ERows, or mm_bwd.cuh's 1x1 rows); smem
+// holds kDwElems bf16.
+template <class E>
+__device__ __forceinline__ void dw_tile(const DwArgs& d, __nv_bfloat16* smem,
+                                        int bx, int by, int bz) {
+  auto As = reinterpret_cast<__nv_bfloat16(*)[kDepth * kRow]>(smem);
+  auto Bs = As + 2;
+  const int r0 = bx * kTile, n0 = by * kTile;
+  const int kb = bz * d.chunk;
+  const int ke = min(d.M, kb + d.chunk);
+  const int steps = (ke - kb + kDepth - 1) / kDepth;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int p = threadIdx.x >> 3, q8 = 8 * (threadIdx.x & 7);
+  E in(d, r0, kb);
+
   // step st's dyc rows (pixels) into ring stage b, columns n0 + q8 .. + 7
   auto issue = [&](__nv_bfloat16* b, int st) {
     const int n = n0 + q8;
@@ -213,10 +241,10 @@ __global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
     if (st < steps) issue(Bs[st], st);
     mma::cp_async_commit();
   }
-  load();
-  store(As[0]);
+  in.load(d, ke);
+  in.store(d, As[0], ke);
   for (int st = 0; st < steps; ++st) {
-    if (st + 1 < steps) load();          // in flight over the products
+    if (st + 1 < steps) in.load(d, ke);  // in flight over the products
     mma::cp_async_wait<kStages - 2>();  // this thread's copies of step st
     __syncthreads();  // step st staged by all; step st - 1's readers done
     if (st + kStages - 1 < steps)
@@ -245,11 +273,11 @@ __global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
           mma::mma_bf16(acc[i][2 * jp + 1], af[i], bf[jp][2], bf[jp][3]);
         }
     }
-    if (st + 1 < steps) store(As[(st + 1) & 1]);
+    if (st + 1 < steps) in.store(d, As[(st + 1) & 1], ke);
   }
   mma::cp_async_wait<0>();
 
-  float* out = d.out + (long long)blockIdx.z * d.rows * d.cout;
+  float* out = d.out + (long long)bz * d.rows * d.cout;
   const int g = lane >> 2, t = lane & 3;
   const bool pairs = (d.cout & 1) == 0;
 #pragma unroll
@@ -273,6 +301,12 @@ __global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
     }
 }
 
+// dW of the 3x3: one 64 x 64 tile of (9 Cin, Cout) over one pixel slice.
+__global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
+  __shared__ __align__(16) __nv_bfloat16 smem[kDwElems];
+  dw_tile<C3ERows>(d, smem, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
 // The whole bf16 backward on `stream`: dyc and the dx product, the dW
 // product, the dx epilogue and sums, then the dW planes added in slice
 // order when there are several (dw_ws: (dw_slices, 9 Cin, Cout) f32).
@@ -293,7 +327,7 @@ inline int launch_merged(bwd_in::InArgs a, float* dw, float* dw_ws,
       nt > 65535 || rt > 0x7fffffffLL)
     return bad;
   bwd_in::set_flags(a);
-  DwArgs d;
+  DwArgs d{};
   d.x = static_cast<const __nv_bfloat16*>(p.x);
   d.dyc = a.dyc;
   d.scale = p.scale;

@@ -43,6 +43,8 @@
 //     16-byte ones: the same kernels, not a fallback;
 //   * no float atomics: every sum has one fixed order, so two calls on the
 //     same inputs give the same bits.
+// The product's main loop (mma_steps) is a template on its staging, shared
+// with mm_bwd.cuh's 1x1 dx product; dyc_kernel is shared with it too.
 #pragma once
 
 #include <cstdint>
@@ -215,20 +217,17 @@ struct Stream {
   }
 };
 
-// bf16: one 64 x 64 tile of de over one K slice, into ws[slice]. A ring of
-// kStages stages keeps kStages - 1 steps of copies in flight.
-__global__ void __launch_bounds__(kMmaThreads) dx_mma_kernel(InArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 ring[kStages * kStageElems];
-  const BwdArgs& p = a.p;
-  const int m0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const int kb = blockIdx.z * a.slice_depth;
-  const int ke = min(9 * p.cout, kb + a.slice_depth);
-  const int steps = (ke - kb + kDepth - 1) / kDepth;
+// The products of one 64 x 64 tile over `steps` steps of the stream `in`
+// (depths up to ke), into acc (zeroed here): A and B rows of 32 depths
+// each, staged by in.issue into a ring of kStages stages, which keeps
+// kStages - 1 steps of copies in flight; both reach the MMAs by ldmatrix.
+// S is Stream (the 3x3's taps) or mm_bwd.cuh's (the 1x1's rows).
+template <class S>
+__device__ __forceinline__ void mma_steps(const InArgs& a, S& in,
+                                          __nv_bfloat16* ring, int ke,
+                                          int steps, float (&acc)[2][4][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  Stream in(p, m0, c0, kb);
-
-  float acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -271,6 +270,20 @@ __global__ void __launch_bounds__(kMmaThreads) dx_mma_kernel(InArgs a) {
     }
   }
   mma::cp_async_wait<0>();
+}
+
+// bf16: one 64 x 64 tile of de over one K slice, into ws[slice].
+__global__ void __launch_bounds__(kMmaThreads) dx_mma_kernel(InArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 ring[kStages * kStageElems];
+  const BwdArgs& p = a.p;
+  const int m0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int kb = blockIdx.z * a.slice_depth;
+  const int ke = min(9 * p.cout, kb + a.slice_depth);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  Stream in(p, m0, c0, kb);
+  float acc[2][4][4];
+  mma_steps(a, in, ring, ke, (ke - kb + kDepth - 1) / kDepth, acc);
 
   float* out = a.ws + (long long)blockIdx.z * p.M * p.cin;
   const int g = lane >> 2, t = lane & 3;

@@ -47,6 +47,8 @@
 //     the bands in rank order): no float atomics;
 //   * 2-byte staging where Cin % 8, Cout % 8 or a pointer's alignment
 //     rules out 16-byte copies: the same kernel, selected by a flag.
+// The kernel is a template on the A side's staging: mm_fwd.cuh runs it
+// with the 1x1 conv's strided rows in place of the taps.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -96,6 +98,7 @@ struct FwdArgs {
   int slices, slice_depth;
   int a_vec;  // 16-byte loads of x (Cin % 8 == 0; x, scale, shift aligned)
   int b_vec;  // 16-byte copies of W (Cout % 8 == 0, W aligned)
+  int Wo, plane, stride;  // 1x1 (mm_fwd.cuh): output row width, Ho * Wo
 };
 
 // This thread's share of the A side of every step: depths k .. k + 7 (k =
@@ -232,7 +235,10 @@ constexpr int kSmemBytes = kStagingBytes > 4 * kTile * kAccRow
 
 // One 64 x 64 output tile over one K slice: y and its statistics. With K
 // split, the launch groups a tile's slices into one cluster (blockIdx.z
-// is the slice and the block's rank), which adds them in slice order.
+// is the slice and the block's rank), which adds them in slice order. AS
+// stages A: AStream (the 3x3's taps) or mm_fwd.cuh's MmStream (the 1x1's
+// strided rows).
+template <class AS>
 __global__ void __launch_bounds__(kMmaThreads) fwd_mma_kernel(FwdArgs a) {
   __shared__ __align__(16) unsigned char smem[kSmemBytes];
   __shared__ float red[2][2][kTile];
@@ -255,7 +261,7 @@ __global__ void __launch_bounds__(kMmaThreads) fwd_mma_kernel(FwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  AStream in(a, m0, kb);
+  AS in(a, m0, kb);
 #pragma unroll
   for (int st = 0; st < kBStages - 1; ++st) {
     if (st < steps) issue_w(a, Bs[st], kb, ke, n0, st);
@@ -427,24 +433,24 @@ __global__ void __launch_bounds__(kMmaThreads) fwd_mma_kernel(FwdArgs a) {
   }
 }
 
-// bf16: the product on `stream`, its K slices as clusters when K is
-// split; returns cudaGetLastError() (an invalid shape:
+// The product of FwdArgs whose K, slices and slice_depth are set, with AS
+// staging A, on `stream`: its K slices as clusters when K is split;
+// returns cudaGetLastError() (an invalid shape or plan:
 // cudaErrorInvalidValue, nothing launched).
-inline int launch_fwd(FwdArgs a, cudaStream_t stream) {
-  a.K = 9 * a.cin;
-  a.slice_depth = slice_depth(a.K);
-  a.slices = split_count(a.K);
-  if (a.M <= 0 || a.cin <= 0 || a.cout <= 0 || a.H <= 0 || a.W <= 0 ||
-      (a.want_stats && a.partial == nullptr) || a.slices > kMaxSlices ||
+template <class AS>
+inline int launch_product(const FwdArgs& a, cudaStream_t stream) {
+  if (a.M <= 0 || a.cin <= 0 || a.cout <= 0 || a.K <= 0 ||
+      (a.want_stats && a.partial == nullptr) || a.slices < 1 ||
+      a.slices > kMaxSlices || a.slice_depth <= 0 ||
+      a.slice_depth % kDepth != 0 ||
+      (long long)a.slices * a.slice_depth < a.K ||
+      (long long)(a.slices - 1) * a.slice_depth >= a.K ||
       (a.cout + kTile - 1) / kTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  a.a_vec = a.cin % 8 == 0 && mma::aligned16(a.x) &&
-            mma::aligned16(a.scale) && mma::aligned16(a.shift);
-  a.b_vec = a.cout % 8 == 0 && mma::aligned16(a.w);
   const dim3 grid((a.M + kTile - 1) / kTile, (a.cout + kTile - 1) / kTile,
                   a.slices);
   if (a.slices == 1) {
-    fwd_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(a);
+    fwd_mma_kernel<AS><<<grid, kMmaThreads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -459,9 +465,23 @@ inline int launch_fwd(FwdArgs a, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = a.slices;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fwd_mma_kernel, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fwd_mma_kernel<AS>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 3x3: the product on `stream`, K = 9 Cin cut by slice_depth;
+// returns cudaGetLastError() (an invalid shape: cudaErrorInvalidValue,
+// nothing launched).
+inline int launch_fwd(FwdArgs a, cudaStream_t stream) {
+  if (a.H <= 0 || a.W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  a.K = 9 * a.cin;
+  a.slice_depth = slice_depth(a.K);
+  a.slices = split_count(a.K);
+  a.a_vec = a.cin % 8 == 0 && mma::aligned16(a.x) &&
+            mma::aligned16(a.scale) && mma::aligned16(a.shift);
+  a.b_vec = a.cout % 8 == 0 && mma::aligned16(a.w);
+  return launch_product<AStream>(a, stream);
 }
 
 }  // namespace c3

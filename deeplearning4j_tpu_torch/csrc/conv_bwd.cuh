@@ -1,5 +1,6 @@
 // Backward of the fused conv + BatchNorm kernels for Hopper (sm_90a),
-// shared by fused_mm_bwd.cu (1x1 conv) and fused_c3_bwd.cu (3x3 SAME conv).
+// shared by fused_mm_bwd.cu (1x1 conv, f32; bf16 is mm_bwd.cuh's) and
+// fused_c3_bwd.cu (3x3 SAME conv: f32, and the dW half in both dtypes).
 //
 // Replaces the TPU kernels deeplearning4j_tpu/ops/fused_conv.py:
 // _bwd_merged_kernel (1x1), _c3_bwd_merged_kernel (3x3, one pass) and
@@ -39,7 +40,8 @@
 //   * dyc and e are recomputed as their tiles are loaded, never stored;
 //   * no float atomics anywhere: every sum has one fixed order, so two
 //     calls on the same inputs give the same bits.
-// Tensor-core (mma/wgmma) tiles are later work.
+// The bf16 tensor-core versions are c3_bwd_in.cuh, c3_bwd.cuh and
+// mm_bwd.cuh; this FMA tile keeps f32 (no TF32) and fused_c3_bwd_w.
 #pragma once
 
 #include "conv_gemm.cuh"

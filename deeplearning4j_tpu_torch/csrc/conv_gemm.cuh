@@ -1,5 +1,6 @@
-// Fused conv + BatchNorm-statistics GEMM for Hopper (sm_90a), shared by
-// fused_mm.cu (1x1 conv) and fused_c3.cu (3x3 SAME conv).
+// Fused conv + BatchNorm-statistics GEMM for Hopper (sm_90a), the f32 path
+// of fused_mm.cu (1x1 conv) and fused_c3.cu (3x3 SAME conv); their bf16
+// path is mm_fwd.cuh's and c3_fwd.cuh's tensor-core kernel.
 //
 // Replaces the TPU kernels deeplearning4j_tpu/ops/fused_conv.py:_mm_kernel
 // and :_c3_kernel. Both compute, per output pixel row m and channel n,
@@ -25,9 +26,8 @@
 // kernel adds the slices in order and runs the epilogue. Every normalized
 // input stays in shared memory and is never written to device memory;
 // y is written once; the BN statistics ride the epilogue, so no pass
-// re-reads y. This version computes with FMA on 64x64 tiles (16x16
-// threads, 4x4 outputs each) in f32, for f32 and bf16 inputs alike;
-// tensor-core (mma/wgmma) tiles are later work.
+// re-reads y. It computes with FMA on 64x64 tiles (16x16 threads, 4x4
+// outputs each) in f32, no TF32.
 //
 // Determinism: the number of slices depends on K alone, and each slice is
 // one sequential f32 sum, so a row's result does not depend on M or on
@@ -95,11 +95,11 @@ struct ConvGeom {
 };
 
 // kC3 = false: 1x1 conv (strided rows); true: 3x3 SAME stride-1 conv.
-template <typename T, bool kC3>
+template <bool kC3>
 __global__ void __launch_bounds__(kThreads)
-    conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    conv_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ scale,
-                     const float* __restrict__ shift, T* __restrict__ y,
+                     const float* __restrict__ shift, float* __restrict__ y,
                      float* __restrict__ partial, float* __restrict__ ws,
                      ConvGeom g) {
   __shared__ __align__(16) float As[kTileK][kPadM];
@@ -171,12 +171,12 @@ __global__ void __launch_bounds__(kThreads)
             if (hi >= 0 && hi < g.H && wi >= 0 && wi < g.W) {
               const long long off =
                   (((long long)a_n[i] * g.H + hi) * g.W + wi) * g.cin + c;
-              v = prologue<T>(x[off], scale[c], shift[c], g.norm_in,
+              v = prologue<float>(x[off], scale[c], shift[c], g.norm_in,
                               g.relu_in);
             }
           }
         } else if (a_base[i] >= 0) {
-          v = prologue<T>(x[a_base[i] + k], scale[k], shift[k], g.norm_in,
+          v = prologue<float>(x[a_base[i] + k], scale[k], shift[k], g.norm_in,
                           g.relu_in);
         }
       }
@@ -188,7 +188,7 @@ __global__ void __launch_bounds__(kThreads)
       const int n = n0 + b_c;
       float v = 0.0f;
       if (k0 + kk < ke && n < g.N)
-        v = to_f32<T>(w[(long long)(k0 + kk) * g.N + n]);
+        v = w[(long long)(k0 + kk) * g.N + n];
       Bs[kk][b_c] = v;
     }
     __syncthreads();
@@ -234,7 +234,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < g.N) y[(long long)m * g.N + n] = from_f32<T>(acc[i][j]);
+      if (n < g.N) y[(long long)m * g.N + n] = acc[i][j];
       cs[j] += acc[i][j];
       cq[j] += acc[i][j] * acc[i][j];
     }
@@ -262,9 +262,8 @@ __global__ void __launch_bounds__(kThreads)
 // Split-K epilogue: y[m, n] = sum over the K slices in slice order, then
 // the same per-tile statistics as the single-pass epilogue. Thread t
 // handles column t & 63 for rows (t >> 6) + 4 i of the 64-row tile.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ y,
+    splitk_reduce_kernel(const float* __restrict__ ws, float* __restrict__ y,
                          float* __restrict__ partial, ConvGeom g) {
   __shared__ float red_s[kThreads / kTileN][kTileN];
   __shared__ float red_q[kThreads / kTileN][kTileN];
@@ -282,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
       const long long off = (long long)m * g.N + n;
       float v = 0.0f;
       for (int s = 0; s < g.splits; ++s) v += ws[s * slice + off];
-      y[off] = from_f32<T>(v);
+      y[off] = v;
       cs += v;
       cq += v * v;
     }
@@ -313,7 +312,7 @@ inline void set_split(ConvGeom& g) {
   g.k_per_split = (per + kTileK - 1) / kTileK * kTileK;
 }
 
-template <typename T, bool kC3>
+template <bool kC3>
 inline int launch_conv_gemm(const void* x, const void* w, const float* scale,
                             const float* shift, void* y, float* partial,
                             float* ws, const ConvGeom& g,
@@ -324,14 +323,14 @@ inline int launch_conv_gemm(const void* x, const void* w, const float* scale,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid((g.N + kTileN - 1) / kTileN, (g.M + kTileM - 1) / kTileM,
                   g.splits);
-  conv_gemm_kernel<T, kC3><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), scale, shift,
-      static_cast<T*>(y), partial, ws, g);
+  conv_gemm_kernel<kC3><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), scale,
+      shift, static_cast<float*>(y), partial, ws, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return static_cast<int>(err);
   const dim3 rgrid(grid.x, grid.y);
-  splitk_reduce_kernel<T><<<rgrid, kThreads, 0, stream>>>(
-      ws, static_cast<T*>(y), partial, g);
+  splitk_reduce_kernel<<<rgrid, kThreads, 0, stream>>>(
+      ws, static_cast<float*>(y), partial, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,6 +59,6 @@ extern "C" int dl4j_fused_c3(const void* x, const void* w, const float* scale,
   g.want_stats = want_stats;
   g.splits = dl4j::c3::split_count(g.K);
   g.k_per_split = dl4j::c3::slice_depth(g.K);
-  return dl4j::launch_conv_gemm<float, true>(x, w, scale, shift, y, partial,
-                                             ws, g, s);
+  return dl4j::launch_conv_gemm<true>(x, w, scale, shift, y, partial, ws, g,
+                                      s);
 }

@@ -1,8 +1,9 @@
 // Warp-level tensor-core and asynchronous-copy helpers for sm_90a, as
 // inline PTX: mma.sync m16n8k16 with bf16 operands and f32 accumulators,
 // ldmatrix (plain and transposed) and 16-byte cp.async with zero fill.
-// Shared by c3_fwd.cuh (the 3x3 conv's forward), c3_bwd_in.cuh and
-// c3_bwd.cuh (its backward) and flash_fwd.cu (the attention forward).
+// Shared by c3_fwd.cuh and mm_fwd.cuh (the 3x3 and 1x1 convs' forward),
+// c3_bwd_in.cuh, c3_bwd.cuh and mm_bwd.cuh (their backward) and
+// flash_fwd.cu (the attention forward).
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = 0..7, t = 0..3):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],

@@ -39,9 +39,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every kernel entry point (ctypes would otherwise pass each
 # argument as a 32-bit int and cut the pointers)
 SIGNATURES = {
-    "fused_mm": ("dl4j_fused_mm", [_P] * 7 + [_I] * 10 + [_P]),
+    "fused_mm": ("dl4j_fused_mm", [_P] * 7 + [_I] * 12 + [_P]),
     "fused_c3": ("dl4j_fused_c3", [_P] * 7 + [_I] * 9 + [_P]),
-    "fused_mm_bwd": ("dl4j_fused_mm_bwd", [_P] * 11 + [_I] * 10 + [_P]),
+    "fused_mm_bwd": ("dl4j_fused_mm_bwd", [_P] * 13 + [_I] * 12 + [_P]),
     "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 14 + [_I] * 12 + [_P]),
     "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 12 + [_I] * 11 + [_P]),
     "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),

@@ -18,12 +18,14 @@ BN/ReLU backward (mask, Σdpre·x, Σdpre, the input rescale) in the
 bwd-input product's epilogue.
 
 Six hand-written CUDA kernels (``csrc/``, sm_90a) do the work on the card:
-``fused_mm`` / ``fused_c3`` (forward, 1×1 and 3×3; ``fused_c3`` multiplies
-bf16 on the tensor cores) and ``fused_mm_bwd``, ``fused_c3_bwd`` (3×3 dx,
-dW and the BN sums in one call; bf16 on the tensor cores, its scratch laid
-out by ``c3_bwd_plan``), ``fused_c3_bwd_in`` + ``fused_c3_bwd_w`` (the same
-work as two calls; ``fused_c3_bwd_in`` splits its 9·Cout depth into the
-slices of ``dx_slices`` and multiplies bf16 on the tensor cores).
+``fused_mm`` / ``fused_c3`` (forward, 1×1 and 3×3; in bf16 both multiply on
+the tensor cores, K cut into the slices of ``mm_slices`` / by K alone) and
+``fused_mm_bwd`` (1×1 dx, dW and the BN sums in one call; bf16 on the
+tensor cores, cut and laid out by ``mm_bwd_plan``), ``fused_c3_bwd`` (the
+same for the 3×3; ``c3_bwd_plan``), ``fused_c3_bwd_in`` +
+``fused_c3_bwd_w`` (the 3×3 work as two calls; ``fused_c3_bwd_in`` splits
+its 9·Cout depth into the slices of ``dx_slices`` and multiplies bf16 on
+the tensor cores).
 Beside each is its plain PyTorch version (``*_reference``): the wrappers
 use it for a tensor on the CPU and only there. A CUDA tensor launches the
 kernel or raises; nothing falls back.
@@ -220,6 +222,10 @@ _DW_TARGET_BLOCKS = 264   # two blocks per SM of an H100
 _DX_MIN_DEPTH = 256       # shallowest K slice of fused_c3_bwd_in worth a block
 DX_STEP = 32              # depth of one fused_c3_bwd_in step (two MMA k16s)
 DX_SUM_ROWS = 16          # rows of one fused_c3_bwd_in partial-sum tile
+MAX_CLUSTER = 8           # K slices one thread-block cluster adds (portable)
+# about the depth of one bf16 fused_mm K slice: Cin 2048 gets 8 slices,
+# 1024 four, 512 two, up to 256 one (chosen on an H100, PERF.md §6)
+MM_SLICE_DEPTH = 256
 
 
 def _ptr(t):
@@ -287,22 +293,46 @@ def _raise_on(name, err):
     _count(name)
 
 
-def _launch(name, args, x, slices, cout, m, want_stats):
-    """Allocate the kernel's statistics buffer and, for ``slices`` above
-    1, its split-K scratch of f32 planes; launch it on the current stream,
-    raise on a launch error; returns the stats."""
+def _launch(name, x, head, tail, planes, cout, m, want_stats):
+    """Allocate the kernel's statistics buffer and, for ``planes`` above 1,
+    its split-K scratch of that many f32 planes; launch it on the current
+    stream with the pointers ``head``, those two buffers and the ints
+    ``tail``; raise on a launch error; returns the stats."""
     f32 = dict(dtype=torch.float32, device=x.device)
     partial = ws = None
     if want_stats:
         partial = torch.empty((-(-m // cuda_build.tile_m(name)), 2, cout),
                               **f32)
-    if slices > 1:
-        ws = torch.empty((slices, m, cout), **f32)
-    err = cuda_build.kernel(name)(*args(_ptr(partial), _ptr(ws)),
+    if planes > 1:
+        ws = torch.empty((planes, m, cout), **f32)
+    err = cuda_build.kernel(name)(*head, _ptr(partial), _ptr(ws), *tail,
                                   int(want_stats), _DTYPES[x.dtype],
                                   cuda_build.current_stream(x.device))
     _raise_on(name, err)
     return partial.sum(0) if want_stats else None
+
+
+@functools.lru_cache(maxsize=64)
+def mm_slices(k: int) -> Tuple[int, int]:
+    """(count, depth of each) of the K slices the bf16 ``fused_mm`` cuts its
+    depth K = Cin into: about ``MM_SLICE_DEPTH`` deep, at most
+    ``MAX_CLUSTER`` (they are added in one thread-block cluster), each a
+    multiple of ``DX_STEP``, the last one shorter. A function of K alone, so
+    a row's bits do not depend on how many rows the call has."""
+    want = min(MAX_CLUSTER, -(-k // MM_SLICE_DEPTH))
+    per = -(-(-(-k // want)) // DX_STEP) * DX_STEP
+    return -(-k // per), per
+
+
+@functools.lru_cache(maxsize=64)
+def _mm_split(cin: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(K slices, their depth, f32 scratch planes) of one ``fused_mm`` call:
+    bf16 adds the slices of ``mm_slices`` in the shared memory of a
+    thread-block cluster, with no scratch; f32 adds its FMA kernel's slices
+    from f32 planes in device memory."""
+    if dtype == torch.bfloat16:
+        return mm_slices(cin) + (1,)
+    return 0, 0, cuda_build.split_count("fused_mm", cin)
 
 
 def fused_mm(x, w, scale, shift, relu_in: bool = True, norm_in: bool = True,
@@ -322,13 +352,14 @@ def fused_mm(x, w, scale, shift, relu_in: bool = True, norm_in: bool = True,
     n, h, wd, cin = x.shape
     cout = w.shape[1]
     ho, wo = -(-h // stride), -(-wd // stride)
+    slices, depth, planes = _mm_split(cin, x.dtype)
     with torch.cuda.device(x.device):
         y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
-        stats = _launch("fused_mm", lambda p, ws: (
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            y.data_ptr(), p, ws, n, h, wd, cin, cout, stride, int(norm_in),
-            int(relu_in)), x, cuda_build.split_count("fused_mm", cin), cout,
-            n * ho * wo, want_stats)
+        stats = _launch(
+            "fused_mm", x, (x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                            shift.data_ptr(), y.data_ptr()),
+            (n, h, wd, cin, cout, stride, int(norm_in), int(relu_in), slices,
+             depth), planes, cout, n * ho * wo, want_stats)
     return y, stats
 
 
@@ -352,10 +383,11 @@ def fused_c3(x, w, scale, shift, relu_in: bool = True, norm_in: bool = True,
               if x.dtype == torch.float32 else 1)
     with torch.cuda.device(x.device):
         y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-        stats = _launch("fused_c3", lambda p, ws: (
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            y.data_ptr(), p, ws, n, h, wd, cin, cout, int(norm_in),
-            int(relu_in)), x, slices, cout, n * h * wd, want_stats)
+        stats = _launch(
+            "fused_c3", x, (x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                            shift.data_ptr(), y.data_ptr()),
+            (n, h, wd, cin, cout, int(norm_in), int(relu_in)), slices, cout,
+            n * h * wd, want_stats)
     return y, stats
 
 
@@ -370,16 +402,20 @@ def dw_chunk(rows: int, cols: int, depth: int) -> int:
     return -(-per // 16) * 16
 
 
-def dx_slices(m: int, cin: int, depth: int) -> Tuple[int, int]:
+def dx_slices(m: int, cin: int, depth: int,
+              most: int = 0) -> Tuple[int, int]:
     """(count, depth of each) of the K slices ``fused_c3_bwd_in`` cuts its
-    depth 9·Cout into: slices are added until its grid of 64×64 (M, Cin)
+    depth 9·Cout into (and the bf16 ``fused_mm_bwd`` its Cout, at ``most``
+    ``MAX_CLUSTER``): slices are added until its grid of 64×64 (M, Cin)
     tiles × slices has about two blocks per SM, none shallower than about
-    256; each is a multiple of ``DX_STEP`` deep, the last one shorter. A
-    function of the shapes alone, so a call's bits do not vary from run to
-    run."""
+    256, no more than ``most`` when given; each is a multiple of ``DX_STEP``
+    deep, the last one shorter. A function of the shapes alone, so a call's
+    bits do not vary from run to run."""
     tiles = -(-m // _BWD_TILE) * -(-cin // _BWD_TILE)
     want = max(1, min(-(-_DW_TARGET_BLOCKS // tiles),
                       -(-depth // _DX_MIN_DEPTH)))
+    if most:
+        want = min(want, most)
     per = -(-(-(-depth // want)) // DX_STEP) * DX_STEP
     return -(-depth // per), per
 
@@ -458,6 +494,44 @@ def c3_bwd_plan(m: int, cin: int, cout: int, norm_in: bool) -> C3BwdPlan:
                      dw, partial, sums, dyc, size)
 
 
+class MmBwdPlan(NamedTuple):
+    """How the bf16 ``fused_mm_bwd`` cuts one call: the dx product's K
+    slices of the Cout depth (added in a thread-block cluster), the dW
+    product's pixel slices, and the offsets, in f32 elements, of its outputs
+    and scratch in one f32 buffer (each 16-byte aligned), which starts with
+    dW, (Cin, Cout) f32."""
+    slices: int       # K slices of the dx product, at most MAX_CLUSTER
+    depth: int        # depth of each (the last one shorter)
+    row_tiles: int    # 64-row tiles of (Σdpre·x, Σdpre), or 0 without norm
+    dw_chunk: int     # pixels one dW slice sums, a multiple of DX_STEP
+    dw_slices: int    # dW slices
+    dw_ws: int        # (dw_slices, Cin, Cout) f32 planes, when above 1
+    partial: int      # (row_tiles, 2, Cin) f32
+    sums: int         # (2, Cin) f32: (dscale, dshift)
+    dyc: int          # (M, Cout) bf16
+    size: int         # f32 elements in all
+
+
+@functools.lru_cache(maxsize=256)
+def mm_bwd_plan(m: int, cin: int, cout: int, norm_in: bool) -> MmBwdPlan:
+    """The ``MmBwdPlan`` of one bf16 ``fused_mm_bwd`` call with M rows of
+    dy: the dx slices of ``dx_slices`` (at most ``MAX_CLUSTER``); dW slices
+    of ``dw_chunk`` pixels rounded up to a whole ``DX_STEP``. A function of
+    the shapes alone."""
+    slices, depth = dx_slices(m, cin, cout, MAX_CLUSTER)
+    chunk = -(-dw_chunk(cin, cout, m) // DX_STEP) * DX_STEP
+    dw_slices = -(-m // chunk)
+    tiles = -(-m // _BWD_TILE) if norm_in else 0
+    seg = lambda n: -(-n // 4) * 4                 # whole 16-byte units
+    dw_ws = seg(cin * cout)
+    partial = dw_ws + (seg(dw_slices * cin * cout) if dw_slices > 1 else 0)
+    sums = partial + seg(tiles * 2 * cin)
+    dyc = sums + seg(2 * cin)
+    size = dyc + seg(-(-m * cout // 2))
+    return MmBwdPlan(slices, depth, tiles, chunk, dw_slices, dw_ws, partial,
+                     sums, dyc, size)
+
+
 class _Bwd:
     """Buffers and launch of one backward kernel call on the card."""
 
@@ -491,10 +565,12 @@ class _Bwd:
 
 def fused_mm_bwd(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
                  norm_in: bool = True, stride: int = 1):
-    """Backward of ``fused_mm`` in one launch: dy, y (N, Ho, Wo, Cout),
+    """Backward of ``fused_mm`` in one call: dy, y (N, Ho, Wo, Cout),
     x (N, H, W, Cin), w (Cin, Cout), dstats (2, Cout) f32 → (dx of x's
     shape and dtype, zeros off the stride grid; dW (Cin, Cout) f32;
-    dscale, dshift (Cin,) f32)."""
+    dscale, dshift (Cin,) f32). bf16 runs the products on the tensor cores
+    (``mm_bwd_plan``; on the card dW, dscale and dshift are views of the
+    call's f32 scratch), f32 the merged FMA kernel."""
     if x.device.type == "cpu":
         return fused_mm_bwd_reference(dy, y, x, w, dstats, scale, shift,
                                       relu_in, norm_in, stride)
@@ -509,14 +585,33 @@ def fused_mm_bwd(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
     ho, wo = -(-h // stride), -(-wd // stride)
     _check_grad_args(name, dy, y, dstats, x, (n, ho, wo, cout))
     with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:     # dx written whole by the kernel
+            plan = mm_bwd_plan(n * ho * wo, cin, cout, bool(norm_in))
+            dx = torch.empty_like(x)
+            buf = torch.empty(plan.size, dtype=torch.float32,
+                              device=x.device)
+            at = buf.data_ptr()
+            _raise_on(name, cuda_build.kernel(name)(
+                dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+                dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                dx.data_ptr(), at,
+                at + 4 * plan.dw_ws if plan.dw_slices > 1 else None,
+                at + 4 * plan.partial if norm_in else None,
+                at + 4 * plan.sums, at + 4 * plan.dyc, n, h, wd, cin, cout,
+                stride, int(norm_in), int(relu_in), plan.dw_chunk,
+                plan.slices, plan.depth, 1,
+                cuda_build.current_stream(x.device)))
+            dscale, dshift = buf[plan.sums:plan.sums + 2 * cin].view(
+                2, cin).unbind(0)
+            return dx, buf[:cin * cout].view(cin, cout), dscale, dshift
         dx = (torch.zeros_like(x) if stride != 1 else torch.empty_like(x))
         b = _Bwd(name, x, n * ho * wo, cin, cout, cin, norm_in, True,
                  True)
         b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
               dstats.data_ptr(), scale.data_ptr(), shift.data_ptr(),
               dx.data_ptr(), b.dw.data_ptr(), _ptr(b.ws), _ptr(b.partial),
-              n, h, wd, cin, cout, stride, int(norm_in), int(relu_in),
-              b.chunk, _DTYPES[x.dtype])
+              None, None, n, h, wd, cin, cout, stride, int(norm_in),
+              int(relu_in), b.chunk, 0, 0, 0)
         dscale, dshift = b.sums(cin)
     return dx, b.dw, dscale, dshift
 

@@ -46,12 +46,27 @@ def _check(y, st, yr, str_, dtype):
     assert (st - str_).abs().max() <= 1e-4 * str_.abs().max() + 1e-3
 
 
+# the sixteen 1×1 calls of the ResNet50 path at batch 32 (N, H, W, Cin,
+# Cout, stride, normalize): M 128-8192, four stride-2 projections
+MM_PATH = [
+    (32, 16, 16, 64, 64, 1, False), (32, 16, 16, 64, 256, 1, True),
+    (32, 16, 16, 64, 256, 1, False), (32, 16, 16, 256, 64, 1, False),
+    (32, 16, 16, 256, 128, 2, False), (32, 8, 8, 128, 512, 1, True),
+    (32, 16, 16, 256, 512, 2, False), (32, 8, 8, 512, 128, 1, False),
+    (32, 8, 8, 512, 256, 2, False), (32, 4, 4, 256, 1024, 1, True),
+    (32, 8, 8, 512, 1024, 2, False), (32, 4, 4, 1024, 256, 1, False),
+    (32, 4, 4, 1024, 512, 2, False), (32, 2, 2, 512, 2048, 1, True),
+    (32, 4, 4, 1024, 2048, 2, False),      # the stage-3 projection
+    (32, 2, 2, 2048, 512, 1, False)]       # M = 128, K in 8 slices
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,cin,cout,stride,norm", [
     (2, 5, 7, 24, 40, 1, True), (3, 9, 9, 64, 130, 2, False),
     (1, 1, 1, 16, 8, 1, True), (4, 16, 16, 256, 64, 1, False),
-    (2, 3, 3, 1100, 70, 1, True),          # K split in 2, ragged slice
-    (32, 4, 4, 1024, 2048, 2, False)])     # the stage-3 projection
+    (2, 3, 3, 1100, 70, 1, True),          # K split in 2 (bf16: 5), ragged
+    *MM_PATH,
+    (128, 16, 16, 64, 256, 1, True)])      # M = 32768 at the train batch
 def test_fused_mm_matches_plain(card, n, h, w, cin, cout, stride, norm,
                                 dtype):
     x, wt, s, b = _inputs(card, (n, h, w, cin), (cin, cout), dtype)
@@ -60,6 +75,8 @@ def test_fused_mm_matches_plain(card, n, h, w, cin, cout, stride, norm,
     assert fc.LAUNCHES["fused_mm"] == before + 1
     _check(y, st, *fc.fused_mm_reference(x, wt, s, b, True, norm, stride),
            dtype)
+    again = fc.fused_mm(x, wt, s, b, True, norm, stride)
+    assert torch.equal(y, again[0]) and torch.equal(st, again[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -107,17 +124,24 @@ def test_fused_c3_path_and_edge_shapes_match_plain_and_repeat(
     assert torch.equal(y, again[0]) and torch.equal(st, again[1])
 
 
-@pytest.mark.parametrize("n,h,w,cin,cout", [(8, 4, 4, 32, 48),
-                                            (8, 4, 4, 512, 48)] + C3_PATH)
-def test_rows_do_not_depend_on_the_batch(card, n, h, w, cin, cout):
+@pytest.mark.parametrize("kernel,n,h,w,cin,cout,stride", [
+    *[("fused_c3",) + c + (1,) for c in [(8, 4, 4, 32, 48),
+                                         (8, 4, 4, 512, 48)] + C3_PATH],
+    ("fused_mm", 8, 4, 4, 64, 256, 1), ("fused_mm", 8, 4, 4, 2048, 512, 1),
+    ("fused_mm", 8, 8, 8, 1024, 2048, 2), ("fused_mm", 8, 9, 9, 1100, 70, 2),
+    ("fused_mm", 8, 16, 16, 256, 128, 2)])
+def test_rows_do_not_depend_on_the_batch(card, kernel, n, h, w, cin, cout,
+                                         stride):
     """K's slices depend on K alone: the rows of a smaller (or padded)
     batch are the same bits as those of a bigger one."""
-    x, wt, s, b = _inputs(card, (8, h, w, cin), (3, 3, cin, cout),
-                          torch.bfloat16)
-    y8, _ = fc.fused_c3(x, wt, s, b)
-    y3, _ = fc.fused_c3(x[:3].contiguous(), wt, s, b)
+    shape_w = (cin, cout) if kernel == "fused_mm" else (3, 3, cin, cout)
+    x, wt, s, b = _inputs(card, (8, h, w, cin), shape_w, torch.bfloat16)
+    fn = getattr(fc, kernel)
+    kw = {"stride": stride} if kernel == "fused_mm" else {}
+    y8, _ = fn(x, wt, s, b, **kw)
+    y3, _ = fn(x[:3].contiguous(), wt, s, b, **kw)
     assert torch.equal(y8[:3], y3)
-    y1, _ = fc.fused_c3(x[5:6].contiguous(), wt, s, b, want_stats=False)
+    y1, _ = fn(x[5:6].contiguous(), wt, s, b, want_stats=False, **kw)
     assert torch.equal(y8[5:6], y1)
 
 
@@ -217,11 +241,18 @@ def _check_bwd(got, ref, dtype):
 @pytest.mark.parametrize("n,h,w,cin,cout,stride,norm", [
     (2, 5, 7, 24, 40, 1, True), (3, 9, 9, 64, 130, 2, False),
     (4, 16, 16, 256, 64, 1, True),         # M = 1024: dW in M slices
-    (32, 4, 4, 1024, 2048, 2, False)])     # the stage-3 projection
+    (2, 3, 3, 1100, 70, 1, True),          # Cin, Cout % 8: 2-byte staging
+    (3, 9, 9, 24, 40, 2, True),            # normalize on a stride-2 grid
+    *MM_PATH,
+    (128, 16, 16, 64, 256, 1, True)])      # M = 32768 at the train batch
 def test_fused_mm_bwd_matches_plain(card, n, h, w, cin, cout, stride, norm,
                                     dtype):
     x, wt, s, b = _inputs(card, (n, h, w, cin), (cin, cout), dtype)
     dy, y, dst = _grad_inputs(card, x[:, ::stride, ::stride], cout, dtype)
+    # leave NaN in the caching allocator's free block the kernel's dx will
+    # most likely reuse, so a pixel off the stride grid that the kernel
+    # does not write cannot pass as zero
+    torch.full_like(x, float("nan"))
     before = fc.LAUNCHES["fused_mm_bwd"]
     got = fc.fused_mm_bwd(dy, y, x, wt, dst, s, b, True, norm, stride)
     assert fc.LAUNCHES["fused_mm_bwd"] == before + 1
@@ -311,13 +342,43 @@ def test_fused_c3_bwd_matches_plain_and_repeats(card, n, h, w, cin, cout,
                                              False), dtype)
 
 
-def test_backward_is_deterministic(card):
-    x, wt, s, b = _inputs(card, (32, 8, 8, 128), (3, 3, 128, 128),
-                          torch.bfloat16)
-    dy, y, dst = _grad_inputs(card, x, 128, torch.bfloat16)
-    runs = [fc.fused_c3_bwd(dy, y, x, wt, dst, s, b) for _ in range(3)]
-    for r in runs[1:]:
-        assert all(torch.equal(a, c) for a, c in zip(runs[0], r))
+@pytest.mark.parametrize("kernel", ["fused_c3_bwd", "fused_mm_bwd"])
+def test_backward_is_deterministic(card, kernel):
+    """Three calls give the same bits: the 3×3 one-call backward, and the
+    1×1 at the stage-3 projection (dx depth in 8 cluster slices) and at
+    batch 128's first stage (dW in 64 pixel slices, 512 row tiles of
+    sums)."""
+    if kernel == "fused_c3_bwd":
+        cases = [((32, 8, 8, 128), (3, 3, 128, 128), 1, True)]
+    else:
+        cases = [((32, 4, 4, 1024), (1024, 2048), 2, False),
+                 ((128, 16, 16, 64), (64, 256), 1, True)]
+    for shape_x, shape_w, stride, norm in cases:
+        x, wt, s, b = _inputs(card, shape_x, shape_w, torch.bfloat16)
+        dy, y, dst = _grad_inputs(card, x[:, ::stride, ::stride],
+                                  shape_w[-1], torch.bfloat16)
+        fn = getattr(fc, kernel)
+        kw = {"stride": stride} if kernel == "fused_mm_bwd" else {}
+        runs = [fn(dy, y, x, wt, dst, s, b, True, norm, **kw)
+                for _ in range(3)]
+        for r in runs[1:]:
+            assert all(torch.equal(a, c) for a, c in zip(runs[0], r))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_mm_unaligned_inputs_stage_with_2_byte_loads(card, stride):
+    """x (and dy, y) one element off 16 bytes: both 1×1 kernels take their
+    2-byte staging and still match the plain versions."""
+    x0, wt, s, b = _inputs(card, (4, 6, 6, 64), (64, 96), torch.bfloat16)
+    dy0, y0, dst = _grad_inputs(card, x0[:, ::stride, ::stride], 96,
+                                torch.bfloat16)
+    x, dy, y = _unaligned(x0), _unaligned(dy0), _unaligned(y0)
+    _check(*fc.fused_mm(x, wt, s, b, True, True, stride),
+           *fc.fused_mm_reference(x0, wt, s, b, True, True, stride),
+           torch.bfloat16)
+    _check_bwd(fc.fused_mm_bwd(dy, y, x, wt, dst, s, b, True, True, stride),
+               fc.fused_mm_bwd_reference(dy0, y0, x0, wt, dst, s, b, True,
+                                         True, stride), torch.bfloat16)
 
 
 def test_train_steps_on_the_card_launch_every_kernel(card):

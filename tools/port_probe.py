@@ -1,34 +1,36 @@
 #!/usr/bin/env python3
-"""Probes of the PyTorch/CUDA port's 3×3 conv kernels on one NVIDIA GPU,
-beside ``chip_smoke.py``. Each runs against the tree in the working
-directory, so one copy of this script measures a parent tree and its
-change alike (run it from each tree's root):
+"""Probes of the PyTorch/CUDA port's conv kernels on one NVIDIA GPU, beside
+``chip_smoke.py``. Each runs against the tree in the working directory, so
+one copy of this script measures a parent tree and its change alike (run
+it from each tree's root):
 
     python3 tools/port_probe.py host [TAG]      # host cost of the wrappers
     python3 tools/port_probe.py bwd [TAG]       # fused_c3_bwd, bf16, timed
-    python3 tools/port_probe.py one-grid DIR    # write the one-grid variant
+    python3 tools/port_probe.py slices [TAG]    # fused_mm's slice depth
 
 ``host``: host µs a call of ``fused_c3`` (served path, and with the
-statistics) and ``fused_c3_bwd`` at the ResNet50's 3×3 shapes (host clock
-over back-to-back calls, then with the synchronize), the host and
+statistics) and ``fused_c3_bwd`` at the ResNet50's 3×3 shapes, and of
+``fused_mm`` (the same two ways) and ``fused_mm_bwd`` at its 1×1 shapes,
+bf16 at batch 32 and 128 (host clock over 100 back-to-back calls, then
+with the synchronize; the least of five such runs); the host and
 synchronized ms of a 4-step bf16 ResNet50 train call at batch 128, and
 ``torch.profiler``'s CPU table of one such call.
 
 ``bwd``: wall (CUDA events) and device (profiler) ms a call of the bf16
-``fused_c3_bwd`` at the 3×3 shapes at batch 32 and 128, and its error
-against the plain version relative to the largest reference entry.
+``fused_c3_bwd`` at the 3×3 shapes and of ``fused_mm_bwd`` at the 1×1
+shapes, at batch 32 and 128, each with its error against the plain
+version relative to the largest reference entry, and the 1×1 per-step
+sums.
 
-``one-grid DIR``: copy the tree into DIR with ``fused_c3_bwd``'s dx and
-dW tiles in one grid (one kernel for both products, dyc first) in place
-of two; a timing variant of ``csrc/c3_bwd.cuh``'s design, not part
-of the port. Time it with ``bwd`` from DIR.
+``slices``: device ms (profiler) of the served bf16 ``fused_mm`` at every
+1×1 path shape with Cin above 128, at batch 32 and 128, for each candidate
+``fused_conv.MM_SLICE_DEPTH`` (the depth its K slices are cut to), and the
+per-step sum at each batch: the measurement that sets that constant.
 """
 
 from __future__ import annotations
 
 import os
-import re
-import shutil
 import sys
 import time
 
@@ -56,16 +58,23 @@ def host(tag):
     import chip_smoke as cs
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def host_us(fn, n=200):
+    def host_us(fn, n=100, repeats=5):
+        """(host µs, synchronized µs) a call: the least over ``repeats``
+        runs of ``n`` back-to-back calls, since other work on a shared
+        host only ever adds time."""
         for _ in range(5):
             fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return 1e6 * (t1 - t0) / n, 1e6 * (time.perf_counter() - t0) / n
+        best = (float("inf"), float("inf"))
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            best = min(best, (1e6 * (t1 - t0) / n,
+                              1e6 * (time.perf_counter() - t0) / n))
+        return best
 
     for n in (32, 128):
         for h, c in SHAPES:
@@ -79,6 +88,20 @@ def host(tag):
                   f"{served[0]:.1f} us (synced {served[1]:.1f}), with "
                   f"stats {stats[0]:.1f} ({stats[1]:.1f}); fused_c3_bwd "
                   f"{bwd[0]:.1f} ({bwd[1]:.1f})", flush=True)
+        for call in _mm_calls(cs, n):
+            x, w, s, b, dy, y, dst = _mm_inputs(torch, g, call)
+            flags = (call.relu_in, call.norm_in, call.stride)
+            with torch.inference_mode():
+                served = host_us(lambda: fc.fused_conv_bn_act(
+                    x, w, s, b, *flags, False))
+            stats = host_us(lambda: fc.fused_mm(x, w, s, b, *flags))
+            bwd = host_us(lambda: fc.fused_mm_bwd(dy, y, x, w, dst, s, b,
+                                                  *flags))
+            print(f"{tag} host x={call.x_shape} w={call.w_shape} "
+                  f"s={call.stride} fused_mm served {served[0]:.1f} us "
+                  f"(synced {served[1]:.1f}), with stats {stats[0]:.1f} "
+                  f"({stats[1]:.1f}); fused_mm_bwd {bwd[0]:.1f} "
+                  f"({bwd[1]:.1f})", flush=True)
 
     import numpy as np
     from deeplearning4j_tpu_torch.models.serialization import params_from_jax
@@ -134,111 +157,81 @@ def bwd(tag):
                   f"{cs.cuda_time(kern, iters=50):.4f} device "
                   f"{cs.device_ms(kern, n=20):.4f} ms, rel err {err:.3g}",
                   flush=True)
+        step = 0.0
+        for call, count in _mm_calls(cs, n).items():
+            x, w, s, b, dy, y, dst = _mm_inputs(torch, g, call)
+            flags = (call.relu_in, call.norm_in, call.stride)
+            kern = lambda: fc.fused_mm_bwd(dy, y, x, w, dst, s, b, *flags)
+            got = kern()
+            ref = fc.fused_mm_bwd_reference(dy, y, x, w, dst, s, b, *flags)
+            err = max((a.float() - r.float()).abs().max().item()
+                      / max(1e-30, r.float().abs().max().item())
+                      for a, r in zip(got, ref))
+            dev = cs.device_ms(kern, n=20)
+            step += dev * count
+            print(f"{tag} fused_mm_bwd bf16 x={call.x_shape} "
+                  f"w={call.w_shape} s={call.stride} wall "
+                  f"{cs.cuda_time(kern, iters=50):.4f} device {dev:.4f} ms, "
+                  f"rel err {err:.3g}", flush=True)
+        print(f"{tag} fused_mm_bwd bf16 batch {n}: {step:.4f} ms of device "
+              "time a step", flush=True)
 
 
-def _sub(text, old, new):
-    if old not in text:
-        raise SystemExit(f"one-grid: the source no longer holds {old[:60]!r}")
-    return text.replace(old, new)
+def _mm_calls(cs, n):
+    """{call: count a step} of the 1×1 calls of the ResNet50 path at batch
+    ``n``."""
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    conf = ResNet50(**cs.SLICE).conf()
+    return {c: count for c, count in cs.path_calls(conf, n).items()
+            if c.kernel == "fused_mm"}
 
 
-def one_grid(dest):
-    """The variant: dx_mma_kernel's body and dw_mma_kernel's become device
-    functions of the tile's indices and shared memory, and one kernel runs
-    both kinds of tile (dx tiles first)."""
-    root = os.getcwd()
-    # the source tree only: no git data, build outputs or run logs
-    shutil.copytree(root, dest, ignore=shutil.ignore_patterns(
-        ".git", "build", "*_out", "__pycache__"))
-    csrc = os.path.join(dest, "deeplearning4j_tpu_torch", "csrc")
-    p = os.path.join(csrc, "c3_bwd_in.cuh")
-    s = open(p).read()
-    head = ("__global__ void __launch_bounds__(kMmaThreads) "
-            "dx_mma_kernel(InArgs a) {\n  __shared__ __align__(16) "
-            "__nv_bfloat16 ring[kStages * kStageElems];")
-    a = s.index(head)
-    b = s.index("// f32: the same tile and slice with conv_bwd.cuh's")
-    body = s[a:b].replace(head, (
-        "__device__ __forceinline__ void dx_mma_tile(const InArgs& a, "
-        "__nv_bfloat16* ring, int bx, int by, int bz) {"))
-    body = re.sub(r"blockIdx\.([xyz])", r"b\1", body)
-    body += ("__global__ void __launch_bounds__(kMmaThreads) dx_mma_kernel("
-             "InArgs a) {\n  __shared__ __align__(16) __nv_bfloat16 "
-             "ring[kStages * kStageElems];\n  dx_mma_tile(a, ring, "
-             "blockIdx.x, blockIdx.y, blockIdx.z);\n}\n\n")
-    open(p, "w").write(s[:a] + body + s[b:])
+def _mm_inputs(torch, g, call):
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    n, h, w, cin = call.x_shape
+    cout = call.w_shape[1]
+    ho, wo = -(-h // call.stride), -(-w // call.stride)
+    return (r(*call.x_shape).bfloat16(), (0.05 * r(cin, cout)).bfloat16(),
+            1 + 0.1 * r(cin), 0.1 * r(cin), r(n, ho, wo, cout).bfloat16(),
+            r(n, ho, wo, cout).bfloat16(), 1e-3 * r(2, cout))
 
-    p = os.path.join(csrc, "c3_bwd.cuh")
-    s = open(p).read()
-    s = _sub(s, """__global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kDepth * kRow];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kStages][kDepth * kRow];
-  const int r0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int kb = blockIdx.z * d.chunk;""", """__device__ __forceinline__ void dw_mma_tile(const DwArgs& d,
-    __nv_bfloat16* smem, int bx, int by, int bz) {
-  auto As = reinterpret_cast<__nv_bfloat16 (*)[kDepth * kRow]>(smem);
-  auto Bs = As + 2;
-  const int r0 = bx * kTile, n0 = by * kTile;
-  const int kb = bz * d.chunk;""")
-    s = _sub(s, "float* out = d.out + (long long)blockIdx.z * d.rows",
-             "float* out = d.out + (long long)bz * d.rows")
-    s = _sub(s, "// The whole bf16 backward on `stream`", """constexpr int kSmem =
-    bwd_in::kStages * bwd_in::kStageElems > (2 + kStages) * kDepth * kRow
-        ? bwd_in::kStages * bwd_in::kStageElems
-        : (2 + kStages) * kDepth * kRow;
 
-__global__ void __launch_bounds__(kMmaThreads) products_kernel(
-    bwd_in::InArgs a, DwArgs d, int dx_mt, int dx_ct, int dx_blocks,
-    int dw_rt, int dw_nt) {
-  __shared__ __align__(16) __nv_bfloat16 smem[kSmem];
-  int b = blockIdx.x;
-  if (b < dx_blocks) {
-    bwd_in::dx_mma_tile(a, smem, b % dx_mt, (b / dx_mt) % dx_ct,
-                        b / dx_mt / dx_ct);
-    return;
-  }
-  b -= dx_blocks;
-  dw_mma_tile(d, smem, b % dw_rt, (b / dw_rt) % dw_nt, b / dw_rt / dw_nt);
-}
-
-// The whole bf16 backward on `stream`""")
-    a = s.index("  err = bwd_in::launch_in_product<__nv_bfloat16>(a, stream);")
-    b = s.index("  err = bwd_in::launch_in_epilogue<__nv_bfloat16>(a, stream);")
-    s = s[:a] + """  {
-    const BwdArgs& q = a.p;
-    const long long chunks = ((long long)q.M * q.cout + 7) / 8;
-    const long long eb = (chunks + bwd_in::kEpiThreads - 1) /
-                         bwd_in::kEpiThreads;
-    bwd_in::dyc_kernel<<<static_cast<unsigned>(eb < 1024 ? eb : 1024),
-                         bwd_in::kEpiThreads, 0, stream>>>(a);
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    const int dx_mt = (q.M + 63) / 64, dx_ct = (q.cin + 63) / 64;
-    const int dx_blocks = dx_mt * dx_ct * a.slices;
-    products_kernel<<<static_cast<unsigned>(dx_blocks + rt * nt * dw_slices),
-                      kMmaThreads, 0, stream>>>(
-        a, d, dx_mt, dx_ct, dx_blocks, static_cast<int>(rt),
-        static_cast<int>(nt));
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
-""" + s[b:]
-    open(p, "w").write(s)
-    print(f"one-grid variant written to {dest}")
+def slices(tag):
+    torch, fc = _tree()
+    import chip_smoke as cs
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n in (32, 128):
+        calls = {c: count for c, count in _mm_calls(cs, n).items()
+                 if c.x_shape[3] > 128}
+        ins = {c: _mm_inputs(torch, g, c) for c in calls}
+        for depth in (128, 256, 512, 1024):
+            fc.MM_SLICE_DEPTH = depth
+            fc.mm_slices.cache_clear()
+            fc._mm_split.cache_clear()
+            step = 0.0
+            for c in calls:
+                x, w, s, b = ins[c][:4]
+                flags = (c.relu_in, c.norm_in, c.stride)
+                with torch.inference_mode():
+                    ms = cs.device_ms(lambda: fc.fused_conv_bn_act(
+                        x, w, s, b, *flags, False), n=20)
+                step += ms * calls[c]
+                print(f"{tag} slices depth={depth} x={c.x_shape} "
+                      f"w={c.w_shape} s={c.stride} K slices "
+                      f"{fc.mm_slices(c.x_shape[3])[0]}: device {ms:.4f} ms",
+                      flush=True)
+            print(f"{tag} slices depth={depth} batch {n}: {step:.4f} ms of "
+                  f"device time a step", flush=True)
 
 
 def main(argv):
-    if len(argv) < 2 or argv[1] not in ("host", "bwd", "one-grid"):
+    if len(argv) < 2 or argv[1] not in ("host", "bwd", "slices"):
         raise SystemExit(__doc__)
-    if argv[1] == "one-grid":
-        if len(argv) != 3:
-            raise SystemExit("one-grid needs a destination directory")
-        return one_grid(argv[2])
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("port_probe: no CUDA device is available")
     tag = argv[2] if len(argv) > 2 else os.path.basename(os.getcwd())
-    return host(tag) if argv[1] == "host" else bwd(tag)
+    return {"host": host, "bwd": bwd, "slices": slices}[argv[1]](tag)
 
 
 if __name__ == "__main__":
