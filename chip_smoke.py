@@ -154,14 +154,16 @@ REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "flash_fwd": "deeplearning4j_tpu/ops/pallas_kernels.py:40",
             "flash_bwd_dkv": "deeplearning4j_tpu/ops/pallas_kernels.py:180",
             "flash_bwd_dq": "deeplearning4j_tpu/ops/pallas_kernels.py:230"}
-# the libraries whose bf16 kernels multiply on the tensor cores, and the
-# kernels whose rows also carry device times (every conv kernel: their
-# walls at the path shapes are bound by the wrappers' host work; and the
-# redesigned flash_fwd)
+# the libraries whose bf16 kernels multiply on the tensor cores (lstm_bwd:
+# its dWh product), and the kernels whose rows also carry device times
+# (every conv kernel: their walls at the path shapes are bound by the
+# wrappers' host work; the flash kernels, beside SDPA's; the LSTM kernels'
+# rows always carry them, beside cuDNN's layer)
 MMA_SOURCES = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
-               "flash_fwd")
+               "lstm_bwd", "flash_fwd")
 DEVICE_TIMED = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
-                "fused_c3_bwd_in", "fused_c3_bwd_w", "flash_fwd")
+                "fused_c3_bwd_in", "fused_c3_bwd_w", "flash_fwd",
+                "flash_bwd_dkv", "flash_bwd_dq")
 FORWARD = ("fused_mm", "fused_c3")
 BACKWARD = ("fused_mm_bwd", "fused_c3_bwd", "fused_c3_bwd_in",
             "fused_c3_bwd_w")
@@ -564,12 +566,13 @@ def _summary(name, rows, launches=None):
 
 
 def route_table(rows):
-    """The two 3×3 backward routes per shape at the train batch: one call
-    of ``fused_c3_bwd`` against ``fused_c3_bwd_in`` + ``fused_c3_bwd_w``,
-    wall and device ms (logged; the route rule is ``fc._backward``'s)."""
+    """The two 3×3 backward routes per shape at batch 32 and the train
+    batch: one call of ``fused_c3_bwd`` against ``fused_c3_bwd_in`` +
+    ``fused_c3_bwd_w``, wall and device ms (logged; the route rule is
+    ``fc._backward``'s)."""
     out = []
     by = {(r["kernel"], r["dtype"], tuple(r["x"])): r for r in rows
-          if r["batch"] == TRAIN_BATCH}
+          if r["batch"] in (32, TRAIN_BATCH)}
     for (kern, dtype, x), r in by.items():
         if kern != "fused_c3_bwd":
             continue
@@ -1108,7 +1111,9 @@ def check_lstm_shape(where, t, n, h, dtype, masked, gen, floor_ms):
                "ms": cuda_time(kern, iters=10),
                "plain_ms": cuda_time(lambda: plain(*args), iters=3,
                                      warmup=1),
-               "latency_floor_ms": t * floor_ms, "library_ms": None}
+               "latency_floor_ms": t * floor_ms, "library_ms": None,
+               "library_device_ms": None}
+        row["device_ms"], row["launches_per_call"] = device_trace(kern, n=5)
         row["bound_ms"], row["bound_by"] = bound(
             *lstm_cost(t, n, h, dtype, masked, name), dtype)
         rows.append(row)
@@ -1149,13 +1154,18 @@ def _cudnn_yardstick(rows, t, n, h, dt, gen):
     xg = x.clone().requires_grad_()
     out = lstm(xg, state)[0]
     dy = r(t, n, h).to(dt)
-    bwd_ms = cuda_time(lambda: torch.autograd.grad(
-        out, [xg] + list(lstm.parameters()), dy, retain_graph=True))
+    bwd = lambda: torch.autograd.grad(
+        out, [xg] + list(lstm.parameters()), dy, retain_graph=True)
+    bwd_ms = cuda_time(bwd)
+    with torch.no_grad():
+        fwd_dev = device_trace(lambda: lstm(x, state), n=5, per_call=True)[0]
     fwd_row, bwd_row = rows
     fwd_row.update(library_ms=fwd_ms, port_layer_ms=layer_ms,
+                   library_device_ms=fwd_dev,
                    cudnn_max_abs_err=(got.float() - ref.float())
                    .abs().max().item())
-    bwd_row.update(library_ms=bwd_ms)
+    bwd_row.update(library_ms=bwd_ms, library_device_ms=device_trace(
+        bwd, n=5, per_call=True)[0])
 
 
 def phase_lstm_kernels(gen):
@@ -1173,10 +1183,13 @@ def phase_lstm_kernels(gen):
                     r["barrier_ms"] = floor
                     rows.append(r)
                     lib = ("-" if r["library_ms"] is None
-                           else f"{r['library_ms']:.4f}")
+                           else f"{r['library_ms']:.4f} (device "
+                           f"{r['library_device_ms']:.4f})")
                     log(f"  {r['kernel']:15s} {dtype:8s} T,N,H={t},{n},{h} "
                         f"mask={int(masked)} err={r['max_abs_err']:.3g} "
-                        f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                        f"ms={r['ms']:.4f} device={r['device_ms']:.4f} "
+                        f"launches={r['launches_per_call']:g} "
+                        f"plain={r['plain_ms']:.4f} "
                         f"lib={lib} bound={r['bound_ms']:.4f} "
                         f"({r['bound_by']}) floor={r['latency_floor_ms']:.4f}"
                         f"{'' if r['ok'] else '  <-- DISAGREES'}"
@@ -1194,7 +1207,8 @@ def _lstm_summary(name, rows):
            "max_abs_err": max(x["max_abs_err"] for x in rows
                               if x["kernel"] == name)}
     out.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "latency_floor_ms")})
+                                  "library_ms", "latency_floor_ms",
+                                  "device_ms", "library_device_ms")})
     return out
 
 
@@ -1454,12 +1468,14 @@ def sdpa_backend(fn):
     return max(rows)[1][:80] if rows else "not seen by the profiler"
 
 
-def device_trace(fn, n=10):
+def device_trace(fn, n=10, per_call=False):
     """(device ms, CUDA launches) of one call of ``fn`` by torch.profiler.
     The ms are the mean time of each kernel it launches, summed over its
     kernels (each launched once a call, as the device-timed wrappers' and
     their yardsticks' are; a mean per launch, because the trace can miss
-    the first launch of its window). Where a call's wall time
+    the first launch of its window); with ``per_call``, every kernel's
+    total over the ``n`` calls divided by ``n``, for a call that launches
+    one kernel many times (cuDNN's LSTM layer). Where a call's wall time
     (``cuda_time``) is bound by the host, this is what its kernels cost the
     card. The launches are the kernels and memsets the trace saw on the
     card, over ``n`` calls, rounded to a whole number a call. A trace that
@@ -1479,8 +1495,8 @@ def device_trace(fn, n=10):
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA"
                   and not e.key.startswith("Activity Buffer")]
-        ms = sum(getattr(e, "device_time_total", 0.0) / max(1, e.count)
-                 for e in events) / 1e3
+        ms = sum(getattr(e, "device_time_total", 0.0) /
+                 (n if per_call else max(1, e.count)) for e in events) / 1e3
         if ms > 0:
             return ms, round(sum(e.count for e in events) / n)
     return math.nan, math.nan
@@ -1599,6 +1615,9 @@ def _attn_summary(name, rows):
                               if x["kernel"] == name)}
     out.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")})
+    if "device_ms" in r:
+        out.update(device_ms=r["device_ms"],
+                   library_device_ms=r["library_device_ms"])
     return out
 
 

@@ -41,7 +41,9 @@
 //   * no float atomics: every sum has one fixed order, so two calls on the
 //     same inputs give the same bits.
 // The dW tile (dw_tile) is a template on its A side: mm_bwd.cuh runs it
-// with the 1x1's stride-grid rows in place of the taps.
+// with the 1x1's stride-grid rows in place of the taps. The dW half of the
+// split route (fused_c3_bwd_w, bf16) is launch_split_dw: dyc_kernel, then
+// the same dW kernel and slice reduction.
 #pragma once
 
 #include <cstdint>
@@ -307,32 +309,26 @@ __global__ void __launch_bounds__(kMmaThreads) dw_mma_kernel(DwArgs d) {
   dw_tile<C3ERows>(d, smem, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-// The whole bf16 backward on `stream`: dyc and the dx product, the dW
-// product, the dx epilogue and sums, then the dW planes added in slice
-// order when there are several (dw_ws: (dw_slices, 9 Cin, Cout) f32).
-// Returns cudaGetLastError() (an invalid plan or shape:
-// cudaErrorInvalidValue, nothing launched).
-inline int launch_merged(bwd_in::InArgs a, float* dw, float* dw_ws,
-                         int dw_chunk, cudaStream_t stream) {
+// The dW product's arguments (dyc: the call's bf16 scratch, already
+// written or written first on the same stream) and its pixel slices: 0, or
+// cudaErrorInvalidValue for a plan or shape it cannot take.
+inline int dw_setup(const BwdArgs& p, const __nv_bfloat16* dyc, float* dw,
+                    float* dw_ws, int dw_chunk, DwArgs& d, int& slices) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  int err = bwd_in::check_in<__nv_bfloat16>(a);
-  if (err != 0) return err;
-  const BwdArgs& p = a.p;
-  if (dw == nullptr || dw_chunk <= 0 || dw_chunk % kDepth != 0) return bad;
-  const int dw_slices = (p.M + dw_chunk - 1) / dw_chunk;
-  const long long rows = 9LL * p.cin;
-  const long long rt = (rows + kTile - 1) / kTile;
-  const long long nt = (p.cout + kTile - 1) / kTile;
-  if ((dw_slices > 1 && dw_ws == nullptr) || dw_slices > 65535 ||
-      nt > 65535 || rt > 0x7fffffffLL)
+  if (dw == nullptr || dyc == nullptr || dw_chunk <= 0 ||
+      dw_chunk % kDepth != 0 || p.M <= 0 || p.cin <= 0 || p.cout <= 0)
     return bad;
-  bwd_in::set_flags(a);
-  DwArgs d{};
+  slices = (p.M + dw_chunk - 1) / dw_chunk;
+  const long long rows = 9LL * p.cin;
+  if ((slices > 1 && dw_ws == nullptr) || slices > 65535 ||
+      (p.cout + kTile - 1) / kTile > 65535 || rows > 0x7fffffffLL)
+    return bad;
+  d = DwArgs{};
   d.x = static_cast<const __nv_bfloat16*>(p.x);
-  d.dyc = a.dyc;
+  d.dyc = dyc;
   d.scale = p.scale;
   d.shift = p.shift;
-  d.out = dw_slices > 1 ? dw_ws : dw;
+  d.out = slices > 1 ? dw_ws : dw;
   d.H = p.H;
   d.W = p.W;
   d.cin = p.cin;
@@ -344,22 +340,77 @@ inline int launch_merged(bwd_in::InArgs a, float* dw, float* dw_ws,
   d.chunk = dw_chunk;
   d.a_vec = p.cin % 8 == 0 && mma::aligned16(p.x) &&
             mma::aligned16(p.scale) && mma::aligned16(p.shift);
-  d.b_vec = p.cout % 8 == 0 && mma::aligned16(a.dyc);
+  d.b_vec = p.cout % 8 == 0 && mma::aligned16(dyc);
+  return 0;
+}
 
-  err = bwd_in::launch_in_product<__nv_bfloat16>(a, stream);
-  if (err != 0) return err;
-  dw_mma_kernel<<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(nt),
-                       dw_slices),
+// dw_mma_kernel over every (rows, Cout) tile and pixel slice
+inline int launch_dw_product(const DwArgs& d, int slices,
+                             cudaStream_t stream) {
+  dw_mma_kernel<<<dim3(static_cast<unsigned>((d.rows + kTile - 1) / kTile),
+                       static_cast<unsigned>((d.cout + kTile - 1) / kTile),
+                       slices),
                   kMmaThreads, 0, stream>>>(d);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  err = bwd_in::launch_in_epilogue<__nv_bfloat16>(a, stream);
-  if (err != 0 || dw_slices == 1) return err;
-  const long long len = rows * p.cout;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the slices' planes added in slice order (nothing to do for one slice)
+inline int launch_dw_reduce(const DwArgs& d, int slices, const float* dw_ws,
+                            float* dw, cudaStream_t stream) {
+  if (slices == 1) return 0;
+  const long long len = static_cast<long long>(d.rows) * d.cout;
   const long long blocks = (len + kThreads - 1) / kThreads;
   dw_reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
-                     kThreads, 0, stream>>>(dw_ws, dw, len, dw_slices);
+                     kThreads, 0, stream>>>(dw_ws, dw, len, slices);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole bf16 backward on `stream`: dyc and the dx product, the dW
+// product, the dx epilogue and sums, then the dW planes added in slice
+// order when there are several (dw_ws: (dw_slices, 9 Cin, Cout) f32).
+// Returns cudaGetLastError() (an invalid plan or shape:
+// cudaErrorInvalidValue, nothing launched).
+inline int launch_merged(bwd_in::InArgs a, float* dw, float* dw_ws,
+                         int dw_chunk, cudaStream_t stream) {
+  int err = bwd_in::check_in<__nv_bfloat16>(a);
+  if (err != 0) return err;
+  DwArgs d;
+  int dw_slices = 0;
+  err = dw_setup(a.p, a.dyc, dw, dw_ws, dw_chunk, d, dw_slices);
+  if (err != 0) return err;
+  bwd_in::set_flags(a);
+  err = bwd_in::launch_in_product<__nv_bfloat16>(a, stream);
+  if (err != 0) return err;
+  err = launch_dw_product(d, dw_slices, stream);
+  if (err != 0) return err;
+  err = bwd_in::launch_in_epilogue<__nv_bfloat16>(a, stream);
+  if (err != 0) return err;
+  return launch_dw_reduce(d, dw_slices, dw_ws, dw, stream);
+}
+
+// fused_c3_bwd_w in bf16 (the split route's dW half): dyc once into the
+// bf16 scratch `dyc` (c3_bwd_in.cuh's dyc_kernel), the tensor-core dW
+// tiles over pixel slices of dw_chunk, then the planes added in slice order
+// when there are several. dyc is written once rather than formed from dy
+// and y in each tile's B staging because every dW column tile would redo
+// it 9 Cin / 64 times (72 at Cin 512), and the kernel already exists and
+// is checked. Returns cudaGetLastError() (cudaErrorInvalidValue for an
+// invalid plan or shape, nothing launched).
+inline int launch_split_dw(const BwdArgs& p, __nv_bfloat16* dyc, float* dw,
+                           float* dw_ws, int dw_chunk, cudaStream_t stream) {
+  DwArgs d;
+  int slices = 0;
+  int err = dw_setup(p, dyc, dw, dw_ws, dw_chunk, d, slices);
+  if (err != 0) return err;
+  bwd_in::InArgs a{};
+  a.p = p;
+  a.dyc = dyc;
+  bwd_in::set_flags(a);
+  err = bwd_in::launch_dyc(a, stream);
+  if (err != 0) return err;
+  err = launch_dw_product(d, slices, stream);
+  if (err != 0) return err;
+  return launch_dw_reduce(d, slices, dw_ws, dw, stream);
 }
 
 }  // namespace c3_bwd

@@ -464,6 +464,15 @@ inline void set_flags(InArgs& a) {
   a.epi_vec = p.cin % 4 == 0 && aligned16(a.ws);
 }
 
+// dyc_kernel over the (M, Cout) of a.p into a.dyc (flags set)
+inline int launch_dyc(const InArgs& a, cudaStream_t stream) {
+  const long long chunks = ((long long)a.p.M * a.p.cout + 7) / 8;
+  const long long blocks = (chunks + kEpiThreads - 1) / kEpiThreads;
+  dyc_kernel<<<static_cast<unsigned>(blocks < 1024 ? blocks : 1024),
+               kEpiThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dyc (bf16) and the K-sliced product into the planes of ws
 template <typename T>
 inline int launch_in_product(const InArgs& a, cudaStream_t stream) {
@@ -471,12 +480,8 @@ inline int launch_in_product(const InArgs& a, cudaStream_t stream) {
   const dim3 grid((p.M + kTile - 1) / kTile, (p.cin + kTile - 1) / kTile,
                   a.slices);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const long long chunks = ((long long)p.M * p.cout + 7) / 8;
-    const long long blocks = (chunks + kEpiThreads - 1) / kEpiThreads;
-    dyc_kernel<<<static_cast<unsigned>(blocks < 1024 ? blocks : 1024),
-                 kEpiThreads, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int err = launch_dyc(a, stream);
+    if (err != 0) return err;
     dx_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(a);
   } else {
     dx_fma_kernel<<<grid, kThreads, 0, stream>>>(a);

@@ -5,27 +5,15 @@
 // one-call backward is c3_bwd.cuh's for bf16 (split products on the bf16
 // tensor cores) and conv_bwd.cuh's merged FMA kernel for f32; the dx half
 // is c3_bwd_in.cuh's (split-K, bf16 tensor cores); the dW half is
-// conv_bwd.cuh's (FMA tiles). Their bounds and designs are described in
-// those headers. Built with nvcc into a shared library with a plain C
+// c3_bwd.cuh's tensor-core dW tiles for bf16 (launch_split_dw) and
+// conv_bwd.cuh's FMA tiles for f32. Their bounds and designs are described
+// in those headers. Built with nvcc into a shared library with a plain C
 // interface and called through ctypes (ops/fused_conv.py).
 #include "c3_bwd.cuh"
 #include "c3_bwd_in.cuh"
 #include "conv_bwd.cuh"
 
 extern "C" int dl4j_tile_m() { return dl4j::kTileM; }
-
-namespace {
-
-template <int kParts>
-int launch(const dl4j::BwdArgs& p, float* dw, float* ws, int is_bf16,
-           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dl4j::launch_conv_bwd<__nv_bfloat16, true, kParts>(p, dw, ws, s);
-  return dl4j::launch_conv_bwd<float, true, kParts>(p, dw, ws, s);
-}
-
-}  // namespace
 
 // dy, y: (N, H, W, Cout); x: (N, H, W, Cin); w: (3, 3, Cin, Cout);
 // dst: (2, Cout) f32; scale/shift: (Cin,) f32. dx: x's shape and dtype;
@@ -95,16 +83,25 @@ extern "C" int dl4j_fused_c3_bwd_in(const void* dy, const void* y,
   return dl4j::bwd_in::launch_bwd_in<float>(a, s);
 }
 
-// The dW half (arguments as above; the weight is not read).
+// The dW half (arguments as above; the weight is not read). f32: the FMA
+// tiles of conv_bwd.cuh, dw_chunk from fused_conv.dw_chunk and dyc null.
+// bf16: c3_bwd.cuh's launch_split_dw, dw_chunk a multiple of 32 and dyc
+// an (M, Cout) bf16 scratch (fused_conv.c3_bwd_w_plan). ws: (ceil(M /
+// dw_chunk), 9 Cin, Cout) f32, or null when that is 1.
 extern "C" int dl4j_fused_c3_bwd_w(const void* dy, const void* y,
                                    const void* x, const float* dst,
                                    const float* scale, const float* shift,
-                                   float* dw, float* ws, int n, int h, int wd,
-                                   int cin, int cout, int norm_in,
-                                   int relu_in, int dw_chunk, int is_bf16,
-                                   void* stream) {
+                                   float* dw, float* ws, void* dyc, int n,
+                                   int h, int wd, int cin, int cout,
+                                   int norm_in, int relu_in, int dw_chunk,
+                                   int is_bf16, void* stream) {
   const dl4j::BwdArgs p =
       dl4j::bwd_args(dy, y, x, nullptr, dst, scale, shift, nullptr, nullptr,
                      n, h, wd, cin, cout, 1, norm_in, relu_in, dw_chunk);
-  return launch<dl4j::kPartDw>(p, dw, ws, is_bf16, stream);
+  if (is_bf16)
+    return dl4j::c3_bwd::launch_split_dw(
+        p, static_cast<__nv_bfloat16*>(dyc), dw, ws, dw_chunk,
+        static_cast<cudaStream_t>(stream));
+  return dl4j::launch_conv_bwd<float, true, dl4j::kPartDw>(
+      p, dw, ws, static_cast<cudaStream_t>(stream));
 }

@@ -590,13 +590,8 @@ inline int launch_bwd(const BwdArgs& p, float* dw, float* dw_ws, float* sums,
   q.dw_first = dw_chunk > slice_depth;   // steps of 32 pixels vs depths
   q.epi_vec = p.cin % 4 == 0 && aligned8(p.x) && aligned8(p.dx);
 
-  const long long chunks = ((long long)p.M * p.cout + 7) / 8;
-  const long long eb =
-      (chunks + bwd_in::kEpiThreads - 1) / bwd_in::kEpiThreads;
-  bwd_in::dyc_kernel<<<static_cast<unsigned>(eb < 1024 ? eb : 1024),
-                       bwd_in::kEpiThreads, 0, stream>>>(q.a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dyc_err = bwd_in::launch_dyc(q.a, stream);
+  if (dyc_err != 0) return dyc_err;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(blocks));
@@ -610,7 +605,7 @@ inline int launch_bwd(const BwdArgs& p, float* dw, float* dw_ws, float* sums,
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = slices > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, products_kernel, q);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, products_kernel, q);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

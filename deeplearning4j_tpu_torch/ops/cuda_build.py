@@ -6,10 +6,10 @@ at the checkout's root (git-ignored), and loaded with ``ctypes``. A
 library may hold several kernels' entry points (``fused_c3_bwd.cu`` holds
 the merged 3×3 backward and its two split halves, ``flash_bwd.cu`` the
 two attention backward passes) and helpers that size
-a kernel's scratch (``dl4j_tile_m``, ``dl4j_split_count``,
-``dl4j_lstm_bwd_row_tiles``), each bound where its library has it. The file
-name carries a hash of every source and of the flags, so a changed source
-is rebuilt and a stale library is never loaded. ``build()`` starts one
+a kernel's scratch (``dl4j_tile_m``, ``dl4j_split_count``), each bound
+where its library has it. The file name carries a hash of every source and
+of the flags, so a changed source is rebuilt and a stale library is never
+loaded. ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and only
@@ -44,9 +44,9 @@ SIGNATURES = {
     "fused_mm_bwd": ("dl4j_fused_mm_bwd", [_P] * 13 + [_I] * 12 + [_P]),
     "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 14 + [_I] * 12 + [_P]),
     "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 12 + [_I] * 11 + [_P]),
-    "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 8 + [_I] * 9 + [_P]),
+    "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 9 + [_I] * 9 + [_P]),
     "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 5 + [_P]),
-    "lstm_bwd": ("dl4j_lstm_bwd", [_P] * 15 + [_I] * 5 + [_P]),
+    "lstm_bwd": ("dl4j_lstm_bwd", [_P] * 15 + [_I] * 9 + [_P]),
     # the flash kernels take each strided input's (n, t, h) strides
     "flash_fwd": ("dl4j_flash_fwd", [_P] * 6 + [_I] * 8 + [_L] * 9 + [_P]),
     "flash_bwd_dkv": ("dl4j_flash_bwd_dkv",
@@ -62,7 +62,6 @@ SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 
 # scratch-sizing helpers a library may export (int -> int)
 _HELPERS = {"dl4j_tile_m": [], "dl4j_split_count": [_I],
-            "dl4j_lstm_bwd_row_tiles": [_I, _I],
             "dl4j_lstm_barrier_probe": [_I, _I, _I, _P]}
 
 _lock = threading.Lock()
@@ -178,8 +177,3 @@ def split_count(name: str, k: int) -> int:
     function of its arguments, asked once a process for each."""
     return int(helper(name, "dl4j_split_count")(int(k)))
 
-
-def lstm_bwd_row_tiles(n: int, h: int) -> int:
-    """Row tiles of ``lstm_bwd``'s plan at batch ``n`` and hidden ``h``
-    (its workspace holds that many (H, 4H) f32 dWh planes)."""
-    return int(helper("lstm_bwd", "dl4j_lstm_bwd_row_tiles")(int(n), int(h)))

@@ -402,6 +402,13 @@ def dw_chunk(rows: int, cols: int, depth: int) -> int:
     return -(-per // 16) * 16
 
 
+def dw_mma_slices(rows: int, cols: int, m: int) -> Tuple[int, int]:
+    """(pixels each, count) of the bf16 tensor-core dW product's slices of
+    its M pixels: ``dw_chunk``'s rows rounded up to a whole ``DX_STEP``."""
+    chunk = -(-dw_chunk(rows, cols, m) // DX_STEP) * DX_STEP
+    return chunk, -(-m // chunk)
+
+
 def dx_slices(m: int, cin: int, depth: int,
               most: int = 0) -> Tuple[int, int]:
     """(count, depth of each) of the K slices ``fused_c3_bwd_in`` cuts its
@@ -474,14 +481,12 @@ def c3_bwd_plan(m: int, cin: int, cout: int, norm_in: bool) -> C3BwdPlan:
     """The ``C3BwdPlan`` of one bf16 ``fused_c3_bwd`` call: the dx slices
     of ``dx_slices``; row tiles of the BN sums no more than about two per
     SM (each is added in order by one thread per channel, so their count
-    bounds the sums' last pass; at least DX_SUM_ROWS rows); dW slices of
-    ``dw_chunk`` pixels rounded up to a whole ``DX_STEP``. A function of
-    the shapes alone."""
+    bounds the sums' last pass; at least DX_SUM_ROWS rows); the dW slices
+    of ``dw_mma_slices``. A function of the shapes alone."""
     slices, depth = dx_slices(m, cin, 9 * cout)
     rows = -(-m // _DW_TARGET_BLOCKS)
     rows = max(DX_SUM_ROWS, -(-rows // DX_SUM_ROWS) * DX_SUM_ROWS)
-    chunk = -(-dw_chunk(9 * cin, cout, m) // DX_STEP) * DX_STEP
-    dw_slices = -(-m // chunk)
+    chunk, dw_slices = dw_mma_slices(9 * cin, cout, m)
     tiles = -(-m // rows) if norm_in else 0
     seg = lambda n: -(-n // 4) * 4                 # whole 16-byte units
     dw_ws = seg(slices * m * cin)
@@ -492,6 +497,31 @@ def c3_bwd_plan(m: int, cin: int, cout: int, norm_in: bool) -> C3BwdPlan:
     size = dyc + seg(-(-m * cout // 2))
     return C3BwdPlan(slices, depth, rows, tiles, chunk, dw_slices, dw_ws,
                      dw, partial, sums, dyc, size)
+
+
+class C3BwdWPlan(NamedTuple):
+    """How the bf16 ``fused_c3_bwd_w`` cuts one call: the dW product's
+    pixel slices (as ``C3BwdPlan``'s) and the offsets, in f32 elements, of
+    its output and scratch in one f32 buffer (each 16-byte aligned), which
+    starts with dW, (9·Cin, Cout) f32."""
+    dw_chunk: int     # pixels one dW slice sums, a multiple of DX_STEP
+    dw_slices: int    # dW slices
+    dw_ws: int        # (dw_slices, 9·Cin, Cout) f32 planes, when above 1
+    dyc: int          # (M, Cout) bf16
+    size: int         # f32 elements in all
+
+
+@functools.lru_cache(maxsize=256)
+def c3_bwd_w_plan(m: int, cin: int, cout: int) -> C3BwdWPlan:
+    """The ``C3BwdWPlan`` of one bf16 ``fused_c3_bwd_w`` call: the dW
+    slices of ``dw_mma_slices``, as ``c3_bwd_plan``'s. A function of the
+    shapes alone."""
+    chunk, dw_slices = dw_mma_slices(9 * cin, cout, m)
+    seg = lambda n: -(-n // 4) * 4                 # whole 16-byte units
+    dw_ws = seg(9 * cin * cout)
+    dyc = dw_ws + (seg(dw_slices * 9 * cin * cout) if dw_slices > 1 else 0)
+    return C3BwdWPlan(chunk, dw_slices, dw_ws, dyc,
+                      dyc + seg(-(-m * cout // 2)))
 
 
 class MmBwdPlan(NamedTuple):
@@ -515,12 +545,10 @@ class MmBwdPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def mm_bwd_plan(m: int, cin: int, cout: int, norm_in: bool) -> MmBwdPlan:
     """The ``MmBwdPlan`` of one bf16 ``fused_mm_bwd`` call with M rows of
-    dy: the dx slices of ``dx_slices`` (at most ``MAX_CLUSTER``); dW slices
-    of ``dw_chunk`` pixels rounded up to a whole ``DX_STEP``. A function of
-    the shapes alone."""
+    dy: the dx slices of ``dx_slices`` (at most ``MAX_CLUSTER``); the dW
+    slices of ``dw_mma_slices``. A function of the shapes alone."""
     slices, depth = dx_slices(m, cin, cout, MAX_CLUSTER)
-    chunk = -(-dw_chunk(cin, cout, m) // DX_STEP) * DX_STEP
-    dw_slices = -(-m // chunk)
+    chunk, dw_slices = dw_mma_slices(cin, cout, m)
     tiles = -(-m // _BWD_TILE) if norm_in else 0
     seg = lambda n: -(-n // 4) * 4                 # whole 16-byte units
     dw_ws = seg(cin * cout)
@@ -706,20 +734,32 @@ def fused_c3_bwd_in(dy, y, x, w, dstats, scale, shift, relu_in: bool = True,
 
 def fused_c3_bwd_w(dy, y, x, dstats, scale, shift, relu_in: bool = True,
                    norm_in: bool = True):
-    """3×3 backward-filter launch: dW (3, 3, Cin, Cout) f32."""
+    """3×3 backward-filter launch: dW (3, 3, Cin, Cout) f32. bf16 runs the
+    tensor-core dW tiles (``c3_bwd_w_plan``; on the card dW is a view of
+    the call's f32 scratch), f32 the FMA tiles."""
     if x.device.type == "cpu":
         return fused_c3_bwd_w_reference(dy, y, x, dstats, scale, shift,
                                         relu_in, norm_in)
     name = "fused_c3_bwd_w"
     n, h, wd, cin, cout = _c3_bwd_prep(name, dy, y, x, None, dstats, scale,
                                        shift)
+    ptrs = (dy.data_ptr(), y.data_ptr(), x.data_ptr(), dstats.data_ptr(),
+            scale.data_ptr(), shift.data_ptr())
+    flags = (n, h, wd, cin, cout, int(norm_in), int(relu_in))
     with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:
+            plan = c3_bwd_w_plan(n * h * wd, cin, cout)
+            buf = torch.empty(plan.size, dtype=torch.float32,
+                              device=x.device)
+            at = buf.data_ptr()
+            _raise_on(name, cuda_build.kernel(name)(
+                *ptrs, at, at + 4 * plan.dw_ws if plan.dw_slices > 1
+                else None, at + 4 * plan.dyc, *flags, plan.dw_chunk, 1,
+                cuda_build.current_stream(x.device)))
+            return buf[:9 * cin * cout].view(3, 3, cin, cout)
         b = _Bwd(name, x, n * h * wd, cin, cout, 9 * cin, norm_in, False,
                  True)
-        b.run(dy.data_ptr(), y.data_ptr(), x.data_ptr(), dstats.data_ptr(),
-              scale.data_ptr(), shift.data_ptr(), b.dw.data_ptr(),
-              _ptr(b.ws), n, h, wd, cin, cout, int(norm_in), int(relu_in),
-              b.chunk, _DTYPES[x.dtype])
+        b.run(*ptrs, b.dw.data_ptr(), _ptr(b.ws), None, *flags, b.chunk, 0)
     return b.dw.reshape(3, 3, cin, cout)
 
 

@@ -31,8 +31,9 @@ kernel, incremented once per launch and nowhere else).
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -204,6 +205,112 @@ def lstm_fwd(zx, h0, c0, wh, mask3=None):
     return ys, gates, tcs, ccs, h_t, c_t
 
 
+# lstm_bwd's plan: what csrc/lstm_bwd.cu takes and checks
+LSTM_SMEM_BUDGET = 227 * 1024     # shared memory a block may opt into (H100)
+_LSTM_THREADS = 256               # threads a block (lstm.cuh's kThreads)
+_ROW_TILE = 8                     # rows of one thread's per-tick product tile
+# dWh: the tile, the depth of one staged step (f32, bf16), the cp.async
+# ring's stages and the step dw_chunk is a multiple of
+_DW_TILE, _DW_DEPTH, _DW_STAGES, _DW_STEP = 128, (16, 32), 4, 32
+_DW_MIN_DEPTH = 256               # fewest (T·N) rows one dWh slice sums
+
+
+class LstmBwdPlan(NamedTuple):
+    """How ``lstm_bwd`` cuts one call. The grid is ``slices`` × ``row_tiles``
+    blocks, all resident at once (one cooperative launch): block (s, r)
+    owns hidden units [s·U, s·U + U) and batch rows [r·RB, r·RB + RB)."""
+    units: int        # U: hidden units a block owns, a power of two >= 4
+    slices: int       # ceil(H / U): the grid's x
+    rows: int         # RB: batch rows a block owns
+    row_tiles: int    # ceil(N / RB): the grid's y
+    groups: int       # thread groups the per-tick product's 4U depth is cut in
+    dw_chunk: int     # (T·N) rows one dWh slice sums, a multiple of 32
+    dw_splits: int    # dWh slices (f32 planes in the scratch when above 1)
+    smem: int         # bytes of shared memory a block
+    xbuf: int         # f32 elements of the exchange, (2, slices, N, HP)
+    ws: int           # f32 elements of the dWh planes (0 for one slice)
+
+
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _lstm_bwd_groups(rows: int, h: int, units: int) -> int:
+    """Thread groups the per-tick product's depth 4U is cut into: doubled
+    while every group's (RB/8 × HP/4) register tiles still find a thread
+    and each keeps at least 4 of the depth."""
+    tiles = _up(rows, _ROW_TILE) // _ROW_TILE * (_up(h, 4) // 4)
+    g = 1
+    while 2 * g * tiles <= _LSTM_THREADS and 4 * units // (2 * g) >= 4:
+        g *= 2
+    return g
+
+
+def lstm_bwd_smem(units: int, rows: int, h: int, groups: int,
+                  itemsize: int) -> int:
+    """Bytes of shared memory a block of ``lstm_bwd`` takes (the kernel's
+    ``bwd_smem``): Wh's columns of its units transposed (4U × (HP + 4)
+    f32), dz (4U × RBP), the (dh, dc) carry, the mask, two ticks of inputs
+    in the input dtype, the product groups' partials; the dWh staging
+    reuses the same memory."""
+    a16 = lambda b: _up(b, 16)
+    hp, rbp = _up(h, 4), _up(rows, _ROW_TILE)
+    total = (a16(4 * 4 * units * (hp + 4)) + a16(4 * 4 * units * rbp)
+             + 2 * a16(4 * rows * units) + a16(4 * 2 * rbp)
+             + a16(itemsize * 2 * rows * 7 * units))
+    if groups > 1:
+        total += a16(4 * groups * rbp * hp)
+    f32 = itemsize == 4
+    staging = (itemsize * _DW_STAGES * 2 * _DW_DEPTH[not f32]
+               * (_DW_TILE + (4 if f32 else 8)))
+    return max(total, staging)
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_bwd_plan(t_len: int, n: int, h: int, bf16: bool,
+                  sms: int) -> LstmBwdPlan:
+    """The ``LstmBwdPlan`` of one call on a card with ``sms`` SMs: the
+    widest U (a power of two) whose block fits ``LSTM_SMEM_BUDGET``, with
+    as many row tiles as give every SM at most one block (fewer slices mean
+    fewer exchange planes a tick); dWh's (T·N) depth cut into slices until
+    its 128 × 128 tiles about fill the blocks, none shallower than about
+    256 rows. A function of the shapes and the SM count alone, so two calls on
+    one card give the same bits."""
+    if min(t_len, n, h, sms) < 1:
+        raise ValueError(f"lstm_bwd_plan: bad shape T={t_len}, N={n}, H={h} "
+                         f"or SM count {sms}")
+    isz = 2 if bf16 else 4
+    units = max(4, 1 << (h - 1).bit_length())
+    while True:
+        slices = -(-h // units)
+        if slices <= sms:
+            tiles = max(1, min(sms // slices, n))
+            rows = -(-n // tiles)
+            groups = _lstm_bwd_groups(rows, h, units)
+            smem = lstm_bwd_smem(units, rows, h, groups, isz)
+            if smem <= LSTM_SMEM_BUDGET:
+                break
+        if units == 4:
+            raise ValueError(f"lstm_bwd_plan: no block fits H={h} in "
+                             f"{LSTM_SMEM_BUDGET} bytes on {sms} SMs")
+        units //= 2
+    row_tiles = -(-n // rows)
+    dw_tiles = -(-h // _DW_TILE) * -(-4 * h // _DW_TILE)
+    depth = t_len * n
+    splits = max(1, min(slices * row_tiles // dw_tiles,
+                        -(-depth // _DW_MIN_DEPTH)))
+    chunk = _up(-(-depth // splits), _DW_STEP)
+    splits = -(-depth // chunk)
+    return LstmBwdPlan(units, slices, rows, row_tiles, groups, chunk, splits,
+                       smem, 2 * slices * n * _up(h, 4),
+                       splits * h * 4 * h if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def lstm_bwd(dys, dhT, dcT, gates, tcs, cprev, hprev, mask3, wh):
     """``lstm_bwd_reference`` as one launch of ``csrc/lstm_bwd.cu`` for
     CUDA tensors. dys, gates, tcs, cprev, hprev, mask3 and wh share zx's
@@ -229,21 +336,23 @@ def lstm_bwd(dys, dhT, dcT, gates, tcs, cprev, hprev, mask3, wh):
                         "must be in dys's dtype, dcT in dhT's")
     if t_len == 0 or n == 0 or nh == 0:
         raise ValueError(f"lstm_bwd: empty shape {seq}")
+    plan = lstm_bwd_plan(t_len, n, nh, dt == torch.bfloat16,
+                         _sm_count(dys.device.index or 0))
     dzx = torch.empty((t_len, n, 4 * nh), dtype=dt, device=dys.device)
     dwh = torch.empty((nh, 4 * nh), dtype=torch.float32, device=dys.device)
     dh0 = torch.empty_like(dhT)
     dc0 = torch.empty_like(dcT)
-    xbuf = torch.empty((2, n, 4 * nh), dtype=torch.float32,
-                       device=dys.device)
-    # each row tile's dWh partial, summed in row-tile order by the kernel
-    ws = torch.empty((cuda_build.lstm_bwd_row_tiles(n, nh), nh, 4 * nh),
-                     dtype=torch.float32, device=dys.device)
+    # the exchange of dh partials, then the dWh slices' planes
+    buf = torch.empty(plan.xbuf + plan.ws, dtype=torch.float32,
+                      device=dys.device)
+    at = buf.data_ptr()
     stream = cuda_build.current_stream(dys.device)
     err = cuda_build.kernel("lstm_bwd")(
         _ptr(dys), _ptr(dhT), _ptr(dcT), _ptr(gates), _ptr(tcs), _ptr(cprev),
         _ptr(hprev), _ptr(mask3), _ptr(wh), _ptr(dzx), _ptr(dwh), _ptr(dh0),
-        _ptr(dc0), _ptr(xbuf), _ptr(ws), t_len, n, nh, int(dt == torch.bfloat16),
-        int(dhT.dtype == torch.bfloat16), stream)
+        _ptr(dc0), at, at + 4 * plan.xbuf if plan.ws else None, t_len, n, nh,
+        int(dt == torch.bfloat16), int(dhT.dtype == torch.bfloat16),
+        plan.units, plan.rows, plan.groups, plan.dw_chunk, stream)
     _raise_on("lstm_bwd", err, seq)
     _count("lstm_bwd")
     return dzx, dwh, dh0, dc0

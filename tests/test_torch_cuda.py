@@ -342,6 +342,32 @@ def test_fused_c3_bwd_matches_plain_and_repeats(card, n, h, w, cin, cout,
                                              False), dtype)
 
 
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    *C3_PATH, *[(128,) + s[1:] for s in C3_PATH],
+    (2, 4, 6, 5, 16)])                     # Cin % 8: 2-byte x staging
+def test_fused_c3_bwd_w_bf16_matches_plain_and_repeats(card, n, h, w, cin,
+                                                      cout):
+    """The bf16 split route's dW (tensor-core tiles over pixel slices) at
+    the four 3×3 path shapes at batch 32 and 128; NaN left in the output's
+    block, bitwise on a repeat."""
+    x, wt, s, b = _inputs(card, (n, h, w, cin), (3, 3, cin, cout),
+                          torch.bfloat16)
+    dy, y, dst = _grad_inputs(card, x, cout, torch.bfloat16)
+    ref = fc.fused_c3_bwd_w_reference(dy, y, x, dst, s, b)
+    size = fc.c3_bwd_w_plan(n * h * w, cin, cout).size
+    _poison(((size,), torch.float32), device=card)
+    before = fc.LAUNCHES["fused_c3_bwd_w"]
+    got = fc.fused_c3_bwd_w(dy, y, x, dst, s, b)
+    assert fc.LAUNCHES["fused_c3_bwd_w"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max() + 1e-5
+    _poison(((size,), torch.float32), device=card)
+    assert torch.equal(got, fc.fused_c3_bwd_w(dy, y, x, dst, s, b))
+    nn = fc.fused_c3_bwd_w(dy, y, x, dst, s, b, True, False)    # no norm
+    ref = fc.fused_c3_bwd_w_reference(dy, y, x, dst, s, b, True, False)
+    assert (nn - ref).abs().max() <= 1e-4 * ref.abs().max() + 1e-5
+
+
 @pytest.mark.parametrize("kernel", ["fused_c3_bwd", "fused_mm_bwd"])
 def test_backward_is_deterministic(card, kernel):
     """Three calls give the same bits: the 3×3 one-call backward, and the
@@ -457,6 +483,48 @@ def test_lstm_bwd_matches_plain(card, t, n, h, masked, dtype):
     args = (dys, dhT, dcT, gates, tcs, cprev, hprev, mask3, wh)
     got = fl.lstm_bwd(*args)
     _lstm_close(got, fl.lstm_bwd_reference(*args), dtype)
+    again = fl.lstm_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _poison(*shapes_dtypes, device):
+    """Leave NaN in the caching allocator's free blocks of these sizes, so
+    an output element the kernel does not write cannot pass."""
+    for shape, dtype in shapes_dtypes:
+        torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t,n,h", [
+    (1, 5, 20),                 # T = 1: one tick, the dWh depth one row tile
+    (4, 129, 256),              # N = 129: 15 row tiles of 9, the last short
+    (3, 50, 200),               # H = 200: the last of 7 slices has 8 of 32
+    (6, 7, 10),                 # H % 4 != 0: element-wise staging
+    (60, 128, 256),             # the slice shape: dWh in 2 depth slices
+    (128, 256, 512),            # the kernels phase's benchmark geometry
+    (3, 600, 520)])             # rows 600 (f32) and 300 (bf16) a block: the
+                                # mask rows past the block's 256 threads
+def test_lstm_bwd_plan_edges_match_plain_and_repeat(card, t, n, h, masked,
+                                                    dtype):
+    fl, zx, h0, c0, wh, mask3 = _lstm_inputs(card, t, n, h, dtype, masked)
+    ys, gates, tcs, ccs, _, _ = fl.lstm_fwd_reference(zx, h0, c0, wh, mask3)
+    g = torch.Generator(device=card).manual_seed(1)
+    dys = torch.randn(ys.shape, generator=g, device=card).to(dtype)
+    dhT, dcT = (torch.randn(h0.shape, generator=g, device=card).to(dtype)
+                for _ in range(2))
+    hprev = torch.cat([h0[None], ys[:-1]])
+    cprev = torch.cat([c0[None], ccs[:-1]])
+    args = (dys, dhT, dcT, gates, tcs, cprev, hprev, mask3, wh)
+    ref = fl.lstm_bwd_reference(*args)
+    outs = [((t, n, 4 * h), dtype), ((h, 4 * h), torch.float32),
+            ((n, h), dtype), ((n, h), dtype)]
+    _poison(*outs, device=card)
+    before = fl.LAUNCHES["lstm_bwd"]
+    got = fl.lstm_bwd(*args)
+    assert fl.LAUNCHES["lstm_bwd"] == before + 1
+    _lstm_close(got, ref, dtype)
+    _poison(*outs, device=card)
     again = fl.lstm_bwd(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 

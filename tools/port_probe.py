@@ -7,6 +7,7 @@ it from each tree's root):
     python3 tools/port_probe.py host [TAG]      # host cost of the wrappers
     python3 tools/port_probe.py bwd [TAG]       # fused_c3_bwd, bf16, timed
     python3 tools/port_probe.py slices [TAG]    # fused_mm's slice depth
+    python3 tools/port_probe.py lstm [TAG]      # lstm_bwd's tick, timed
 
 ``host``: host µs a call of ``fused_c3`` (served path, and with the
 statistics) and ``fused_c3_bwd`` at the ResNet50's 3×3 shapes, and of
@@ -26,6 +27,16 @@ sums.
 1×1 path shape with Cin above 128, at batch 32 and 128, for each candidate
 ``fused_conv.MM_SLICE_DEPTH`` (the depth its K slices are cut to), and the
 per-step sum at each batch: the measurement that sets that constant.
+
+``lstm``: wall (CUDA events) and device (profiler) ms a call of
+``lstm_fwd`` and ``lstm_bwd`` at ``chip_smoke.LSTM_SHAPES``, f32 and bf16,
+unmasked; then, in a child process, the ``clock64()`` breakdown of
+``lstm_bwd`` by phase: ``csrc/`` is copied under ``build/probe/``, the
+kernel's ``LSTM_PROBE(k)`` marks are defined to add the cycles since the
+last mark to slot k, for thread 0 of block (0, 0), and ``lstm_bwd.cu`` is built with them
+into its own library, which the tree's ``fused_lstm.lstm_bwd`` then calls.
+Per tick phases are cycles a tick, the others cycles a call, at the
+card's clock attribute.
 """
 
 from __future__ import annotations
@@ -224,14 +235,153 @@ def slices(tag):
                   f"device time a step", flush=True)
 
 
+def _lstm_inputs(torch, g, t, n, h, dtype):
+    """lstm_bwd's arguments at (T, N, H), unmasked, from lstm_fwd's plain
+    version (as chip_smoke.check_lstm_shape makes them)."""
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    zx = r(t, n, 4 * h).to(dtype)
+    wh = (r(h, 4 * h) / h ** 0.5).to(dtype)
+    h0, c0 = (0.5 * r(n, h)).to(dtype), (0.5 * r(n, h)).to(dtype)
+    ys, gates, tcs, ccs, _, _ = fl.lstm_fwd_reference(zx, h0, c0, wh)
+    fargs = (zx, h0, c0, wh, None)
+    bargs = (r(t, n, h).to(dtype), r(n, h).to(dtype), r(n, h).to(dtype),
+             gates, tcs, torch.cat([c0[None], ccs[:-1]]),
+             torch.cat([h0[None], ys[:-1]]), None, wh)
+    return fargs, bargs
+
+
+def lstm(tag):
+    torch, _ = _tree()
+    import subprocess
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for t, n, h in cs.LSTM_SHAPES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            fargs, bargs = _lstm_inputs(torch, g, t, n, h, dtype)
+            for name, args in (("lstm_fwd", fargs), ("lstm_bwd", bargs)):
+                kern = lambda: getattr(fl, name)(*args)
+                print(f"{tag} {name} {str(dtype)[6:]} T,N,H={t},{n},{h} "
+                      f"wall {cs.cuda_time(kern, iters=10):.4f} device "
+                      f"{cs.device_ms(kern, n=10):.4f} ms", flush=True)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "lstm-clock",
+                    tag], check=True)
+
+
+# The phases of lstm_bwd by its LSTM_PROBE slots, and those of a tick.
+_PROBE_SLOTS = {9: "setup", 6: "inputs", 1: "dz", 10: "dh product",
+                2: "dh groups summed", 3: "barrier", 4: "exchange",
+                8: "dh0, dc0", 5: "dWh", 7: "dWh slices summed"}
+_PROBE_TICK = {"inputs", "dz", "dh product", "dh groups summed", "barrier",
+               "exchange"}
+# Every thread keeps its slots' cycles in registers (constant indices once
+# unrolled); thread 0 of block (0, 0) adds them to the device array at the
+# kernel's end.
+_PROBE_HEADER = r"""#include <cuda_runtime.h>
+__device__ long long dl4j_probe_acc[16];
+#define LSTM_PROBE_START()                                             \
+  long long probe_acc_[16] = {0};                                      \
+  long long probe_last_ = clock64()
+#define LSTM_PROBE(k)                                                  \
+  do {                                                                 \
+    const long long c_ = clock64();                                    \
+    probe_acc_[k] += c_ - probe_last_;                                 \
+    probe_last_ = c_;                                                  \
+  } while (0)
+#define LSTM_PROBE_END()                                               \
+  do {                                                                 \
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {      \
+      _Pragma("unroll") for (int k_ = 0; k_ < 16; ++k_)                \
+        dl4j_probe_acc[k_] += probe_acc_[k_];                          \
+    }                                                                  \
+  } while (0)
+extern "C" int dl4j_probe_read(long long* out) {
+  return cudaMemcpyFromSymbol(out, dl4j_probe_acc, sizeof(dl4j_probe_acc));
+}
+extern "C" int dl4j_probe_reset() {
+  long long z[16] = {0};
+  return cudaMemcpyToSymbol(dl4j_probe_acc, z, sizeof(z));
+}
+extern "C" int dl4j_probe_clock_khz() {
+  int dev = 0, khz = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&khz, cudaDevAttrClockRate, dev);
+  return khz;
+}
+"""
+
+
+def _probe_library(cuda_build):
+    """lstm_bwd.cu built with its LSTM_PROBE marks as clock64() timers;
+    returns the library's path."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    out = Path(cuda_build.BUILD_DIR).parent / "probe"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(cuda_build.CSRC, out / "csrc")
+    (out / "probe.cuh").write_text(_PROBE_HEADER)
+    lib = out / "liblstm_bwd_probe.so"
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-include",
+                    str(out / "probe.cuh"), "-o", str(lib),
+                    str(out / "csrc" / "lstm_bwd.cu")],
+                   check=True, capture_output=True, text=True)
+    return lib
+
+
+def lstm_clock(tag):
+    torch, _ = _tree()
+    import ctypes
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    lib = ctypes.CDLL(str(_probe_library(cuda_build)))
+    sym, argtypes = cuda_build.SIGNATURES["lstm_bwd"]
+    getattr(lib, sym).argtypes = argtypes
+    getattr(lib, sym).restype = ctypes.c_int
+    for helper, types in cuda_build._HELPERS.items():
+        if hasattr(lib, helper):
+            getattr(lib, helper).argtypes = types
+            getattr(lib, helper).restype = ctypes.c_int
+    cuda_build._libs["lstm_bwd"] = lib
+    khz = lib.dl4j_probe_clock_khz()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    calls = 5
+    for t, n, h in cs.LSTM_SHAPES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            _, bargs = _lstm_inputs(torch, g, t, n, h, dtype)
+            fl.lstm_bwd(*bargs)
+            torch.cuda.synchronize()
+            lib.dl4j_probe_reset()
+            for _ in range(calls):
+                fl.lstm_bwd(*bargs)
+            torch.cuda.synchronize()
+            acc = (ctypes.c_longlong * 16)()
+            lib.dl4j_probe_read(acc)
+            parts = []
+            tick = 0.0
+            for slot, what in _PROBE_SLOTS.items():
+                per = acc[slot] / calls / (t if what in _PROBE_TICK else 1)
+                tick += per if what in _PROBE_TICK else 0.0
+                parts.append(f"{what} {per:.0f} cyc ({1e3 * per / khz:.2f} "
+                             f"us){' a tick' if what in _PROBE_TICK else ''}")
+            print(f"{tag} clock64 lstm_bwd {str(dtype)[6:]} T,N,H={t},{n},"
+                  f"{h} at {khz / 1e3:.0f} MHz: " + "; ".join(parts) +
+                  f"; tick {tick:.0f} cyc ({1e3 * tick / khz:.2f} us)",
+                  flush=True)
+
+
 def main(argv):
-    if len(argv) < 2 or argv[1] not in ("host", "bwd", "slices"):
+    runs = {"host": host, "bwd": bwd, "slices": slices, "lstm": lstm,
+            "lstm-clock": lstm_clock}
+    if len(argv) < 2 or argv[1] not in runs:
         raise SystemExit(__doc__)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("port_probe: no CUDA device is available")
     tag = argv[2] if len(argv) > 2 else os.path.basename(os.getcwd())
-    return {"host": host, "bwd": bwd, "slices": slices}[argv[1]](tag)
+    return runs[argv[1]](tag)
 
 
 if __name__ == "__main__":
