@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    spills from ``-Xptxas -v`` and, by ``cuobjdump -sass``, the HMMA
    (tensor-core) instructions in the libraries of ``fused_mm``,
    ``fused_c3``, ``fused_mm_bwd``, ``fused_c3_bwd`` (with
-   ``fused_c3_bwd_in``) and ``flash_fwd`` (it fails if one holds none).
+   ``fused_c3_bwd_in`` and ``fused_c3_bwd_w``), ``lstm_bwd``,
+   ``flash_fwd`` and ``flash_bwd_dkv`` (with ``flash_bwd_dq``); it fails
+   if one holds none.
 3. kernels — ``fused_mm`` and ``fused_c3`` at every distinct shape the
    ResNet50 gives them at batch 32, in float32 and bfloat16, held against
    their plain PyTorch versions on the card and run twice for
@@ -41,8 +43,8 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` at the BERT-base
    slice shape (N 64, T 128, H 12, Dh 64; f32 and bf16; unmasked, a ragged
    key mask, causal), the long-sequence geometry (T 1024/2048/4096 at N
-   16/8/4, bf16, causal or not) and one edge shape (T 37, Dh 16, f32,
-   causal, with fully masked rows), on strided views of one packed
+   16/8/4, bf16, causal or not) and one edge shape (T 37, Dh 16, f32 and
+   bf16, causal, with fully masked rows), on strided views of one packed
    projection: against their plain versions, bitwise on a second run,
    timed beside their bound, the plain versions and
    ``F.scaled_dot_product_attention`` (whose backend is reported).
@@ -154,13 +156,14 @@ REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "flash_fwd": "deeplearning4j_tpu/ops/pallas_kernels.py:40",
             "flash_bwd_dkv": "deeplearning4j_tpu/ops/pallas_kernels.py:180",
             "flash_bwd_dq": "deeplearning4j_tpu/ops/pallas_kernels.py:230"}
-# the libraries whose bf16 kernels multiply on the tensor cores (lstm_bwd:
-# its dWh product), and the kernels whose rows also carry device times
+# the kernels whose libraries' bf16 bodies multiply on the tensor cores
+# (lstm_bwd: its dWh product; flash_bwd_dkv: the flash_bwd library, both
+# backward passes), and the kernels whose rows also carry device times
 # (every conv kernel: their walls at the path shapes are bound by the
 # wrappers' host work; the flash kernels, beside SDPA's; the LSTM kernels'
 # rows always carry them, beside cuDNN's layer)
 MMA_SOURCES = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
-               "lstm_bwd", "flash_fwd")
+               "lstm_bwd", "flash_fwd", "flash_bwd_dkv")
 DEVICE_TIMED = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
                 "fused_c3_bwd_in", "fused_c3_bwd_w", "flash_fwd",
                 "flash_bwd_dkv", "flash_bwd_dq")
@@ -259,10 +262,10 @@ def ptxas_report(text):
 
 
 def hmma_counts(cuda_build, sources):
-    """{source: {function: HMMA instructions}} in each built library's SASS
-    (``cuobjdump -sass``), the proof that its tensor-core kernels use the
-    tensor cores; raises if a library has none. Logs "not measured" where
-    the toolkit has no cuobjdump."""
+    """{kernel: {function: HMMA instructions}} in the SASS of the library
+    that holds each kernel (``cuobjdump -sass``), the proof that its
+    tensor-core kernels use the tensor cores; raises if a library has none.
+    Logs "not measured" where the toolkit has no cuobjdump."""
     import shutil
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
@@ -273,8 +276,8 @@ def hmma_counts(cuda_build, sources):
     out = {}
     for src in sources:
         sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(
-            src))], capture_output=True, text=True, check=True,
-            timeout=120).stdout
+            cuda_build.SOURCE_OF[src]))], capture_output=True, text=True,
+            check=True, timeout=120).stdout
         counts, fn = {}, "?"
         for line in sass.splitlines():
             if "Function :" in line:
@@ -1577,13 +1580,14 @@ def check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
 def phase_attn_kernels(gen):
     """The flash kernels at the BERT slice shape (f32 and bf16; unmasked,
     ragged key mask, causal), the long-sequence geometry (bf16, causal or
-    not), one edge shape and bert_train's shape."""
+    not), one edge shape (f32 and bf16) and bert_train's shape."""
     shapes = [("slice", ATTN_SLICE, dtype, mode)
               for dtype in ("float32", "bfloat16")
               for mode in ("none", "masked", "causal")]
     shapes += [("long", (n, t, 12, 64), "bfloat16", mode)
                for n, t in ATTN_LONG for mode in ("none", "causal")]
-    shapes.append(("edge", ATTN_EDGE, "float32", "edge"))
+    shapes += [("edge", ATTN_EDGE, dtype, "edge")
+               for dtype in ("float32", "bfloat16")]
     # bert_train's calls: bf16, unmasked, at the train batch
     shapes.append(("train", (BERT_TRAIN_BATCH,) + ATTN_SLICE[1:], "bfloat16",
                    "none"))
@@ -1896,7 +1900,8 @@ def main(argv=None) -> int:
         log("[kernels] flash_fwd, flash_bwd_dkv and flash_bwd_dq at "
             f"(N, T, H, Dh) = {ATTN_SLICE} (f32 and bf16; unmasked, ragged "
             f"key mask, causal), (N, T) = {list(ATTN_LONG)} bf16 causal or "
-            f"not, {ATTN_EDGE} f32 causal with masked rows, and batch "
+            f"not, {ATTN_EDGE} f32 and bf16 causal with masked rows, and "
+            "batch "
             f"{BERT_TRAIN_BATCH} bf16 unmasked (bert_train's calls)")
         rows = phase_attn_kernels(torch.Generator(device="cuda")
                                   .manual_seed(0))

@@ -10,18 +10,27 @@
 //
 // Tiles. A block owns one 64-row tile of queries (forward, dq) or keys
 // (dk/dv) of one (batch row, head) and loops over the other side's 64-row
-// tiles, which replaces the TPU kernels' sequential grid dimension. The
-// bf16 forward keeps its tiles in bf16 for the tensor cores (its layout is
-// described in flash_fwd.cu). In the f32 forward and the backward a block
-// has 256 threads and tiles are staged in shared memory as f32, row stride
-// DMAX + 1 (DMAX = Dh rounded up to 32, 64 or 128; the columns past Dh
-// and the rows past T are zero), so a warp reads one column of 16 rows or
-// 16 columns of one row without a bank conflict. Thread (ty, tx) = (t/16,
-// t%16) owns rows ty + 16i and columns tx + 16j of every 64 x 64 product
-// and rows ty + 16i, columns tx + 16j of its f32 accumulator. Every sum
-// runs in a fixed order (products over Dh in column order, over a tile in
-// row order, tiles in order) and no float atomics are used, so a second
-// call gives the same bits.
+// tiles, which replaces the TPU kernels' sequential grid dimension.
+//
+// bf16 (flash_fwd.cu's fwd_mma_kernel, flash_bwd.cu's dkv_mma_kernel and
+// dq_mma_kernel): 4 warps, each owning 16 of the block's rows, multiply on
+// mma.sync m16n8k16 (mma.cuh). Tiles stay bf16 in shared memory, rows
+// padded to DMAX + 8 elements (DMAX = Dh rounded up to 32, 64 or 128) so
+// ldmatrix has no bank conflicts, staged by stage_bf16; a probability (or
+// its gradient) that multiplies a tile keeps f32 accuracy as two bf16
+// halves (split_p).
+//
+// f32 (fwd_kernel, dkv_kernel, dq_kernel): a block has 256 threads and
+// tiles are staged in shared memory as f32, row stride DMAX + 1 (the
+// columns past Dh and the rows past T are zero), so a warp reads one
+// column of 16 rows or 16 columns of one row without a bank conflict.
+// Thread (ty, tx) = (t/16, t%16) owns rows ty + 16i and columns tx + 16j
+// of every 64 x 64 product and rows ty + 16i, columns tx + 16j of its f32
+// accumulator.
+//
+// Both: every sum runs in a fixed order (products over Dh in column order,
+// over a tile in row order, tiles in order) and no float atomics are used,
+// so a second call gives the same bits.
 //
 // Masking follows the TPU kernels (deeplearning4j_tpu/ops/
 // pallas_kernels.py:40-98, 180-277): a masked key, a key past the ragged
@@ -36,6 +45,8 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+
+#include "mma.cuh"
 
 namespace dl4j {
 namespace flash {
@@ -60,7 +71,7 @@ struct Params {
   int n, tq, tk, h, dh, causal;
   long long qs[3], ks[3], vs[3], ds[3];   // (n, t, h) strides, elements
   float scale;
-  int vec;   // forward, bf16: q, k, v bases and strides allow 16-byte loads
+  int vec;   // bf16: q, k, v (and dO) bases and strides allow 16-byte loads
 };
 
 __device__ __forceinline__ float load(const float* p, size_t i) {
@@ -173,6 +184,109 @@ __device__ __forceinline__ void acc_nn(float (&acc)[kR][DMAX / 16],
       const float x = X[k * (DMAX + 1) + tx + 16 * jj];
 #pragma unroll
       for (int i = 0; i < kR; ++i) acc[i][jj] = fmaf(w[i], x, acc[i][jj]);
+    }
+  }
+}
+
+// ---- bf16: tensor-core helpers --------------------------------------------
+
+constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
+
+template <int DMAX>
+__host__ __device__ constexpr int mma_row() {   // staged row stride, bf16
+  return DMAX + 8;
+}
+
+// blocks an SM keeps resident: caps the registers so the staging of some
+// blocks hides behind the products of others (3 blocks of 128 threads at
+// DMAX 64)
+template <int DMAX>
+__host__ __device__ constexpr int mma_min_blocks() {
+  return DMAX <= 64 ? 3 : 2;
+}
+
+// rows [row0, row0 + kB) of batch row b, head hh of a strided bf16
+// (N, T, H, Dh) view into dst (kB x mma_row bf16), zero past T and Dh:
+// 16-byte cp.async when vec (Dh % 8 == 0, aligned bases and strides; the
+// caller commits and waits), else 2-byte loads and stores
+template <int DMAX>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           const long long* s, int b, int hh,
+                                           int row0, int t_len, int dh,
+                                           bool vec) {
+  const size_t base = static_cast<size_t>(b) * s[0] +
+                      static_cast<size_t>(hh) * s[2];
+  if (vec) {
+    constexpr int kChunks = DMAX / 8;
+    for (int i = threadIdx.x; i < kB * kChunks; i += kMmaThreads) {
+      const int r = i / kChunks, d = (i % kChunks) * 8, t = row0 + r;
+      const bool ok = t < t_len && d < dh;
+      const __nv_bfloat16* g =
+          ok ? src + base + static_cast<size_t>(t) * s[1] + d : src;
+      mma::cp_async16(dst + r * mma_row<DMAX>() + d, g, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kB * DMAX; i += kMmaThreads) {
+    const int r = i / DMAX, d = i % DMAX, t = row0 + r;
+    __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
+    if (t < t_len && d < dh) v = src[base + static_cast<size_t>(t) * s[1] + d];
+    dst[r * mma_row<DMAX>() + d] = v;
+  }
+}
+
+// p's hi and lo bf16 pairs of one A register (two neighbouring columns):
+// hi = bf16(p), lo = bf16(p - hi), so hi·B + lo·B keeps p's f32 accuracy
+__device__ __forceinline__ void split_p(float p0, float p1, unsigned& hi,
+                                        unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = mma::pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// B fragments of k-step ks against rows [n0, n0 + 16) of a staged tile
+// taken as columns (the tile transposed: K in S = Q K^T): b[0], b[1] for
+// rows n0..n0+7, b[2], b[3] for rows n0+8..n0+15
+template <int DMAX>
+__device__ __forceinline__ void ldsm_b_rows(unsigned (&b)[4],
+                                            const __nv_bfloat16* tile,
+                                            int n0, int ks, int lane) {
+  mma::ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
+                             mma_row<DMAX>() +
+                         16 * ks + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of the k-step over rows [k0, k0 + 16) of a staged tile
+// taken as it is (V in P V), columns [16 dp, 16 dp + 16): b[0], b[1] for
+// columns 16 dp..+7, b[2], b[3] for 16 dp + 8..+15
+template <int DMAX>
+__device__ __forceinline__ void ldsm_b_cols(unsigned (&b)[4],
+                                            const __nv_bfloat16* tile,
+                                            int k0, int dp, int lane) {
+  mma::ldsm_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   mma_row<DMAX>() +
+                               16 * dp + (lane >> 4) * 8);
+}
+
+// one f32 accumulator row pair of a warp (C fragments of DMAX / 8 column
+// tiles; element 2 r + e of tile j is row r, column 8 j + 2 t4 + e) into
+// row `row` (element offset) of a contiguous bf16 output, columns past dh
+// left out
+template <int DMAX>
+__device__ __forceinline__ void store_row_bf16(__nv_bfloat16* out,
+                                               size_t row,
+                                               const float (&acc)[DMAX / 8][4],
+                                               int r, int t4, int dh) {
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    const float v0 = acc[j][2 * r], v1 = acc[j][2 * r + 1];
+    if (c + 1 < dh && (dh & 1) == 0) {   // both, 4-byte aligned
+      *reinterpret_cast<unsigned*>(out + row + c) = mma::pack_bf16(v0, v1);
+    } else {
+      if (c < dh) store(out, row + c, v0);
+      if (c + 1 < dh) store(out, row + c + 1, v1);
     }
   }
 }

@@ -8,28 +8,54 @@
 // dp = dO v^T and ds = p (dp - delta) / sqrt(Dh), delta = rowsum(dO ⊙ O)
 // precomputed by the caller:
 //   flash_bwd_dkv, one block per key tile: dv += p^T dO, dk += ds^T q over
-//   the query tiles (f32 in registers);
+//   the query tiles;
 //   flash_bwd_dq, one block per query tile: dq += ds k over the key tiles.
-// dq, dk and dv come back in the inputs' dtype. The split into two passes
-// is the TPU kernels' and is kept: each output is summed by one block in
-// a fixed order, with no atomics, so a second call gives the same bits.
+// Sums are f32; dq, dk and dv come back in the inputs' dtype. The split
+// into two passes is the TPU kernels' and is kept: each output element is
+// summed by one warp in a fixed order, with no atomics, so a second call
+// gives the same bits.
 //
 // What bounds them on the H100. dk/dv do 8·N·H·Tq·Tk·Dh FLOP (s, dp, dv,
 // dk) and dq 6· (s, dp, dq), about half of each with the causal mask,
 // against reading q, k, v, dO, lse, delta and the mask once and writing
-// the gradients once: at the BERT-base slice in bf16 the bytes (about
-// 13 us a pass at 3.35 TB/s) bound both before the tensor cores' 989 TF/s
-// (7 and 5 us) do. This first version does the products as f32 FMA on
-// shared-memory tiles (flash.cuh), bound by 67 TF/s (96 and 72 us there).
+// the gradients once. At bert_train's shape (N 32, T 128, H 12, Dh 64) in
+// bf16 the bytes bound both passes (38 and 32 MB: 11.4 and 9.5 us at
+// 3.35 TB/s) before the tensor cores do (3.3 and 2.4 us at 989 TF/s; 4.9
+// and 3.3 us with the lo products below). At T 4096 (N 4) the products
+// bound them: 0.63 and 0.42 ms with the lo products, against 45 and 38 us
+// of bytes.
 //
-// What the design does about it: the (Tq, Tk) matrices p and ds live only
-// in one 64 x 64 shared-memory tile at a time; the dk/dv block keeps its
-// key and value tiles staged for the whole query loop and both
-// accumulators in registers; the dq block keeps its query and dO tiles.
-// mma.sync or wgmma on the bf16 inputs is the later, faster version.
-// Built with nvcc into a shared library with a plain C interface and
-// called through ctypes (ops/flash_attention.py:flash_bwd_dkv,
-// flash_bwd_dq).
+// bf16 (dkv_mma_kernel, dq_mma_kernel): FlashAttention-2's backward
+// layout on mma.sync m16n8k16 (flash.cuh, mma.cuh). 4 warps own the
+// block's 64 rows, 16 each. The dk/dv block computes the transposed
+// products S^T = K Q^T and dP^T = V dO^T, 16 queries at a time, so p^T and
+// dS^T come out in the accumulator layout, which is the A layout of the
+// next product: dV += P^T dO and dK += dS^T Q take them straight from
+// registers, and p and dS never reach shared memory. lse and delta are per
+// column there and are staged beside Q and dO. The dq block computes
+// S = Q K^T, dP = dO V^T and dQ += dS K the same way, 16 keys at a time.
+// p and dS keep f32 accuracy, as in the TPU kernel: each product that
+// takes them adds hi·B and lo·B with hi = bf16(x), lo = bf16(x - hi) (the
+// error is near 2^-17 of x); q, k, v and dO are exact in bf16, so s and
+// dp are single products summed in f32. The other side's tiles (Q, dO, lse
+// and delta; or K, V and the key validity) stream through a two-stage
+// cp.async ring: tile t + 1 loads while tile t computes, 16 bytes a copy
+// where the wrapper finds the views aligned (vec), else with 2-byte loads.
+// A warp reads its own 16 rows (K and V, or Q and dO) from shared memory
+// at each k-step rather than holding them in registers: held, they cost
+// the 32 registers that keep a third block off each SM at DMAX 64, and
+// three blocks with the reads ran faster than two without (at bert_train's
+// shape and at T 4096; PERF.md §6).
+//
+// f32 (dkv_kernel, dq_kernel): the products are f32 FMA on f32
+// shared-memory tiles (flash.cuh's tile_dot, acc_tn, acc_nn), with p and
+// ds in one 64 x 64 shared-memory tile at a time; they carry the f32
+// gradient checks.
+//
+// Both: causal tiles that hold no live score are skipped; rows past T and
+// columns past Dh are staged as zero and left out of the stores. Built
+// with nvcc into a shared library with a plain C interface and called
+// through ctypes (ops/flash_attention.py:flash_bwd_dkv, flash_bwd_dq).
 #include "flash.cuh"
 
 namespace dl4j {
@@ -211,6 +237,299 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   }
 }
 
+// ---- bf16: tensor-core bodies --------------------------------------------
+
+// columns of the other side's tile a sub-step takes: its S and dP stay in
+// registers beside the accumulators
+constexpr int kSub = 16;
+
+// the block's two tiles, two stages of the other side's two tiles and two
+// stages of two f32 rows (lse and delta; the dq pass uses one: key validity)
+template <int DMAX>
+constexpr size_t bwd_mma_smem() {
+  return sizeof(__nv_bfloat16) * 6 * kB * mma_row<DMAX>() +
+         sizeof(float) * 4 * kB;
+}
+
+// this lane's ldmatrix address of the A fragments of the warp's 16 rows in
+// a staged tile (k-step ks at + 16 ks)
+template <int DMAX>
+__device__ __forceinline__ const __nv_bfloat16* a_rows(
+    const __nv_bfloat16* tile, int warp, int lane) {
+  return tile + (16 * warp + (lane & 15)) * mma_row<DMAX>() + (lane >> 4) * 8;
+}
+
+// acc = A B^T over Dh, A the warp's 16 rows of a staged tile (a, from
+// a_rows), B rows [c0, c0 + kSub) of another: S (or S^T) and dP (or dP^T)
+// of a sub-step
+template <int DMAX>
+__device__ __forceinline__ void product_nt(float (&acc)[kSub / 8][4],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* tile, int c0,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < DMAX / 16; ++ks) {
+    unsigned af[4], bf[kSub / 16][4];
+    mma::ldsm_x4(af, a + 16 * ks);
+#pragma unroll
+    for (int jp = 0; jp < kSub / 16; ++jp)
+      ldsm_b_rows<DMAX>(bf[jp], tile, c0 + 16 * jp, ks, lane);
+#pragma unroll
+    for (int jp = 0; jp < kSub / 16; ++jp) {
+      mma::mma_bf16(acc[2 * jp], af, bf[jp][0], bf[jp][1]);
+      mma::mma_bf16(acc[2 * jp + 1], af, bf[jp][2], bf[jp][3]);
+    }
+  }
+}
+
+// out += W X: W the warp's 16 x kSub f32 values in the accumulator layout
+// (p or dS, or their transposes), added as hi and lo bf16 halves, X rows
+// [c0, c0 + kSub) of a staged tile; keys (or queries) in steps of 16, Dh
+// in pairs of 8-column tiles
+template <int DMAX>
+__device__ __forceinline__ void product_nn_split(
+    float (&out)[DMAX / 8][4], const float (&w)[kSub / 8][4],
+    const __nv_bfloat16* tile, int c0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kSub / 16; ++kk) {
+    unsigned ah[4], al[4];
+    split_p(w[2 * kk][0], w[2 * kk][1], ah[0], al[0]);
+    split_p(w[2 * kk][2], w[2 * kk][3], ah[1], al[1]);
+    split_p(w[2 * kk + 1][0], w[2 * kk + 1][1], ah[2], al[2]);
+    split_p(w[2 * kk + 1][2], w[2 * kk + 1][3], ah[3], al[3]);
+    // every X fragment of the step, then the hi products, then the lo
+    // ones, so no product waits on the one before it
+    unsigned xb[DMAX / 16][4];
+#pragma unroll
+    for (int dp = 0; dp < DMAX / 16; ++dp)
+      ldsm_b_cols<DMAX>(xb[dp], tile, c0 + 16 * kk, dp, lane);
+#pragma unroll
+    for (int dp = 0; dp < DMAX / 16; ++dp) {
+      mma::mma_bf16(out[2 * dp], ah, xb[dp][0], xb[dp][1]);
+      mma::mma_bf16(out[2 * dp + 1], ah, xb[dp][2], xb[dp][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < DMAX / 16; ++dp) {
+      mma::mma_bf16(out[2 * dp], al, xb[dp][0], xb[dp][1]);
+      mma::mma_bf16(out[2 * dp + 1], al, xb[dp][2], xb[dp][3]);
+    }
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DMAX>())
+    dkv_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kRow = mma_row<DMAX>();
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + kB * kRow;
+  __nv_bfloat16* Qs = Vs + kB * kRow;         // two stages
+  __nv_bfloat16* dOs = Qs + 2 * kB * kRow;    // two stages
+  float* rows_s = reinterpret_cast<float*>(dOs + 2 * kB * kRow);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout);
+  const int k0 = blockIdx.x * kB, hh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t4 = lane & 3;
+  const bool vec = p.vec != 0;
+  // this thread's two keys (fragment rows g and g + 8) and their validity
+  const int kr[2] = {k0 + 16 * warp + (lane >> 2),
+                     k0 + 16 * warp + (lane >> 2) + 8};
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    kok[r] = kr[r] < p.tk &&
+             (p.mask == nullptr ||
+              p.mask[static_cast<size_t>(b) * p.tk + kr[r]] > 0.0f);
+  const int nq = (p.tq + kB - 1) / kB;
+  // causal: query tiles that end before the key tile starts see none of it
+  const int q_first = p.causal ? k0 / kB : 0;
+  const size_t rows = (static_cast<size_t>(b) * p.h + hh) * p.tq;
+
+  // query tile qt into ring stage st: Q, dO, then lse and delta (rows past
+  // Tq read 0: their Q and dO rows are 0, so they add nothing)
+  auto stage_q = [&](int st, int qt) {
+    const int q0 = qt * kB;
+    stage_bf16<DMAX>(Qs + st * kB * kRow, q, p.qs, b, hh, q0, p.tq, p.dh,
+                     vec);
+    stage_bf16<DMAX>(dOs + st * kB * kRow, dout, p.ds, b, hh, q0, p.tq,
+                     p.dh, vec);
+    float* lse_s = rows_s + st * 2 * kB;
+    for (int r = threadIdx.x; r < kB; r += kMmaThreads) {
+      const bool in = q0 + r < p.tq;
+      const size_t i = in ? rows + q0 + r : 0;
+      mma::cp_async4(lse_s + r, p.lse + i, in);
+      mma::cp_async4(lse_s + kB + r, p.delta + i, in);
+    }
+  };
+
+  stage_bf16<DMAX>(Ks, static_cast<const __nv_bfloat16*>(p.k), p.ks, b, hh,
+                   k0, p.tk, p.dh, vec);
+  stage_bf16<DMAX>(Vs, static_cast<const __nv_bfloat16*>(p.v), p.vs, b, hh,
+                   k0, p.tk, p.dh, vec);
+  if (q_first < nq) stage_q(0, q_first);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  const __nv_bfloat16* ka = a_rows<DMAX>(Ks, warp, lane);
+  const __nv_bfloat16* va = a_rows<DMAX>(Vs, warp, lane);
+
+  float dk[DMAX / 8][4], dv[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+
+  for (int qt = q_first; qt < nq; ++qt) {
+    const int cur = (qt - q_first) & 1;
+    if (qt + 1 < nq) {   // tile qt + 1 loads while tile qt computes
+      stage_q(cur ^ 1, qt + 1);
+      mma::cp_async_commit();
+    }
+    const __nv_bfloat16* Qc = Qs + cur * kB * kRow;
+    const __nv_bfloat16* dOc = dOs + cur * kB * kRow;
+    const float* lse_c = rows_s + cur * 2 * kB;
+    const float* delta_c = lse_c + kB;
+    const int q0 = qt * kB;
+#pragma unroll
+    for (int c0 = 0; c0 < kB; c0 += kSub) {
+      // S^T = K Q^T and dP^T = V dO^T over kSub queries; element e of
+      // column tile j is key kr[e / 2], query q0 + c0 + 8 j + 2 t4 + e % 2
+      float pt[kSub / 8][4], dpt[kSub / 8][4];
+      product_nt<DMAX>(pt, ka, Qc, c0, lane);
+      product_nt<DMAX>(dpt, va, dOc, c0, lane);
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * j + 2 * t4 + (e & 1);
+          const bool ok = kok[e >> 1] && (!p.causal || kr[e >> 1] <= q0 + c);
+          p_ds(ok ? pt[j][e] * p.scale : kNeg, dpt[j][e], lse_c[c],
+               delta_c[c], p.scale, &pt[j][e], &dpt[j][e]);
+        }
+      product_nn_split<DMAX>(dv, pt, dOc, c0, lane);   // dV += P^T dO
+      product_nn_split<DMAX>(dk, dpt, Qc, c0, lane);   // dK += dS^T Q
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();   // tile qt + 1 is staged; tile qt's readers are done
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kr[r] >= p.tk) continue;
+    const size_t row =
+        ((static_cast<size_t>(b) * p.tk + kr[r]) * p.h + hh) * p.dh;
+    store_row_bf16<DMAX>(static_cast<__nv_bfloat16*>(p.out), row, dk, r, t4,
+                         p.dh);
+    store_row_bf16<DMAX>(static_cast<__nv_bfloat16*>(p.out2), row, dv, r,
+                         t4, p.dh);
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DMAX>())
+    dq_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kRow = mma_row<DMAX>();
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + kB * kRow;
+  __nv_bfloat16* Ks = dOs + kB * kRow;      // two stages
+  __nv_bfloat16* Vs = Ks + 2 * kB * kRow;   // two stages
+  float* kval = reinterpret_cast<float*>(Vs + 2 * kB * kRow);   // two stages
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
+  const int q0 = blockIdx.x * kB, hh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t4 = lane & 3;
+  const bool vec = p.vec != 0;
+  // this thread's two query rows (fragment rows g and g + 8), their lse
+  // and delta
+  const int qr[2] = {q0 + 16 * warp + (lane >> 2),
+                     q0 + 16 * warp + (lane >> 2) + 8};
+  const size_t rows = (static_cast<size_t>(b) * p.h + hh) * p.tq;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse[r] = qr[r] < p.tq ? p.lse[rows + qr[r]] : kNeg;
+    delta[r] = qr[r] < p.tq ? p.delta[rows + qr[r]] : 0.0f;
+  }
+  int nk = (p.tk + kB - 1) / kB;
+  if (p.causal) {
+    // key tiles that start after the tile's last query hold no live score
+    const int last = (q0 + kB - 1) / kB + 1;
+    nk = nk < last ? nk : last;
+  }
+  auto stage_k = [&](int st, int kt) {
+    stage_bf16<DMAX>(Ks + st * kB * kRow, k, p.ks, b, hh, kt * kB, p.tk,
+                     p.dh, vec);
+    stage_bf16<DMAX>(Vs + st * kB * kRow, v, p.vs, b, hh, kt * kB, p.tk,
+                     p.dh, vec);
+    load_key_valid(kval + st * kB, p, b, kt * kB);
+  };
+
+  stage_bf16<DMAX>(Qs, static_cast<const __nv_bfloat16*>(p.q), p.qs, b, hh,
+                   q0, p.tq, p.dh, vec);
+  stage_bf16<DMAX>(dOs, static_cast<const __nv_bfloat16*>(p.dout), p.ds, b,
+                   hh, q0, p.tq, p.dh, vec);
+  stage_k(0, 0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  const __nv_bfloat16* qa = a_rows<DMAX>(Qs, warp, lane);
+  const __nv_bfloat16* da = a_rows<DMAX>(dOs, warp, lane);
+
+  float dq[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {   // tile kt + 1 loads while tile kt computes
+      stage_k(cur ^ 1, kt + 1);
+      mma::cp_async_commit();
+    }
+    const __nv_bfloat16* Kc = Ks + cur * kB * kRow;
+    const __nv_bfloat16* Vc = Vs + cur * kB * kRow;
+    const float* kv = kval + cur * kB;
+    const int k0 = kt * kB;
+#pragma unroll
+    for (int c0 = 0; c0 < kB; c0 += kSub) {
+      // S = Q K^T and dP = dO V^T over kSub keys; element e of column tile
+      // j is query qr[e / 2], key k0 + c0 + 8 j + 2 t4 + e % 2
+      float s[kSub / 8][4], ds[kSub / 8][4];
+      product_nt<DMAX>(s, qa, Kc, c0, lane);
+      product_nt<DMAX>(ds, da, Vc, c0, lane);
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          p_ds(masked_score(s[j][e], p, kv, c0 + 8 * j + 2 * t4 + (e & 1),
+                            k0, qr[r]),
+               ds[j][e], lse[r], delta[r], p.scale, &s[j][e], &ds[j][e]);
+        }
+      product_nn_split<DMAX>(dq, ds, Kc, c0, lane);    // dQ += dS K
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();   // tile kt + 1 is staged; tile kt's readers are done
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qr[r] >= p.tq) continue;
+    const size_t row =
+        ((static_cast<size_t>(b) * p.tq + qr[r]) * p.h + hh) * p.dh;
+    store_row_bf16<DMAX>(static_cast<__nv_bfloat16*>(p.out), row, dq, r, t4,
+                         p.dh);
+  }
+}
+
 template <typename T, int DMAX>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem<DMAX>();
@@ -231,23 +550,45 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(bool dkv, const Params& p, cudaStream_t stream) {
-  if (p.dh <= 32)
-    return dkv ? launch_dkv<T, 32>(p, stream) : launch_dq<T, 32>(p, stream);
-  if (p.dh <= 64)
-    return dkv ? launch_dkv<T, 64>(p, stream) : launch_dq<T, 64>(p, stream);
-  if (p.dh <= 128)
-    return dkv ? launch_dkv<T, 128>(p, stream)
-               : launch_dq<T, 128>(p, stream);
+template <int DMAX>
+cudaError_t launch_mma(bool dkv, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = bwd_mma_smem<DMAX>();
+  if (dkv) {
+    static const cudaError_t granted =
+        allow_smem(dkv_mma_kernel<DMAX>, smem);
+    if (granted != cudaSuccess) return granted;
+    const dim3 grid((p.tk + kB - 1) / kB, p.h, p.n);
+    dkv_mma_kernel<DMAX><<<grid, kMmaThreads, smem, stream>>>(p);
+  } else {
+    static const cudaError_t granted = allow_smem(dq_mma_kernel<DMAX>, smem);
+    if (granted != cudaSuccess) return granted;
+    const dim3 grid((p.tq + kB - 1) / kB, p.h, p.n);
+    dq_mma_kernel<DMAX><<<grid, kMmaThreads, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch(bool dkv, bool bf16, const Params& p,
+                   cudaStream_t stream) {
+  if (bf16) return launch_mma<DMAX>(dkv, p, stream);
+  return dkv ? launch_dkv<float, DMAX>(p, stream)
+             : launch_dq<float, DMAX>(p, stream);
+}
+
+inline cudaError_t dispatch(bool dkv, bool bf16, const Params& p,
+                            cudaStream_t stream) {
+  if (p.dh <= 32) return launch<32>(dkv, bf16, p, stream);
+  if (p.dh <= 64) return launch<64>(dkv, bf16, p, stream);
+  if (p.dh <= 128) return launch<128>(dkv, bf16, p, stream);
   return cudaErrorInvalidValue;
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v,
         const void* mask, const void* dout, const void* lse,
         const void* delta, void* out, void* out2, int n, int tq, int tk,
-        int h, int dh, int causal, int bf16, const long long* strides,
-        void* stream) {
+        int h, int dh, int causal, int bf16, int vec,
+        const long long* strides, void* stream) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -271,21 +612,22 @@ int run(bool dkv, const void* q, const void* k, const void* v,
     p.ds[i] = strides[9 + i];
   }
   p.scale = softmax_scale(dh);
+  p.vec = vec;
   if (n <= 0 || tq <= 0 || tk <= 0 || h <= 0 || dh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? dispatch<__nv_bfloat16>(dkv, p, s)
-                               : dispatch<float>(dkv, p, s));
+  return static_cast<int>(dispatch(dkv, bf16 != 0, p,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace flash
 }  // namespace dl4j
 
-// strides: (n, t, h) of q, k, v and dO, in elements
+// strides: (n, t, h) of q, k, v and dO, in elements; vec: bf16 views that
+// allow 16-byte loads (ops/flash_attention.py:vector_loads)
 extern "C" int dl4j_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* mask,
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-    int n, int tq, int tk, int h, int dh, int causal, int bf16,
+    int n, int tq, int tk, int h, int dh, int causal, int bf16, int vec,
     long long qsn, long long qst, long long qsh, long long ksn,
     long long kst, long long ksh, long long vsn, long long vst,
     long long vsh, long long dsn, long long dst, long long dsh,
@@ -293,19 +635,19 @@ extern "C" int dl4j_flash_bwd_dkv(
   const long long s[12] = {qsn, qst, qsh, ksn, kst, ksh,
                            vsn, vst, vsh, dsn, dst, dsh};
   return dl4j::flash::run(true, q, k, v, mask, dout, lse, delta, dk, dv, n,
-                          tq, tk, h, dh, causal, bf16, s, stream);
+                          tq, tk, h, dh, causal, bf16, vec, s, stream);
 }
 
 extern "C" int dl4j_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* mask,
     const void* dout, const void* lse, const void* delta, void* dq, int n,
-    int tq, int tk, int h, int dh, int causal, int bf16, long long qsn,
-    long long qst, long long qsh, long long ksn, long long kst,
+    int tq, int tk, int h, int dh, int causal, int bf16, int vec,
+    long long qsn, long long qst, long long qsh, long long ksn, long long kst,
     long long ksh, long long vsn, long long vst, long long vsh,
     long long dsn, long long dst, long long dsh, void* stream) {
   const long long s[12] = {qsn, qst, qsh, ksn, kst, ksh,
                            vsn, vst, vsh, dsn, dst, dsh};
   return dl4j::flash::run(false, q, k, v, mask, dout, lse, delta, dq,
-                          nullptr, n, tq, tk, h, dh, causal, bf16, s,
+                          nullptr, n, tq, tk, h, dh, causal, bf16, vec, s,
                           stream);
 }

@@ -42,7 +42,6 @@
 // into a shared library with a plain C interface and called through
 // ctypes (ops/flash_attention.py:flash_fwd).
 #include "flash.cuh"
-#include "mma.cuh"
 
 namespace dl4j {
 namespace flash {
@@ -159,63 +158,10 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
 
 // ---- bf16: tensor-core body ----------------------------------------------
 
-constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
-
-template <int DMAX>
-__host__ __device__ constexpr int mma_row() {   // staged row stride, bf16
-  return DMAX + 8;
-}
-
 template <int DMAX>
 constexpr size_t mma_smem() {   // Q, two stages of K and V, key validity
   return sizeof(__nv_bfloat16) * 5 * kB * mma_row<DMAX>() +
          sizeof(float) * 2 * kB;
-}
-
-// rows [row0, row0 + kB) of batch row b, head hh of a strided bf16
-// (N, T, H, Dh) view into dst (kB x mma_row bf16), zero past T and Dh:
-// 16-byte cp.async when vec (Dh % 8 == 0, aligned bases and strides; the
-// caller commits and waits), else 2-byte loads and stores
-template <int DMAX>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           const long long* s, int b, int hh,
-                                           int row0, int t_len, int dh,
-                                           bool vec) {
-  const size_t base = static_cast<size_t>(b) * s[0] +
-                      static_cast<size_t>(hh) * s[2];
-  if (vec) {
-    constexpr int kChunks = DMAX / 8;
-    for (int i = threadIdx.x; i < kB * kChunks; i += kMmaThreads) {
-      const int r = i / kChunks, d = (i % kChunks) * 8, t = row0 + r;
-      const bool ok = t < t_len && d < dh;
-      const __nv_bfloat16* g =
-          ok ? src + base + static_cast<size_t>(t) * s[1] + d : src;
-      mma::cp_async16(dst + r * mma_row<DMAX>() + d, g, ok);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < kB * DMAX; i += kMmaThreads) {
-    const int r = i / DMAX, d = i % DMAX, t = row0 + r;
-    __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
-    if (t < t_len && d < dh) v = src[base + static_cast<size_t>(t) * s[1] + d];
-    dst[r * mma_row<DMAX>() + d] = v;
-  }
-}
-
-// p's hi and lo bf16 pairs of one A register (two neighbouring keys)
-__device__ __forceinline__ void split_p(float p0, float p1, unsigned& hi,
-                                        unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = mma::pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
-}
-
-// blocks an SM keeps resident: caps the registers so the staging of some
-// blocks hides behind the products of others
-template <int DMAX>
-__host__ __device__ constexpr int mma_min_blocks() {
-  return DMAX <= 64 ? 3 : 2;
 }
 
 template <int DMAX>
@@ -290,9 +236,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DMAX>())
                            (lane >> 4) * 8);
 #pragma unroll
       for (int jp = 0; jp < kB / 16; ++jp)
-        mma::ldsm_x4(bf[jp], Kc + (16 * jp + (lane & 7) +
-                                   ((lane >> 4) << 3)) * kRow +
-                                 16 * ks + ((lane >> 3) & 1) * 8);
+        ldsm_b_rows<DMAX>(bf[jp], Kc, 16 * jp, ks, lane);
 #pragma unroll
       for (int jp = 0; jp < kB / 16; ++jp) {
         mma::mma_bf16(s[2 * jp], qf, bf[jp][0], bf[jp][1]);
@@ -356,9 +300,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DMAX>())
       unsigned vb[kD16][4];
 #pragma unroll
       for (int dp = 0; dp < kD16; ++dp)
-        mma::ldsm_x4_trans(vb[dp], Vc + (16 * kk + (lane & 7) +
-                                         ((lane >> 3) & 1) * 8) * kRow +
-                                       16 * dp + (lane >> 4) * 8);
+        ldsm_b_cols<DMAX>(vb[dp], Vc, 16 * kk, dp, lane);
 #pragma unroll
       for (int dp = 0; dp < kD16; ++dp) {
         mma::mma_bf16(o[2 * dp], ah, vb[dp][0], vb[dp][1]);
@@ -384,17 +326,11 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DMAX>())
     const size_t row =
         ((static_cast<size_t>(b) * p.tq + t) * p.h + hh) * p.dh;
 #pragma unroll
-    for (int j = 0; j < DMAX / 8; ++j) {
-      const int c = 8 * j + 2 * t4;
-      const float v0 = valid ? o[j][2 * r] / l_safe : 0.0f;
-      const float v1 = valid ? o[j][2 * r + 1] / l_safe : 0.0f;
-      if (c + 1 < p.dh && (p.dh & 1) == 0) {   // both, 4-byte aligned
-        *reinterpret_cast<unsigned*>(out + row + c) = mma::pack_bf16(v0, v1);
-      } else {
-        if (c < p.dh) store(out, row + c, v0);
-        if (c + 1 < p.dh) store(out, row + c + 1, v1);
-      }
-    }
+    for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e)
+        o[j][e] = valid ? o[j][e] / l_safe : 0.0f;
+    store_row_bf16<DMAX>(out, row, o, r, t4, p.dh);
     if (t4 == 0)
       p.lse_out[(static_cast<size_t>(b) * p.h + hh) * p.tq + t] =
           valid ? m[r] + logf(l_safe) : kNeg;

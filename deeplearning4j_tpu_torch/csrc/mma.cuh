@@ -1,9 +1,9 @@
 // Warp-level tensor-core and asynchronous-copy helpers for sm_90a, as
 // inline PTX: mma.sync m16n8k16 with bf16 operands and f32 accumulators,
-// ldmatrix (plain and transposed) and 16-byte cp.async with zero fill.
-// Shared by c3_fwd.cuh and mm_fwd.cuh (the 3x3 and 1x1 convs' forward),
-// c3_bwd_in.cuh, c3_bwd.cuh and mm_bwd.cuh (their backward) and
-// flash_fwd.cu (the attention forward).
+// ldmatrix (plain and transposed) and 16- and 4-byte cp.async with zero
+// fill. Shared by c3_fwd.cuh and mm_fwd.cuh (the 3x3 and 1x1 convs'
+// forward), c3_bwd_in.cuh, c3_bwd.cuh and mm_bwd.cuh (their backward) and
+// flash.cuh (the attention kernels).
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = 0..7, t = 0..3):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
@@ -39,6 +39,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (one f32) from global src to shared dst by cp.async; zero (and
+// src not read) where !valid. Both 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

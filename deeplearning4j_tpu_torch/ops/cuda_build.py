@@ -50,9 +50,9 @@ SIGNATURES = {
     # the flash kernels take each strided input's (n, t, h) strides
     "flash_fwd": ("dl4j_flash_fwd", [_P] * 6 + [_I] * 8 + [_L] * 9 + [_P]),
     "flash_bwd_dkv": ("dl4j_flash_bwd_dkv",
-                      [_P] * 9 + [_I] * 7 + [_L] * 12 + [_P]),
+                      [_P] * 9 + [_I] * 8 + [_L] * 12 + [_P]),
     "flash_bwd_dq": ("dl4j_flash_bwd_dq",
-                     [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P]),
+                     [_P] * 8 + [_I] * 8 + [_L] * 12 + [_P]),
 }
 # kernel -> the csrc/<source>.cu whose library holds its entry point
 SOURCE_OF = {name: name for name in SIGNATURES}

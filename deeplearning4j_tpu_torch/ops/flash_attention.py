@@ -15,9 +15,8 @@ saw a valid key gives out = 0 and lse = ``_NEG``, and the backward zeroes
 p where lse <= ``_NEG`` / 2.
 
 Three hand-written CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-sm_90a) do the work on the card; the forward multiplies bf16 inputs on
-the tensor cores, staging with 16-byte loads where ``vector_loads``
-allows. They read q, k, v and dO through their strides, so the views
+sm_90a) do the work on the card; all three multiply bf16 inputs on the
+tensor cores, staging with 16-byte loads where ``vector_loads`` allows. They read q, k, v and dO through their strides, so the views
 ``SelfAttentionLayer`` cuts from its packed projection need no copy,
 take their own 64-row tiles and mask the ragged edge themselves: the TPU
 block sizes and Mosaic padding rules are not carried over. Beside each is
@@ -235,16 +234,17 @@ def _device(name, q):
         raise ValueError(f"{name}: unsupported device {q.device}")
 
 
-def vector_loads(q, k, v) -> bool:
-    """Whether ``flash_fwd``'s bf16 kernel may stage q, k and v with
+def vector_loads(*tensors) -> bool:
+    """Whether the bf16 kernels may stage these (N, T, H, Dh) views (q, k
+    and v for ``flash_fwd``; q, k, v and dO for the backward pair) with
     16-byte loads: Dh a multiple of 8 and every base address and (n, t, h)
     stride a multiple of 16 bytes. The views of the packed (N, T, H, 3, Dh)
-    projection pass at Dh 64; the kernel stages with 2-byte loads where
+    projection pass at Dh 64; the kernels stage with 2-byte loads where
     they do not."""
-    vec = 16 // q.element_size()
-    return q.shape[3] % vec == 0 and all(
+    vec = 16 // tensors[0].element_size()
+    return tensors[0].shape[3] % vec == 0 and all(
         t.data_ptr() % 16 == 0 and all(st % vec == 0 for st in t.stride()[:3])
-        for t in (q, k, v))
+        for t in tensors)
 
 
 def flash_fwd(q, k, v, mask=None, causal: bool = False):
@@ -273,10 +273,15 @@ def flash_fwd(q, k, v, mask=None, causal: bool = False):
 
 
 def _bwd_args(name, q, k, v, mask, do, lse, delta):
+    """(n, tq, tk, h, dh), then the bf16 and vec flags and the strides as
+    the C entry points take them."""
     n, tq, tk, h, dh = _check(name, q, k, v, mask, do, lse, delta)
     strides = [s for what, t in (("q", q), ("k", k), ("v", v), ("do", do))
                for s in _strides(name, what, t)]
-    return (n, tq, tk, h, dh), strides
+    bf16 = q.dtype == torch.bfloat16        # the f32 bodies ignore vec
+    return (n, tq, tk, h, dh), [int(bf16),
+                                int(bf16 and vector_loads(q, k, v, do)),
+                                *strides]
 
 
 def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool = False):
@@ -286,15 +291,15 @@ def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool = False):
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, mask, do, lse, delta, causal)
     _device("flash_bwd_dkv", q)
-    (n, tq, tk, h, dh), strides = _bwd_args("flash_bwd_dkv", q, k, v, mask,
-                                            do, lse, delta)
+    (n, tq, tk, h, dh), flags = _bwd_args("flash_bwd_dkv", q, k, v, mask,
+                                          do, lse, delta)
     dk = torch.empty((n, tk, h, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     stream = cuda_build.current_stream(q.device)
     err = cuda_build.kernel("flash_bwd_dkv")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dk), _ptr(dv), n, tq, tk, h, dh, int(causal),
-        int(q.dtype == torch.bfloat16), *strides, stream)
+        *flags, stream)
     _raise_on("flash_bwd_dkv", err, (n, tq, h, dh))
     _count("flash_bwd_dkv")
     return dk, dv
@@ -307,14 +312,14 @@ def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool = False):
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, mask, do, lse, delta, causal)
     _device("flash_bwd_dq", q)
-    (n, tq, tk, h, dh), strides = _bwd_args("flash_bwd_dq", q, k, v, mask,
-                                            do, lse, delta)
+    (n, tq, tk, h, dh), flags = _bwd_args("flash_bwd_dq", q, k, v, mask,
+                                          do, lse, delta)
     dq = torch.empty((n, tq, h, dh), dtype=q.dtype, device=q.device)
     stream = cuda_build.current_stream(q.device)
     err = cuda_build.kernel("flash_bwd_dq")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(dq), n, tq, tk, h, dh, int(causal),
-        int(q.dtype == torch.bfloat16), *strides, stream)
+        _ptr(delta), _ptr(dq), n, tq, tk, h, dh, int(causal), *flags,
+        stream)
     _raise_on("flash_bwd_dq", err, (n, tq, h, dh))
     _count("flash_bwd_dq")
     return dq

@@ -183,3 +183,30 @@ def test_vector_loads_follows_the_views_alignment(dh, offset, want):
     f32 = qkv.float()
     assert fa.vector_loads(f32[:, :, :, 0], f32[:, :, :, 1],
                            f32[:, :, :, 2]) is (dh % 4 == 0)
+    # the backward's four-tensor form: a contiguous dO leaves the answer
+    # to q, k and v; a dO shifted by one element rules 16-byte loads out
+    do = torch.zeros((n, t, h, dh), dtype=torch.bfloat16)
+    assert fa.vector_loads(q, k, v, do) is want
+    shifted = torch.zeros(1 + do.numel(), dtype=torch.bfloat16)[1:]
+    assert fa.vector_loads(q, k, v, shifted.view(n, t, h, dh)) is False
+
+
+@pytest.mark.parametrize("dtype,do_offset,want", [
+    (torch.bfloat16, 0, [1, 1]), (torch.bfloat16, 1, [1, 0]),
+    (torch.float32, 0, [0, 0])])
+def test_backward_wrappers_pass_the_bf16_and_vec_flags(dtype, do_offset,
+                                                       want):
+    # (bf16, vec) as flash_bwd_dkv and flash_bwd_dq hand them to the
+    # kernels, then the (n, t, h) strides of q, k, v and dO
+    n, t, h, dh = 2, 8, 3, 64
+    qkv = torch.zeros((n, t, h, 3, dh), dtype=dtype)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    do = torch.zeros(do_offset + n * t * h * dh, dtype=dtype)[do_offset:] \
+        .view(n, t, h, dh)
+    rows = torch.zeros((n, h, t))
+    shape, flags = fa._bwd_args("flash_bwd_dkv", q, k, v, None, do, rows,
+                                rows)
+    assert shape == (n, t, t, h, dh)
+    assert flags[:2] == want
+    assert flags[2:] == [t * h * 3 * dh, h * 3 * dh, 3 * dh] * 3 + [
+        t * h * dh, h * dh, dh]

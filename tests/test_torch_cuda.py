@@ -628,6 +628,21 @@ def test_flash_fwd_bert_shapes_bf16(card, n):
                zip((out, lse), fa.flash_fwd(q, k, v)))
 
 
+@pytest.mark.parametrize("n", [32, 64])       # trained BERT, and twice it
+def test_flash_bwd_bert_shapes_bf16(card, n):
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, do = _flash_inputs(card, n, 128, 12, 64, torch.bfloat16,
+                                   False)
+    assert fa.vector_loads(q, k, v, do)
+    ref_out, lse = fa.flash_fwd_reference(q, k, v)
+    args = (q, k, v, None, do, lse, fa.attention_delta(do, ref_out))
+    got = fa.flash_bwd_dkv(*args) + (fa.flash_bwd_dq(*args),)
+    _flash_close(got, fa.flash_bwd_dkv_reference(*args)
+                 + (fa.flash_bwd_dq_reference(*args),), torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, fa.flash_bwd_dkv(*args) + (fa.flash_bwd_dq(*args),)))
+
+
 def _bf16_ulps(got, ref):
     """|got − ref| in bf16 ulps of |ref|, elementwise, with |ref| floored
     at 2^-8 of its largest magnitude (below that an ulp is finer than the
@@ -662,6 +677,38 @@ def test_flash_fwd_bf16_keeps_p_at_f32_accuracy(card):
     assert control_ulps > 1.0
 
 
+def test_flash_bwd_bf16_keeps_p_and_ds_at_f32_accuracy(card):
+    """The bf16 backward adds P^T dO, dS^T Q and dS K with p and dS as
+    hi + lo in bf16 (f32 accuracy): dk, dv and dq are each within one bf16
+    ulp of the plain version's (f32 arithmetic on the same bf16 inputs,
+    rounded once). A control that rounds p and dS to bf16 once, as a
+    kernel without the lo products would, must exceed that limit on at
+    least one of the three, so the check can see the difference."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, do = _flash_inputs(card, 64, 128, 12, 64, torch.bfloat16,
+                                   False)
+    ref_out, lse = fa.flash_fwd_reference(q, k, v)
+    delta = fa.attention_delta(do, ref_out)
+    args = (q, k, v, None, do, lse, delta)
+    got = fa.flash_bwd_dkv(*args) + (fa.flash_bwd_dq(*args),)
+    ref = fa.flash_bwd_dkv_reference(*args) + (
+        fa.flash_bwd_dq_reference(*args),)
+    qf, kf, vf, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    p = torch.exp(qf @ kf.transpose(-1, -2) / 8.0 - lse[..., None])
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None]) / 8.0
+    pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
+    control = tuple(t.permute(0, 2, 1, 3).to(torch.bfloat16) for t in (
+        dsb.transpose(-1, -2) @ qf, pb.transpose(-1, -2) @ dof, dsb @ kf))
+    kernel_ulps = [_bf16_ulps(a, r).max().item() for a, r in zip(got, ref)]
+    control_ulps = [_bf16_ulps(a, r).max().item()
+                    for a, r in zip(control, ref)]
+    print(f"flash_bwd bf16 (64, 128, 12, 64): max |(dk, dv, dq) - ref| "
+          f"{kernel_ulps} ulp; p and dS rounded to bf16 once: "
+          f"{control_ulps} ulp")
+    assert max(kernel_ulps) <= 1.0
+    assert max(control_ulps) > 1.0
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_unaligned_views_stage_with_2_byte_loads(card, causal):
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -676,6 +723,29 @@ def test_flash_fwd_unaligned_views_stage_with_2_byte_loads(card, causal):
     _flash_close((out,), (ref_out,), torch.bfloat16)
     assert (lse - ref_lse).abs().max().item() <= 2e-5 * max(
         1.0, ref_lse.abs().max().item())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shifted", ["qkv", "do"])
+def test_flash_bwd_unaligned_views_stage_with_2_byte_loads(card, shifted,
+                                                           causal):
+    # the packed projection (or dO alone) one element off 16 bytes
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    n, t, h, dh = 2, 130, 3, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    off = (1, 0) if shifted == "qkv" else (0, 1)
+    buf = torch.randn(off[0] + n * t * h * 3 * dh, generator=g, device=card)
+    qkv = buf.to(torch.bfloat16)[off[0]:].view(n, t, h, 3, dh)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    dbuf = torch.randn(off[1] + n * t * h * dh, generator=g, device=card)
+    do = dbuf.to(torch.bfloat16)[off[1]:].view(n, t, h, dh)
+    assert not fa.vector_loads(q, k, v, do)
+    assert fa.vector_loads(q, k, v) is (shifted == "do")
+    ref_out, lse = fa.flash_fwd_reference(q, k, v, None, causal)
+    args = (q, k, v, None, do, lse, fa.attention_delta(do, ref_out), causal)
+    _flash_close(fa.flash_bwd_dkv(*args) + (fa.flash_bwd_dq(*args),),
+                 fa.flash_bwd_dkv_reference(*args)
+                 + (fa.flash_bwd_dq_reference(*args),), torch.bfloat16)
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of the PyTorch/CUDA port's conv kernels on one NVIDIA GPU, beside
+"""Probes of the PyTorch/CUDA port's kernels on one NVIDIA GPU, beside
 ``chip_smoke.py``. Each runs against the tree in the working directory, so
 one copy of this script measures a parent tree and its change alike (run
 it from each tree's root):
@@ -8,6 +8,7 @@ it from each tree's root):
     python3 tools/port_probe.py bwd [TAG]       # fused_c3_bwd, bf16, timed
     python3 tools/port_probe.py slices [TAG]    # fused_mm's slice depth
     python3 tools/port_probe.py lstm [TAG]      # lstm_bwd's tick, timed
+    python3 tools/port_probe.py flash [TAG]     # the flash backward pair
 
 ``host``: host µs a call of ``fused_c3`` (served path, and with the
 statistics) and ``fused_c3_bwd`` at the ResNet50's 3×3 shapes, and of
@@ -37,6 +38,12 @@ last mark to slot k, for thread 0 of block (0, 0), and ``lstm_bwd.cu`` is built 
 into its own library, which the tree's ``fused_lstm.lstm_bwd`` then calls.
 Per tick phases are cycles a tick, the others cycles a call, at the
 card's clock attribute.
+
+``flash``: wall (CUDA events) and device (profiler) ms a call of the bf16
+``flash_bwd_dkv`` and ``flash_bwd_dq`` at ``FLASH_SHAPES`` (H 12, Dh 64,
+unmasked; not causal, and causal at T 4096), on the strided views
+``chip_smoke.attn_inputs`` cuts, beside the device ms of SDPA's autograd
+backward (dq, dk and dv together) on the same tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +53,9 @@ import sys
 import time
 
 SHAPES = ((16, 64), (8, 128), (4, 256), (2, 512))   # (H = W, Cin = Cout)
+# (N, T) of the flash probe: bert_train's calls, twice that batch, and the
+# longest sequence of chip_smoke.ATTN_LONG
+FLASH_SHAPES = ((32, 128), (64, 128), (4, 4096))
 
 
 def _tree():
@@ -372,9 +382,39 @@ def lstm_clock(tag):
                   flush=True)
 
 
+def flash(tag):
+    torch, _ = _tree()
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n, t in FLASH_SHAPES:
+        for mode in ("none", "causal") if t > 1024 else ("none",):
+            q, k, v, do, mask, causal = cs.attn_inputs(n, t, 12, 64,
+                                                       "bfloat16", mode, g)
+            out, lse = fa.flash_fwd_reference(q, k, v, mask, causal)
+            args = (q, k, v, mask, do, lse, fa.attention_delta(do, out),
+                    causal)
+            iters = 5 if t > 1024 else 50
+            row = []
+            for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+                kern = lambda: getattr(fa, name)(*args)
+                row.append(f"{name} wall {cs.cuda_time(kern, iters=iters):.4f}"
+                           f" device {cs.device_ms(kern, n=iters):.4f}")
+            qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            lib = lambda: torch.autograd.grad(og, (qg, kg, vg),
+                                              do.transpose(1, 2),
+                                              retain_graph=True)
+            print(f"{tag} bf16 N,T,H,Dh={n},{t},12,64 {mode}: "
+                  + ", ".join(row) + f"; SDPA backward device "
+                  f"{cs.device_ms(lib, n=iters):.4f} ms", flush=True)
+
+
 def main(argv):
     runs = {"host": host, "bwd": bwd, "slices": slices, "lstm": lstm,
-            "lstm-clock": lstm_clock}
+            "lstm-clock": lstm_clock, "flash": flash}
     if len(argv) < 2 or argv[1] not in runs:
         raise SystemExit(__doc__)
     import torch
