@@ -13,9 +13,9 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    spills from ``-Xptxas -v`` and, by ``cuobjdump -sass``, the HMMA
    (tensor-core) instructions in the libraries of ``fused_mm``,
    ``fused_c3``, ``fused_mm_bwd``, ``fused_c3_bwd`` (with
-   ``fused_c3_bwd_in`` and ``fused_c3_bwd_w``), ``lstm_bwd``,
-   ``flash_fwd`` and ``flash_bwd_dkv`` (with ``flash_bwd_dq``); it fails
-   if one holds none.
+   ``fused_c3_bwd_in`` and ``fused_c3_bwd_w``), ``lstm_fwd``,
+   ``lstm_bwd``, ``flash_fwd`` and ``flash_bwd_dkv`` (with
+   ``flash_bwd_dq``); it fails if one holds none.
 3. kernels — ``fused_mm`` and ``fused_c3`` at every distinct shape the
    ResNet50 gives them at batch 32, in float32 and bfloat16, held against
    their plain PyTorch versions on the card and run twice for
@@ -38,8 +38,11 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    Then ``lstm_fwd`` and ``lstm_bwd`` at the LSTM slice shape (T 60, N 128,
    H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
    bf16, masked and unmasked: against their plain versions, bitwise on a
-   second run, timed beside their bound, the latency floor (T × one grid
-   barrier, measured) and cuDNN's LSTM layer (unmasked). Then
+   second run, timed beside their bound, the latency floor (T × one
+   barrier of the kernel's own kind on its own grid, measured: a cluster
+   barrier for ``lstm_fwd``'s cluster route, else a grid barrier) and
+   cuDNN's LSTM layer (unmasked), with ``lstm_fwd``'s plan and the
+   clusters the card keeps resident for it. Then
    ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` at the BERT-base
    slice shape (N 64, T 128, H 12, Dh 64; f32 and bf16; unmasked, a ragged
    key mask, causal), the long-sequence geometry (T 1024/2048/4096 at N
@@ -157,13 +160,14 @@ REPLACES = {"fused_mm": _TPU + "57", "fused_c3": _TPU + "156",
             "flash_bwd_dkv": "deeplearning4j_tpu/ops/pallas_kernels.py:180",
             "flash_bwd_dq": "deeplearning4j_tpu/ops/pallas_kernels.py:230"}
 # the kernels whose libraries' bf16 bodies multiply on the tensor cores
-# (lstm_bwd: its dWh product; flash_bwd_dkv: the flash_bwd library, both
-# backward passes), and the kernels whose rows also carry device times
+# (lstm_fwd: its per-tick product, f32 by 3xTF32 too; lstm_bwd: its dWh
+# product; flash_bwd_dkv: the flash_bwd library, both backward passes),
+# and the kernels whose rows also carry device times
 # (every conv kernel: their walls at the path shapes are bound by the
 # wrappers' host work; the flash kernels, beside SDPA's; the LSTM kernels'
 # rows always carry them, beside cuDNN's layer)
 MMA_SOURCES = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
-               "lstm_bwd", "flash_fwd", "flash_bwd_dkv")
+               "lstm_fwd", "lstm_bwd", "flash_fwd", "flash_bwd_dkv")
 DEVICE_TIMED = ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
                 "fused_c3_bwd_in", "fused_c3_bwd_w", "flash_fwd",
                 "flash_bwd_dkv", "flash_bwd_dq")
@@ -1059,18 +1063,38 @@ def lstm_cost(t, n, h, dtype, masked, part):
     return 4.0 * t * n * h * 4 * h, nbytes + state
 
 
-def barrier_ms(n, h):
-    """Mean ms of one grid-wide barrier on lstm_fwd's grid at (n, h)."""
+def barrier_ms(cluster, gx, gy, smem):
+    """Mean ms of one barrier on a (gx, gy) grid of blocks with ``smem``
+    bytes of shared memory each: a cluster barrier among ``cluster`` blocks
+    (cluster > 0) or a grid barrier (a cooperative launch)."""
     import torch
     from deeplearning4j_tpu_torch.ops import cuda_build
     probe = cuda_build.helper("lstm_fwd", "dl4j_lstm_barrier_probe")
 
     def run(iters):
-        err = probe(n, h, iters, torch.cuda.current_stream().cuda_stream)
+        err = probe(cluster, gx, gy, smem, iters,
+                    torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"barrier probe failed with CUDA error {err}")
     return (cuda_time(lambda: run(1000), iters=5) -
             cuda_time(lambda: run(0), iters=5)) / 1000
+
+
+def lstm_floors(t, n, h, dtype):
+    """{kernel: (ms of one tick's barrier, what it is)} on each LSTM
+    kernel's own grid at (T, N, H): lstm_fwd's plan (a cluster barrier on
+    the cluster route) and lstm_bwd's grid barrier."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16 = dtype == "bfloat16"
+    fp = fl.lstm_fwd_plan(t, n, h, bf16, sms)
+    bp = fl.lstm_bwd_plan(t, n, h, bf16, sms)
+    cluster = fp.slices if fp.route == "cluster" else 0
+    return {"lstm_fwd": (barrier_ms(cluster, fp.slices, fp.row_tiles,
+                                    fp.smem), fp),
+            "lstm_bwd": (barrier_ms(0, bp.slices, bp.row_tiles, bp.smem),
+                         bp)}
 
 
 def _lstm_err(got, ref):
@@ -1081,10 +1105,11 @@ def _lstm_err(got, ref):
                for a, r in zip(got, ref))
 
 
-def check_lstm_shape(where, t, n, h, dtype, masked, gen, floor_ms):
+def check_lstm_shape(where, t, n, h, dtype, masked, gen, floors):
     """Rows of lstm_fwd and lstm_bwd at one shape: against the plain
     version, bitwise on a second run, timed beside the bound, the latency
-    floor and (unmasked) cuDNN's LSTM layer."""
+    floor (T x the kernel's barrier in ``floors``) and (unmasked) cuDNN's
+    LSTM layer."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_lstm as fl
     dt = getattr(torch, dtype)
@@ -1114,7 +1139,9 @@ def check_lstm_shape(where, t, n, h, dtype, masked, gen, floor_ms):
                "ms": cuda_time(kern, iters=10),
                "plain_ms": cuda_time(lambda: plain(*args), iters=3,
                                      warmup=1),
-               "latency_floor_ms": t * floor_ms, "library_ms": None,
+               "latency_floor_ms": t * floors[name][0],
+               "barrier_ms": floors[name][0],
+               "plan": floors[name][1]._asdict(), "library_ms": None,
                "library_device_ms": None}
         row["device_ms"], row["launches_per_call"] = device_trace(kern, n=5)
         row["bound_ms"], row["bound_by"] = bound(
@@ -1174,16 +1201,26 @@ def _cudnn_yardstick(rows, t, n, h, dt, gen):
 def phase_lstm_kernels(gen):
     """lstm_fwd and lstm_bwd at the slice shape and the benchmark
     geometry, f32 and bf16, masked and unmasked."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    resident = cuda_build.helper("lstm_fwd", "dl4j_lstm_max_clusters")
     rows = []
     for where, (t, n, h) in LSTM_SHAPES.items():
-        floor = barrier_ms(n, h)
-        log(f"  grid barrier on lstm_fwd's grid at N={n}, H={h}: "
-            f"{1e3 * floor:.2f} us")
         for dtype in ("float32", "bfloat16"):
+            floors = lstm_floors(t, n, h, dtype)
+            fp = floors["lstm_fwd"][1]
+            clusters = (resident(fp.slices, fp.smem, int(dtype == "bfloat16"))
+                        if fp.route == "cluster" else None)
+            log(f"  {dtype} T,N,H={t},{n},{h}: lstm_fwd plan {fp.route}, "
+                f"{fp.slices} x {fp.row_tiles} blocks of {fp.units} units x "
+                f"{fp.rows} rows, {fp.smem} B"
+                + ("" if clusters is None else
+                   f", {clusters} clusters of {fp.slices} resident (needs "
+                   f"{fp.row_tiles})") + "; barriers: "
+                + ", ".join(f"{k} {1e3 * v[0]:.2f} us" for k, v in
+                            floors.items()))
             for masked in (False, True):
-                for r in check_lstm_shape(where, t, n, h, dtype, masked,
-                                          gen, floor):
-                    r["barrier_ms"] = floor
+                for r in check_lstm_shape(where, t, n, h, dtype, masked, gen,
+                                          floors):
                     rows.append(r)
                     lib = ("-" if r["library_ms"] is None
                            else f"{r['library_ms']:.4f} (device "

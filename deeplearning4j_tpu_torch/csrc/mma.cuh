@@ -2,8 +2,8 @@
 // inline PTX: mma.sync m16n8k16 with bf16 operands and f32 accumulators,
 // ldmatrix (plain and transposed) and 16- and 4-byte cp.async with zero
 // fill. Shared by c3_fwd.cuh and mm_fwd.cuh (the 3x3 and 1x1 convs'
-// forward), c3_bwd_in.cuh, c3_bwd.cuh and mm_bwd.cuh (their backward) and
-// flash.cuh (the attention kernels).
+// forward), c3_bwd_in.cuh, c3_bwd.cuh and mm_bwd.cuh (their backward),
+// flash.cuh (the attention kernels) and lstm_fwd.cu.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = 0..7, t = 0..3):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],

@@ -45,7 +45,7 @@ SIGNATURES = {
     "fused_c3_bwd": ("dl4j_fused_c3_bwd", [_P] * 14 + [_I] * 12 + [_P]),
     "fused_c3_bwd_in": ("dl4j_fused_c3_bwd_in", [_P] * 12 + [_I] * 11 + [_P]),
     "fused_c3_bwd_w": ("dl4j_fused_c3_bwd_w", [_P] * 9 + [_I] * 9 + [_P]),
-    "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 5 + [_P]),
+    "lstm_fwd": ("dl4j_lstm_fwd", [_P] * 12 + [_I] * 12 + [_P]),
     "lstm_bwd": ("dl4j_lstm_bwd", [_P] * 15 + [_I] * 9 + [_P]),
     # the flash kernels take each strided input's (n, t, h) strides
     "flash_fwd": ("dl4j_flash_fwd", [_P] * 6 + [_I] * 8 + [_L] * 9 + [_P]),
@@ -60,9 +60,11 @@ SOURCE_OF.update(fused_c3_bwd_in="fused_c3_bwd", fused_c3_bwd_w="fused_c3_bwd",
                  flash_bwd_dkv="flash_bwd", flash_bwd_dq="flash_bwd")
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 
-# scratch-sizing helpers a library may export (int -> int)
+# helpers a library may export: scratch sizing (int -> int), the LSTM
+# barrier probe and the cluster occupancy query
 _HELPERS = {"dl4j_tile_m": [], "dl4j_split_count": [_I],
-            "dl4j_lstm_barrier_probe": [_I, _I, _I, _P]}
+            "dl4j_lstm_barrier_probe": [_I] * 5 + [_P],
+            "dl4j_lstm_max_clusters": [_I] * 3}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -16,7 +16,10 @@ the backward reads (post-activation gates, tanh(c), the carried c), all
 rounded to zx's dtype, as the TPU kernel does.
 
 Two hand-written CUDA kernels (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``,
-sm_90a, one cooperative launch per call) do the work on the card. Beside
+sm_90a, one launch per call) do the work on the card, each cut by a plan
+computed here from the shapes and the SM count alone (``lstm_fwd_plan``:
+a thread-block cluster per row tile where one holds the tile's Wh, else a
+cooperative grid; ``lstm_bwd_plan``: a cooperative grid). Beside
 each is its plain PyTorch version (``lstm_fwd_reference``,
 ``lstm_bwd_reference``, Python loops over T with the TPU kernels'
 roundings): the wrappers use it for a tensor on the CPU and only there.
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import threading
+from collections import Counter
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -40,6 +44,8 @@ import torch
 from deeplearning4j_tpu_torch.ops import cuda_build
 
 LAUNCHES: Dict[str, int] = {"lstm_fwd": 0, "lstm_bwd": 0}
+# lstm_fwd's launches by (route, slices) of the plan they ran
+FWD_ROUTES: Counter = Counter()
 _launch_lock = threading.Lock()
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -48,6 +54,7 @@ def reset_launch_counts():
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        FWD_ROUTES.clear()
 
 
 def _count(name: str):
@@ -167,8 +174,9 @@ def _raise_on(name, err, shape):
 
 def lstm_fwd(zx, h0, c0, wh, mask3=None):
     """``lstm_fwd_reference`` as one launch of ``csrc/lstm_fwd.cu`` for
-    CUDA tensors. zx (T, N, 4H) and wh (H, 4H) share float32 or bfloat16;
-    h0, c0 (N, H) share either; mask3 (T, N, 1) in zx's dtype or None."""
+    CUDA tensors, cut by ``lstm_fwd_plan``. zx (T, N, 4H) and wh (H, 4H)
+    share float32 or bfloat16; h0, c0 (N, H) share either; mask3 (T, N, 1)
+    in zx's dtype or None."""
     if zx.device.type == "cpu":
         return lstm_fwd_reference(zx, h0, c0, wh, mask3)
     if zx.device.type != "cuda":
@@ -186,28 +194,207 @@ def lstm_fwd(zx, h0, c0, wh, mask3=None):
     if t_len == 0 or n == 0 or nh == 0 or g4 != 4 * nh:
         raise ValueError(f"lstm_fwd: bad shape zx {tuple(zx.shape)}")
     dt = zx.dtype
+    plan = lstm_fwd_plan(t_len, n, nh, dt == torch.bfloat16,
+                         _sm_count(zx.device.index or 0))
     ys = torch.empty((t_len, n, nh), dtype=dt, device=zx.device)
     gates = torch.empty_like(zx)
     tcs = torch.empty_like(ys)
     ccs = torch.empty_like(ys)
     h_t = torch.empty_like(h0)
     c_t = torch.empty_like(c0)
-    # ping-pong exchange of h (rounded to Wh's dtype), read by every block
-    xbuf = torch.empty((2, n, nh), dtype=torch.float32, device=zx.device)
+    # the grid route's ping-pong exchange of h (rounded to Wh's dtype)
+    xbuf = (torch.empty(plan.xbuf, dtype=dt, device=zx.device)
+            if plan.xbuf else None)
     stream = cuda_build.current_stream(zx.device)
     err = cuda_build.kernel("lstm_fwd")(
         _ptr(zx), _ptr(h0), _ptr(c0), _ptr(wh), _ptr(mask3), _ptr(ys),
         _ptr(gates), _ptr(tcs), _ptr(ccs), _ptr(h_t), _ptr(c_t), _ptr(xbuf),
         t_len, n, nh, int(dt == torch.bfloat16),
-        int(h0.dtype == torch.bfloat16), stream)
+        int(h0.dtype == torch.bfloat16), int(plan.route == "cluster"),
+        plan.slices, plan.units, plan.rows, plan.chunk, plan.groups,
+        plan.stages, stream)
     _raise_on("lstm_fwd", err, (t_len, n, nh))
     _count("lstm_fwd")
+    with _launch_lock:
+        FWD_ROUTES[(plan.route, plan.slices)] += 1
     return ys, gates, tcs, ccs, h_t, c_t
 
 
-# lstm_bwd's plan: what csrc/lstm_bwd.cu takes and checks
 LSTM_SMEM_BUDGET = 227 * 1024     # shared memory a block may opt into (H100)
 _LSTM_THREADS = 256               # threads a block (lstm.cuh's kThreads)
+
+
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+# lstm_fwd's plan: what csrc/lstm_fwd.cu takes and checks
+FWD_MAX_CLUSTER = 16    # blocks of one cluster (above 8: non-portable)
+# SMs of each GPC (a cluster's blocks share one) on a 132-SM H100: the
+# sizes that reproduce cudaOccupancyMaxActiveClusters for one block an SM
+# on an H100 80GB HBM3 (clusters of 1, 2, 4, 7, 8, 13, 16 blocks: 132, 66,
+# 30, 15, 15, 7, 7; chip_smoke.py's kernels phase prints the query beside
+# each plan). Another SM count is taken as GPCs of 16.
+_H100_GPCS = (18, 18, 18, 18, 18, 16, 16, 10)
+
+
+class LstmFwdPlan(NamedTuple):
+    """How ``lstm_fwd`` cuts one call. Block (s, r) of the ``slices`` ×
+    ``row_tiles`` grid owns hidden units [s·U, s·U + U) and batch rows
+    [r·RB, r·RB + RB). On the cluster route a row tile's ``slices`` blocks
+    are one thread-block cluster and trade h in distributed shared memory;
+    on the grid route all blocks are resident at once (one cooperative
+    launch) and trade h through ``xbuf`` at a grid barrier a tick."""
+    route: str        # "cluster" or "grid"
+    slices: int       # ceil(H / U): the cluster size, or the grid's x
+    units: int        # U: hidden units a block owns, a power of two >= 8
+    rows: int         # RB: batch rows a block owns
+    row_tiles: int    # ceil(N / RB): clusters, or the grid's y
+    depth: int        # HP: slices·U rounded up to 32 (zeros past H)
+    chunk: int        # depth of h staged at once (grid route: a multiple
+    #                   of 16·groups in f32, of 32 in bf16; cluster: depth)
+    stages: int       # grid route: chunk buffers, stages - 1 in flight
+    groups: int       # depth ranges of the f32 product (bf16: 1)
+    smem: int         # bytes of shared memory a block
+    xbuf: int         # elements (zx's dtype) of the grid route's exchange
+
+
+def lstm_fwd_smem(route: str, units: int, rows: int, depth: int, chunk: int,
+                  stages: int, groups: int, itemsize: int) -> int:
+    """Bytes of shared memory a block of ``lstm_fwd`` takes (the kernel's
+    ``fwd_smem``): its columns of Wh (``depth`` × 4U, bf16 rows padded by
+    16 bytes) in Wh's dtype, the h rows it multiplies (the whole depth on
+    the cluster route, ``stages`` ``chunk``-deep buffers on the grid
+    route; rows padded by 16 bytes), z (``groups`` planes of RBP × (4U + 4)
+    f32, RBP = RB rounded up to 8), the cluster route's two slots of new
+    h, the f32 (h, c) carry, one tick's zx tile and the mask rows."""
+    a16 = lambda b: _up(b, 16)
+    pad, u4, rbp = 16 // itemsize, 4 * units, _up(rows, 8)
+    cluster = route == "cluster"
+    h = rbp * (depth + pad) if cluster else stages * rbp * (chunk + pad)
+    return (a16(itemsize * depth * (u4 + (8 if itemsize == 2 else 0)))
+            + a16(itemsize * h) + a16(4 * groups * rbp * (u4 + 4))
+            + (a16(itemsize * 2 * rows * units) if cluster else 0)
+            + 2 * a16(4 * rows * units) + a16(itemsize * rows * u4)
+            + a16(4 * rbp))
+
+
+def _fwd_groups(units: int, rows: int, depth: int, bf16: bool) -> int:
+    """Depth ranges of the f32 product: doubled while every range's thread
+    items (U units × RBP/8 row tiles) still find a thread and each keeps
+    at least 16 of the depth; bf16 warps take whole depths."""
+    items = units * (_up(rows, 8) // 8)
+    g = 1
+    while not bf16 and 2 * g * items <= _LSTM_THREADS and \
+            depth // (2 * g) >= 16:
+        g *= 2
+    return g
+
+
+def _cluster_limit(c: int, sms: int) -> int:
+    """Clusters of ``c`` blocks (one an SM, at most ``FWD_MAX_CLUSTER``)
+    the card keeps resident at once: each GPC holds its SMs // c of them."""
+    if c > FWD_MAX_CLUSTER:
+        return 0
+    gpcs = _H100_GPCS if sms == sum(_H100_GPCS) else (16,) * (sms // 16)
+    return sum(g // c for g in gpcs)
+
+
+def _grid_ring(units: int, rows: int, depth: int, step: int, groups: int,
+               itemsize: int):
+    """(chunk, stages) of the grid route's ring of h: the fewest depth
+    chunks (of whole ``step``s), then the most buffers up to one more than
+    the chunks, that fit ``LSTM_SMEM_BUDGET``; (0, 0) where none does."""
+    fits = {}
+    for stages in (2, 3, 4):
+        chunk = _up(depth, step)
+        while chunk >= step and lstm_fwd_smem(
+                "grid", units, rows, depth, chunk, stages, groups,
+                itemsize) > LSTM_SMEM_BUDGET:
+            chunk -= step
+        if chunk >= step:
+            fits[stages] = -(-depth // chunk)
+    if not fits:
+        return 0, 0
+    stages = min(fits, key=lambda s: (fits[s], -min(s, fits[s] + 1), s))
+    return _up(-(-depth // fits[stages]), step), stages
+
+
+def lstm_fwd_candidate(route: str, units: int, rows: int, n: int, h: int,
+                       bf16: bool) -> Optional[LstmFwdPlan]:
+    """The ``LstmFwdPlan`` of ``route`` with U = ``units`` and RB =
+    ``rows`` at (N, H), or None where a block does not fit
+    ``LSTM_SMEM_BUDGET``."""
+    isz = 2 if bf16 else 4
+    slices = -(-h // units)
+    depth = _up(slices * units, 32)
+    groups = _fwd_groups(units, rows, depth, bf16)
+    chunk, stages = depth, 1
+    if route == "grid":
+        # a chunk is whole product steps in every depth range
+        chunk, stages = _grid_ring(units, rows, depth,
+                                   32 if bf16 else 16 * groups, groups, isz)
+        if not chunk:
+            return None
+    smem = lstm_fwd_smem(route, units, rows, depth, chunk, stages, groups,
+                         isz)
+    if smem > LSTM_SMEM_BUDGET:
+        return None
+    return LstmFwdPlan(route, slices, units, rows, -(-n // rows), depth,
+                       chunk, stages, groups, smem,
+                       0 if route == "cluster" else 2 * n * slices * units)
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_fwd_plan(t_len: int, n: int, h: int, bf16: bool,
+                  sms: int) -> LstmFwdPlan:
+    """The ``LstmFwdPlan`` of one call on a card with ``sms`` SMs.
+
+    Each route's best: U a power of two (at least 8) and as many row tiles
+    as the card keeps resident at once (the cluster route: clusters of at
+    most ``FWD_MAX_CLUSTER`` blocks, a row tile's whole Wh in them), the
+    least product a block (rows rounded up to the product's 8-row tiles ×
+    units) first, then (cluster) the smaller cluster or (grid) the wider U
+    (less of h crosses L2 each tick) and the fewer depth chunks. bf16 takes
+    the cluster route wherever one fits: its product is cheap and the
+    route has no grid barrier and no exchange through L2. f32 takes the
+    route with the less product a block (the cluster route on a tie): its
+    FMA product dominates its tick, and the card keeps too few clusters
+    resident to give every SM one block of 8 rows (measured by
+    ``tools/port_probe.py plans``). A function of the shapes and the SM
+    count alone, so two calls on one card give the same bits."""
+    if min(t_len, n, h, sms) < 1:
+        raise ValueError(f"lstm_fwd_plan: bad shape T={t_len}, N={n}, H={h} "
+                         f"or SM count {sms}")
+    widest = max(8, 1 << (h - 1).bit_length())
+    best = {}
+    for route in ("cluster", "grid"):
+        units = 8
+        while units <= widest:
+            slices = -(-h // units)
+            tiles = (_cluster_limit(slices, sms) if route == "cluster"
+                     else sms // slices)
+            plan = None
+            if tiles >= 1:
+                rows = -(-n // min(tiles, n))
+                plan = lstm_fwd_candidate(route, units, rows, n, h, bf16)
+            if plan is not None:
+                work = _up(rows, 8) * units
+                key = ((work, slices) if route == "cluster" else
+                       (work, -units, -(-plan.depth // plan.chunk)))
+                if route not in best or key < best[route][0]:
+                    best[route] = (key, plan)
+            units *= 2
+    if not best:
+        raise ValueError(f"lstm_fwd_plan: no block fits H={h}, N={n} in "
+                         f"{LSTM_SMEM_BUDGET} bytes on {sms} SMs")
+    if "cluster" in best and (bf16 or "grid" not in best or
+                              best["cluster"][0][0] <= best["grid"][0][0]):
+        return best["cluster"][1]
+    return best["grid"][1]
+
+
+# lstm_bwd's plan: what csrc/lstm_bwd.cu takes and checks
 _ROW_TILE = 8                     # rows of one thread's per-tick product tile
 # dWh: the tile, the depth of one staged step (f32, bf16), the cp.async
 # ring's stages and the step dw_chunk is a multiple of
@@ -229,10 +416,6 @@ class LstmBwdPlan(NamedTuple):
     smem: int         # bytes of shared memory a block
     xbuf: int         # f32 elements of the exchange, (2, slices, N, HP)
     ws: int           # f32 elements of the dWh planes (0 for one slice)
-
-
-def _up(a: int, b: int) -> int:
-    return -(-a // b) * b
 
 
 def _lstm_bwd_groups(rows: int, h: int, units: int) -> int:

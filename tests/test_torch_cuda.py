@@ -529,6 +529,86 @@ def test_lstm_bwd_plan_edges_match_plain_and_repeat(card, t, n, h, masked,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _lstm_fwd_close(got, ref, dtype):
+    """Each output against the plain version within LSTM_TOL: float32's
+    where zx and the output are both float32, else bfloat16's (hT and cT
+    in a bf16 state are one rounding to bf16 of f32 values that agree to
+    1e-4, which a last-bit difference can flip; in an f32 state after a
+    bf16 recurrence they carry its flipped roundings of h)."""
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        bf16 = torch.bfloat16 in (a.dtype, dtype)
+        tol = LSTM_TOL[torch.bfloat16 if bf16 else torch.float32] * max(
+            1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+def _lstm_fwd_once_and_again(fl, card, args, state):
+    """Two launches on NaN-poisoned outputs; both hold one launch, the
+    second gives the first's bits."""
+    zx, h0, c0, wh, mask3 = args
+    t, n, g4 = zx.shape
+    seq = ((t, n, g4 // 4), zx.dtype)
+    outs = [seq, ((t, n, g4), zx.dtype), seq, seq, ((n, g4 // 4), state),
+            ((n, g4 // 4), state)]
+    _poison(*outs, device=card)
+    before = fl.LAUNCHES["lstm_fwd"]
+    got = fl.lstm_fwd(*args)
+    assert fl.LAUNCHES["lstm_fwd"] == before + 1
+    _poison(*outs, device=card)
+    again = fl.lstm_fwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("state", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t,n,h", [
+    (1, 1, 256),                # T = 1, N = 1: one generated char
+    (4, 129, 256),              # N = 129: 8 clusters of 17 rows, the last 10
+    (3, 50, 200),               # H = 200: 13 slices of 16, the last 8 of 16
+    (6, 7, 10),                 # H % 4 != 0: element-wise copies
+    (60, 128, 256),             # the slice shape
+    (128, 256, 512),            # the kernels phase's benchmark geometry
+    (3, 600, 520)])             # the grid route with 300 (f32) and 150
+                                # (bf16) rows a block: mask rows past the
+                                # block's 256 threads
+def test_lstm_fwd_plan_edges_match_plain_and_repeat(card, t, n, h, masked,
+                                                    dtype, state):
+    fl, zx, h0, c0, wh, mask3 = _lstm_inputs(card, t, n, h, dtype, masked)
+    args = (zx, h0.to(state), c0.to(state), wh, mask3)
+    ref = fl.lstm_fwd_reference(*args)
+    _lstm_fwd_close(_lstm_fwd_once_and_again(fl, card, args, state), ref,
+                    dtype)
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((7, 4, 8), torch.float32, ("cluster", 1)),
+    ((6, 7, 10), torch.bfloat16, ("cluster", 2)),
+    ((1, 5, 20), torch.float32, ("cluster", 3)),
+    ((5, 8, 32), torch.bfloat16, ("cluster", 4)),
+    ((5, 15, 64), torch.float32, ("cluster", 8)),
+    ((3, 50, 200), torch.bfloat16, ("cluster", 13)),
+    ((60, 128, 256), torch.bfloat16, ("cluster", 16)),
+    ((60, 128, 256), torch.float32, ("grid", 8)),
+    ((3, 2, 1000), torch.bfloat16, ("grid", 125))], ids=lambda v: str(v))
+def test_lstm_fwd_runs_the_route_its_plan_picks(card, shape, dtype, route):
+    """One shape for each cluster size and route the plan picks on a
+    132-SM H100 (tests/test_torch_bwd_plans.py holds the plans), each run
+    through the wrapper, which counts the route it launched."""
+    t, n, h = shape
+    fl, zx, h0, c0, wh, mask3 = _lstm_inputs(card, t, n, h, dtype, True)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = fl.lstm_fwd_plan(t, n, h, dtype == torch.bfloat16, sms)
+    assert (plan.route, plan.slices) == route
+    routes = dict(fl.FWD_ROUTES)
+    args = (zx, h0, c0, wh, mask3)
+    got = _lstm_fwd_once_and_again(fl, card, args, dtype)
+    assert fl.FWD_ROUTES[route] == routes.get(route, 0) + 2
+    _lstm_fwd_close(got, fl.lstm_fwd_reference(*args), dtype)
+
+
 def test_lstm_model_on_the_card_launches_both_kernels(card):
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.ops import fused_lstm as fl

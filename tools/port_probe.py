@@ -7,7 +7,8 @@ it from each tree's root):
     python3 tools/port_probe.py host [TAG]      # host cost of the wrappers
     python3 tools/port_probe.py bwd [TAG]       # fused_c3_bwd, bf16, timed
     python3 tools/port_probe.py slices [TAG]    # fused_mm's slice depth
-    python3 tools/port_probe.py lstm [TAG]      # lstm_bwd's tick, timed
+    python3 tools/port_probe.py lstm [TAG]      # the LSTM kernels' ticks
+    python3 tools/port_probe.py plans [TAG]     # lstm_fwd's plan candidates
     python3 tools/port_probe.py flash [TAG]     # the flash backward pair
 
 ``host``: host µs a call of ``fused_c3`` (served path, and with the
@@ -31,13 +32,23 @@ per-step sum at each batch: the measurement that sets that constant.
 
 ``lstm``: wall (CUDA events) and device (profiler) ms a call of
 ``lstm_fwd`` and ``lstm_bwd`` at ``chip_smoke.LSTM_SHAPES``, f32 and bf16,
-unmasked; then, in a child process, the ``clock64()`` breakdown of
-``lstm_bwd`` by phase: ``csrc/`` is copied under ``build/probe/``, the
-kernel's ``LSTM_PROBE(k)`` marks are defined to add the cycles since the
-last mark to slot k, for thread 0 of block (0, 0), and ``lstm_bwd.cu`` is built with them
-into its own library, which the tree's ``fused_lstm.lstm_bwd`` then calls.
-Per tick phases are cycles a tick, the others cycles a call, at the
-card's clock attribute.
+unmasked; then, in a child process, the ``clock64()`` breakdown of both
+kernels by phase: ``csrc/`` is copied under ``build/probe/``, the
+kernels' ``LSTM_PROBE(k)`` marks are defined to add the cycles since the
+last mark to slot k, for thread 0 of block (0, 0), and ``lstm_fwd.cu`` and
+``lstm_bwd.cu`` are built with them into libraries of their own, which the
+tree's ``fused_lstm`` wrappers then call. Per tick phases are cycles a
+tick, the others cycles a call, at the card's clock attribute. A tree
+whose kernel source has no marks reads zeros.
+
+``plans``: device ms (profiler) a call of ``lstm_fwd`` at
+``chip_smoke.LSTM_SHAPES`` and at one generated char (T 1, N 1, H 256), f32
+and bf16, unmasked, under each candidate plan
+(``fused_lstm.lstm_fwd_candidate``): the cluster route at every U (a
+power of two, a cluster of at most 16 blocks) and the grid route at every
+U, each with as many row tiles as the card keeps resident; beside the plan
+``fused_lstm.lstm_fwd_plan`` picks. The measurement behind the plan's
+rule.
 
 ``flash``: wall (CUDA events) and device (profiler) ms a call of the bf16
 ``flash_bwd_dkv`` and ``flash_bwd_dq`` at ``FLASH_SHAPES`` (H 12, Dh 64,
@@ -279,12 +290,21 @@ def lstm(tag):
                     tag], check=True)
 
 
-# The phases of lstm_bwd by its LSTM_PROBE slots, and those of a tick.
-_PROBE_SLOTS = {9: "setup", 6: "inputs", 1: "dz", 10: "dh product",
-                2: "dh groups summed", 3: "barrier", 4: "exchange",
-                8: "dh0, dc0", 5: "dWh", 7: "dWh slices summed"}
-_PROBE_TICK = {"inputs", "dz", "dh product", "dh groups summed", "barrier",
-               "exchange"}
+# The phases of each LSTM kernel by its LSTM_PROBE slots, and those of a
+# tick (the forward's "inputs": the wait for the tick's zx tile and the
+# block barrier after the product; on the grid route the product holds
+# the staging of h's chunks).
+_PROBE_SLOTS = {
+    "lstm_fwd": {0: "setup", 1: "product", 6: "inputs", 2: "gate update",
+                 3: "barrier", 7: "next inputs issued", 4: "exchange",
+                 5: "hT, cT"},
+    "lstm_bwd": {9: "setup", 6: "inputs", 1: "dz", 10: "dh product",
+                 2: "dh groups summed", 3: "barrier", 4: "exchange",
+                 8: "dh0, dc0", 5: "dWh", 7: "dWh slices summed"}}
+_PROBE_TICK = {"lstm_fwd": {"product", "inputs", "gate update", "barrier",
+                            "next inputs issued", "exchange"},
+               "lstm_bwd": {"inputs", "dz", "dh product", "dh groups summed",
+                            "barrier", "exchange"}}
 # Every thread keeps its slots' cycles in registers (constant indices once
 # unrolled); thread 0 of block (0, 0) adds them to the device array at the
 # kernel's end.
@@ -322,20 +342,20 @@ extern "C" int dl4j_probe_clock_khz() {
 """
 
 
-def _probe_library(cuda_build):
-    """lstm_bwd.cu built with its LSTM_PROBE marks as clock64() timers;
-    returns the library's path."""
+def _probe_library(cuda_build, source):
+    """csrc/<source>.cu built with its LSTM_PROBE marks as clock64()
+    timers; returns the library's path."""
     import shutil
     import subprocess
     from pathlib import Path
-    out = Path(cuda_build.BUILD_DIR).parent / "probe"
+    out = Path(cuda_build.BUILD_DIR).parent / "probe" / source
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC, out / "csrc")
     (out / "probe.cuh").write_text(_PROBE_HEADER)
-    lib = out / "liblstm_bwd_probe.so"
+    lib = out / f"lib{source}_probe.so"
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-include",
                     str(out / "probe.cuh"), "-o", str(lib),
-                    str(out / "csrc" / "lstm_bwd.cu")],
+                    str(out / "csrc" / f"{source}.cu")],
                    check=True, capture_output=True, text=True)
     return lib
 
@@ -346,40 +366,86 @@ def lstm_clock(tag):
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.ops import cuda_build
     from deeplearning4j_tpu_torch.ops import fused_lstm as fl
-    lib = ctypes.CDLL(str(_probe_library(cuda_build)))
-    sym, argtypes = cuda_build.SIGNATURES["lstm_bwd"]
-    getattr(lib, sym).argtypes = argtypes
-    getattr(lib, sym).restype = ctypes.c_int
-    for helper, types in cuda_build._HELPERS.items():
-        if hasattr(lib, helper):
-            getattr(lib, helper).argtypes = types
-            getattr(lib, helper).restype = ctypes.c_int
-    cuda_build._libs["lstm_bwd"] = lib
-    khz = lib.dl4j_probe_clock_khz()
+    libs = {}
+    for source in ("lstm_fwd", "lstm_bwd"):
+        lib = ctypes.CDLL(str(_probe_library(cuda_build, source)))
+        sym, argtypes = cuda_build.SIGNATURES[source]
+        getattr(lib, sym).argtypes = argtypes
+        getattr(lib, sym).restype = ctypes.c_int
+        for helper, types in cuda_build._HELPERS.items():
+            if hasattr(lib, helper):
+                getattr(lib, helper).argtypes = types
+                getattr(lib, helper).restype = ctypes.c_int
+        cuda_build._libs[source] = libs[source] = lib
+    khz = libs["lstm_bwd"].dl4j_probe_clock_khz()
     g = torch.Generator(device="cuda").manual_seed(0)
     calls = 5
     for t, n, h in cs.LSTM_SHAPES.values():
         for dtype in (torch.float32, torch.bfloat16):
-            _, bargs = _lstm_inputs(torch, g, t, n, h, dtype)
-            fl.lstm_bwd(*bargs)
-            torch.cuda.synchronize()
-            lib.dl4j_probe_reset()
-            for _ in range(calls):
-                fl.lstm_bwd(*bargs)
-            torch.cuda.synchronize()
-            acc = (ctypes.c_longlong * 16)()
-            lib.dl4j_probe_read(acc)
-            parts = []
-            tick = 0.0
-            for slot, what in _PROBE_SLOTS.items():
-                per = acc[slot] / calls / (t if what in _PROBE_TICK else 1)
-                tick += per if what in _PROBE_TICK else 0.0
-                parts.append(f"{what} {per:.0f} cyc ({1e3 * per / khz:.2f} "
-                             f"us){' a tick' if what in _PROBE_TICK else ''}")
-            print(f"{tag} clock64 lstm_bwd {str(dtype)[6:]} T,N,H={t},{n},"
-                  f"{h} at {khz / 1e3:.0f} MHz: " + "; ".join(parts) +
-                  f"; tick {tick:.0f} cyc ({1e3 * tick / khz:.2f} us)",
-                  flush=True)
+            fargs, bargs = _lstm_inputs(torch, g, t, n, h, dtype)
+            for name, args in (("lstm_fwd", fargs), ("lstm_bwd", bargs)):
+                lib = libs[name]
+                getattr(fl, name)(*args)
+                torch.cuda.synchronize()
+                lib.dl4j_probe_reset()
+                for _ in range(calls):
+                    getattr(fl, name)(*args)
+                torch.cuda.synchronize()
+                acc = (ctypes.c_longlong * 16)()
+                lib.dl4j_probe_read(acc)
+                parts = []
+                tick = 0.0
+                for slot, what in _PROBE_SLOTS[name].items():
+                    in_tick = what in _PROBE_TICK[name]
+                    per = acc[slot] / calls / (t if in_tick else 1)
+                    tick += per if in_tick else 0.0
+                    parts.append(f"{what} {per:.0f} cyc ({1e3 * per / khz:.2f}"
+                                 f" us){' a tick' if in_tick else ''}")
+                print(f"{tag} clock64 {name} {str(dtype)[6:]} T,N,H={t},{n},"
+                      f"{h} at {khz / 1e3:.0f} MHz: " + "; ".join(parts) +
+                      f"; tick {tick:.0f} cyc ({1e3 * tick / khz:.2f} us)",
+                      flush=True)
+
+
+def plans(tag):
+    torch, _ = _tree()
+    from unittest import mock
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = list(cs.LSTM_SHAPES.values()) + [(1, 1, 256)]
+    for t, n, h in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            fargs, _ = _lstm_inputs(torch, g, t, n, h, dtype)
+            chosen = fl.lstm_fwd_plan(t, n, h, bf16, sms)
+            cands = []
+            units = 8
+            while units <= max(8, 1 << (h - 1).bit_length()):
+                slices = -(-h // units)
+                tiles = fl._cluster_limit(slices, sms)
+                if tiles:
+                    cands.append(("cluster", units, -(-n // min(tiles, n))))
+                if slices <= sms:
+                    cands.append(("grid", units,
+                                  -(-n // min(sms // slices, n))))
+                units *= 2
+            for route, units, rows in cands:
+                plan = fl.lstm_fwd_candidate(route, units, rows, n, h, bf16)
+                if plan is None:
+                    continue
+                with mock.patch.object(fl, "lstm_fwd_plan",
+                                       lambda *a, plan=plan: plan):
+                    kern = lambda: fl.lstm_fwd(*fargs)
+                    ms = cs.device_ms(kern, n=10)
+                print(f"{tag} plans lstm_fwd {str(dtype)[6:]} T,N,H={t},{n},"
+                      f"{h} {route} slices={plan.slices} U={units} "
+                      f"RB={rows} row_tiles={plan.row_tiles} chunk="
+                      f"{plan.chunk}x{plan.stages} groups={plan.groups} "
+                      f"smem={plan.smem}: device {ms:.4f} ms"
+                      f"{'  <- the plan' if plan == chosen else ''}",
+                      flush=True)
 
 
 def flash(tag):
@@ -414,7 +480,7 @@ def flash(tag):
 
 def main(argv):
     runs = {"host": host, "bwd": bwd, "slices": slices, "lstm": lstm,
-            "lstm-clock": lstm_clock, "flash": flash}
+            "lstm-clock": lstm_clock, "plans": plans, "flash": flash}
     if len(argv) < 2 or argv[1] not in runs:
         raise SystemExit(__doc__)
     import torch
