@@ -91,6 +91,29 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    f32 step matches the plain path (loss, gradients); step ms, tokens/s,
    peak memory.
 
+10. digits_eval — the committed ``LeNet`` and ``SimpleCNN`` digit models
+   (``init_pretrained(flavor="digits")``) restored on the card and
+   evaluated on the held-out UCI digits (LeNet through
+   ``DigitsDataSetIterator``, 320 images as ``drop_last`` gives them;
+   SimpleCNN on all 360 as NHWC): accuracy at least 0.98 and 0.95; each
+   model's card probabilities within DIGITS_PROB_TOL of each row's largest
+   of the same port model on the CPU, with no argmax difference; images/s
+   of ``evaluate``. This slice runs no TPU kernel: the convolutions are
+   plain torch, as the JAX package leaves them to XLA.
+11. digits_train — ``LeNet()`` (f32, Adam(1e-3), seed 123) trained from
+   scratch on the card by ``fit(DigitsDataSetIterator(64, train=True),
+   epochs=12)`` through the device feeder, then evaluated: held-out
+   accuracy at least 0.98; one epoch with ``k_steps=4`` equals one with
+   ``k_steps=1`` from the same init within DIGITS_PARAM_TOL of each
+   array's largest; three steps under each of the ten updaters, the three
+   L2 gradient normalizations and a ``StepSchedule``: the card's updater
+   matches the CPU's on the card's gradients within DIGITS_PARAM_TOL, and
+   whole steps on each device are reported beside it (cuDNN on and off);
+   ``SimpleCNN`` (28×28×1, BN, dropout
+   0.5) fitted two epochs on the NHWC digits lowers its training loss;
+   step ms, images/s, epoch wall, the feeder's stall ms, peak memory and,
+   with ``--profile``, the card's busy share over one epoch.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
@@ -231,6 +254,15 @@ BERT_TRAIN_BATCH, BERT_TRAIN_K, BERT_TRAIN_CALLS = 32, 4, 6   # 24 steps
 # (the same f32 products summed in other orders through 12 blocks; no ReLU
 # masks or max-pool choices to amplify them, unlike the ResNet check)
 BERT_PROB_TOL, BERT_GRAD_RTOL = 5e-5, 1e-4
+# the digits slice (LeNet, SimpleCNN): card probabilities against the same
+# port model on the CPU within DIGITS_PROB_TOL of each row's largest (f32
+# convolutions summed in other orders by cuDNN and the CPU); parameters
+# after the same steps (card vs CPU, or k_steps=4 vs 1 on the card) within
+# DIGITS_PARAM_TOL of each array's largest (ROADMAP's f32 bound for
+# post-step parameters)
+DIGITS_PROB_TOL, DIGITS_PARAM_TOL = 1e-5, 1e-4
+DIGITS_EPOCHS, DIGITS_BATCH = 12, 64
+DIGITS_ACC = {"LeNet": 0.98, "SimpleCNN": 0.95}
 
 
 def log(msg=""):
@@ -1881,10 +1913,280 @@ def phase_bert_train(report, card, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the digits slice: LeNet and SimpleCNN through fit/evaluate (no TPU kernel)
+# ---------------------------------------------------------------------------
+
+def digits_test_nhwc():
+    """The held-out digits as SimpleCNN takes them: a NHWC DataSet of all
+    360 images (tests/test_pretrained_artifacts.py:48-51)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    x, y = DigitsDataSetIterator.fetch(train=False)
+    return DataSet(x.reshape(-1, 28, 28, 1), np.eye(10, dtype=np.float32)[y])
+
+
+def rel_param_err(a, b):
+    """The largest |a - b| of each parameter array over that array's
+    largest |b|, and the worst array's name."""
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    fa, fb = flatten_paths(a), flatten_paths(b)
+    if not fb:
+        return 0.0, "-"
+    errs = {k: ((fa[k].float().cpu() - fb[k].float().cpu()).abs().max()
+                / fb[k].float().abs().max().clamp(min=1e-30)).item()
+            for k in fb}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def phase_digits_eval(report, card):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import \
+        ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.zoo.models import LeNet, SimpleCNN
+
+    nhwc = digits_test_nhwc()
+    out = {}
+    for zoo in (LeNet(), SimpleCNN()):
+        name = type(zoo).__name__
+        model = zoo.init_pretrained(flavor="digits")        # cuda
+        ref = zoo.init_pretrained(flavor="digits", device="cpu")
+        if name == "LeNet":
+            x = nhwc.features.reshape(-1, 28 * 28)
+            make = lambda: DigitsDataSetIterator(DIGITS_BATCH, train=False,
+                                                 shuffle=False)
+        else:
+            x = nhwc.features
+            make = lambda: ArrayDataSetIterator(nhwc, DIGITS_BATCH)
+        ev = model.evaluate(make())
+        acc, n = ev.accuracy(), int(ev.confusion_matrix().sum())
+        ev_cpu = ref.evaluate(make())
+        p = model.output(x).cpu().numpy()
+        q = ref.output(x).numpy()
+        row_err = float((np.abs(p - q).max(1) / q.max(1)).max())
+        flips = int((p.argmax(1) != q.argmax(1)).sum())
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model.evaluate(make())
+            times.append(time.perf_counter() - t0)
+        ips = n / min(times)
+        log(f"  {name}: accuracy {acc:.4f} on {n} held-out images (CPU "
+            f"{ev_cpu.accuracy():.4f}); card vs CPU probabilities: worst "
+            f"row {row_err:.3g} of its largest, {flips} argmax "
+            f"differences; evaluate {1e3 * min(times):.2f} ms, "
+            f"{ips:.0f} images/s [{card}]")
+        if acc < DIGITS_ACC[name]:
+            raise AssertionError(f"{name}: held-out accuracy {acc} < "
+                                 f"{DIGITS_ACC[name]}")
+        if row_err > DIGITS_PROB_TOL or flips:
+            raise AssertionError(f"{name}: card probabilities disagree with "
+                                 "the CPU's")
+        out[name] = {"accuracy": acc, "images": n,
+                     "cpu_accuracy": ev_cpu.accuracy(),
+                     "prob_row_rel_err": row_err, "argmax_flips": flips,
+                     "evaluate_ms": [1e3 * t for t in times],
+                     "images_per_s": ips}
+    report["digits_eval"] = out
+
+
+def lenet_with(updater=None, grad_norm=None, device=None):
+    """LeNet (seed 123) under ``updater`` and a gradient normalization."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.updaters import \
+        GradientNormalizationConfig
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    conf = (LeNet() if updater is None else LeNet(updater=updater)).conf()
+    if grad_norm is not None:
+        conf.global_config = dataclasses.replace(
+            conf.global_config,
+            gradient_normalization=GradientNormalizationConfig(*grad_norm))
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def digits_updater_cases():
+    """(name, updater, gradient normalization) of the three-step check."""
+    from deeplearning4j_tpu_torch.optimize import updaters as U
+    from deeplearning4j_tpu_torch.optimize.schedules import StepSchedule
+    return [
+        ("Sgd", U.Sgd(0.05), None), ("Nesterovs", U.Nesterovs(0.01, 0.9), None),
+        ("Adam", U.Adam(1e-3), None), ("AdamW", U.AdamW(1e-3), None),
+        ("AdaMax", U.AdaMax(2e-3), None), ("Nadam", U.Nadam(1e-3), None),
+        ("AMSGrad", U.AMSGrad(1e-3), None), ("RmsProp", U.RmsProp(1e-3), None),
+        ("AdaGrad", U.AdaGrad(1e-2), None), ("AdaDelta", U.AdaDelta(), None),
+        ("Adam+clip_l2_global", U.Adam(1e-3), ("clip_l2_global", 1.0)),
+        ("Adam+clip_l2_per_layer", U.Adam(1e-3), ("clip_l2_per_layer", 0.5)),
+        ("Adam+renormalize_l2", U.Adam(1e-3), ("renormalize_l2", 1.0)),
+        ("Sgd(StepSchedule)", U.Sgd(StepSchedule(0.05, 0.5, 2)), None)]
+
+
+def phase_digits_train(report, card, profile=False):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+    from deeplearning4j_tpu_torch.zoo.models import LeNet, SimpleCNN
+
+    out = {}
+    # LeNet from scratch, 12 epochs through the feeder
+    model = LeNet().init()                              # cuda, f32, seed 123
+    train = DigitsDataSetIterator(DIGITS_BATCH, train=True)
+    n_train = sum(b.num_examples() for b in train)
+    train.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(train, epochs=DIGITS_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = model.iteration
+    stalls = model.last_feeder.pass_stall_ms
+    ev = model.evaluate(DigitsDataSetIterator(DIGITS_BATCH, train=False,
+                                              shuffle=False))
+    acc = ev.accuracy()
+    step_ms = 1e3 * wall / steps
+    log(f"  LeNet fit {DIGITS_EPOCHS} epochs x {steps // DIGITS_EPOCHS} "
+        f"steps at batch {DIGITS_BATCH}: {wall:.2f} s ({1e3 * wall / DIGITS_EPOCHS:.1f} ms an "
+        f"epoch, first epoch included), {step_ms:.3f} ms a step, "
+        f"{n_train * DIGITS_EPOCHS / wall:.0f} images/s, feeder stall "
+        f"{sum(stalls):.1f} ms in all (per epoch "
+        f"{' '.join(f'{v:.1f}' for v in stalls)}), peak memory "
+        f"{peak / 2**20:.1f} MiB [{card}]")
+    log(f"  held-out accuracy {acc:.4f}, last loss {model.score():.4f}")
+    if acc < DIGITS_ACC["LeNet"] or model.epoch_count != DIGITS_EPOCHS:
+        raise AssertionError(f"LeNet trained on the card: accuracy {acc} < "
+                             f"{DIGITS_ACC['LeNet']}")
+    out["lenet_fit"] = {
+        "epochs": DIGITS_EPOCHS, "steps": steps, "wall_s": wall,
+        "epoch_ms": 1e3 * wall / DIGITS_EPOCHS, "step_ms": step_ms,
+        "images_per_s": n_train * DIGITS_EPOCHS / wall,
+        "stall_ms_per_epoch": stalls, "peak_memory_bytes": peak,
+        "accuracy": acc}
+    if profile:
+        ep = DigitsDataSetIterator(DIGITS_BATCH, train=True)
+        out["lenet_fit_profile"] = profile_calls(
+            lambda: model.fit(ep, epochs=1), card,
+            f"LeNet fit epochs ({n_train // DIGITS_BATCH} steps)", n=2,
+            warmup=1)
+
+    # one epoch at k_steps=4 against k_steps=1 from one seeded init, with
+    # cuDNN's deterministic algorithms: its default backward algorithms
+    # differ from run to run in the last bits, and 22 Adam steps carry
+    # that to 1e-4 of a weight's largest whatever k is (1.45e-4 on an
+    # H100 in the first run of this check)
+    fitted = {}
+    torch.backends.cudnn.deterministic = True
+    for k in (1, 4):
+        m = LeNet().init()
+        t0 = time.perf_counter()
+        m.fit(DigitsDataSetIterator(DIGITS_BATCH, train=True), epochs=1,
+              k_steps=k)
+        torch.cuda.synchronize()
+        fitted[k] = (m, time.perf_counter() - t0)
+    torch.backends.cudnn.deterministic = False
+    err, worst = rel_param_err(fitted[4][0].params, fitted[1][0].params)
+    log(f"  one epoch k_steps=4 vs 1: worst parameter {err:.3g} of its "
+        f"largest ({worst}); epoch wall {1e3 * fitted[1][1]:.1f} ms (k=1), "
+        f"{1e3 * fitted[4][1]:.1f} ms (k=4)")
+    if err > DIGITS_PARAM_TOL or fitted[4][0].iteration != \
+            fitted[1][0].iteration:
+        raise AssertionError("k_steps=4 and k_steps=1 disagree")
+    out["k_steps"] = {"param_rel_err": err, "worst": worst,
+                      "epoch_ms": {str(k): 1e3 * v[1]
+                                   for k, v in fitted.items()}}
+
+    # three steps under every updater, normalization and a schedule. The
+    # gate holds the card's updater arithmetic to the CPU's: each step's
+    # gradients come from the card's step and go through the updater on
+    # the card and, copied, through the same updater on the CPU. Whole
+    # steps on each device are reported beside it: there the gradients
+    # differ too. cuDNN's convolution gives values of up to 2.4e-7 where
+    # the CPU's sum is exactly 0 (49 of the 50 such conv2 pre-activations
+    # of the first batch, 24 of them positive, measured on an H100), so
+    # ReLU opens there and the biases behind it move by 1-2% of their
+    # largest in three steps; with cuDNN off, Adam-family updates still
+    # turn f32 noise in near-zero gradients into steps of up to lr
+    # (1.2e-4 of the dense weight's largest)
+    batches = [b for _, b in zip(range(3), DigitsDataSetIterator(
+        DIGITS_BATCH, train=True, shuffle=False))]
+    rows = []
+    for name, upd, gn in digits_updater_cases():
+        row = {"case": name}
+        cuda_m, cpu_m = lenet_with(upd, gn), lenet_with(upd, gn, device="cpu")
+        for b in batches:
+            loss, new_ms, grads = solver.value_and_grad(
+                cuda_m._loss, cuda_m.train_state, *cuda_m._step_args(b),
+                cuda_m._generator)
+            with torch.no_grad():
+                for m, g in ((cuda_m, grads),
+                             (cpu_m, tree_map(lambda t: t.cpu(), grads))):
+                    u, m.opt_state = m._tx.update(g, m.opt_state, m.params)
+                    m.params = solver.apply_updates(m.params, u)
+            cuda_m.model_state = new_ms
+        row["param_rel_err"], row["worst"] = rel_param_err(cuda_m.params,
+                                                           cpu_m.params)
+        row["state_rel_err"], _ = rel_param_err(cuda_m.opt_state,
+                                                cpu_m.opt_state)
+        for key, cudnn in (("steps_cudnn_off", False), ("steps", True)):
+            torch.backends.cudnn.enabled = cudnn
+            a, c = lenet_with(upd, gn), lenet_with(upd, gn, device="cpu")
+            for b in batches:
+                a.fit(b)
+                c.fit(b)
+            torch.backends.cudnn.enabled = True
+            row[key] = rel_param_err(a.params, c.params)
+        rows.append(row)
+        log(f"  3 steps {name:<24} card updater vs CPU updater on the "
+            f"card's gradients: parameters {row['param_rel_err']:.3g}, "
+            f"state {row['state_rel_err']:.3g}; whole steps card vs CPU: "
+            f"{row['steps'][0]:.3g} ({row['steps'][1]}), cuDNN off "
+            f"{row['steps_cudnn_off'][0]:.3g} ({row['steps_cudnn_off'][1]})")
+    out["updaters"] = rows
+    if any(r["param_rel_err"] > DIGITS_PARAM_TOL
+           or r["state_rel_err"] > DIGITS_PARAM_TOL for r in rows):
+        raise AssertionError("an updater's steps on the card disagree with "
+                             "the CPU's")
+
+    # SimpleCNN (BN, dropout 0.5) on the NHWC digits, two epochs
+    x, y = DigitsDataSetIterator.fetch(train=True)
+    data = DataSet(x.reshape(-1, 28, 28, 1), np.eye(10, dtype=np.float32)[y])
+    scnn = SimpleCNN(height=28, width=28, channels=1).init()
+    before = scnn.score(data)
+    t0 = time.perf_counter()
+    scnn.fit(ArrayDataSetIterator(data, DIGITS_BATCH, shuffle=True,
+                                  seed=123), epochs=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = scnn.score(data)
+    log(f"  SimpleCNN 28x28x1 two epochs: training loss {before:.4f} -> "
+        f"{after:.4f}, {1e3 * wall / scnn.iteration:.3f} ms a step "
+        f"[{card}]")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError("SimpleCNN's training loss did not fall")
+    out["simplecnn_fit"] = {"loss_before": before, "loss_after": after,
+                            "steps": scnn.iteration,
+                            "step_ms": 1e3 * wall / scnn.iteration}
+    report["digits_train"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
-                    "lstm_serve,lstm_train,bert_serve,bert_train",
+                    "lstm_serve,lstm_train,bert_serve,bert_train,"
+                    "digits_eval,digits_train",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward and the train "
@@ -1982,6 +2284,16 @@ def main(argv=None) -> int:
             "steps per call")
         for name, n in phase_bert_train(report, card, args.profile).items():
             launches[name] += n
+    # the digits slice runs no kernel of SOURCES (plain torch convolutions)
+    if "digits_eval" in phases:
+        log("[digits_eval] pretrained LeNet and SimpleCNN on the held-out "
+            "UCI digits, card against CPU")
+        phase_digits_eval(report, card)
+    if "digits_train" in phases:
+        log(f"[digits_train] LeNet f32 Adam(1e-3) from scratch, "
+            f"fit(DigitsDataSetIterator({DIGITS_BATCH}), "
+            f"epochs={DIGITS_EPOCHS}); updaters; SimpleCNN two epochs")
+        phase_digits_train(report, card, args.profile)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -5,11 +5,12 @@ Analog of the reference's ``ComputationGraph``
 :1216) in the JAX package's form: parameters and layer state are plain
 dicts keyed ``params[layer][key]``, and the forward walks the
 configuration's topological order, calling each layer's ``apply``.
-Training is ``fit(DataSet)``: the loss of the walk in train mode (output
-layers' losses on their logits, plus L1/L2), ``torch.autograd`` for the
-gradients in place of backprop in reverse topological order, and the
-configured updater (optimize/solver.py). ``make_scan_train_step`` runs K
-steps in one call.
+A step is the loss of the walk in train mode (output layers' losses on
+their logits, plus L1/L2), ``torch.autograd`` for the gradients in place
+of backprop in reverse topological order, and the configured updater
+(optimize/solver.py); ``fit`` takes a DataSet, a MultiDataSet or an
+iterator (models/base.py), and ``make_scan_train_step`` runs K steps in
+one call.
 
 The model lives on one device, chosen at construction: ``cuda`` unless
 the caller passes ``device="cpu"`` (utils/device.py).
@@ -177,6 +178,22 @@ class ComputationGraph(BaseModel):
                 else (t(batch.features_mask),),
                 None if batch.labels_mask is None
                 else (t(batch.labels_mask),))
+
+    _multi_inputs = True
+
+    def _staged_step_args(self, features, labels, fmask, lmask):
+        """The feeder stages plain DataSets; this graph's step takes
+        input/output tuples."""
+        return ((features,), (labels,),
+                None if fmask is None else (fmask,),
+                None if lmask is None else (lmask,))
+
+    def _output_for_eval(self, batch):
+        if batch.features_mask is not None:
+            raise NotImplementedError(
+                "ComputationGraph.evaluate with a features mask is not "
+                "ported yet (output() takes no mask)")
+        return self.output(batch.features)
 
     def compute_loss(self, dataset):
         """The training loss (batch statistics, no update) on a batch."""

@@ -7,7 +7,8 @@ parameters and layer state are dicts keyed by layer name, the forward
 walks the layers in order (with the configuration's preprocessors and an
 (N, T) features mask for recurrent inputs), and the training loss is the
 output layer's loss plus L1/L2 in promote(f32, loss dtype), differentiated
-by ``torch.autograd``. ``fit(DataSet)`` is one step of standard BPTT;
+by ``torch.autograd``. ``fit`` (models/base.py) takes a DataSet (one
+step of standard BPTT) or an iterator (through the device feeder);
 ``_build_scan_train_step`` runs K steps in one call; truncated BPTT is not
 ported yet. ``rnn_time_step`` is the stateful streaming forward: the caller
 threads each LSTM's (h, c) carry.

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.dropout import Dropout
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.param_keys import is_weight_key
 from deeplearning4j_tpu_torch.ops.activations import Activation
@@ -52,6 +53,8 @@ class Layer:
     inherits from ``BaseLayer``)."""
 
     name: Optional[str] = None
+    # float drop-probability, or an nn.dropout.IDropout instance
+    # (Dropout/AlphaDropout/GaussianDropout/GaussianNoise)
     dropout: Any = 0.0            # applied to the layer INPUT during training
     l1: float = 0.0
     l2: float = 0.0
@@ -104,21 +107,19 @@ class Layer:
 
     def maybe_dropout(self, x: torch.Tensor,
                       ctx: LayerContext) -> torch.Tensor:
-        """Inverted input dropout in training (``dropout`` is the DROP
-        probability), drawn from ``ctx.generator``. The other dropout
-        kinds of the JAX package (nn/dropout.py) are not ported yet."""
-        if not ctx.train:
+        """Input dropout in training, drawn from ``ctx.generator``:
+        ``dropout`` is a float DROP probability (inverted dropout) or any
+        ``IDropout`` of nn/dropout.py. Without a generator (an eval-mode
+        loss, ``compute_loss``) the input passes unchanged, as the JAX
+        package's does without a key."""
+        if not ctx.train or ctx.generator is None:
             return x
-        if not isinstance(self.dropout, (int, float)):
-            raise NotImplementedError(
-                f"{type(self.dropout).__name__}: only float dropout is "
-                "ported")
-        if self.dropout <= 0.0:
-            return x
-        keep = 1.0 - float(self.dropout)
-        mask = torch.rand(x.shape, generator=ctx.generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+        if isinstance(self.dropout, (int, float)):
+            if self.dropout <= 0.0:
+                return x
+            return Dropout(float(self.dropout)).apply_dropout(
+                x, ctx.generator)
+        return self.dropout.apply_dropout(x, ctx.generator)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,16 +1,16 @@
-"""Dense, activation and embedding layers.
+"""Dense, activation, dropout and embedding layers.
 
-Analogs of the reference's ``DenseLayer``, ``ActivationLayer`` and
-``EmbeddingSequenceLayer`` (nn/conf/layers/), the three of the JAX
-package's ``nn/layers/feedforward.py`` that the ported models run (the
-ResNet50's output layer is a dense layer; the transformer stack starts
-with the embedding).
+Analogs of the reference's ``DenseLayer``, ``ActivationLayer``,
+``DropoutLayer`` and ``EmbeddingSequenceLayer`` (nn/conf/layers/), the
+four of the JAX package's ``nn/layers/feedforward.py`` that the ported
+models run (the ResNet50's output layer is a dense layer; the transformer
+stack starts with the embedding).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +75,25 @@ class ActivationLayer(Layer):
             if self.activation == Activation.ELU:
                 return F.elu(x, self.alpha), state
         return self.activation.apply(x), state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Standalone dropout layer (reference: nn/conf/layers/DropoutLayer).
+    The base config's ``dropout`` is the drop probability (or an
+    ``IDropout``); the identity outside training."""
+    dropout: Any = 0.5
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, input_type):
+        return input_type
+
+    def apply(self, params, state, x, ctx):
+        return self.maybe_dropout(x, ctx), state
 
 
 @register_serializable

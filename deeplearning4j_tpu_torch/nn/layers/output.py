@@ -4,8 +4,9 @@ Analogs of the reference's ``OutputLayer``, ``RnnOutputLayer`` and
 ``GlobalPoolingLayer``
 (nn/conf/layers/). An output layer is a dense projection plus a loss;
 models call ``compute_loss`` for training and ``apply`` for inference.
-(SOFTMAX, MCXENT/NLL) pairs take the loss on the logits
-(``stable_mcxent_from_logits``), as the JAX package does.
+(SOFTMAX, MCXENT/NLL) and (SIGMOID, XENT) pairs take the loss on the
+logits (``stable_mcxent_from_logits``, ``stable_xent_from_logits``), as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ def _fused_loss(activation, loss_fn, labels, logits, mask):
     if activation is Activation.SOFTMAX and loss_fn in (
             LossFunction.MCXENT, LossFunction.NEGATIVELOGLIKELIHOOD):
         return L.stable_mcxent_from_logits(labels, logits, mask)
+    if activation is Activation.SIGMOID and loss_fn is LossFunction.XENT:
+        return L.stable_xent_from_logits(labels, logits, mask)
     return None
 
 

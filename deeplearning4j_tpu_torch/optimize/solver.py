@@ -75,8 +75,7 @@ def build_optimizer(
     """The gradient transformation of a model: layers with
     ``updater=None`` use the global updater; frozen layers get NoOp
     (reference: FrozenLayer wraps the layer with a NoOp updater); a
-    gradient normalization is chained before it (``clip_value`` is
-    ported, other kinds raise ``NotImplementedError``)."""
+    gradient normalization (any kind) is chained before it."""
     clip = None if grad_norm is None else grad_norm.to_transform()
     groups = {"__global__": global_updater.to_transform()}
     labels: Dict[str, str] = {}

@@ -1,4 +1,4 @@
-"""Model zoo: ResNet50 and TextGenerationLSTM.
+"""Model zoo: LeNet, SimpleCNN, ResNet50 and TextGenerationLSTM.
 
 The JAX package's ``zoo/models.py`` entries (reference:
 deeplearning4j-zoo/.../model/) with the same fields and the same
@@ -10,7 +10,10 @@ and checkpoints carry across:
   ``FusedBottleneckBlock`` whose convs go through the conv kernels;
 - ``TextGenerationLSTM``, the char-level 2×LSTM(256) whose recurrences go
   through the fused LSTM kernels, with ``init_pretrained`` restoring the
-  committed self-trained weights.
+  committed self-trained weights;
+- ``LeNet`` and ``SimpleCNN``, whose convolutions are plain torch (the
+  JAX package leaves them to XLA), with ``init_pretrained(flavor=
+  "digits")`` restoring the committed digit models.
 
 The per-layer (unfused) ResNet50 and the other zoo models come with later
 slices.
@@ -38,7 +41,8 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
     SubsamplingLayer,
     ZeroPaddingLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.feedforward import ActivationLayer
+from deeplearning4j_tpu_torch.nn.layers.feedforward import (ActivationLayer,
+                                                            DenseLayer)
 from deeplearning4j_tpu_torch.nn.layers.fused import FusedBottleneckBlock
 from deeplearning4j_tpu_torch.nn.layers.normalization import \
     BatchNormalization
@@ -168,6 +172,123 @@ def adler32(path) -> int:
     return v
 
 
+def pretrained_path(resource: str, checksum: int) -> Path:
+    """The committed artifact ``resource`` under ``WEIGHTS_DIR`` after
+    checking its Adler32 checksum (reference: ZooModel.initPretrained:51;
+    the JAX package's resource path). Nothing is downloaded."""
+    path = WEIGHTS_DIR / resource
+    if not path.exists():
+        raise FileNotFoundError(f"pretrained resource missing: {path}")
+    v = adler32(path)
+    if v != checksum:
+        raise IOError(f"pretrained resource {resource}: Adler32 {v} != "
+                      f"expected {checksum}")
+    return path
+
+
+class _DigitsZoo:
+    """``init`` and ``init_pretrained`` of the zoo's digit models."""
+    PRETRAINED: dict = {}
+
+    def init(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        return MultiLayerNetwork(self.conf(), device=device).init()
+
+    def init_pretrained(self, path: Optional[str] = None,
+                        flavor: str = "digits",
+                        device: DeviceLike = None) -> MultiLayerNetwork:
+        """Restore the committed ``flavor`` checkpoint (Adler32-checked),
+        or the zip at ``path``; the checkpoint's configuration defines
+        the restored network."""
+        from deeplearning4j_tpu_torch.models.serialization import \
+            restore_multi_layer_network
+        if path is None:
+            if flavor not in self.PRETRAINED:
+                raise FileNotFoundError(
+                    f"{type(self).__name__}: no pretrained flavor "
+                    f"{flavor!r}; pass path= to a local checkpoint zip")
+            spec = self.PRETRAINED[flavor]
+            path = pretrained_path(spec["resource"], spec["checksum"])
+        return restore_multi_layer_network(str(path), device=device)
+
+
+@dataclasses.dataclass
+class LeNet(_DigitsZoo):
+    """reference: deeplearning4j-zoo/.../model/LeNet.java — conv 20 and
+    50 of 5×5 with 2×2 max pools, dense 500, softmax; 431,080 parameters
+    at 28×28×1 and 10 classes. ``PRETRAINED["digits"]`` is the committed
+    self-trained checkpoint (≥98% on the held-out UCI digits)."""
+    PRETRAINED = {"digits": {"resource": "lenet_digits.zip",
+                             "checksum": 2574425481}}
+    num_classes: int = 10
+    height: int = 28
+    width: int = 28
+    channels: int = 1
+    updater: Updater = dataclasses.field(default_factory=lambda: Adam(1e-3))
+    seed: int = 123
+    compute_dtype: str = "float32"
+
+    def conf(self):
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater)
+                .compute_dtype(self.compute_dtype)
+                .list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                        activation=Activation.RELU,
+                                        weight_init=WeightInit.HE_NORMAL))
+                .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                        activation=Activation.RELU,
+                                        weight_init=WeightInit.HE_NORMAL))
+                .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation=Activation.RELU))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   loss=LossFunction.MCXENT,
+                                   activation=Activation.SOFTMAX))
+                .set_input_type(InputType.convolutional_flat(
+                    self.height, self.width, self.channels))
+                .build())
+
+
+@dataclasses.dataclass
+class SimpleCNN(_DigitsZoo):
+    """reference: model/SimpleCNN.java — 4 blocks of (3×3 conv, BN, 3×3
+    conv + ReLU, 2×2 max pool) of 16/32/64/128 channels, dense 256 with
+    dropout 0.5, softmax. ``PRETRAINED["digits"]`` is the committed
+    self-trained checkpoint (≥95% on the held-out UCI digits, NHWC
+    28×28×1)."""
+    PRETRAINED = {"digits": {"resource": "simplecnn_digits.zip",
+                             "checksum": 4047027733}}
+    num_classes: int = 10
+    height: int = 48
+    width: int = 48
+    channels: int = 3
+    seed: int = 123
+
+    def conf(self):
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed)
+             .updater(Adam(1e-3))
+             .list())
+        for n_out in (16, 32, 64, 128):
+            b = (b.layer(ConvolutionLayer(
+                    n_out=n_out, kernel_size=(3, 3),
+                    convolution_mode=ConvolutionMode.SAME,
+                    activation=Activation.IDENTITY))
+                 .layer(BatchNormalization())
+                 .layer(ConvolutionLayer(
+                     n_out=n_out, kernel_size=(3, 3),
+                     convolution_mode=ConvolutionMode.SAME,
+                     activation=Activation.RELU))
+                 .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2))))
+        return (b.layer(DenseLayer(n_out=256, activation=Activation.RELU,
+                                   dropout=0.5))
+                .layer(OutputLayer(n_out=self.num_classes))
+                .set_input_type(InputType.convolutional(
+                    self.height, self.width, self.channels))
+                .build())
+
+
 @dataclasses.dataclass
 class TextGenerationLSTM:
     """reference: model/TextGenerationLSTM.java — char-level 2×LSTM(256)
@@ -209,12 +330,6 @@ class TextGenerationLSTM:
         from deeplearning4j_tpu_torch.models.serialization import \
             restore_multi_layer_network
         if path is None:
-            spec = self.PRETRAINED
-            path = WEIGHTS_DIR / spec["resource"]
-            if not path.exists():
-                raise FileNotFoundError(f"pretrained resource missing: {path}")
-            v = adler32(path)
-            if v != spec["checksum"]:
-                raise IOError(f"pretrained resource {spec['resource']}: "
-                              f"Adler32 {v} != expected {spec['checksum']}")
+            path = pretrained_path(self.PRETRAINED["resource"],
+                                   self.PRETRAINED["checksum"])
         return restore_multi_layer_network(str(path), device=device)

@@ -903,3 +903,58 @@ def test_transformer_stack_on_the_card_trains_through_the_kernels(card):
     assert fa.LAUNCHES == {"flash_fwd": 4, "flash_bwd_dkv": 2,
                            "flash_bwd_dq": 2}
     assert np.isfinite(m.score())
+
+
+def _staged_batches(feeder):
+    """The feeder's items as host arrays, after each hand-off."""
+    out = []
+    for item in feeder:
+        item = feeder.hand_off(item)
+        out.append(tuple(None if t is None else t.cpu().numpy()
+                         for t in item[:4]) + (item.k,))
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_feeder_stages_to_the_card_what_the_cpu_path_yields(card, k):
+    """Pinned slots, the side stream and the hand-off: every staged
+    batch on the card equals the CPU path's (ragged tail padded when
+    k > 1), over two passes of one feeder (its slot ring wraps)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.datasets.feeder import DeviceFeeder
+    rng = np.random.default_rng(0)
+    data = DataSet(rng.normal(size=(250, 7)).astype(np.float32),
+                   np.eye(3, dtype=np.float32)[rng.integers(0, 3, 250)])
+    it = lambda: ArrayDataSetIterator(data, 32, shuffle=True, seed=5)
+    on_card = DeviceFeeder(it(), device=card, k_steps=k)
+    on_cpu = DeviceFeeder(it(), device="cpu", k_steps=k)
+    for _ in range(2):
+        got, want = _staged_batches(on_card), _staged_batches(on_cpu)
+        assert on_card.transport is not None and on_cpu.transport is None
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g[4] == w[4]
+            for a, b in zip(g[:4], w[:4]):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    np.testing.assert_array_equal(a, b)
+
+
+def test_evaluate_on_the_card_matches_the_cpu(card):
+    """The pretrained LeNet evaluated on the card and on the CPU: the
+    same confusion matrix, probabilities within 1e-5 of each row's
+    largest."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    gpu = LeNet().init_pretrained(flavor="digits", device=card)
+    cpu = LeNet().init_pretrained(flavor="digits", device="cpu")
+    it = lambda: DigitsDataSetIterator(64, train=False, shuffle=False)
+    eg, ec = gpu.evaluate(it()), cpu.evaluate(it())
+    np.testing.assert_array_equal(eg.confusion_matrix(),
+                                  ec.confusion_matrix())
+    assert eg.accuracy() >= 0.98
+    x, _ = DigitsDataSetIterator.fetch(train=False)
+    p, q = gpu.output(x).cpu().numpy(), cpu.output(x).numpy()
+    assert (np.abs(p - q).max(1) / q.max(1)).max() <= 1e-5

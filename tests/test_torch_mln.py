@@ -5,7 +5,8 @@ weights — output, loss, gradients, and parameters plus Adam state after 3
 ``fit`` steps with value clipping at 5; the ``lstm_v1`` regression
 fixture; the committed ``textgen_lstm.zip`` at full width (scoring,
 cross-entropy, greedy decoding); and checkpoints with updater state in
-both directions.
+both directions (clip+Adam on the LSTM stack; every newly ported updater,
+and a schedule's count, on a small dense stack).
 
 The JAX model runs its default ``lax.scan`` recurrence, the port the
 plain versions of its fused kernels (the CPU path of the wrappers).
@@ -224,6 +225,73 @@ def test_updater_checkpoints_carry_across_both_ways(tmp_path):
     tm.fit(tds)
     _close_tree(tm.params, _np_tree(back.train_state.params), TREE_REL,
                 "params")
+
+
+def _dense_jax_model(updater):
+    from deeplearning4j_tpu.models.multi_layer_network import \
+        MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.inputs import InputType
+    from deeplearning4j_tpu.nn.layers.feedforward import DenseLayer
+    from deeplearning4j_tpu.nn.layers.output import OutputLayer
+    from deeplearning4j_tpu.ops.activations import Activation
+    conf = (NeuralNetConfiguration.Builder().seed(11).updater(updater)
+            .list()
+            .layer(DenseLayer(n_out=6, activation=Activation.TANH))
+            .layer(OutputLayer(n_out=3))
+            .set_input_type(InputType.feed_forward(4)).build())
+    return JMLN(conf).init()
+
+
+@pytest.mark.parametrize("name", ["AdamW", "RmsProp", "AdaGrad", "Nadam",
+                                  "AMSGrad", "AdaMax", "AdaDelta",
+                                  "Sgd-schedule"])
+def test_new_updater_checkpoints_carry_across_both_ways(tmp_path, name):
+    """JAX → port → JAX with each newly ported updater's state (and a
+    schedule's count): after each restore, one more step gives the same
+    params as the other package's model continuing."""
+    from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
+    from deeplearning4j_tpu.models.serialization import \
+        restore_multi_layer_network as jax_restore
+    from deeplearning4j_tpu.models.serialization import save_model as jax_save
+    from deeplearning4j_tpu.optimize import updaters as jup
+    from deeplearning4j_tpu.optimize.schedules import ExponentialSchedule
+    upd = (jup.Sgd(ExponentialSchedule(0.1, 0.5)) if name == "Sgd-schedule"
+           else getattr(jup, name)(learning_rate=1e-2)
+           if name != "AdaDelta" else jup.AdaDelta())
+    jm = _dense_jax_model(upd)
+    rng = np.random.default_rng(12)
+    x = rng.normal(0, 1, (10, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 10)]
+    jds, tds = JDataSet(x, y), DataSet(x, y)
+    jm.fit(jds)
+    a = str(tmp_path / "jax.zip")
+    jax_save(jm, a, save_updater=True)
+    tm = restore_multi_layer_network(a, device="cpu", load_updater=True)
+    assert type(tm.conf.global_config.updater).__name__ == upd.__class__.\
+        __name__
+    want = _flat_jax(jax.device_get(jm.train_state.opt_state))
+    got = flatten_paths(tm.opt_state)
+    assert set(got) == set(want) and want
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    jm.fit(jds)
+    tm.fit(tds)
+    _close_tree(tm.params, _np_tree(jm.train_state.params), TREE_REL, "p")
+    b = str(tmp_path / "port.zip")
+    save_model(tm, b, save_updater=True)
+    back = jax_restore(b, load_updater=True)
+    assert int(back.train_state.iteration) == 2
+    back.fit(jds)
+    tm.fit(tds)
+    _close_tree(tm.params, _np_tree(back.train_state.params), TREE_REL,
+                "params")
+    want = _flat_jax(jax.device_get(back.train_state.opt_state))
+    got = flatten_paths(tm.opt_state)
+    for k, v in want.items():
+        g = got[k].float().numpy()
+        assert np.abs(g - v).max() <= TREE_REL * max(np.abs(v).max(),
+                                                     1e-12), k
 
 
 def test_opt_state_from_jax_rejects_name_mismatches():

@@ -24,16 +24,18 @@ def test_port_and_chip_smoke_import_no_jax():
             "import deeplearning4j_tpu_torch as p, chip_smoke\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "'jax.') or m == 'deeplearning4j_tpu' or m.startswith("
-            "'deeplearning4j_tpu.')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ("
+            "'jax', 'optax', 'sklearn', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"
             "need = {'deeplearning4j_tpu_torch.' + m for m in ("
             "'optimize.solver', 'datasets.dataset', 'models.base', "
             "'ops.losses', 'ops.fused_conv', 'ops.fused_lstm', "
             "'nn.layers.recurrent', 'models.multi_layer_network', "
             "'generation.decode', 'ops.flash_attention', "
-            "'nn.layers.attention')}\n"
+            "'nn.layers.attention', 'datasets.feeder', "
+            "'datasets.fetchers', 'datasets.iterators', "
+            "'evaluation.evaluation', 'evaluation.curves', "
+            "'evaluation.results', 'nn.dropout', 'optimize.schedules')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -111,6 +113,29 @@ def test_lstm_entry_points_default_to_cuda_and_raise_without_it(
         "cpu"
     assert TextGenerationLSTM().init_pretrained(device="cpu").device.type \
         == "cpu"
+
+
+def test_digit_models_and_the_feeder_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """LeNet and SimpleCNN, built or restored, raise without a card unless
+    the CPU is asked for; the feeder's card transport needs a card too
+    (no unstaged fallback)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.datasets.feeder import DeviceFeeder
+    from deeplearning4j_tpu_torch.zoo.models import LeNet, SimpleCNN
+    _no_cuda(monkeypatch)
+    for make in (LeNet().init, SimpleCNN().init,
+                 lambda: LeNet().init_pretrained(flavor="digits"),
+                 lambda: SimpleCNN().init_pretrained(flavor="digits")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert LeNet().init(device="cpu").device.type == "cpu"
+    data = DataSet(np.zeros((4, 2), np.float32), np.zeros((4, 2),
+                                                          np.float32))
+    assert DeviceFeeder(ArrayDataSetIterator(data, 2)).transport is None
+    with pytest.raises((RuntimeError, AssertionError)):
+        DeviceFeeder(ArrayDataSetIterator(data, 2), device="cuda")
 
 
 def test_attention_entry_points_default_to_cuda_and_raise_without_it(
