@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DEFAULT_DEPTH = 2
 
@@ -221,8 +222,9 @@ class DeviceFeeder:
     Parameters
     ----------
     source : iterable of DataSet (foreign objects pass through unstaged)
-    device : the model's device; ``cuda`` stages through pinned slots and
-        a side stream, ``cpu`` stages nothing
+    device : the model's device, resolved as every entry point resolves
+        it (``None`` means ``cuda``, which needs a card); ``cuda`` stages
+        through pinned slots and a side stream, ``cpu`` stages nothing
     depth : staged batches held ahead of the consumer (default 2)
     byte_budget : optional soft cap on staged bytes; refill stops above
         it (at least one item is always staged)
@@ -236,7 +238,7 @@ class DeviceFeeder:
         on a CUDA device; tests pass a stand-in)
     """
 
-    def __init__(self, source: Iterable, *, device="cpu",
+    def __init__(self, source: Iterable, *, device: DeviceLike = None,
                  depth: Optional[int] = None,
                  byte_budget: Optional[int] = None, k_steps: int = 1,
                  group_remainder: str = "split", transport=None):
@@ -248,7 +250,7 @@ class DeviceFeeder:
         if group_remainder not in ("split", "pad"):
             raise ValueError("group_remainder must be 'split' or 'pad'")
         self.source = source
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.depth = depth
         self.byte_budget = byte_budget
         self.k_steps = int(k_steps)

@@ -241,10 +241,11 @@ def test_slot_ring_never_rewrites_a_slot_whose_copy_is_pending(k):
     rng = np.random.default_rng(10)
     data = DataSet(rng.normal(size=(150, 6)).astype(np.float32),
                    np.eye(4, dtype=np.float32)[rng.integers(0, 4, 150)])
-    want = _staged(DeviceFeeder(ArrayDataSetIterator(data, 16), k_steps=k),
+    want = _staged(DeviceFeeder(ArrayDataSetIterator(data, 16), k_steps=k,
+                                device="cpu"),
                    0)
     feeder = DeviceFeeder(ArrayDataSetIterator(data, 16), k_steps=k,
-                          depth=2, transport=_FakeTransport())
+                          device="cpu", depth=2, transport=_FakeTransport())
     got = _staged(feeder, lag=6)
     assert feeder.ring.waits > 0          # the ring did have to wait
     assert len(got) == len(want) == (10 if k == 1 else 5)
@@ -255,8 +256,8 @@ def test_slot_ring_never_rewrites_a_slot_whose_copy_is_pending(k):
                 np.testing.assert_array_equal(a, b)
     # the same run with a ring that forgets pending copies corrupts
     # batches: the check can fail
-    bad = DeviceFeeder(ArrayDataSetIterator(data, 16), k_steps=k, depth=2,
-                       transport=_FakeTransport())
+    bad = DeviceFeeder(ArrayDataSetIterator(data, 16), k_steps=k,
+                       device="cpu", depth=2, transport=_FakeTransport())
     bad.ring = _NoWaitRing(bad.ring.slots, bad.ring.alloc)
     got = _staged(bad, lag=6)
     assert bad.ring.waits == 0
@@ -275,7 +276,8 @@ def test_feeder_pads_the_ragged_tail_and_splits_the_remainder():
     rng = np.random.default_rng(11)
     data = DataSet(rng.normal(size=(100, 3)).astype(np.float32),
                    np.eye(2, dtype=np.float32)[rng.integers(0, 2, 100)])
-    items = list(DeviceFeeder(ArrayDataSetIterator(data, 32), k_steps=3))
+    items = list(DeviceFeeder(ArrayDataSetIterator(data, 32), k_steps=3,
+                              device="cpu"))
     # 4 batches (32, 32, 32, 4): one group of 3, then the tail split off
     assert [i.k for i in items] == [3, 1]
     assert items[0].features.shape == (3, 32, 3)
@@ -292,7 +294,7 @@ def test_feeder_pads_the_ragged_tail_and_splits_the_remainder():
     data5 = DataSet(np.concatenate([data.features] * 2)[:160],
                     np.concatenate([data.labels] * 2)[:160])
     items = list(DeviceFeeder(ArrayDataSetIterator(data5, 32), k_steps=3,
-                              group_remainder="pad"))
+                              device="cpu", group_remainder="pad"))
     assert [i.k for i in items] == [3, 3] and items[1].n_examples == 96
     np.testing.assert_array_equal(items[1].features[1].numpy(),
                                   items[1].features[2].numpy())
