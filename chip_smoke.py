@@ -113,6 +113,22 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    0.5) fitted two epochs on the NHWC digits lowers its training loss;
    step ms, images/s, epoch wall, the feeder's stall ms, peak memory and,
    with ``--profile``, the card's busy share over one epoch.
+12. generate — ``GenerationEngine`` over the committed TextGenerationLSTM
+   (f32, 8 slots, TF32 off; its tick is plain torch and launches none of
+   the eleven kernels). 16 corpus prompts of 20 chars, submitted
+   staggered, 128 new tokens each: every greedy stream equals
+   ``reference_decode`` on the card (the ``lstm_fwd`` path) up to the
+   oracle's first near tie (top-2 probability gap < LSTM_PROB_TOL). One
+   seeded sampled request alone at bucket 1 equals itself among 7
+   co-residents at bucket 8. Chunked prefill (64) against tick prefill,
+   speculative decode (k 3) against plain counter-mode decode, greedy
+   and seeded, and two-turn sessions against one run, all bitwise. The
+   int8 head passes its gate (top-1 budget 0.03) and decodes; the bf16
+   head decodes; both report their agreement with the f32 streams.
+   ``assert_warm()`` on every engine. Tokens/s at 8 slots, per-token
+   p50/p99, TTFT with tick and chunked prefill, speculative acceptance,
+   warmup seconds, the oracle's ``lstm_fwd`` launches and, with
+   ``--profile``, the card's busy share of a full-slot run.
 
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
@@ -217,6 +233,14 @@ LSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # a differing argmax is allowed only where the plain top-2 gap is below it
 LSTM_PROB_TOL = 1e-4
 LSTM_SERVE_WINDOWS, GEN_PROMPT, GEN_CHARS = 128, 20, 200
+# the generation engine (generate): the committed model, f32, 8 slots;
+# 16 corpus prompts of 20 chars, 128 new tokens each, staggered; greedy
+# streams must equal reference_decode's up to the oracle's first near tie
+# (top-2 probability gap < LSTM_PROB_TOL); every mode against plain
+# decode bitwise; the int8 head's gate at a top-1 budget of 0.03
+GEN_SLOTS, GEN_STREAMS, GEN_PROMPT_CHARS, GEN_NEW = 8, 16, 20, 128
+GEN_CHUNK, GEN_SPEC_K, GEN_LONG_PROMPT, GEN_SEED = 64, 3, 150, 11
+GEN_INT8_BUDGET = 0.03
 # training: seed 123, batch 128 x 60, Adam(2e-3) + clip 5, K = 4 steps per
 # call, 24 steps; one f32 step's gradients through the kernels vs the plain
 # versions within relative L2 1e-3 per parameter (the same f32 products
@@ -1384,6 +1408,289 @@ def phase_lstm_serve(report, card, profile=False):
     return launches
 
 
+def _gen_prompts(n, chars, seed):
+    """``n`` prompts of ``chars`` ids from random committed-corpus
+    windows."""
+    import numpy as np
+    x, _, _ = corpus_windows(n, chars, np.random.default_rng(seed))
+    return [row.tolist() for row in x.argmax(-1)]
+
+
+def _gen_streams(eng, prompts, stagger_s=0.0, burst=None, **kw):
+    """Submit every prompt (after the first ``burst``, ``stagger_s``
+    apart) and return each stream's result."""
+    streams = []
+    for i, p in enumerate(prompts):
+        if burst is not None and i >= burst:
+            time.sleep(stagger_s)
+        streams.append(eng.submit(p, **kw))
+    return [s.result(timeout=600) for s in streams]
+
+
+def _seeded(i):
+    return dict(greedy=False, temperature=0.8, top_k=10, seed=GEN_SEED + i)
+
+
+def _common_prefix(a, b):
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+class _BucketWatch:
+    """Samples an engine's slot bucket (its ``dl4j_gen_slot_bucket``
+    gauge) every millisecond in a thread."""
+
+    def __init__(self, eng):
+        self.seen, self._stop = [], threading.Event()
+        self._gauge = eng.registry.get_metric("dl4j_gen_slot_bucket")
+        self._session = eng.session_id
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            b = int(self._gauge.get(session=self._session))
+            if not self.seen or self.seen[-1] != b:
+                self.seen.append(b)
+            time.sleep(1e-3)
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=10)
+        return self.seen
+
+
+def phase_generate(report, card, profile=False):
+    """The generation engine over the committed TextGenerationLSTM on the
+    card (module docstring, phase 12). Runs none of the eleven kernels:
+    its ``lstm_fwd`` launches come from the oracle and the int8 probe."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.generation import (
+        GenerationEngine, SessionStore, Vocab, extract_decode_spec,
+        reference_decode)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+
+    model = TextGenerationLSTM().init_pretrained()      # cuda, f32
+    spec = extract_decode_spec(model)
+    vocab = Vocab.load()
+    eye = torch.eye(spec.vocab_size, device="cuda")
+    prompts = _gen_prompts(GEN_STREAMS, GEN_PROMPT_CHARS, GEN_SEED)
+    out = {"card": card, "slots": GEN_SLOTS, "streams": GEN_STREAMS,
+           "prompt_chars": GEN_PROMPT_CHARS, "new_tokens": GEN_NEW}
+    engines = []
+
+    def engine(name, **kw):
+        eng = GenerationEngine(model, max_slots=GEN_SLOTS,
+                               registry=MetricsRegistry(),
+                               session_id=f"gen-{name}", **kw)
+        engines.append(eng)
+        return eng
+
+    fl.reset_launch_counts()
+    # 1. greedy streams, staggered, against the oracle
+    f32 = engine("f32")
+    watch = _BucketWatch(f32)
+    got = _gen_streams(f32, prompts, stagger_s=0.05, burst=GEN_SLOTS,
+                       max_new_tokens=GEN_NEW)
+    buckets = watch.stop()
+    full, parts = 0, []
+    for i, (p, g) in enumerate(zip(prompts, got)):
+        ref = reference_decode(model, p, GEN_NEW, stop_id=f32.stop_id)
+        probs, _ = model.rnn_time_step(eye[p + ref[:-1]][None])
+        top2 = probs[0, len(p) - 1:].topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        ties = np.nonzero(gaps < LSTM_PROB_TOL)[0]
+        tie = int(ties[0]) if len(ties) else len(ref)
+        agree = _common_prefix(g["ids"], ref)
+        if g["ids"] == ref:
+            full += 1
+        else:
+            parts.append({"stream": i, "agree": agree, "near_tie": tie})
+            if agree < tie:
+                raise AssertionError(
+                    f"stream {i} parts from reference_decode at {agree}, "
+                    f"before the oracle's first near tie at {tie}")
+    st = f32.stats()
+    log(f"  {full} of {GEN_STREAMS} greedy streams equal reference_decode "
+        f"in full; the others part at near ties: {parts}; reasons "
+        f"{sorted(set(g['reason'] for g in got))}, lengths "
+        f"{[g['n'] for g in got]}; buckets seen {buckets}, max active "
+        f"{st['slots']['max_active']}")
+    if st["slots"]["max_active"] != GEN_SLOTS:
+        raise AssertionError("the staggered traffic never filled the slots")
+    out["greedy"] = {"full": full, "parted": parts, "buckets": buckets,
+                     "lengths": [g["n"] for g in got],
+                     "sample": vocab.decode(got[0]["ids"])}
+
+    # 2. bucket invariance: one seeded sampled request alone, then among
+    # seven co-residents. First, logged: would cuBLAS's own products at
+    # the tick's shapes give a row other bits at another row count (the
+    # reason the tick multiplies 8 rows a call)?
+    gen = torch.Generator(device="cuda").manual_seed(GEN_SEED)
+    x = torch.randn((GEN_SLOTS, spec.hidden_sizes[-1]), generator=gen,
+                    device="cuda")
+    lib = {}
+    for name, w in (("Wh", model.params[spec.lstm_names[-1]]["Wh"]),
+                    ("head", model.params[spec.head_name]["W"])):
+        whole = x @ w
+        lib[name] = [s for s in (1, 2, 4)
+                     if not torch.equal(x[:s] @ w, whole[:s])]
+    log(f"  torch.matmul at (S, {x.shape[1]}) @ Wh and @ the head: row "
+        f"counts whose rows differ from the same rows at S {GEN_SLOTS}: "
+        f"{lib}")
+    out["library_rows_differ"] = lib
+    inv = engine("invariance", stop_text=None)
+    kw = dict(_seeded(0), max_new_tokens=GEN_NEW)
+    watch = _BucketWatch(inv)
+    alone = inv.submit(prompts[0], **kw).result(timeout=600)
+    alone_buckets = watch.stop()
+    watch = _BucketWatch(inv)
+    crowd = [inv.submit(p, **_seeded(j + 1), max_new_tokens=GEN_NEW + 32)
+             for j, p in enumerate(prompts[1:GEN_SLOTS])]
+    mine = inv.submit(prompts[0], **kw).result(timeout=600)
+    for s in crowd:
+        s.result(timeout=600)
+    crowd_buckets = watch.stop()
+    log(f"  sampled stream alone (buckets {alone_buckets}) vs among "
+        f"{GEN_SLOTS - 1} co-residents (buckets {crowd_buckets}): equal "
+        f"{alone['ids'] == mine['ids']}, "
+        f"{_common_prefix(alone['ids'], mine['ids'])} of {alone['n']} tokens")
+    if alone_buckets != [1] or GEN_SLOTS not in crowd_buckets:
+        raise AssertionError("the invariance runs did not sit at buckets 1 "
+                             f"and {GEN_SLOTS}")
+    if alone["ids"] != mine["ids"]:
+        raise AssertionError("a sampled stream depends on its bucket")
+    out["bucket_invariance"] = {"tokens": alone["n"], "equal": True}
+
+    # 3. the other modes against plain decode, bitwise
+    longs = _gen_prompts(2, GEN_LONG_PROMPT, GEN_SEED + 1)
+    mode_prompts = prompts[:GEN_SLOTS] + longs
+    plain = engine("plain", stop_text=None)
+    chunked = engine("chunked", stop_text=None, prefill_chunk=GEN_CHUNK)
+    counter = engine("counter", stop_text=None, sampling="counter")
+    specd = engine("speculative", stop_text=None, speculative=GEN_SPEC_K)
+
+    def both(eng):
+        greedy = _gen_streams(eng, mode_prompts, max_new_tokens=GEN_NEW)
+        seeded = []
+        for i, p in enumerate(mode_prompts):
+            seeded.append(eng.submit(p, **_seeded(i), max_new_tokens=GEN_NEW))
+        return [g["ids"] for g in greedy] + [
+            s.result(timeout=600)["ids"] for s in seeded]
+
+    checks = {}
+    for name, a, b in (("chunked vs tick prefill", chunked, plain),
+                       ("speculative vs counter", specd, counter)):
+        xa, xb = both(a), both(b)
+        same = sum(u == v for u, v in zip(xa, xb))
+        log(f"  {name}: {same} of {len(xa)} streams (greedy and seeded, "
+            f"{len(longs)} prompts of {GEN_LONG_PROMPT} chars) equal")
+        checks[name] = same
+        if same != len(xa):
+            raise AssertionError(f"{name}: streams differ")
+    store = SessionStore(spec, registry=MetricsRegistry(),
+                         session_id="gen-session")
+    sess = engine("session", stop_text=None, session_store=store)
+    half = GEN_NEW // 2
+    turns = {}
+    for turn in (0, 1):
+        streams = []
+        for i, p in enumerate(prompts[:4]):
+            for mode, skw in (("greedy", {}), ("seeded", _seeded(i))):
+                streams.append(((i, mode), sess.submit(
+                    p if turn == 0 else [], session=f"s{i}-{mode}",
+                    max_new_tokens=half, **skw)))
+        for key, s in streams:
+            turns.setdefault(key, []).extend(s.result(timeout=600)["ids"])
+    same = 0
+    for (i, mode), ids in turns.items():
+        skw = _seeded(i) if mode == "seeded" else {}
+        one = plain.submit(prompts[i], max_new_tokens=GEN_NEW,
+                           **skw).result(timeout=600)["ids"]
+        same += one == ids
+    log(f"  two-turn sessions vs one run: {same} of {len(turns)} equal; "
+        f"store {store.stats()['hits']}")
+    checks["sessions vs one run"] = same
+    if same != len(turns):
+        raise AssertionError("a resumed session differs from one run")
+    out["modes"] = checks
+
+    # 4. precision arms on the greedy streams
+    f32_ids = [g["ids"] for g in got]
+    arms = {}
+    for arm in ("int8", "bf16"):
+        eng = engine(arm, precision=arm, int8_budget=GEN_INT8_BUDGET)
+        ids = [g["ids"] for g in _gen_streams(eng, prompts,
+                                              max_new_tokens=GEN_NEW)]
+        pos = sum(min(len(a), len(b)) for a, b in zip(ids, f32_ids))
+        agree = sum(sum(x == y for x, y in zip(a, b))
+                    for a, b in zip(ids, f32_ids))
+        arms[arm] = {
+            "gate_agreement": (eng.gate_result.top1_agreement
+                               if eng.gate_result else None),
+            "token_agreement": agree / pos,
+            "streams_equal": sum(a == b for a, b in zip(ids, f32_ids)),
+            "first_divergence": [_common_prefix(a, b)
+                                 for a, b in zip(ids, f32_ids)]}
+        log(f"  {arm} head: {arms[arm]}")
+    out["precision"] = arms
+    oracle_launches = dict(fl.LAUNCHES)
+
+    # 5. numbers: a full-slot throughput run, then every engine warm
+    fl.reset_launch_counts()
+    thr = engine("throughput", stop_text=None)
+    thr.generate(prompts[0], max_new_tokens=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = _gen_streams(thr, prompts[:GEN_SLOTS], max_new_tokens=GEN_NEW)
+    wall = time.perf_counter() - t0
+    if fl.LAUNCHES["lstm_fwd"] or fl.LAUNCHES["lstm_bwd"]:
+        raise AssertionError("the engine's tick launched an LSTM kernel")
+    tokens = sum(r["n"] for r in res)
+    lat = thr.stats()["latency_ms"]["token"]
+    if profile:
+        out["profile"] = profile_calls(
+            lambda: _gen_streams(thr, prompts[:GEN_SLOTS],
+                                 max_new_tokens=GEN_NEW), card,
+            f"runs of {GEN_SLOTS} x {GEN_NEW} tokens through the engine",
+            n=1, warmup=0)
+    # TTFT of one request alone in its engine, median over the prompts
+    ttft = {}
+    for mode, eng in (("tick", plain), ("chunked", chunked)):
+        for kind, ps in (("short", prompts[:GEN_SLOTS]), ("long", longs)):
+            ttft[f"{mode}_{kind}"] = float(np.median([
+                eng.submit(p, max_new_tokens=1).result(timeout=600)[
+                    "ttft_ms"] for p in ps]))
+    acc = specd.stats()["speculative"]
+    for eng in engines:
+        eng.assert_warm()
+    out.update({
+        "tokens_per_s": tokens / wall, "throughput_tokens": tokens,
+        "throughput_wall_s": wall, "token_ms": lat, "ttft_ms": ttft,
+        "speculative": acc, "oracle_lstm_fwd_launches": oracle_launches,
+        "warmup_s": {e.session_id: e.warmup_s for e in engines}})
+    log(f"  {GEN_SLOTS} slots x {GEN_NEW} tokens: {tokens / wall:.1f} "
+        f"tokens/s; per-token dispatch ms p50 {lat['p50']:.3f} p99 "
+        f"{lat['p99']:.3f}; TTFT ms alone, median, {GEN_PROMPT_CHARS}- and "
+        f"{GEN_LONG_PROMPT}-char prompts: tick prefill "
+        f"{ttft['tick_short']:.3f} and {ttft['tick_long']:.3f}, chunked "
+        f"{ttft['chunked_short']:.3f} and {ttft['chunked_long']:.3f};"
+        f" speculative acceptance {acc['acceptance']} ({acc['accepted']}"
+        f" of {acc['proposed']} drafts); warmup s "
+        f"{ {k: round(v, 3) for k, v in out['warmup_s'].items()} }; "
+        f"assert_warm holds on {len(engines)} engines [{card}]")
+    log(f"  lstm_fwd launches (oracle and int8 probe only): "
+        f"{oracle_launches}")
+    for eng in engines:
+        eng.shutdown()
+    report["generate"] = out
+
+
 def phase_lstm_train(report, card, profile=False):
     import numpy as np
     import torch
@@ -2221,11 +2528,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
-                    "digits_eval,digits_train",
+                    "digits_eval,digits_train,generate",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the served forward and the train "
-                    "steps with torch.profiler")
+                    help="also trace the served forward, the train steps "
+                    "and a full-slot generation run with torch.profiler")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2329,6 +2636,14 @@ def main(argv=None) -> int:
             f"fit(DigitsDataSetIterator({DIGITS_BATCH}), "
             f"epochs={DIGITS_EPOCHS}); updaters; SimpleCNN two epochs")
         phase_digits_train(report, card, args.profile)
+    # the generation engine runs no kernel of SOURCES (plain torch ticks)
+    if "generate" in phases:
+        log(f"[generate] GenerationEngine over the pretrained "
+            f"TextGenerationLSTM f32, {GEN_SLOTS} slots: {GEN_STREAMS} "
+            f"staggered greedy streams of {GEN_NEW} tokens, bucket "
+            "invariance, chunked/speculative/session modes, int8 and bf16 "
+            "heads")
+        phase_generate(report, card, args.profile)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

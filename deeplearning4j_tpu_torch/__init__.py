@@ -18,7 +18,9 @@ trained by ``ComputationGraph.fit`` / ``optimize.solver``; checkpoints
 ``ops.fused_lstm`` (kernels ``lstm_fwd`` and ``lstm_bwd``) scores
 (``output``), generates greedily (``rnn_time_step``,
 ``generation.decode.reference_decode``) and trains with Adam and value
-clipping.
+clipping; ``generation.GenerationEngine`` serves it by continuous-
+batching decode (chunked prefill, speculative decode, resumable
+sessions, an f32/bf16/int8 head).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.

@@ -86,16 +86,21 @@ class LSTM(FeedForwardLayer):
         return (z[:, :nh], z[:, nh:2 * nh], z[:, 2 * nh:3 * nh],
                 z[:, 3 * nh:])
 
-    def _cell(self, params, carry, zx_t, mask_t):
-        h_prev, c_prev = carry
-        z = zx_t + h_prev @ params["Wh"]
+    def gate_update(self, z, c_prev):
+        """(h, c) from the packed pre-activation ``z = zx + h_prev @ Wh``
+        and the previous cell state: the cell math after its products
+        (the generation tick forms ``z`` itself)."""
         zi, zf, zo, zg = self._gates(z)
         i = self.gate_activation.apply(zi)
         f = self.gate_activation.apply(zf)
         o = self.gate_activation.apply(zo)
         g = self.activation.apply(zg)
         c = f * c_prev + i * g
-        hy = o * self.activation.apply(c)
+        return o * self.activation.apply(c), c
+
+    def _cell(self, params, carry, zx_t, mask_t):
+        h_prev, c_prev = carry
+        hy, c = self.gate_update(zx_t + h_prev @ params["Wh"], c_prev)
         if mask_t is not None:
             hy = _apply_mask_step(mask_t, hy, h_prev)
             c = _apply_mask_step(mask_t, c, c_prev)

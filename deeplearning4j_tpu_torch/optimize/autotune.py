@@ -1,0 +1,56 @@
+"""Tunable defaults and their precedence.
+
+From the JAX package's ``optimize/autotune.py``: the ``Tunable`` record,
+the two generation entries of its registry (``generation.max_slots`` and
+``generation.prefill_chunk``, with the JAX package's committed defaults)
+and ``resolve_tuned``'s precedence, explicit argument > tuned config >
+committed default. The port has no measured ``TunedConfig`` and no
+process-wide one yet (ROADMAP, queue 1 item 16): a caller that passes a
+tuned config gets ``NotImplementedError`` rather than a config silently
+ignored.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class Tunable:
+    """One registered knob: its committed hand-tuned default, the
+    candidate grid a sweep measures, and how to read the score."""
+    name: str
+    default: Any
+    candidates: Tuple[Any, ...]
+    unit: str
+    description: str
+    higher_is_better: bool = True
+    constraint: Optional[str] = None
+
+
+REGISTRY: Dict[str, Tunable] = {t.name: t for t in (
+    Tunable("generation.max_slots", 8, (2, 4, 8, 16), "tok/s",
+            "continuous-batching slot count; the AOT warmup sweeps "
+            "the pow2 slot ladder and the reachable resize pairs up "
+            "to it, so tuning this also sizes the warm set"),
+    Tunable("generation.prefill_chunk", 0, (0, 16, 64), "ms TTFT",
+            "chunked-prefill scan width (pow2 chunk ladder below it "
+            "is warmed); 0 = one-tick-per-token prefill",
+            higher_is_better=False),
+)}
+
+_NOT_PORTED = ("measured tuned configs (TunedConfig) are not ported yet "
+               "(ROADMAP.md, queue 1 item 16)")
+
+
+def resolve_tuned(explicit: Any, tuned, name: str) -> Any:
+    """Consumer-side precedence: explicit caller argument > measured
+    tuned value (engine-local config, else the process config) >
+    committed registry default. The port has no process config, and a
+    tuned config raises, since the port cannot build one yet."""
+    if tuned is not None:
+        raise NotImplementedError(_NOT_PORTED)
+    if explicit is not None:
+        return explicit
+    return REGISTRY[name].default

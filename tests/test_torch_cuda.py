@@ -958,3 +958,96 @@ def test_evaluate_on_the_card_matches_the_cpu(card):
     x, _ = DigitsDataSetIterator.fetch(train=False)
     p, q = gpu.output(x).cpu().numpy(), cpu.output(x).numpy()
     assert (np.abs(p - q).max(1) / q.max(1)).max() <= 1e-5
+
+
+def _small_textgen(card):
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    return TextGenerationLSTM(vocab_size=31, timesteps=8,
+                              lstm_units=32).init(device=card)
+
+
+def test_generation_engine_greedy_on_the_card_matches_reference_decode(
+        card):
+    """The engine's staggered greedy streams at 4 slots on the card
+    against ``reference_decode`` (the ``lstm_fwd`` kernel path): equal up
+    to the oracle's first near tie (top-2 probability gap < 1e-4), the
+    bound of chip_smoke.py's lstm_serve and generate phases."""
+    import random
+    from deeplearning4j_tpu_torch.generation import (GenerationEngine,
+                                                     reference_decode)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    model = _small_textgen(card)
+    eng = GenerationEngine(model, max_slots=4, registry=MetricsRegistry())
+    try:
+        rng = random.Random(99)
+        cfgs = [([rng.randrange(31) for _ in range(rng.randrange(2, 7))],
+                 rng.randrange(10, 30)) for _ in range(8)]
+        streams = [eng.submit(p, max_new_tokens=m) for p, m in cfgs]
+        eye = torch.eye(31, device=card)
+        for (p, m), s in zip(cfgs, streams):
+            got = s.result(timeout=120)["ids"]
+            ref = reference_decode(model, p, m)
+            probs, _ = model.rnn_time_step(eye[p + ref[:-1]][None])
+            top2 = probs[0, len(p) - 1:].topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            tie = int(np.argmax(gaps < 1e-4)) if (gaps < 1e-4).any() \
+                else len(ref)
+            assert got[:tie] == ref[:tie]
+        eng.assert_warm()
+        assert eng.stats()["device"].startswith("cuda")
+    finally:
+        eng.shutdown()
+
+
+def test_generation_stream_does_not_depend_on_its_bucket(card):
+    """A seeded sampled stream alone at bucket 1 equals the same request
+    among three co-residents at bucket 4, bit for bit."""
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    eng = GenerationEngine(_small_textgen(card), max_slots=4,
+                           stop_text=None, registry=MetricsRegistry())
+    try:
+        kw = dict(greedy=False, temperature=0.8, top_k=10, seed=3,
+                  max_new_tokens=40)
+        alone = eng.submit([1, 2, 3], **kw).result(timeout=120)["ids"]
+        others = [eng.submit([j], greedy=False, seed=j, max_new_tokens=60)
+                  for j in range(3)]
+        crowd = eng.submit([1, 2, 3], **kw).result(timeout=120)["ids"]
+        for s in others:
+            s.result(timeout=120)
+        assert eng.stats()["slots"]["max_active"] == 4
+        assert alone == crowd
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("k", [256, 1040])
+def test_int8_dot_on_the_card_is_exact(card, k):
+    """The f32 route of ``int8_dot`` on the card: the accumulation equals
+    the int64 CPU product exactly, and the rescaled result equals the CPU
+    route's bit for bit, up to K = 1040; K = 1041 and TF32 raise."""
+    from deeplearning4j_tpu_torch.ops.quantize import (int8_dot,
+                                                       quantize_act)
+    g = torch.Generator().manual_seed(k)
+    x = torch.rand((8, k), generator=g) * 2 - 1
+    wq = torch.randint(-127, 128, (k, 77), generator=g, dtype=torch.int8)
+    wq[:, 0] = 127                       # a column at the extreme
+    x[0] = 1.0
+    ws = torch.rand(77, generator=g) * 0.01
+    xs = torch.tensor(1.0 / 127)
+    got = int8_dot(x.to(card), wq.to(card), ws.to(card), xs.to(card))
+    acc = (quantize_act(x.to(card), xs.to(card)).float()
+           @ wq.to(card).float()).cpu()
+    exact = quantize_act(x, xs).long() @ wq.long()
+    assert torch.equal(acc.long(), exact) and (acc == exact.float()).all()
+    assert torch.equal(got.cpu(), int8_dot(x, wq, ws, xs))
+    with pytest.raises(ValueError, match="1040"):
+        int8_dot(torch.zeros((1, 1041), device=card),
+                 torch.zeros((1041, 3), dtype=torch.int8, device=card),
+                 ws[:3].to(card), xs.to(card))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            int8_dot(x.to(card), wq.to(card), ws.to(card), xs.to(card))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
