@@ -129,6 +129,31 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    p50/p99, TTFT with tick and chunked prefill, speculative acceptance,
    warmup seconds, the oracle's ``lstm_fwd`` launches and, with
    ``--profile``, the card's busy share of a full-slot run.
+13. serve_http — ``python -m deeplearning4j_tpu_torch serve`` as users
+   start the system. The slice ResNet50 (bf16, nontrivial BN from a
+   seed) saved to a zip and served in process by ``cmd_serve(...,
+   block=False)``: ``POST /api/predict`` with 1, 7, 32 and 45 images (45
+   splits), then 4 client threads × 16 requests of 1-32 images, every
+   answer bitwise the served engine's ``output`` on the same rows and
+   ``n`` right, 36 + 16 launches a dispatched batch (added to the kernels
+   line). Behind ``--slo-ms`` (the fleet front door): ``/api/fleet/swap``
+   to a second zip (another seed) gives its engine's answers and
+   ``/api/fleet/rollback`` v1's again, bitwise; an expired
+   ``X-Deadline-Ms`` answers 504, a pool at its pending bound 503 with
+   ``Retry-After``; ``/api/fleet/stats`` names both versions. The
+   committed TextGenerationLSTM zip with ``--generate`` (8 slots, prefill
+   chunk 64): predict on one-hot corpus windows within LSTM_SERVE_TOL of
+   each row's largest of ``model.output`` (2 ``lstm_fwd`` launches a
+   batch, added to the kernels line), 8 concurrent greedy SSE streams
+   against ``reference_decode`` under the near-tie rule, the generation
+   stats and the ``dl4j_gen_*``/``dl4j_serving_*`` series present,
+   ``/healthz`` 200, ``assert_warm()`` on both engines. The same zip
+   served by ``python -m deeplearning4j_tpu_torch serve ... --duration
+   30`` in a subprocess: its banner's URL answers ``/healthz`` 200 and a
+   predict equal to the in-process answer, ``/api/serving/stats`` names
+   ``cuda:0``, and it exits 0. Measured: HTTP predict p50/p99 at 1 and 32
+   images against the engine's own, images/s of the 4 clients, SSE
+   tokens/s and TTFT against the engine's, warmup and swap seconds.
 
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
@@ -241,6 +266,16 @@ LSTM_SERVE_WINDOWS, GEN_PROMPT, GEN_CHARS = 128, 20, 200
 GEN_SLOTS, GEN_STREAMS, GEN_PROMPT_CHARS, GEN_NEW = 8, 16, 20, 128
 GEN_CHUNK, GEN_SPEC_K, GEN_LONG_PROMPT, GEN_SEED = 64, 3, 150, 11
 GEN_INT8_BUDGET = 0.03
+# serve_http: the ResNet50 zip over /api/predict (the fixed sizes, then
+# four clients of SERVE_PER_CLIENT requests of 1-32 images), the HTTP
+# latency at 1 and 32 images over SERVE_LATENCY_REPS requests, the
+# TextGenerationLSTM zip's predict on SERVE_WINDOWS one-hot windows (each
+# row within LSTM_SERVE_TOL of its largest probability of model.output:
+# the same f32 forward, whose cuBLAS input projection may take another
+# algorithm at the served bucket), and the subprocess's --duration
+SERVE_SIZES, SERVE_CLIENTS, SERVE_PER_CLIENT = (1, 7, 32, 45), 4, 16
+SERVE_LATENCY_REPS, SERVE_WINDOWS, SERVE_DURATION = 20, 8, 30
+SERVE_SEED, LSTM_SERVE_TOL = 13, 1e-5
 # training: seed 123, batch 128 x 60, Adam(2e-3) + clip 5, K = 4 steps per
 # call, 24 steps; one f32 step's gradients through the kernels vs the plain
 # versions within relative L2 1e-3 per parameter (the same f32 products
@@ -1438,6 +1473,19 @@ def _common_prefix(a, b):
     return n
 
 
+def _first_near_tie(model, eye, prompt, ref):
+    """The first decoded position of ``ref`` (``reference_decode``'s ids
+    after ``prompt``) whose top-2 probabilities are within LSTM_PROB_TOL,
+    teacher-forced; ``len(ref)`` when there is none. A stream may part
+    from the oracle there and only there."""
+    import numpy as np
+    probs, _ = model.rnn_time_step(eye[prompt + ref[:-1]][None])
+    top2 = probs[0, len(prompt) - 1:].topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    ties = np.nonzero(gaps < LSTM_PROB_TOL)[0]
+    return int(ties[0]) if len(ties) else len(ref)
+
+
 class _BucketWatch:
     """Samples an engine's slot bucket (its ``dl4j_gen_slot_bucket``
     gauge) every millisecond in a thread."""
@@ -1501,11 +1549,7 @@ def phase_generate(report, card, profile=False):
     full, parts = 0, []
     for i, (p, g) in enumerate(zip(prompts, got)):
         ref = reference_decode(model, p, GEN_NEW, stop_id=f32.stop_id)
-        probs, _ = model.rnn_time_step(eye[p + ref[:-1]][None])
-        top2 = probs[0, len(p) - 1:].topk(2, dim=-1).values
-        gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-        ties = np.nonzero(gaps < LSTM_PROB_TOL)[0]
-        tie = int(ties[0]) if len(ties) else len(ref)
+        tie = _first_near_tie(model, eye, p, ref)
         agree = _common_prefix(g["ids"], ref)
         if g["ids"] == ref:
             full += 1
@@ -1689,6 +1733,507 @@ def phase_generate(report, card, profile=False):
     for eng in engines:
         eng.shutdown()
     report["generate"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the serve CLI over HTTP
+# ---------------------------------------------------------------------------
+
+def _http(url, body=None, headers=None, raw=False):
+    """(status, headers, body) of a GET (``body`` None) or a JSON POST;
+    the body parsed as JSON unless ``raw``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, hdrs, data = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, data = e.code, dict(e.headers), e.read()
+    return code, hdrs, data.decode() if raw else json.loads(data)
+
+
+def _predict(url, x, headers=None):
+    """POST ``x`` to /api/predict; (status, answer as f32 or the error
+    body, n, client ms)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    code, _, out = _http(url + "/api/predict", {"features": x.tolist()},
+                         headers)
+    ms = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        return code, out, None, ms
+    return code, np.asarray(out["output"], np.float32), out["n"], ms
+
+
+def _sse(url, body):
+    """One /api/generate event stream: (events, client TTFT ms)."""
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/api/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0, ttft, events = time.perf_counter(), None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not r.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError("/api/generate is not an event stream")
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("data:"):
+                ev = json.loads(line[5:])
+                if ttft is None and "token" in ev:
+                    ttft = (time.perf_counter() - t0) * 1e3
+                events.append(ev)
+    return events, ttft
+
+
+def _image_shape():
+    return (SLICE["height"], SLICE["width"], SLICE["channels"])
+
+
+def _pixels(rng, n):
+    """``n`` slice-model images of multiples of 1/32 in [-2, 2]: short
+    JSON numbers (a 45-image body stays under the server's 8 MiB cap),
+    exact in float32."""
+    return (rng.integers(-64, 65, (n,) + _image_shape()) / 32).astype(
+        "float32")
+
+
+def _ms_quantiles(ms):
+    import numpy as np
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99))}
+
+
+class _ServeProcess:
+    """``python -m deeplearning4j_tpu_torch serve ...`` as a user starts
+    it, its standard output read in a thread until the banner's last
+    line."""
+
+    def __init__(self, args, last):
+        self.lines, self.url = [], None
+        self._ready = threading.Event()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve",
+             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._t = threading.Thread(target=self._read, args=(last,),
+                                   daemon=True)
+        self._t.start()
+
+    def _read(self, last):
+        import re
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            m = re.match(r"serving .* at (http://\S+) ", line)
+            if m:
+                self.url = m.group(1)
+            if line.strip().startswith(last):
+                self._ready.set()
+        self._ready.set()
+
+    def wait_ready(self, timeout):
+        if not self._ready.wait(timeout) or self.url is None:
+            raise AssertionError("serve did not come up: "
+                                 + " | ".join(self.lines[-20:]))
+        return self.url
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._t.join(timeout=10)
+
+
+def _in_process_images_per_s(eng, reqs):
+    """The engine's own rate over the same requests from as many
+    threads, without HTTP and JSON."""
+    def client(row):
+        for f in [eng.submit(x) for x in row]:
+            f.result()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(row,)) for row in reqs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return sum(len(x) for row in reqs for x in row) / (
+        time.perf_counter() - t0)
+
+
+def _json_host_ms(x):
+    """Host ms of the JSON work a request of ``x`` costs outside HTTP: the
+    client's encode, and the server's decode plus the float32 array."""
+    import numpy as np
+    t0 = time.perf_counter()
+    body = json.dumps({"features": x.tolist()})
+    t1 = time.perf_counter()
+    np.asarray(json.loads(body)["features"], np.float32)
+    t2 = time.perf_counter()
+    return {"encode": (t1 - t0) * 1e3, "decode": (t2 - t1) * 1e3}
+
+
+def phase_serve_http(report, card):
+    """``python -m deeplearning4j_tpu_torch serve`` on the card (module
+    docstring, phase 13): the ResNet50 zip over HTTP, the fleet front
+    door, the TextGenerationLSTM zip's predict and SSE routes, and the
+    real entry point in a subprocess (started first, so that its
+    ``--duration`` runs beside the other steps). Returns the served
+    path's kernel launches."""
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "seconds": {}}
+    launches = {name: 0 for name in SOURCES}
+    rng = np.random.default_rng(SERVE_SEED)
+    textgen = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "deeplearning4j_tpu", "zoo", "weights",
+                           "textgen_lstm.zip")
+    lstm_args = ["--model", textgen, "--warmup-shape", "60", "77",
+                 "--ui-port", "0"]
+    windows, _, _ = corpus_windows(SERVE_WINDOWS, 60, rng)
+    sub = _ServeProcess(lstm_args + ["--duration", str(SERVE_DURATION)],
+                        last="stats:")
+    tmp = tempfile.TemporaryDirectory(prefix="serve_http_")
+    try:
+        zips = _resnet_zips(tmp.name)
+        out["seconds"]["zips"] = time.perf_counter() - t_phase
+        # 4. the real entry point: its banner's URL, health, device and
+        # one predict (held to the in-process server's answer in step 3)
+        sub_url = sub.wait_ready(300)
+        code, sub_answer, _, _ = _predict(sub_url, windows)
+        health = _http(sub_url + "/healthz")[0]
+        dev = _http(sub_url + "/api/serving/stats")[2]["device"]
+        if code != 200 or health != 200 or dev != "cuda:0":
+            raise AssertionError(f"the subprocess answered {code}, "
+                                 f"/healthz {health}, device {dev}")
+        for step, fn in (("resnet", _serve_resnet), ("fleet", _serve_fleet)):
+            t0 = time.perf_counter()
+            for k, n in fn(out, card, zips, rng).items():
+                launches[k] += n
+            out["seconds"][step] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a = _serve_lstm(out, launches, card, lstm_args, windows, rng)
+        out["seconds"]["lstm"] = time.perf_counter() - t0
+        if not np.array_equal(sub_answer, a):
+            raise AssertionError("the subprocess's predict differs from "
+                                 "the in-process server's")
+        rc = sub.proc.wait(timeout=SERVE_DURATION + 300)
+    finally:
+        sub.stop()
+        tmp.cleanup()          # the two ResNet50 zips
+    if rc != 0:
+        raise AssertionError(f"the serve subprocess exited {rc}: "
+                             + " | ".join(sub.lines[-20:]))
+    out["subprocess"] = {"url": sub.url, "rc": rc, "device": dev}
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"  python -m deeplearning4j_tpu_torch serve: answered on {dev} "
+        f"equal to the in-process server, exited {rc}; phase seconds "
+        f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    report["serve_http"] = out
+    return launches
+
+
+def _resnet_zips(tmp):
+    """The slice ResNet50 (bf16) with nontrivial BN, saved as v1 and, from
+    another seed, v2."""
+    from deeplearning4j_tpu_torch.models.serialization import (
+        params_from_jax, save_model)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    zips = {}
+    for version, seed in (("v1", 0), ("v2", 1)):
+        m = ResNet50(**SLICE, seed=123 + seed).init()
+        params_from_jax(*nontrivial_bn(m, seed), m.device, model=m)
+        zips[version] = os.path.join(tmp, f"resnet50_{version}.zip")
+        save_model(m, zips[version])
+        del m
+    return zips
+
+
+def _resnet_args(zips):
+    return ["--model", zips["v1"], "--bf16", "--warmup-shape",
+            *map(str, _image_shape()), "--batch-limit", "32", "--ui-port",
+            "0"]
+
+
+def _serve_resnet(out, card, zips, rng):
+    """Phase 13, step 1: the ResNet50 zip behind ParallelInference."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.__main__ import cmd_serve
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    per_fwd = {k: sum(n for c, n in path_calls(
+        ResNet50(**SLICE).conf(), 1).items() if c.kernel == k)
+        for k in FORWARD}
+    front, server = cmd_serve(["serve", *_resnet_args(zips)], block=False)
+    eng, url = front.engine, server.url
+    out["resnet_warmup_s"] = eng.warmup_seconds
+    try:
+        fixed = [_pixels(rng, n) for n in SERVE_SIZES]
+        sizes = rng.integers(1, 33, (SERVE_CLIENTS, SERVE_PER_CLIENT))
+        reqs = [[_pixels(rng, int(n)) for n in row] for row in sizes]
+        answers = [[None] * SERVE_PER_CLIENT for _ in range(SERVE_CLIENTS)]
+
+        def client(c):
+            for i, x in enumerate(reqs[c]):
+                answers[c][i] = _predict(url, x)
+
+        fc.reset_launch_counts()
+        batches0 = eng.dispatch_count
+        got_fixed = [_predict(url, x) for x in fixed]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        batches = eng.dispatch_count - batches0
+        served = {k: fc.LAUNCHES[k] for k in FORWARD}
+        if any(served[k] != per_fwd[k] * batches or not served[k]
+               for k in FORWARD):
+            raise AssertionError(f"served launches {served} for {batches} "
+                                 f"batches, expected {per_fwd} a batch")
+        n_req = 0
+        for x, (code, a, n, _) in zip(
+                fixed + [x for row in reqs for x in row],
+                got_fixed + [a for row in answers for a in row]):
+            n_req += 1
+            if code != 200 or n != len(x):
+                raise AssertionError(f"/api/predict answered {code}, n {n} "
+                                     f"for {len(x)} images")
+            if not np.array_equal(a, eng.output(x)):
+                raise AssertionError("an HTTP answer differs from the "
+                                     "engine's output on the same rows")
+        images = int(sizes.sum())
+        direct = _in_process_images_per_s(eng, reqs)
+        out["resnet_http"] = {
+            "requests": n_req, "batches": batches, "launches": served,
+            "clients_images_per_s": images / wall,
+            "in_process_images_per_s": direct,
+            "clients_requests": int(sizes.size)}
+        log(f"  ResNet50 zip: {n_req} HTTP answers (sizes {SERVE_SIZES}, "
+            f"then {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} of 1-32 "
+            f"images) bitwise equal to the engine's output; {batches} "
+            f"batches, launches {served}; {SERVE_CLIENTS} clients "
+            f"{images / wall:.1f} images/s over HTTP, {direct:.1f} in "
+            f"process; warmup {eng.warmup_seconds:.3f}s [{card}]")
+
+        # what HTTP and JSON add: client wall against the engine's own
+        # request latency over the same requests, and the JSON alone
+        lat = {}
+        for n in (1, 32):
+            x = _pixels(rng, n)
+            eng.latency.mark()
+            ms = [_predict(url, x)[3] for _ in range(SERVE_LATENCY_REPS)]
+            q = eng.latency.delta_quantiles((0.5, 0.99))
+            lat[n] = {"http_ms": _ms_quantiles(ms),
+                      "engine_ms": {"p50": q[0.5] * 1e3,
+                                    "p99": q[0.99] * 1e3},
+                      "json_host_ms": _json_host_ms(x),
+                      "body_bytes": len(json.dumps({"features":
+                                                    x.tolist()}))}
+            log(f"  {n} image(s), {SERVE_LATENCY_REPS} requests: HTTP p50 "
+                f"{lat[n]['http_ms']['p50']:.3f} ms p99 "
+                f"{lat[n]['http_ms']['p99']:.3f}; engine p50 "
+                f"{lat[n]['engine_ms']['p50']:.3f} p99 "
+                f"{lat[n]['engine_ms']['p99']:.3f}; JSON alone "
+                f"{lat[n]['json_host_ms']}; body {lat[n]['body_bytes']} "
+                f"bytes [{card}]")
+        out["predict_latency"] = lat
+        eng.assert_warm()
+        if _http(url + "/healthz")[0] != 200:
+            raise AssertionError("/healthz is not 200 after ResNet50 traffic")
+    finally:
+        front.shutdown()
+        server.stop()
+    return served
+
+
+def _serve_fleet(out, card, zips, rng):
+    """Phase 13, step 2: the fleet front door — swap, rollback, an
+    expired deadline, a pool at its pending bound."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.__main__ import cmd_serve
+
+    front, server = cmd_serve(["serve", *_resnet_args(zips), "--slo-ms",
+                               "1000", "--model-version", "v1"],
+                              block=False)
+    url, name = server.url, "resnet50_v1"
+    try:
+        x = _pixels(rng, 5)
+        code, a1, _, _ = _predict(url, x)
+        if code != 200 or not np.array_equal(
+                a1, front.pool(name).engines[0].output(x)):
+            raise AssertionError("fleet predict differs from its engine")
+        t0 = time.perf_counter()
+        code, _, sw = _http(url + "/api/fleet/swap",
+                            {"version": "v2", "path": zips["v2"]})
+        swap_s = time.perf_counter() - t0
+        if code != 200 or sw["active_version"] != "v2":
+            raise AssertionError(f"swap answered {code}: {sw}")
+        code, a2, _, _ = _predict(url, x)
+        if not np.array_equal(a2, front.pool(name).engines[0].output(x)) \
+                or np.array_equal(a1, a2):
+            raise AssertionError("after the swap the answer is not v2's")
+        t0 = time.perf_counter()
+        code, _, rb = _http(url + "/api/fleet/rollback", {})
+        rollback_s = time.perf_counter() - t0
+        code, a3, _, _ = _predict(url, x)
+        if rb["active_version"] != "v1" or not np.array_equal(a1, a3):
+            raise AssertionError("rollback does not give v1's answers")
+        code, _, body = _http(url + "/api/predict",
+                              {"features": x[:1].tolist()},
+                              {"X-Deadline-Ms": "0.000001"})
+        if code != 504 or body.get("error") != "deadline":
+            raise AssertionError(f"an expired deadline answered {code}")
+        pool = front.pool(name)
+        with pool.lock:      # the pending bound reached
+            held, pool.pending = pool.pending, front.max_pending
+        try:
+            code, hdrs, body = _http(url + "/api/predict",
+                                     {"features": x[:1].tolist()})
+        finally:
+            with pool.lock:
+                pool.pending = held
+        if code != 503 or body.get("reason") != "queue" \
+                or "Retry-After" not in hdrs:
+            raise AssertionError(f"a full pool answered {code} {hdrs}")
+        st = _http(url + "/api/fleet/stats")[2]["pools"][name]
+        if (st["active_version"], st["standby_version"]) != ("v1", "v2"):
+            raise AssertionError(f"fleet stats name {st}")
+        front.assert_warm()
+        out["fleet"] = {"swap_s": swap_s, "rollback_s": rollback_s,
+                        "deadline_status": 504, "shed_status": 503,
+                        "versions": [st["active_version"],
+                                     st["standby_version"]]}
+        log(f"  fleet: swap to v2 {swap_s:.3f}s (restore + warmup), "
+            f"rollback {rollback_s:.4f}s, both bitwise; expired deadline "
+            f"504, full pool 503 + Retry-After [{card}]")
+    finally:
+        front.shutdown()
+        server.stop()
+    return {}
+
+
+def _serve_lstm(out, launches, card, lstm_args, windows, rng):
+    """Phase 13, step 3: the TextGenerationLSTM zip served in this
+    process with ``--generate``: predict through ``lstm_fwd`` and SSE
+    streams against ``reference_decode``. Returns the predict answer on
+    ``windows``."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.__main__ import cmd_serve
+    from deeplearning4j_tpu_torch.generation import (extract_decode_spec,
+                                                     reference_decode)
+    from deeplearning4j_tpu_torch.models.serialization import restore_model
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.ui.generation_module import \
+        GenerationModule
+
+    front, server = cmd_serve(["serve", *lstm_args, "--generate",
+                               "--gen-slots", str(GEN_SLOTS),
+                               "--gen-prefill-chunk", str(GEN_CHUNK)],
+                              block=False)
+    gen = next(m.engine for m in server._modules
+               if isinstance(m, GenerationModule))
+    url, eng = server.url, front.engine
+    try:
+        model = restore_model(lstm_args[1])
+        fl.reset_launch_counts()
+        b0 = eng.dispatch_count
+        code, a, n, _ = _predict(url, windows)
+        lstm_launches = fl.LAUNCHES["lstm_fwd"]
+        if code != 200 or n != SERVE_WINDOWS:
+            raise AssertionError(f"LSTM predict answered {code}")
+        if lstm_launches != 2 * (eng.dispatch_count - b0):
+            raise AssertionError(f"{lstm_launches} lstm_fwd launches for "
+                                 f"{eng.dispatch_count - b0} batches")
+        launches["lstm_fwd"] += lstm_launches
+        ref = model.output(windows).float().cpu().numpy()
+        err = float((np.abs(a - ref).max(-1) / ref.max(-1)).max())
+        if err > LSTM_SERVE_TOL:
+            raise AssertionError(f"LSTM predict off model.output by {err}")
+        out["lstm_predict"] = {"windows": SERVE_WINDOWS, "rel_err": err,
+                               "bitwise": bool(np.array_equal(a, ref)),
+                               "lstm_fwd_launches": lstm_launches}
+        log(f"  TextGenerationLSTM zip: {SERVE_WINDOWS} windows, within "
+            f"{err:.3g} of each row's largest of model.output (bitwise "
+            f"{np.array_equal(a, ref)}), {lstm_launches} lstm_fwd launches")
+
+        eye = torch.eye(extract_decode_spec(model).vocab_size,
+                        device="cuda")
+        prompts = _gen_prompts(GEN_SLOTS, GEN_PROMPT_CHARS, SERVE_SEED)
+        results = [None] * GEN_SLOTS
+
+        def stream(i):
+            results[i] = _sse(url, {"prompt": prompts[i], "greedy": True,
+                                    "max_new_tokens": GEN_NEW})
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(GEN_SLOTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        full, tokens = 0, 0
+        for p, (events, _) in zip(prompts, results):
+            ids = [e["token"] for e in events if "token" in e]
+            if not events[-1].get("done") or events[-1]["n"] != len(ids):
+                raise AssertionError(f"a stream ended with {events[-1]}")
+            tokens += len(ids)
+            want = reference_decode(model, p, GEN_NEW, stop_id=gen.stop_id)
+            if ids == want:
+                full += 1
+            elif _common_prefix(ids, want) < _first_near_tie(model, eye, p,
+                                                             want):
+                raise AssertionError("an SSE stream parts from "
+                                     "reference_decode before a near tie")
+        gst = _http(url + "/api/generation/stats")[2]
+        # the same streams through the engine in process
+        t0 = time.perf_counter()
+        direct = _gen_streams(gen, prompts, max_new_tokens=GEN_NEW)
+        direct_rate = sum(r["n"] for r in direct) / (
+            time.perf_counter() - t0)
+        metrics = _http(url + "/metrics", raw=True)[2]
+        if not all(f"\n{fam}" in metrics for fam in ("dl4j_gen_tokens_total",
+                                                     "dl4j_serving_requests")):
+            raise AssertionError("/metrics lacks dl4j_gen_* or "
+                                 "dl4j_serving_*")
+        if _http(url + "/healthz")[0] != 200:
+            raise AssertionError("/healthz is not 200 after generation")
+        eng.assert_warm()
+        gen.assert_warm()
+        ttft_http = float(np.median([t for _, t in results]))
+        out["sse"] = {"streams": GEN_SLOTS, "equal_in_full": full,
+                      "tokens": tokens, "tokens_per_s": tokens / wall,
+                      "in_process_tokens_per_s": direct_rate,
+                      "ttft_http_ms_median": ttft_http,
+                      "engine_ttft_ms": gst["latency_ms"]["ttft"],
+                      "engine_token_ms": gst["latency_ms"]["token"],
+                      "warmup_s": {"predict": eng.warmup_seconds,
+                                   "generate": gst["warmup_s"]}}
+        log(f"  {GEN_SLOTS} SSE streams: {full} equal reference_decode in "
+            f"full, the others part at near ties; {tokens} tokens, "
+            f"{tokens / wall:.1f} tokens/s over HTTP, {direct_rate:.1f} for "
+            f"the same streams in process; TTFT over HTTP median "
+            f"{ttft_http:.3f} ms, engine p50 "
+            f"{gst['latency_ms']['ttft']['p50']:.3f}; warmup predict "
+            f"{eng.warmup_seconds:.3f}s, generate {gst['warmup_s']}s; "
+            f"/healthz 200, assert_warm on both engines [{card}]")
+    finally:
+        # the CLI's order: the front door, the generation engine, the
+        # HTTP server
+        front.shutdown()
+        gen.shutdown()
+        server.stop()
+    return a
 
 
 def phase_lstm_train(report, card, profile=False):
@@ -2528,7 +3073,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
-                    "digits_eval,digits_train,generate",
+                    "digits_eval,digits_train,generate,serve_http",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps "
@@ -2644,6 +3189,13 @@ def main(argv=None) -> int:
             "invariance, chunked/speculative/session modes, int8 and bf16 "
             "heads")
         phase_generate(report, card, args.profile)
+    if "serve_http" in phases:
+        log("[serve_http] python -m deeplearning4j_tpu_torch serve: the "
+            "ResNet50 zip (bf16) over /api/predict and the fleet front "
+            "door, the TextGenerationLSTM zip's predict and SSE "
+            "generation, the entry point in a subprocess")
+        for name, n in phase_serve_http(report, card).items():
+            launches[name] += n
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2653,10 +3205,11 @@ def main(argv=None) -> int:
     for name, k in summary.items():
         entry = {key: k[key] for key in
                  ("name", "route", "source", "replaces")}
-        # the main paths' launches: served traffic and the K-step train
-        # call (conv kernels); scoring, generation and the K-step train
-        # call (LSTM kernels); two output() calls and the K-step train
-        # call (flash kernels)
+        # the main paths' launches: served traffic (in-process and over
+        # HTTP) and the K-step train call (conv kernels); scoring,
+        # generation, HTTP predict and the K-step train call (LSTM
+        # kernels); two output() calls and the K-step train call (flash
+        # kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

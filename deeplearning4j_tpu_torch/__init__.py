@@ -20,7 +20,11 @@ trained by ``ComputationGraph.fit`` / ``optimize.solver``; checkpoints
 ``generation.decode.reference_decode``) and trains with Adam and value
 clipping; ``generation.GenerationEngine`` serves it by continuous-
 batching decode (chunked prefill, speculative decode, resumable
-sessions, an f32/bf16/int8 head).
+sessions, an f32/bf16/int8 head). ``python -m deeplearning4j_tpu_torch
+serve`` starts them as a user does: a saved zip behind the HTTP server
+(``ui/``: ``/api/predict``, ``/api/generate`` as SSE, ``/metrics``,
+``/healthz``), through ``parallel.inference.ParallelInference`` or the
+fleet front door (``parallel.fleet.FleetRouter``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.

@@ -1,0 +1,488 @@
+"""``python -m deeplearning4j_tpu_torch`` — operational entry points.
+
+``serve`` loads a saved model zip onto the card, starts the serving
+engine (or the fleet front door) and the UI server, so that
+``/metrics`` (Prometheus), ``/healthz`` (degradation verdict),
+``POST /api/predict``, ``GET /api/serving/stats`` and, with
+``--generate``, ``POST /api/generate`` (an SSE token stream) are live:
+
+    python -m deeplearning4j_tpu_torch serve --model model.zip \
+        --warmup-shape 64 64 3 --batch-limit 32 --ui-port 9000
+
+The parser is the JAX package's (``python -m deeplearning4j_tpu``) with
+every flag, so its command lines parse unchanged, plus ``--device``
+(``cuda`` unless ``cpu`` is asked for; without a card the command exits
+non-zero rather than serve on the CPU). Flags whose machinery is not
+ported exit with the ROADMAP.md queue 1 item that will port it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import List, Optional
+
+# dest of each flag whose machinery is not ported -> (what, ROADMAP item)
+_NODE = ("the multi-node fleet (parallel/node.py)", 12)
+_TUNED = ("measured tuned configs from an artifact store (TunedConfig)",
+          16)
+_ONLINE = ("online learning (online/)", 16)
+_RETRIEVAL = ("retrieval serving (retrieval/)", 13)
+_NOT_PORTED = {
+    "join": _NODE, "node_id": _NODE, "drain_timeout": _NODE,
+    "model_key": _NODE,
+    "aot_cache_dir": ("the persisted AOT executable cache", 12),
+    "no_pipeline": ("the blocking dispatcher (an A/B arm of the "
+                    "pipelined one)", 12),
+    "artifact_store": _TUNED, "tuned_config": _TUNED, "no_tuned": _TUNED,
+    "online": _ONLINE, "stream_endpoint": _ONLINE, "stream_topic": _ONLINE,
+    "promote_interval_s": _ONLINE, "min_delta": _ONLINE,
+    "score_budget_s": _ONLINE, "rollback_p99_factor": _ONLINE,
+    "rollback_p99_floor_ms": _ONLINE, "rollback_score_delta": _ONLINE,
+    "sentinel_window_s": _ONLINE, "holdout_every": _ONLINE,
+    "holdout_max": _ONLINE,
+    "neighbors_index": _RETRIEVAL, "neighbors_shards": _RETRIEVAL,
+    "neighbors_k_ladder": _RETRIEVAL, "neighbors_batch": _RETRIEVAL,
+    "nprobe": _RETRIEVAL,
+}
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m deeplearning4j_tpu_torch",
+        description="deeplearning4j_tpu_torch operational CLI")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser(
+        "serve", help="serve a saved model over the batching engine "
+        "(ParallelWrapperMain analog for inference)")
+    s.add_argument("--model", required=False, default=None,
+                   help="path to a save_model() zip (required unless "
+                   "--neighbors-index serves a retrieval index "
+                   "instead)")
+    # the reference's flag names, snake-cased: --workers -> --replicas
+    # (model-per-device fan-out), --batchLimit/--queueLimit/--timeout
+    # keep their meaning, --inferenceMode keeps its two values
+    s.add_argument("--replicas", default="1",
+                   help="device replicas to serve on: 1 or 'auto' (every "
+                   "visible card; one card is ported) (reference: "
+                   "--workers)")
+    s.add_argument("--batch-limit", type=int, default=None,
+                   help="max examples per device batch (default 32)")
+    s.add_argument("--queue-limit", type=int, default=128,
+                   help="bound on queued request chunks")
+    s.add_argument("--timeout-ms", type=float, default=5.0,
+                   help="upper bound on batch aggregation")
+    s.add_argument("--inference-mode", default="batched",
+                   choices=["batched", "inplace"],
+                   help="batched = the serving engine; inplace = direct "
+                   "locked calls (reference: --inferenceMode)")
+    s.add_argument("--depth", type=int, default=1,
+                   help="in-flight batches between dispatcher and "
+                   "completion thread (pipeline double-buffer depth)")
+    s.add_argument("--no-pipeline", action="store_true",
+                   help="blocking dispatcher (fixed aggregation window); "
+                   "for A/B comparison only")
+    s.add_argument("--bf16", action="store_true",
+                   help="serve a bfloat16 copy of the float params")
+    s.add_argument("--warmup-shape", type=int, nargs="*", default=None,
+                   metavar="DIM",
+                   help="per-example feature shape (no batch dim), e.g. "
+                   "'--warmup-shape 784' or '--warmup-shape 28 28 1'; "
+                   "enables the bucket-ladder warmup sweep so no live "
+                   "request makes a bucket's first dispatch")
+    s.add_argument("--dtype", default="float32",
+                   help="request feature dtype")
+    s.add_argument("--aot-cache-dir", default=None, metavar="DIR",
+                   help="persist the warmed AOT executable table here; "
+                   "a fresh process reaches assert_warm() in a "
+                   "fraction of the warmup sweep (falls through to "
+                   "live compile on any fingerprint mismatch)")
+    s.add_argument("--slo-ms", type=float, default=None, metavar="MS",
+                   help="serve behind the fleet front door with this "
+                   "p99 SLO: admission control + windowed-p99 shedding "
+                   "(503 on shed) + hot version swap/rollback routes")
+    s.add_argument("--model-version", default="v1",
+                   help="version label for the fleet pool / AOT cache "
+                   "fingerprint")
+    s.add_argument("--ui-port", type=int, default=9000,
+                   help="UI/metrics port (0 picks a free one)")
+    s.add_argument("--duration", type=float, default=None,
+                   help="serve for N seconds then exit (default: until "
+                   "interrupted)")
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the model serves: the card (default; "
+                   "exits without one) or, only when asked, the CPU")
+    # ---- multi-node fleet (join a serving cluster) -------------------
+    n = s.add_argument_group(
+        "multi-node fleet", "join a health-gossiped serving cluster "
+        "(parallel/node.py): heartbeat into a shared registry dir, "
+        "warm the AOT table from a shared artifact store, and drain "
+        "gracefully on SIGTERM (finish in-flight, deregister, exit 0)")
+    n.add_argument("--join", default=None, metavar="DIR",
+                   help="node registry directory to gossip into "
+                   "(a shared filesystem path); enables node mode")
+    n.add_argument("--node-id", default=None,
+                   help="stable node identity in the registry "
+                   "(default: the pid); a rejoining node reuses its id")
+    n.add_argument("--artifact-store", default=None, metavar="DIR",
+                   help="shared AOT/calibration artifact store root "
+                   "(bucket layout); joining nodes warm from one saved "
+                   "sweep with zero live compiles")
+    n.add_argument("--model-key", default=None,
+                   help="artifact-store key for this model (default: "
+                   "the model file's basename)")
+    n.add_argument("--tuned-config", default=None, metavar="KEY",
+                   nargs="?", const="tuned_config",
+                   help="load a measured TunedConfig artifact from "
+                   "--artifact-store under KEY (bare flag: the default "
+                   "key) and let it size every engine this process "
+                   "starts; with --artifact-store set, the default key "
+                   "is auto-discovered even without this flag. A "
+                   "fingerprint mismatch falls through to the "
+                   "committed defaults, never a crash")
+    n.add_argument("--no-tuned", action="store_true",
+                   help="skip TunedConfig auto-discovery from "
+                   "--artifact-store; every knob keeps its explicit "
+                   "or committed-default value")
+    n.add_argument("--drain-timeout", type=float, default=30.0,
+                   metavar="S",
+                   help="SIGTERM grace: max seconds to finish in-flight "
+                   "requests before exiting anyway")
+    # ---- retrieval serving (nearest-neighbor index) -----------------
+    r = s.add_argument_group(
+        "retrieval serving", "serve a nearest-neighbor index "
+        "(retrieval/) instead of a model: jitted fused distance+top-k "
+        "over the index's shards, POST /api/neighbors. With --join, "
+        "the node gossips its shard ownership so NeighborsDispatcher "
+        "can scatter-gather across the cluster")
+    r.add_argument("--neighbors-index", default=None, metavar="KEY",
+                   help="artifact-store key of a saved "
+                   "ShardedCorpusIndex (requires --artifact-store); "
+                   "enables retrieval mode, --model becomes optional")
+    r.add_argument("--neighbors-shards", default=None, metavar="IDS",
+                   help="comma-separated shard ids this node loads and "
+                   "owns (default: every shard in the manifest)")
+    r.add_argument("--neighbors-k-ladder", default=None,
+                   metavar="KS", help="warmed k values; a request's k "
+                   "is served by the next rung up and sliced "
+                   "(default: the tuned-config ladder when one loads, "
+                   "else 1,10,100)")
+    r.add_argument("--neighbors-batch", type=int, default=64,
+                   metavar="N", help="max query batch per dispatch "
+                   "(pow2 bucket ladder below it is warmed too)")
+    r.add_argument("--nprobe", type=int, default=None, metavar="N",
+                   help="IVF clusters probed per query (default: the "
+                   "index build's hint; ignored for brute indexes)")
+    # ---- online learning (train-and-serve in one process) -----------
+    o = s.add_argument_group(
+        "online learning", "train-and-serve in one process: consume a "
+        "broker sample stream, incrementally fit the restored model, "
+        "and hot-promote holdout-gated candidates into the warm "
+        "serving engines (zero recompiles); a regression sentinel "
+        "auto-rolls-back on live p99/score regressions")
+    o.add_argument("--online", action="store_true",
+                   help="enable the online-learning loop (needs "
+                   "--stream-endpoint and batched inference mode)")
+    o.add_argument("--stream-endpoint", default=None, metavar="HOST:PORT",
+                   help="TCP broker to consume training samples from "
+                   "(streaming/broker.py TcpTransport)")
+    o.add_argument("--stream-topic", default="train",
+                   help="broker topic carrying packed sample frames")
+    o.add_argument("--promote-interval-s", type=float, default=5.0,
+                   help="seconds between promotion-gate cycles")
+    o.add_argument("--min-delta", type=float, default=0.0,
+                   help="required holdout-score improvement margin; "
+                   "candidates within it are rejected as 'equal'")
+    o.add_argument("--score-budget-s", type=float, default=None,
+                   help="advisory wall-clock budget for one holdout "
+                   "scoring pass (over-budget is flagged, not fatal)")
+    o.add_argument("--rollback-p99-factor", type=float, default=3.0,
+                   help="sentinel: live p99 over baseline*factor (and "
+                   "over the floor) rolls the promotion back")
+    o.add_argument("--rollback-p99-floor-ms", type=float, default=50.0,
+                   help="sentinel: absolute p99 floor (ms) the live "
+                   "value must also exceed before a p99 rollback")
+    o.add_argument("--rollback-score-delta", type=float, default=0.0,
+                   help="sentinel: tolerated live holdout-score slack "
+                   "vs the pre-swap baseline before a score rollback")
+    o.add_argument("--sentinel-window-s", type=float, default=30.0,
+                   help="how long the sentinel watches after each "
+                   "promotion")
+    o.add_argument("--holdout-every", type=int, default=8,
+                   help="divert every Nth stream micro-batch to the "
+                   "holdout reservoir (never trained on)")
+    o.add_argument("--holdout-max", type=int, default=512,
+                   help="holdout reservoir bound, in examples")
+    # ---- generative serving (autoregressive decode) ------------------
+    g = s.add_argument_group(
+        "generative serving", "serve autoregressive decode next to "
+        "predict: a continuous-batching GenerationEngine "
+        "(generation/engine.py) over the restored recurrent model "
+        "streams tokens at POST /api/generate (SSE); "
+        "--gen-slo-token-ms puts it behind the fleet front door's "
+        "admission control with per-token-p99 shedding")
+    g.add_argument("--generate", action="store_true",
+                   help="enable decode serving (the model must be a "
+                   "stacked-LSTM + dense-head network, e.g. the "
+                   "committed TextGenerationLSTM artifact)")
+    g.add_argument("--gen-slots", type=int, default=None, metavar="N",
+                   help="continuous-batching slot count: concurrent "
+                   "sequences decoding in one device batch; the "
+                   "warmup sweeps the pow2 bucket ladder up to this "
+                   "(default 8)")
+    g.add_argument("--gen-max-new", type=int, default=256, metavar="N",
+                   help="default per-request max generated tokens")
+    g.add_argument("--gen-precision", default="f32",
+                   choices=["f32", "bf16", "int8"],
+                   help="dense-head precision arm; int8 rides "
+                   "ops/quantize.py and must pass the decode-level "
+                   "next-token-agreement gate at startup")
+    g.add_argument("--gen-slo-token-ms", type=float, default=None,
+                   metavar="MS",
+                   help="per-token p99 SLO: routes /api/generate "
+                   "through fleet admission control (503 + Retry-After "
+                   "on shed)")
+    g.add_argument("--gen-queue-limit", type=int, default=128,
+                   help="bound on sequences waiting for a slot")
+    g.add_argument("--gen-prefill-chunk", type=int, default=None,
+                   metavar="C",
+                   help="chunked prefill: consume prompts in dispatches "
+                   "of up to C tokens (pow2 ladder, warmed) instead of "
+                   "one tick per char; 0 disables (default 0)")
+    g.add_argument("--gen-speculative", type=int, default=0,
+                   metavar="K",
+                   help="speculative decode: n-gram draft proposes up "
+                   "to K tokens per slot, verified in one batched "
+                   "dispatch; accepted output stays bitwise-equal to "
+                   "plain decode. 0 disables")
+    g.add_argument("--gen-sampling", default=None,
+                   choices=["chain", "counter"],
+                   help="seeded-sampling key derivation: chain (legacy "
+                   "carried split chain) or counter (a hash of "
+                   "(seed, position) — replayable anywhere; the "
+                   "default when --gen-speculative is on)")
+    g.add_argument("--gen-session-dir", default=None, metavar="DIR",
+                   help="enable resumable sessions, checkpointing "
+                   "carries into this shared ArtifactStore root so a "
+                   "session resumes on another node after a drain")
+    g.add_argument("--gen-session-cap", type=int, default=0,
+                   metavar="N",
+                   help="enable resumable sessions with N carries "
+                   "pinned device-side (LRU to host beyond that); "
+                   "local-only unless --gen-session-dir adds the "
+                   "cross-node checkpoint tier")
+    g.add_argument("--gen-carry-int8", action="store_true",
+                   help="store session carries int8-quantized "
+                   "(ops/quantize.py rows) — ~4x more resumable "
+                   "sessions per chip, trades away bitwise resume")
+    for action in s._actions:
+        if action.dest in _NOT_PORTED:
+            # absent from the namespace unless given on the command line
+            action.default = argparse.SUPPRESS
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """Exit naming the ROADMAP item of the first unported flag given."""
+    for dest, (what, item) in _NOT_PORTED.items():
+        if hasattr(args, dest):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(
+                f"serve: {flag} needs {what}, which is not ported yet "
+                f"(ROADMAP.md, queue 1 item {item})")
+
+
+def _wait(args) -> None:
+    try:
+        if args.duration is not None:
+            time.sleep(args.duration)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+
+
+def cmd_serve(args, block: bool = True):
+    """Start engine + UI server. ``args`` is the parsed namespace or an
+    argument list (``["serve", "--model", ...]``). ``block=False``
+    returns ``(front, server)`` for in-process use (tests, notebooks) —
+    front is the ParallelInference facade, or the FleetRouter when
+    ``--slo-ms`` puts the fleet front door up. Both expose
+    ``shutdown()``."""
+    if not isinstance(args, argparse.Namespace):
+        args = _build_parser().parse_args(list(args))
+    _refuse_unported(args)
+    if not args.model:
+        raise SystemExit("--model is required")
+    import numpy as np
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("serve: no CUDA device is available; pass "
+                         "--device cpu to serve on the CPU explicitly")
+
+    from deeplearning4j_tpu_torch.models.serialization import restore_model
+    from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
+    from deeplearning4j_tpu_torch.parallel.inference import (
+        InferenceMode, ParallelInference)
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    from deeplearning4j_tpu_torch.ui.serving_module import (
+        FleetModule, ServingModule)
+    from deeplearning4j_tpu_torch.ui.storage import InMemoryStatsStorage
+
+    # un-flagged knobs resolve to the committed defaults here, so every
+    # construction and banner below sees real values
+    args.batch_limit = int(resolve_tuned(args.batch_limit, None,
+                                         "serving.batch_limit"))
+    args.gen_slots = int(resolve_tuned(args.gen_slots, None,
+                                       "generation.max_slots"))
+    args.gen_prefill_chunk = int(resolve_tuned(
+        args.gen_prefill_chunk, None, "generation.prefill_chunk"))
+    model = restore_model(args.model, device=args.device)
+    replicas = args.replicas if args.replicas == "auto" \
+        else int(args.replicas)
+    mode = InferenceMode(args.inference_mode)
+    kwargs = {}
+    if mode == InferenceMode.BATCHED:
+        kwargs = dict(
+            replicas=replicas, depth=args.depth,
+            precision="bf16" if args.bf16 else "f32",
+            dtype=np.dtype(args.dtype),
+            feature_shape=(tuple(args.warmup_shape)
+                           if args.warmup_shape else None))
+    name = os.path.splitext(os.path.basename(args.model))[0] or "default"
+
+    fleet = None
+    if args.slo_ms is not None and mode == InferenceMode.BATCHED:
+        # fleet front door: admission control + SLO shedding wrap the
+        # engine; the pool is named after the model file
+        from deeplearning4j_tpu_torch.parallel.fleet import FleetRouter
+        fleet = FleetRouter(slo_ms=args.slo_ms, device=args.device)
+        fleet.add_pool(
+            name, model, version=args.model_version,
+            batch_limit=args.batch_limit, queue_limit=args.queue_limit,
+            timeout_ms=args.timeout_ms, **kwargs)
+        engine = fleet.pool(name).engines[0]
+        front = fleet
+    else:
+        front = ParallelInference(
+            model, inference_mode=mode, batch_limit=args.batch_limit,
+            queue_limit=args.queue_limit, timeout_ms=args.timeout_ms,
+            **kwargs)
+        # INPLACE answers /api/predict through the facade itself, on
+        # the handler's thread
+        engine = front.engine if front.engine is not None else front
+
+    # generative serving rides the same process: a GenerationEngine
+    # over the same restored model, exposed at /api/generate — behind
+    # fleet admission when an SLO (request- or token-level) is armed
+    gen_engine = None
+    gen_router = None
+    gen_name = name + "-gen"
+    if args.generate:
+        from deeplearning4j_tpu_torch.generation import (
+            GenerationEngine, SessionStore, extract_decode_spec)
+        gen_store = None
+        if args.gen_session_dir or args.gen_session_cap:
+            art_store = None
+            if args.gen_session_dir:
+                from deeplearning4j_tpu_torch.parallel.aot_cache import (
+                    ArtifactStore)
+                art_store = ArtifactStore(args.gen_session_dir)
+            gen_store = SessionStore(
+                extract_decode_spec(model),
+                device_capacity=args.gen_session_cap or 32,
+                store=art_store,
+                carry_dtype="int8" if args.gen_carry_int8 else "f32",
+                device=model.device)
+        gen_engine = GenerationEngine(
+            model, max_slots=args.gen_slots,
+            precision=args.gen_precision,
+            max_new_tokens=args.gen_max_new,
+            queue_limit=args.gen_queue_limit,
+            prefill_chunk=args.gen_prefill_chunk,
+            speculative=args.gen_speculative,
+            sampling=args.gen_sampling,
+            session_store=gen_store)
+        if fleet is not None or args.gen_slo_token_ms is not None:
+            gen_router = fleet
+            if gen_router is None:
+                from deeplearning4j_tpu_torch.parallel.fleet import (
+                    FleetRouter)
+                gen_router = FleetRouter(session_id="generate",
+                                         device=args.device)
+            gen_router.add_generation_pool(
+                gen_name, gen_engine, slo_token_ms=args.gen_slo_token_ms)
+
+    server = UIServer(port=args.ui_port)
+    server.attach(InMemoryStatsStorage())
+    if fleet is not None:
+        # FleetModule first: its admission-controlled /api/predict wins
+        # the route merge; ServingModule keeps /api/serving/stats live
+        server.register_module(FleetModule(fleet))
+    server.register_module(ServingModule(engine))
+    if gen_engine is not None:
+        from deeplearning4j_tpu_torch.ui.generation_module import (
+            GenerationModule)
+        server.register_module(
+            GenerationModule(router=gen_router, model=gen_name)
+            if gen_router is not None
+            else GenerationModule(engine=gen_engine))
+    server.start()
+    print(f"serving {args.model} at {server.url} "
+          f"(mode={mode.value}, replicas={replicas}, "
+          f"batch_limit={args.batch_limit}"
+          + (f", slo={args.slo_ms}ms" if fleet is not None else "")
+          + ")")
+    print(f"  metrics:  {server.url}/metrics")
+    print(f"  health:   {server.url}/healthz")
+    print(f"  predict:  POST {server.url}/api/predict "
+          '{"features": [[...], ...]}')
+    print(f"  stats:    GET  {server.url}/api/serving/stats")
+    if fleet is not None:
+        print(f"  fleet:    GET  {server.url}/api/fleet/stats, "
+              f"POST {server.url}/api/fleet/swap|rollback")
+    if gen_engine is not None:
+        print(f"  generate: POST {server.url}/api/generate "
+              '{"prompt": "...", "stream": true}  (SSE token stream, '
+              f"slots={args.gen_slots}, "
+              f"precision={args.gen_precision}"
+              + (f", prefill_chunk={args.gen_prefill_chunk}"
+                 if args.gen_prefill_chunk else "")
+              + (f", speculative={args.gen_speculative}"
+                 if args.gen_speculative else "")
+              + (", sessions=on" if gen_engine.session_store
+                 is not None else "") + ")")
+        print(f"  genstats: GET  {server.url}/api/generation/stats")
+    sys.stdout.flush()
+    if not block:
+        return front, server
+    try:
+        _wait(args)
+    finally:
+        front.shutdown()
+        # front.shutdown() covers the generation engine only when its
+        # pool rides the same fleet router; the standalone cases are
+        # shut down here
+        if gen_router is not None and gen_router is not fleet:
+            gen_router.shutdown()
+        elif gen_engine is not None and gen_router is None:
+            gen_engine.shutdown()
+        server.stop()
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = _build_parser().parse_args(argv)
+    if args.command == "serve":
+        rc = cmd_serve(args)
+        return rc if isinstance(rc, int) else 0
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,8 +32,10 @@ saw). CUDA graphs of the tick are not part of this port (ROADMAP).
 Telemetry: the ``dl4j_gen_*`` family (tokens, per-token p50/p99,
 time-to-first-token, active slots, retired sequences by outcome,
 stream errors, compiles by phase), as the JAX package registers it.
-``GenerationPool`` (session affinity), the SSE/HTTP surface and the
-``generate`` CLI are not ported yet (ROADMAP).
+``parallel/fleet.py``'s ``GenerationPool`` puts an engine behind
+admission control (with session affinity), ``ui/generation_module.py``
+streams it over HTTP as SSE, and ``python -m deeplearning4j_tpu_torch
+serve --generate`` starts both.
 """
 
 from __future__ import annotations

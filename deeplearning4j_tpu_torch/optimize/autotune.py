@@ -1,7 +1,8 @@
 """Tunable defaults and their precedence.
 
 From the JAX package's ``optimize/autotune.py``: the ``Tunable`` record,
-the two generation entries of its registry (``generation.max_slots`` and
+the serving and generation entries of its registry
+(``serving.batch_limit``, ``generation.max_slots`` and
 ``generation.prefill_chunk``, with the JAX package's committed defaults)
 and ``resolve_tuned``'s precedence, explicit argument > tuned config >
 committed default. The port has no measured ``TunedConfig`` and no
@@ -30,6 +31,10 @@ class Tunable:
 
 
 REGISTRY: Dict[str, Tunable] = {t.name: t for t in (
+    Tunable("serving.batch_limit", 32, (8, 16, 32, 64), "req/s",
+            "ServingEngine max examples per dispatch; also the top "
+            "rung of the pow2 bucket ladder the warmup sweep compiles "
+            "(the ladder is derived, so tuning this tunes both)"),
     Tunable("generation.max_slots", 8, (2, 4, 8, 16), "tok/s",
             "continuous-batching slot count; the AOT warmup sweeps "
             "the pow2 slot ladder and the reachable resize pairs up "

@@ -11,20 +11,35 @@ device:
    ladder. A warmup runs one forward per bucket at start.
 2. **Committed inference params.** Parameters and layer state are put on
    the device once at engine start, in float32 or cast to bf16
-   (``precision="bf16"``), and each layer's inference constants (the
-   fused blocks' BN scale/shift) are folded into the committed state once
-   (``ComputationGraph.inference_state``); the model's own parameters and
-   state are untouched.
+   (``precision="bf16"``), and, for a model that defines
+   ``inference_state`` (``ComputationGraph``), each layer's inference
+   constants (the fused blocks' BN scale/shift) are folded into the
+   committed state once; the model's own parameters and state are
+   untouched. Any model exposing ``build_inference_fn`` is served
+   (``ComputationGraph``, ``MultiLayerNetwork``); a duck-typed model
+   with only ``.output`` runs that call under the same batching.
+   ``swap_params`` replaces the committed copy without a new warmup.
 3. **Pipelined dispatch.** The dispatcher thread forms a batch, launches
-   the forward on the device stream, enqueues the device→host copy of the
-   result into pinned memory and records an event; the completion thread
-   waits on that event and answers the waiters. Launches return before
-   the device finishes, so batch N+1 is formed and launched while batch N
-   computes. The pipe between the threads holds ``depth`` batches; while
-   it is full the dispatcher keeps coalescing arrivals up to
-   ``timeout_ms``.
-4. **Latency observability.** ``stats()`` reports streaming p50/p95/p99
-   (observe/latency.py), dispatch and batch counts and queue depth.
+   the forward on the engine's CUDA stream, enqueues the device→host
+   copy of the result into pinned memory and records an event; the
+   completion thread waits on that event and answers the waiters.
+   Launches return before the device finishes, so batch N+1 is formed
+   and launched while batch N computes. The pipe between the threads
+   holds ``depth`` batches; while it is full the dispatcher keeps
+   coalescing arrivals up to ``timeout_ms``.
+4. **Deadlines.** ``submit``/``output(deadline=)``: an expired deadline
+   sheds synchronously with ``DeadlineExceeded``; one that expires while
+   queued sheds at batch forming, before the device.
+5. **Observability.** ``stats()`` reports streaming p50/p95/p99
+   (observe/latency.py), dispatch and batch counts and queue depth; the
+   ``dl4j_serving_*`` series go to the metrics registry scraped at
+   ``/metrics``, labelled by the engine's ``session`` so two engines (a
+   swap's old and new version) never share a series. "Compile" in the
+   port: a *compile* is the first dispatch of a bucket (an engine has
+   one precision and one device); the warmup sweep makes each one, and a later one counts as
+   ``phase="live"`` and fails ``assert_warm()``. The
+   ``RecompileWatchdog`` keys each bucket on its own, so the sweep never
+   reads as a recompile storm at ``/healthz``.
 
 Numerical contract: a request's rows are computed at the bucket shape
 and sliced back; padded rows repeat the last real row. The fused conv
@@ -33,39 +48,68 @@ does not depend on what it was batched with; the plain torch ops of the
 stem and head (cuDNN/cuBLAS) may pick another algorithm per batch size,
 which chip_smoke.py measures against ``model.output``.
 
-Not ported yet: multi-replica fan-out, int8, the AOT cache, deadlines,
-chaos sites, the Prometheus registry and span tracer.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+queue 1 item): more than one replica (item 15), int8 precision (item
+11), the persisted AOT executable cache (item 12) and tuned configs
+(item 16); the span tracer is not ported (item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.chaos.hook import chaos_site
+from deeplearning4j_tpu_torch.models.serialization import flatten_paths
 from deeplearning4j_tpu_torch.observe.latency import LatencyRing
+from deeplearning4j_tpu_torch.observe.recompile import RecompileWatchdog
+from deeplearning4j_tpu_torch.observe.registry import default_registry
+from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
+from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+from deeplearning4j_tpu_torch.parallel.deadline import (Deadline,
+                                                        DeadlineExceeded)
+
+REPLICA = 0          # the one dispatch target (the JAX engine's replica 0)
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"ServingEngine: {what} is not ported yet (ROADMAP.md, queue 1 "
+        f"item {item})")
 
 
 class _Request(NamedTuple):
-    """One enqueued chunk: host features, its waiter, arrival time."""
+    """One enqueued chunk: host features, its waiter, arrival time,
+    and the caller's remaining-budget deadline (None = unbounded)."""
     x: np.ndarray
     future: Future
     t_enqueue: float
+    deadline: Optional[Deadline] = None
 
 
 class _InFlight(NamedTuple):
     """A dispatched batch travelling dispatcher -> completion thread."""
-    host: torch.Tensor                  # (pinned) host copy being filled
-    done: Optional[torch.cuda.Event]    # None on the CPU (already done)
+    host: Any                           # (pinned) host copy being filled
+    done: Optional[torch.cuda.Event]    # None off the card (already done)
     requests: List[_Request]
     n_real: int
     bucket: int
     t_dispatched: float
+
+
+def _concrete(device) -> torch.device:
+    """``device`` with its card index filled in (``cuda`` -> ``cuda:0``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class ServingEngine:
@@ -73,48 +117,81 @@ class ServingEngine:
 
     Parameters
     ----------
-    model : a single-input single-output ``ComputationGraph`` (exposes
-        ``build_inference_fn``); the engine serves on the model's device
+    model : a model exposing ``build_inference_fn`` (``ComputationGraph``
+        with one input and one output, ``MultiLayerNetwork``), served on
+        the model's device; or a duck-typed object with ``.output`` only
     batch_limit : max examples per dispatch; also the ladder's top bucket
+        (default: the ``serving.batch_limit`` tunable's 32)
     queue_limit : bound on queued request chunks (producers block)
     timeout_ms : UPPER bound on batch aggregation; the pipelined engine
         only waits at all while the completion pipe is full
     depth : in-flight batches handed to the completion thread
+    replicas : 1 or "auto" (every visible card); one card is ported
     min_bucket : the ladder's smallest bucket
     feature_shape : per-example feature shape (no batch dim); providing
         it enables the warmup sweep at start
     dtype : feature dtype requests are cast to (default float32)
     precision : "f32" (default) or "bf16" (cast the committed copy of the
-        float params to bfloat16; the BN running state stays float32)
+        float params to bfloat16; the BN running state stays float32), or
+        an object whose ``mode`` is one of them
+    model_version : opaque version label (the fleet's swap path sets it)
+    registry, watchdog : the metrics registry (default: the process one)
+        and recompile watchdog (default: one over that registry)
     """
 
-    def __init__(self, model, *, batch_limit: int = 32,
+    def __init__(self, model, *, batch_limit: Optional[int] = None,
                  queue_limit: int = 128, timeout_ms: float = 5.0,
-                 depth: int = 1, min_bucket: int = 1,
+                 depth: int = 1, replicas: Union[int, str] = 1, min_bucket: int = 1,
                  feature_shape: Optional[Tuple[int, ...]] = None,
-                 dtype: Any = np.float32, precision: str = "f32",
+                 dtype: Any = np.float32, precision: Any = "f32",
                  warmup: Optional[bool] = None,
+                 aot_cache_dir: Optional[str] = None,
+                 model_version: Optional[str] = None,
+                 tuned_config=None, registry=None, watchdog=None,
                  session_id: str = "serve"):
+        batch_limit = int(resolve_tuned(batch_limit, tuned_config,
+                                        "serving.batch_limit"))
+        if aot_cache_dir is not None:
+            raise _not_ported("the persisted AOT executable cache "
+                              "(aot_cache_dir)", 12)
         if batch_limit < 1:
             raise ValueError("batch_limit must be >= 1")
         if not 1 <= min_bucket <= batch_limit:
             raise ValueError("need 1 <= min_bucket <= batch_limit")
         if depth < 1:
             raise ValueError("depth must be >= 1")
+        precision = getattr(precision, "mode", precision)
+        if precision == "int8":
+            raise _not_ported("int8 precision", 11)
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got "
-                             f"{precision!r} (int8 is not ported yet)")
+                             f"{precision!r}")
         self.model = model
-        self.device = model.device
-        self.batch_limit = int(batch_limit)
+        self.device = _concrete(getattr(model, "device", "cpu"))
+        n_cards = (torch.cuda.device_count() if self.device.type == "cuda"
+                   else 1)
+        n = n_cards if replicas == "auto" else int(replicas)
+        if n > 1:
+            raise _not_ported(f"serving on {n} replicas (replicas="
+                              f"{replicas!r})", 15)
+        if n < 1:
+            raise ValueError(f"replicas={replicas!r} must be >= 1")
+        self.n_replicas = 1
+        self.batch_limit = batch_limit
         self.timeout_ms = float(timeout_ms)
         self.depth = int(depth)
         self.session_id = session_id
         self.precision = precision
+        self.model_version = model_version
+        self.tuned_config = tuned_config
         self.dtype = np.dtype(dtype)
         self.feature_shape = (None if feature_shape is None
                               else tuple(feature_shape))
         self.latency = LatencyRing()
+        self.registry = registry if registry is not None \
+            else default_registry()
+        self.watchdog = watchdog if watchdog is not None else \
+            RecompileWatchdog(self.registry, session_id=session_id)
 
         ladder, b = [], 1 << (min_bucket - 1).bit_length()
         while b < self.batch_limit:
@@ -123,26 +200,90 @@ class ServingEngine:
         ladder.append(self.batch_limit)
         self.ladder = ladder
 
-        # ---- committed inference params ----------------------------------
-        if model.params is None:
-            model.init()
-        cast = ((lambda t: t.to(torch.bfloat16) if t.is_floating_point()
-                 else t) if precision == "bf16" else (lambda t: t))
-        with torch.no_grad():
-            self._params = {ln: {k: cast(v).to(self.device).clone()
-                                 for k, v in lp.items()}
-                            for ln, lp in model.params.items()}
-            self._state = model.inference_state(self._params, {
-                ln: {k: v.to(self.device).clone() for k, v in st.items()}
-                for ln, st in model.model_state.items()})
-        self._fwd = model.build_inference_fn()
-
+        # ---- metrics (the JAX engine's names and label sets) -------------
+        reg, lab = self.registry, dict(session=session_id,
+                                       precision=precision)
+        self._lab = lab
+        self._c_requests = reg.counter(
+            "dl4j_serving_requests_total",
+            "inference requests accepted by the serving engine")
+        self._c_batches = reg.counter(
+            "dl4j_serving_batches_total",
+            "device batches dispatched by the serving engine")
+        self._c_compiles = reg.counter(
+            "dl4j_serving_compiles_total",
+            "bucket executables compiled, by phase (warmup|live); a "
+            "nonzero live count means a request paid a compile")
+        self._g_inflight = reg.gauge(
+            "dl4j_serving_inflight",
+            "requests accepted but not yet answered")
+        self._g_queue = reg.gauge(
+            "dl4j_serving_queue_depth",
+            "request chunks waiting for the dispatcher")
+        self._g_occupancy = reg.gauge(
+            "dl4j_serving_batch_occupancy",
+            "real examples / bucket size of the last dispatched batch")
+        self._g_latency = reg.gauge(
+            "dl4j_serving_latency_ms",
+            "streaming request latency quantiles over the last 4096 "
+            "requests")
+        self._c_replica_disp = reg.counter(
+            "dl4j_serving_replica_dispatches_total",
+            "batches dispatched per replica ('mesh' = sharded full "
+            "buckets across all replicas)")
+        self._c_replica_busy = reg.counter(
+            "dl4j_serving_replica_busy_ms",
+            "cumulative ms a replica spent computing dispatched batches")
+        self._g_precision = reg.gauge(
+            "dl4j_serving_precision",
+            "1 for the engine's active precision label (f32|bf16|int8)")
+        self._c_deadline_shed = reg.counter(
+            "dl4j_serving_deadline_shed_total",
+            "requests shed because their deadline expired before "
+            "device dispatch; stage=ingress|batch")
+        self._c_requests.inc(0.0, **lab)
+        self._c_batches.inc(0.0, **lab)
+        self._c_compiles.inc(0.0, phase="live", **lab)
+        self._g_inflight.set(0.0, **lab)
+        self._g_precision.set(1.0, **lab)
         self.dispatch_count = 0
         self.device_ms_total = 0.0
+
+        # the one CUDA stream all of the engine's device work runs on
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        if self._stream is not None:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+        # ---- committed inference params ----------------------------------
+        # (params, model_state as given, state with inference constants
+        # folded in); None for a duck-typed .output-only model
+        self._committed: Optional[Tuple[Any, Any, Any]] = None
+        self._fwd = None
+        if hasattr(model, "build_inference_fn"):
+            if model.params is None:
+                model.init()
+            self._committed = self._commit(model.params, model.model_state)
+            self._fwd = model.build_inference_fn()
+        elif precision != "f32":
+            raise ValueError(
+                f"precision={precision!r} needs a model exposing "
+                "build_inference_fn (committed params); "
+                f"{type(model).__name__} only has .output")
+
+        # ---- dispatch machinery ------------------------------------------
+        self._compiled: set = set()        # buckets dispatched at least once
+        self._compile_lock = threading.Lock()
+        self._chaos_dispatch = chaos_site("serve.dispatch")
+        self._warmed = False
+        self._post_warmup_compiles = 0
+        self.param_swaps = 0
         self._inflight_count = 0
         self._count_lock = threading.Lock()
         self._queue: "queue.Queue[_Request]" = queue.Queue(
             maxsize=queue_limit)
+        # aggregation overflow, shared between the dispatcher and caller
+        # threads (shutdown race, stats): every touch holds _carry_lock
         self._carry: Optional[_Request] = None
         self._carry_lock = threading.Lock()
         self._completions: "queue.Queue[Optional[_InFlight]]" = \
@@ -163,13 +304,97 @@ class ServingEngine:
                 raise ValueError("warmup needs feature_shape (and dtype)")
             t0 = time.perf_counter()
             for bucket in self.ladder:
-                self._run(np.zeros((bucket,) + self.feature_shape,
-                                   self.dtype))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                out = self._run(np.zeros((bucket,) + self.feature_shape,
+                                         self.dtype), bucket)
+                del out
+            if self._stream is not None:
+                self._stream.synchronize()
             self.warmup_seconds = time.perf_counter() - t0
+        self._warmed = True
         self._dispatcher.start()
         self._completer.start()
+
+    # ---- committed params ------------------------------------------------
+    def _on_device(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _cast(self, t):
+        t = torch.as_tensor(t)
+        if self.precision == "bf16" and t.is_floating_point():
+            return t.to(torch.bfloat16)
+        return t
+
+    def _commit(self, params, model_state) -> Tuple[Any, Any, Any]:
+        """Copies of ``params`` (cast to the serving precision) and
+        ``model_state`` on the engine's device and stream, plus the state
+        with inference constants folded in."""
+        with torch.no_grad(), self._on_device():
+            p = tree_map(lambda t: self._cast(t).to(self.device).clone(),
+                          params)
+            s = tree_map(lambda t: torch.as_tensor(t).to(
+                self.device).clone(), model_state)
+            fold = getattr(self.model, "inference_state", None)
+            folded = fold(p, s) if fold is not None else s
+        if self._stream is not None:
+            self._stream.synchronize()
+        return p, s, folded
+
+    @property
+    def params_resident_bytes(self) -> int:
+        """Bytes of the committed params copy."""
+        if self._committed is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in flatten_paths(self._committed[0]).values())
+
+    def committed_host(self) -> Tuple[Any, Any]:
+        """Host copies (CPU tensors, never views) of the committed
+        ``(params, model_state)`` — the rollback standby snapshot."""
+        if self._committed is None:
+            raise ValueError(
+                "legacy .output-only engines have no committed params")
+        params, state, _ = self._committed
+        if self._stream is not None:
+            self._stream.synchronize()
+        copy = lambda t: t.detach().to("cpu", copy=True)
+        return tree_map(copy, params), tree_map(copy, state)
+
+    def swap_params(self, params, model_state=None, *,
+                    version: Optional[str] = None) -> None:
+        """Atomically replace the committed inference params without a
+        new warmup: the bucket ladder and its first dispatches stay, so
+        a swap of same-structured weights adds no compile. Structure,
+        shapes and dtypes (after the precision cast) are checked before
+        anything is committed; the commit is one reference assignment, so
+        a dispatch racing the swap sees the old set or the new one."""
+        if self._committed is None:
+            raise ValueError(
+                "legacy .output-only model: no committed params to swap")
+        old_p, old_s, _ = self._committed
+        if model_state is None:
+            model_state = old_s
+        for what, old, new in (("params", old_p, params),
+                               ("model_state", old_s, model_state)):
+            lo, ln = flatten_paths(old), flatten_paths(new)
+            if set(lo) != set(ln):
+                raise ValueError(
+                    f"swap_params: {what} tree structure differs from "
+                    f"the committed one (missing {sorted(set(lo) - set(ln))}"
+                    f", extra {sorted(set(ln) - set(lo))})")
+            for k, o in lo.items():
+                nl = self._cast(ln[k]) if what == "params" \
+                    else torch.as_tensor(ln[k])
+                if tuple(o.shape) != tuple(nl.shape) or o.dtype != nl.dtype:
+                    raise ValueError(
+                        f"swap_params: {what} leaf {k} is "
+                        f"{tuple(nl.shape)}/{nl.dtype}, committed expects "
+                        f"{tuple(o.shape)}/{o.dtype}")
+        committed = self._commit(params, model_state)
+        self._committed = committed          # the atomic commit point
+        if version is not None:
+            self.model_version = version
+        self.param_swaps += 1
 
     # ---- bucket ladder ---------------------------------------------------
     def bucket_of(self, n: int) -> int:
@@ -180,24 +405,51 @@ class ServingEngine:
         raise ValueError(f"batch of {n} exceeds batch_limit "
                          f"{self.batch_limit}")
 
-    def _run(self, x: np.ndarray) -> torch.Tensor:
-        """Launch the forward for one padded batch; returns the device
-        result (not yet synchronized)."""
-        xt = torch.from_numpy(np.ascontiguousarray(x, self.dtype))
-        if self.device.type == "cuda":
-            xt = xt.pin_memory().to(self.device, non_blocking=True)
-        return self.forward(xt)
+    def _first_dispatch(self, bucket: int):
+        """Count a bucket's first dispatch — the port's compile — by
+        phase (an engine has one precision and one device)."""
+        if bucket in self._compiled:
+            return
+        with self._compile_lock:
+            if bucket in self._compiled:
+                return
+            self._compiled.add(bucket)
+            phase = "live" if self._warmed else "warmup"
+            if self._warmed:
+                self._post_warmup_compiles += 1
+            self._c_compiles.inc(1.0, phase=phase, **self._lab)
+
+    def _run(self, x: np.ndarray, bucket: int):
+        """Launch the forward for one padded batch on the engine's
+        stream; returns the device result (not yet synchronized)."""
+        self._first_dispatch(bucket)
+        if self._fwd is None:                 # duck-typed .output model
+            self.watchdog.observe(f"serve_fwd_{self.precision}_b{bucket}",
+                                  x)
+            return self.model.output(x)
+        with self._on_device():
+            xt = torch.from_numpy(np.ascontiguousarray(x, self.dtype))
+            if self.device.type == "cuda":
+                xt = xt.pin_memory().to(self.device, non_blocking=True)
+            self.watchdog.observe(f"serve_fwd_{self.precision}_b{bucket}",
+                                  xt)
+            return self.forward(xt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The committed forward on one batch already on the device (no
         queueing, padding or splitting) — what every dispatch runs."""
-        return self._fwd(self._params, self._state, x)
+        params, _, state = self._committed
+        return self._fwd(params, state, x)
 
     # ---- public API ------------------------------------------------------
-    def submit(self, features) -> Future:
+    def submit(self, features,
+               deadline: Optional[Deadline] = None) -> Future:
         """Enqueue a request; the Future resolves to the (N, ...) host
         output as numpy. Oversized requests split across dispatches and
-        reassemble transparently."""
+        reassemble transparently. An expired ``deadline`` sheds
+        synchronously (``DeadlineExceeded``, never enqueued); one that
+        expires while queued sheds at batch forming — either way the
+        request never reaches the device."""
         x = np.asarray(features)
         if x.ndim == 0 or x.shape[0] == 0:
             raise ValueError(
@@ -213,28 +465,38 @@ class ServingEngine:
             x = x.astype(self.dtype)
         if self._shutdown.is_set():
             raise RuntimeError("ServingEngine is shut down")
+        if deadline is not None and deadline.expired:
+            self._c_deadline_shed.inc(1.0, stage="ingress", **self._lab)
+            raise DeadlineExceeded("serving: deadline expired at ingress")
         chunks = [x[i:i + self.batch_limit]
                   for i in range(0, x.shape[0], self.batch_limit)]
+        self._c_requests.inc(1.0, **self._lab)
         with self._count_lock:
             self._inflight_count += 1
+            self._g_inflight.set(self._inflight_count, **self._lab)
         try:
-            futures = [self._enqueue(c) for c in chunks]
+            futures = [self._enqueue(c, deadline) for c in chunks]
         except BaseException:
+            # without this release least-loaded routing would starve
+            # the engine forever after a shutdown race
             with self._count_lock:
                 self._inflight_count -= 1
+                self._g_inflight.set(self._inflight_count, **self._lab)
             raise
         if len(futures) == 1:
             self._track(futures[0])
             return futures[0]
         return self._join_futures(futures)
 
-    def output(self, features) -> np.ndarray:
+    def output(self, features,
+               deadline: Optional[Deadline] = None) -> np.ndarray:
         """Blocking inference (reference: ParallelInference.output:113)."""
-        return self.submit(features).result()
+        return self.submit(features, deadline=deadline).result()
 
-    def _enqueue(self, chunk: np.ndarray) -> Future:
+    def _enqueue(self, chunk: np.ndarray,
+                 deadline: Optional[Deadline] = None) -> Future:
         f: Future = Future()
-        req = _Request(chunk, f, time.perf_counter())
+        req = _Request(chunk, f, time.perf_counter(), deadline)
         while True:
             if self._shutdown.is_set():
                 raise RuntimeError("ServingEngine is shut down")
@@ -243,6 +505,7 @@ class ServingEngine:
                 break
             except queue.Full:
                 continue
+        self._g_queue.set(self._queue.qsize(), **self._lab)
         if self._shutdown.is_set():
             self._drain_queue()     # raced with shutdown()
         return f
@@ -251,6 +514,7 @@ class ServingEngine:
         def done(_):
             with self._count_lock:
                 self._inflight_count -= 1
+                self._g_inflight.set(self._inflight_count, **self._lab)
         f.add_done_callback(done)
 
     def _join_futures(self, parts: List[Future]) -> Future:
@@ -278,24 +542,48 @@ class ServingEngine:
 
     @property
     def inflight(self) -> int:
-        """Requests accepted but not yet answered."""
+        """Requests accepted but not yet answered (the fleet router's
+        least-loaded dispatch key)."""
         return self._inflight_count
 
+    @property
+    def recompiles_after_warmup(self) -> int:
+        return self._post_warmup_compiles
+
+    def assert_warm(self):
+        """Raise when a live request made a signature's first dispatch
+        after the warmup sweep, or the watchdog saw a bucket's signature
+        drift — the zero-recompile serving contract."""
+        if self._post_warmup_compiles:
+            raise AssertionError(
+                f"{self._post_warmup_compiles} bucket signatures were "
+                "first dispatched by live traffic after warmup; widen the "
+                "warmup sweep (feature_shape/min_bucket/batch_limit)")
+        if self.watchdog.count() > 0:
+            raise AssertionError(
+                "RecompileWatchdog saw new dispatch signatures after "
+                f"first compile: {self.watchdog.events}")
+
     def stats(self) -> Dict[str, Any]:
-        """Point-in-time snapshot."""
+        """Point-in-time snapshot for the CLI / UI module: the JAX
+        engine's keys, plus the serving ``device``."""
         q = self.latency.quantiles()
         with self._carry_lock:
             carried = 1 if self._carry is not None else 0
         return {
             "session": self.session_id,
             "device": str(self.device),
+            "replicas": self.n_replicas,
             "ladder": list(self.ladder),
+            "pipelined": True,        # the JAX engine's key; one dispatcher
             "precision": self.precision,
+            "params_resident_bytes": self.params_resident_bytes,
             "batches": self.dispatch_count,
             "device_ms_total": self.device_ms_total,
             "requests": self.latency.count,
             "inflight": self._inflight_count,
             "queue_depth": self._queue.qsize() + carried,
+            "recompiles_after_warmup": self._post_warmup_compiles,
             "warmup_s": self.warmup_seconds,
             "latency_ms": {f"p{int(k * 100)}": v * 1e3
                            for k, v in q.items()},
@@ -334,11 +622,28 @@ class ServingEngine:
             total += item.x.shape[0]
         return batch
 
+    def _shed_expired(self, batch: List[_Request]) -> List[_Request]:
+        """Drop requests whose deadline expired while they queued — the
+        last gate before the device."""
+        live = []
+        for req in batch:
+            if req.deadline is not None and req.deadline.expired:
+                self._c_deadline_shed.inc(1.0, stage="batch", **self._lab)
+                if not req.future.done():
+                    req.future.set_exception(DeadlineExceeded(
+                        "serving: deadline expired while queued"))
+            else:
+                live.append(req)
+        return live
+
     def _dispatch_loop(self):
         while not self._shutdown.is_set():
             batch = self._form_batch()
+            if batch:
+                batch = self._shed_expired(batch)
             if not batch:
                 continue
+            self._g_queue.set(self._queue.qsize(), **self._lab)
             try:
                 inflight = self._dispatch(batch)
             except Exception as e:
@@ -371,17 +676,24 @@ class ServingEngine:
             ofs += k
         if bucket > n:
             x[n:] = x[n - 1]     # finite padding rows, sliced off below
+        if self._chaos_dispatch is not None:
+            self._chaos_dispatch.fail(arg=str(REPLICA))
         t0 = time.perf_counter()
-        out = self._run(x)
+        out = self._run(x, bucket)
         done = None
-        if self.device.type == "cuda":
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+        if isinstance(out, torch.Tensor) and out.device.type == "cuda":
+            with self._on_device():
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
         else:
             host = out
+        self._c_batches.inc(1.0, **self._lab)
         self.dispatch_count += 1
+        self._c_replica_disp.inc(1.0, replica=str(REPLICA), **self._lab)
+        self._g_occupancy.set(n / bucket, **self._lab)
         return _InFlight(host, done, batch, n, bucket, t0)
 
     # ---- completion ------------------------------------------------------
@@ -397,11 +709,16 @@ class ServingEngine:
             if inflight.done is not None:
                 inflight.done.synchronize()
             t_ready = time.perf_counter()
-            self.device_ms_total += (t_ready - inflight.t_dispatched) * 1e3
+            busy_ms = (t_ready - inflight.t_dispatched) * 1e3
+            self.device_ms_total += busy_ms
+            self._c_replica_busy.inc(busy_ms, replica=str(REPLICA),
+                                     **self._lab)
             host = inflight.host
-            if host.dtype == torch.bfloat16:
-                host = host.float()
-            host = host.numpy()
+            if isinstance(host, torch.Tensor):
+                if host.dtype == torch.bfloat16:
+                    host = host.float()
+                host = host.numpy()
+            host = np.asarray(host)
             ofs = 0
             for req in inflight.requests:
                 k = req.x.shape[0]
@@ -409,6 +726,9 @@ class ServingEngine:
                     req.future.set_result(host[ofs:ofs + k].copy())
                 ofs += k
                 self.latency.record(t_ready - req.t_enqueue)
+            for qq, v in self.latency.quantiles().items():
+                self._g_latency.set(v * 1e3, quantile=f"p{int(qq * 100)}",
+                                    **self._lab)
         except Exception as e:    # propagate to every waiter
             for req in inflight.requests:
                 if not req.future.done():

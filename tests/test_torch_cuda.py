@@ -1051,3 +1051,82 @@ def test_int8_dot_on_the_card_is_exact(card, k):
             int8_dot(x.to(card), wq.to(card), ws.to(card), xs.to(card))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _small_resnet(seed=123):
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    return ResNet50(num_classes=10, height=32, width=32, fused_blocks=True,
+                    s2d_stem=True, compute_dtype="bfloat16", seed=seed).init()
+
+
+def test_http_predict_of_the_slice_model_equals_its_engine(card, tmp_path):
+    """``serve`` on the card: /api/predict answers (a split request
+    included) equal the served engine's own ``output`` bitwise, and the
+    dispatches launch the fused kernels."""
+    import json
+    import urllib.request
+    from deeplearning4j_tpu_torch.__main__ import cmd_serve
+    from deeplearning4j_tpu_torch.models.serialization import save_model
+    path = str(tmp_path / "rn.zip")
+    save_model(_small_resnet(), path)
+    front, server = cmd_serve(["serve", "--model", path, "--bf16",
+                               "--warmup-shape", "32", "32", "3",
+                               "--batch-limit", "4", "--ui-port", "0"],
+                              block=False)
+    try:
+        x = np.random.default_rng(1).normal(0, 1, (5, 32, 32, 3)).astype(
+            np.float32)
+        fc.reset_launch_counts()
+        req = urllib.request.Request(
+            server.url + "/api/predict",
+            data=json.dumps({"features": x.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        out = json.loads(urllib.request.urlopen(req, timeout=120).read())
+        assert out["n"] == 5
+        assert fc.LAUNCHES["fused_mm"] == 72 and fc.LAUNCHES["fused_c3"] == 32
+        got = np.asarray(out["output"], np.float32)
+        assert np.array_equal(got, front.engine.output(x))
+        stats = json.loads(urllib.request.urlopen(
+            server.url + "/api/serving/stats", timeout=60).read())
+        assert stats["device"] == "cuda:0" and stats["precision"] == "bf16"
+        front.engine.assert_warm()
+    finally:
+        front.shutdown()
+        server.stop()
+
+
+def test_inplace_mode_equals_batched_on_the_card(card):
+    from deeplearning4j_tpu_torch.parallel.inference import (
+        InferenceMode, ParallelInference)
+    m = _small_resnet()
+    x = np.random.default_rng(2).normal(0, 1, (7, 32, 32, 3)).astype(
+        np.float32)
+    with ParallelInference(m, InferenceMode.BATCHED, batch_limit=4,
+                           feature_shape=(32, 32, 3)) as batched, \
+            ParallelInference(m, InferenceMode.INPLACE,
+                              batch_limit=4) as inplace:
+        assert inplace._stream is not None
+        a, b = batched.output(x), inplace.output(x)
+    assert a.shape == b.shape == (7, 10)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_swap_params_keeps_the_ladder_warm_on_the_card(card):
+    from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+    m1, m2 = _small_resnet(1), _small_resnet(2)
+    x = np.random.default_rng(3).normal(0, 1, (3, 32, 32, 3)).astype(
+        np.float32)
+    with ServingEngine(m1, batch_limit=4, feature_shape=(32, 32, 3),
+                       precision="bf16") as e1, \
+            ServingEngine(m2, batch_limit=4, feature_shape=(32, 32, 3),
+                          precision="bf16") as e2:
+        before, want = e1.output(x), e2.output(x)
+        host = e1.committed_host()
+        e1.swap_params(m2.params, m2.model_state, version="v2")
+        fc.reset_launch_counts()
+        np.testing.assert_array_equal(e1.output(x), want)
+        assert fc.LAUNCHES["fused_mm"] == 36 and fc.LAUNCHES["fused_c3"] == 16
+        e1.swap_params(*host)
+        np.testing.assert_array_equal(e1.output(x), before)
+        e1.assert_warm()
+        assert e1.recompiles_after_warmup == 0

@@ -11,10 +11,11 @@ The small model is the JAX file's (``lstm_units=32``, ``vocab_size=31``,
 model's parameters (``params_from_jax``), so the port's streams can be
 held against the JAX package's.
 
-Left out, waiting for ROADMAP queue 1 item 12 (``GenerationPool``, the
-SSE/HTTP surface): ``test_generation_pool_shed``,
-``test_sse_stream_over_http``, ``test_drain_lets_inflight_streams_finish``
-and ``test_generic_generator_payload_streams``.
+The JAX file's ``GenerationPool`` and HTTP cases have their ports in
+``tests/test_torch_fleet.py`` (``test_generation_pool_shed``) and
+``tests/test_torch_ui.py`` (``test_sse_generation_over_a_fleet_pool``,
+``test_drain_lets_inflight_streams_finish``,
+``test_generic_generator_payload_streams``).
 
 Tolerances against the JAX package: the tick's carries within 1e-6
 (absolute; |h| < 1 and |c| of a few units, the same f32 products summed

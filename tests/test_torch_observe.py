@@ -211,7 +211,8 @@ def test_splitmix_constants_and_mixer_match_jax():
 def test_tunable_defaults_and_precedence_match_jax():
     from deeplearning4j_tpu.optimize import autotune as jat
     from deeplearning4j_tpu_torch.optimize import autotune as tat
-    for name in ("generation.max_slots", "generation.prefill_chunk"):
+    for name in ("serving.batch_limit", "generation.max_slots",
+                 "generation.prefill_chunk"):
         assert tat.REGISTRY[name] == tat.Tunable(
             **jat.REGISTRY[name].__dict__)
         assert tat.resolve_tuned(None, None, name) == \

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""CPU rehearsal of ``chip_smoke.py``'s ``generate`` phase, and the op
-count of one decode tick. It runs against the tree in the working
-directory (so one copy measures a parent tree and its change alike); run
-it from a tree's root on any machine:
+"""CPU rehearsals of ``chip_smoke.py``'s ``generate`` and ``serve_http``
+phases, and the op count of one decode tick. It runs against the tree in
+the working directory (so one copy measures a parent tree and its change
+alike); run it from a tree's root on any machine:
 
     python3 tools/gen_rehearsal.py rehearse [NEW_TOKENS]   # default 32
+    python3 tools/gen_rehearsal.py serve
     python3 tools/gen_rehearsal.py ops
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
@@ -13,6 +14,12 @@ device strings turned to ``"cpu"`` and ``torch.cuda.synchronize()``
 removed, ``resolve_device`` is pinned to the CPU in the modules that call
 it, and ``GEN_NEW`` is lowered. Every check of the phase runs; its
 times are CPU times, which say nothing about the card.
+
+``serve`` runs ``phase_serve_http`` the same way (about 60 s): every
+``serve`` gets ``--device cpu`` (in process and in its subprocess), the
+ResNet50 is cut to 32×32 with 10 classes, one client sends 4 requests,
+and the wrappers of ``fused_mm``, ``fused_c3`` and ``lstm_fwd`` count a
+launch for each plain call, so the launch gates run too.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -37,23 +44,59 @@ def _cpu_resolve(device=None):
     return torch.device("cpu")
 
 
-def rehearse(new_tokens: int) -> None:
+def _cpu_smoke():
+    """chip_smoke.py executed with its card pinned to the CPU."""
     from deeplearning4j_tpu_torch.generation import engine, session
-    from deeplearning4j_tpu_torch.models import (multi_layer_network,
+    from deeplearning4j_tpu_torch.models import (computation_graph,
+                                                 multi_layer_network,
                                                  serialization)
     from deeplearning4j_tpu_torch.utils import device
-    for mod in (device, multi_layer_network, serialization, session,
-                engine):
+    for mod in (device, computation_graph, multi_layer_network,
+                serialization, session, engine):
         mod.resolve_device = _cpu_resolve
     src = (ROOT / "chip_smoke.py").read_text()
     src = src.replace('device="cuda"', 'device="cpu"').replace(
-        "torch.cuda.synchronize()", "None")
+        "torch.cuda.synchronize()", "None").replace(
+        'dev != "cuda:0"', 'dev != "cpu"')
     smoke = types.ModuleType("chip_smoke_cpu")
     smoke.__file__ = str(ROOT / "chip_smoke.py")
     exec(compile(src, "chip_smoke_cpu", "exec"), smoke.__dict__)
+    return smoke
+
+
+def rehearse(new_tokens: int) -> None:
+    smoke = _cpu_smoke()
     smoke.GEN_NEW = new_tokens
     t0 = time.perf_counter()
     smoke.phase_generate({}, "CPU rehearsal")
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
+def serve() -> None:
+    import deeplearning4j_tpu_torch.__main__ as cli
+    from deeplearning4j_tpu_torch.ops import fused_conv, fused_lstm
+    smoke = _cpu_smoke()
+    on_card = cli.cmd_serve
+    cli.cmd_serve = lambda argv, block=True: on_card(
+        list(argv) + ["--device", "cpu"], block)
+    for mod, names in ((fused_conv, ("fused_mm", "fused_c3")),
+                       (fused_lstm, ("lstm_fwd",))):
+        for name in names:
+            def counted(*a, _fn=getattr(mod, name), _name=name, _mod=mod,
+                        **kw):
+                _mod._count(_name)
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+
+    class CpuServe(smoke._ServeProcess):
+        def __init__(self, args, last):
+            super().__init__(list(args) + ["--device", "cpu"], last)
+    smoke._ServeProcess = CpuServe
+    smoke.SLICE = dict(smoke.SLICE, height=32, width=32, num_classes=10)
+    smoke.SERVE_CLIENTS, smoke.SERVE_PER_CLIENT = 1, 4
+    smoke.SERVE_LATENCY_REPS, smoke.GEN_NEW, smoke.SERVE_DURATION = 3, 16, 12
+    t0 = time.perf_counter()
+    print(smoke.phase_serve_http({}, "CPU rehearsal"))
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
@@ -84,11 +127,13 @@ def ops() -> None:
 
 
 def main(argv) -> int:
-    if not argv or argv[0] not in ("rehearse", "ops"):
+    if not argv or argv[0] not in ("rehearse", "serve", "ops"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
         ops()
+    elif argv[0] == "serve":
+        serve()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
