@@ -36,8 +36,8 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    by ``torch.profiler`` beside their library's, and the CUDA launches
    (kernels and memsets on the card) one wrapper call makes.
    Then ``lstm_fwd`` and ``lstm_bwd`` at the LSTM slice shape (T 60, N 128,
-   H 256) and the LSTM benchmark geometry (T 128, N 256, H 512), f32 and
-   bf16, masked and unmasked: against their plain versions, bitwise on a
+   H 256), the LSTM benchmark geometry (T 128, N 256, H 512) and a TBPTT
+   segment (T 50, N 32, H 256), f32 and bf16, masked and unmasked: against their plain versions, bitwise on a
    second run, timed beside their bound, the latency floor (T × one
    barrier of the kernel's own kind on its own grid, measured: a cluster
    barrier for ``lstm_fwd``'s cluster route, else a grid barrier) and
@@ -155,6 +155,34 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    images against the engine's own, images/s of the 4 clients, SSE
    tokens/s and TTFT against the engine's, warmup and swap seconds.
 
+14. rnn_tbptt — the recurrent family. The TextGenerationLSTM configuration
+   (2 x LSTM(256), RnnOutputLayer(77), Adam(2e-3) + clip 5, f32, seed 123)
+   with ``backprop_type("tbptt")`` and segments of 50, fitted on 8
+   batches of 32 corpus windows of 1000 chars and one of 1020 (a ragged
+   tail of 20): exactly 2 ``lstm_fwd`` + 2 ``lstm_bwd`` launches a segment
+   (40 + 40 a batch, 42 + 42 the ragged one), the iteration count up by 20
+   (21), every loss finite, the last batch's mean segment loss below the
+   first's, the tail step moving the parameters; on one batch from the
+   same init the kernels' segment chain against the plain versions'
+   chain (the first segment's loss and gradients, every segment's loss,
+   the carries handed on and the parameters after the batch, bounded by
+   the plain chain's own row-order noise); ``rnn_time_step`` in 20 calls
+   of 50 against ``output()`` on the 1000 chars. The layers at width 256
+   on 32 x 60 windows with a ragged mask: ``Bidirectional(LSTM)`` in all
+   four modes (output and one train step against the plain path, 2
+   ``lstm_fwd`` a call, 2 + 2 a step), ``LastTimeStep`` and
+   ``MaskZeroLayer`` around an LSTM against the plain path, and
+   ``GravesLSTM``, ``GravesBidirectionalLSTM`` and ``SimpleRnn`` (no
+   kernel) on the card against the CPU. The graph of
+   examples/streaming_rnn_and_pretrained.py at width 256: a TBPTT fit
+   (segments of 8) with a features mask and no labels mask against the
+   CPU, then ``rnn_time_step`` a tick at a time against ``output()``. A
+   ``GenerationEngine`` (8 slots) over 2 x ``GravesLSTM(256)`` + the
+   head: 8 greedy streams of 64 against ``reference_decode`` under the
+   near-tie rule. Measured: segment ms, chars/s and the batch wall of
+   TBPTT beside standard BPTT over the same chars in one call, peak
+   memory, and with ``--profile`` the busy share of a TBPTT batch.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
@@ -244,9 +272,11 @@ SLICE = dict(num_classes=200, height=64, width=64, channels=3,
              fused_blocks=True, fused_impl="pallas", s2d_stem=True,
              compute_dtype="bfloat16")
 # the LSTM kernels' shapes (T, N, H): the slice (TextGenerationLSTM at
-# batch 128) and the repo's LSTM throughput geometry
-# (benchmarks/baseline_suite.py:381-446)
-LSTM_SHAPES = {"slice": (60, 128, 256), "benchmark": (128, 256, 512)}
+# batch 128), the repo's LSTM throughput geometry
+# (benchmarks/baseline_suite.py:381-446) and a TBPTT segment of rnn_tbptt
+# (50 ticks of a batch of 32)
+LSTM_SHAPES = {"slice": (60, 128, 256), "benchmark": (128, 256, 512),
+               "tbptt": (50, 32, 256)}
 # LSTM kernel vs plain version, |diff| relative to max(1, max|ref|) per
 # output: f32 1e-4 (the same f32 products summed in another order, carried
 # through T ticks); bf16 3e-2 (a sum-order difference can flip one bf16
@@ -283,6 +313,50 @@ SERVE_SEED, LSTM_SERVE_TOL = 13, 1e-5
 # them as in the ResNet check above; the loss within LOSS_RTOL)
 LSTM_TRAIN_BATCH, LSTM_TRAIN_K, LSTM_TRAIN_CALLS = 128, 4, 6
 LSTM_GRAD_RTOL = 1e-3
+# rnn_tbptt: the TextGenerationLSTM configuration (f32, seed 123,
+# Adam(2e-3) + clip 5) trained by truncated BPTT in segments of TBPTT_K on
+# batches of TBPTT_BATCH corpus windows of TBPTT_CHARS (the lengths of
+# dl4j-examples' LSTMCharModellingExample: sequences of 1000, truncation
+# 50, batch 32), TBPTT_BATCHES of them, then one of TBPTT_RAGGED chars (a
+# ragged tail of 20). The kernels' segment chain on one batch against the
+# plain versions' chain from the same init: the first segment's loss
+# within LOSS_RTOL and its gradients within LSTM_GRAD_RTOL (relative L2);
+# every segment's loss, the carries each hands on and the parameters after
+# the batch within max(floor, CHAIN_NOISE x the plain f32 chain's own
+# distance from the same chain in float64). Adam compounds the f32
+# summation-order noise of one segment into the next segment's
+# parameters, so a fixed bound cannot hold for any two f32
+# implementations over 20 steps (the ResNet check's reasoning, above);
+# two f32 chains each within e of the exact one differ by at most 2e. The
+# noise is taken against float64 and not, as for the ResNet, from permuted
+# batch rows: permuting the rows changes the order of the sums over rows
+# (dW) but not of each row's h @ Wh, the sum in which the kernels differ
+# from torch.matmul (an H100 read the permuted plain chain 9x nearer the
+# plain chain than the kernels' chain). The kernels' own e is larger than
+# the plain chain's by KERNEL_EPS: lstm_fwd's sigmoid and tanh come from
+# __expf and __fdividef, within 1e-6 of expf and tanhf (lstm_fwd.cu:413),
+# about 8 f32 ulps at 1 where torch's are within one, and every tick of
+# every segment carries that into h and c; the bounds scale by it. A lost
+# carry or a wrong mask moves them by O(1).
+TBPTT_K, TBPTT_BATCH, TBPTT_CHARS = 50, 32, 1000
+TBPTT_BATCHES, TBPTT_RAGGED = 8, 1020
+CHAIN_FLOOR = {"loss": LOSS_RTOL, "carry": 1e-4, "param": 1e-4}
+CHAIN_NOISE, KERNEL_EPS = 3.0, 1e-6 / 2.0 ** -23
+# streaming (rnn_time_step in segments, or a tick at a time) against
+# output() on the whole sequence: each row within max(LSTM_SERVE_TOL,
+# CHAIN_NOISE x the larger of the plain path's own difference between the
+# two ways and the kernels' difference from the plain path on the whole
+# sequence): lstm_fwd_plan may take another route at T 50 (or 1) than at
+# T 1000, and f32 sums in another order drift over 1000 ticks
+# the layer family at the TextGenerationLSTM's width: FAMILY_BATCH x
+# FAMILY_T one-hot corpus windows with a right-padded ragged mask; the
+# streaming graph of examples/streaming_rnn_and_pretrained.py at width 256
+# (GRAPH_N x GRAPH_T, TBPTT segments of GRAPH_K, GRAPH_FITS fits); the
+# generation engine over 2 x GravesLSTM(256) + the head, GRAVES_STREAMS
+# greedy streams of GRAVES_NEW tokens
+FAMILY_BATCH, FAMILY_T, FAMILY_H = 32, 60, 256
+GRAPH_N, GRAPH_T, GRAPH_K, GRAPH_FITS = 64, 24, 8, 4
+GRAVES_STREAMS, GRAVES_NEW = 8, 64
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the flash kernels' shapes (N, T, H, Dh): the BERT-base slice at the
 # serving batch (and, further down, at the train batch), the long-sequence
@@ -2315,6 +2389,600 @@ def phase_lstm_train(report, card, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the recurrent family (TBPTT, the layers, a streaming graph,
+# Graves generation) through kernels 7 and 8
+# ---------------------------------------------------------------------------
+
+def tbptt_model(device="cuda", backprop="tbptt"):
+    """The TextGenerationLSTM configuration (seed 123) with segments of
+    TBPTT_K, or trained as standard BPTT."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    conf = TextGenerationLSTM(seed=123).conf()
+    conf.backprop_type = backprop
+    conf.tbptt_fwd_length = conf.tbptt_back_length = TBPTT_K
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def corpus_batch(rng, n, chars):
+    """A DataSet of ``n`` one-hot corpus windows of ``chars`` with their
+    next-char labels."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    x, y_ids, _ = corpus_windows(n, chars, rng)
+    return DataSet(x, np.eye(77, dtype=np.float32)[y_ids])
+
+
+def tbptt_chain(model, ds):
+    """Fit ``ds`` as one TBPTT batch, recording each segment's loss, the
+    carries it hands on, and the parameters the last segment starts
+    from."""
+    step = model._tbptt_step or model._build_tbptt_step()
+    rec = {"losses": [], "carries": [], "before_last": None}
+
+    def spy(ts, *args):
+        rec["before_last"] = ts.params
+        ts, loss, carries = step(ts, *args)
+        rec["losses"].append(loss)
+        rec["carries"].append(carries)
+        return ts, loss, carries
+    model._tbptt_step = spy
+    try:
+        model.fit(ds)
+    finally:
+        model._tbptt_step = step
+    return rec
+
+
+def as_f64(model):
+    """``model`` with float64 parameters, optimizer state and TBPTT
+    carries: the exact reference of its f32 chain."""
+    from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+    model.set_params(tree_map(lambda t: t.double(), model.params))
+    model.opt_state = model._tx.init(model.params)
+    zero = model._zero_carries
+    model._zero_carries = lambda n: {
+        k: tuple(t.double() for t in v) if isinstance(v, tuple)
+        else v.double() for k, v in zero(n).items()}
+    return model
+
+
+def f64_data(ds):
+    """A DataSet of numpy arrays in float64."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    d = lambda a: None if a is None else a.astype("float64")
+    return DataSet(d(ds.features), d(ds.labels), d(ds.features_mask),
+                   d(ds.labels_mask))
+
+
+def chain_diff(a, b):
+    """The largest differences of two segment chains: each segment's loss
+    (relative), each carry handed on (over that carry's largest) and the
+    parameters after the batch (over each array's largest)."""
+    loss = max(abs(x.item() - y.item()) / abs(y.item())
+               for x, y in zip(a["losses"], b["losses"]))
+    carry = 0.0
+    for ca, cb in zip(a["carries"], b["carries"]):
+        for name in ca:
+            for u, v in zip(ca[name], cb[name]):
+                carry = max(carry, ((u.double() - v.double()).abs().max() /
+                                    v.double().abs().max()).item())
+    param, worst = rel_param_err(a["params"], b["params"])
+    return {"loss": loss, "carry": carry, "param": param,
+            "param_worst": worst}
+
+
+def stream_bound(kernel_drift, plain_drift, kernel_vs_plain):
+    """(bound, passed) of a streamed-against-whole comparison (the
+    constants' comment above CHAIN_NOISE)."""
+    b = max(LSTM_SERVE_TOL, CHAIN_NOISE * max(plain_drift, kernel_vs_plain))
+    return b, kernel_drift <= b
+
+
+def _tbptt_gates(report, card, fl, rng):
+    """TBPTT batches at full width: launches, iterations, the loss, the
+    ragged tail; segment ms and chars/s. Returns the launches."""
+    import numpy as np
+    import torch
+    model = tbptt_model()
+    segs = TBPTT_CHARS // TBPTT_K
+    counted = {"lstm_fwd": 0, "lstm_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    walls, means = [], []
+    for b in range(TBPTT_BATCHES):
+        ds = corpus_batch(rng, TBPTT_BATCH, TBPTT_CHARS)
+        it0 = model.iteration
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(ds)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = dict(fl.LAUNCHES)
+        for k in counted:
+            counted[k] += launches[k]
+        if launches != {"lstm_fwd": 2 * segs, "lstm_bwd": 2 * segs}:
+            raise AssertionError(f"batch {b}: launches {launches}, expected "
+                                 f"{2 * segs} + {2 * segs}")
+        if model.iteration - it0 != segs:
+            raise AssertionError(f"batch {b}: the iteration count advanced "
+                                 f"by {model.iteration - it0}, not {segs}")
+        losses = torch.stack(model.last_segment_losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"batch {b}: a segment loss is not finite")
+        means.append(float(losses.mean()))
+    log(f"  {TBPTT_BATCHES} batches of {TBPTT_BATCH} x {TBPTT_CHARS} chars, "
+        f"{segs} segments of {TBPTT_K}: mean segment loss per batch "
+        f"{' '.join(f'{m:.4f}' for m in means)}; launches {counted}")
+    if not means[-1] < means[0]:
+        raise AssertionError("the last batch's mean segment loss is not "
+                             "below the first batch's")
+    # the ragged batch: 21 segments, the last padded to TBPTT_K and masked
+    ds = corpus_batch(rng, TBPTT_BATCH, TBPTT_RAGGED)
+    segs_r = -(-TBPTT_RAGGED // TBPTT_K)
+    it0 = model.iteration
+    fl.reset_launch_counts()
+    rec = tbptt_chain(model, ds)
+    torch.cuda.synchronize()
+    launches = dict(fl.LAUNCHES)
+    for k in counted:
+        counted[k] += launches[k]
+    moved, _ = rel_param_err(model.params, rec["before_last"])
+    log(f"  ragged batch of {TBPTT_RAGGED} chars: {len(rec['losses'])} "
+        f"segments, launches {launches}, the tail step moved the "
+        f"parameters by {moved:.3g} of the largest")
+    if (launches != {"lstm_fwd": 2 * segs_r, "lstm_bwd": 2 * segs_r}
+            or model.iteration - it0 != segs_r or not moved > 0):
+        raise AssertionError("the ragged batch: wrong launches, iteration "
+                             "count, or a tail step that moved nothing")
+    wall = float(np.mean(walls[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    out = {"batches": TBPTT_BATCHES, "batch": TBPTT_BATCH,
+           "chars": TBPTT_CHARS, "segment": TBPTT_K,
+           "mean_segment_losses": means, "batch_wall_ms": 1e3 * wall,
+           "segment_ms": 1e3 * wall / segs,
+           "chars_per_s": TBPTT_BATCH * TBPTT_CHARS / wall,
+           "ragged_tail_moved": moved, "launches": counted}
+    log(f"  TBPTT batch wall {1e3 * wall:.1f} ms, {1e3 * wall / segs:.3f} "
+        f"ms a segment, {out['chars_per_s']:.0f} chars/s [{card}]")
+    # the same 32 x 1000 chars as standard BPTT in one call; each model's
+    # peak memory of one fit above what was allocated before it (earlier
+    # phases' tensors included)
+    std = tbptt_model(backprop="standard")
+    std.fit(ds_std := corpus_batch(rng, TBPTT_BATCH, TBPTT_CHARS))
+
+    def fit_peak(m):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m.fit(ds_std)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - base)
+    sw, out["standard_peak_memory_bytes"] = fit_peak(std)
+    _, out["tbptt_peak_memory_bytes"] = fit_peak(model)
+    out.update(standard_wall_ms=1e3 * sw,
+               standard_chars_per_s=TBPTT_BATCH * TBPTT_CHARS / sw,
+               peak_memory_bytes=peak)
+    log(f"  standard BPTT over the same {TBPTT_BATCH} x {TBPTT_CHARS} in one "
+        f"call: {1e3 * sw:.1f} ms, {out['standard_chars_per_s']:.0f} chars/s,"
+        f" peak {out['standard_peak_memory_bytes'] / 2**20:.1f} MiB above "
+        f"the allocation before the fit, against TBPTT's "
+        f"{out['tbptt_peak_memory_bytes'] / 2**20:.1f} MiB [{card}]")
+    return out, model, counted
+
+
+def _tbptt_chains(card, rng):
+    """The kernels' segment chain against the plain versions' on one batch,
+    from the same init; the bounds from the plain f32 chain's distance
+    from the float64 chain."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.optimize import solver
+    ds = corpus_batch(rng, TBPTT_BATCH, TBPTT_CHARS)
+    # the first segment: one step's loss and gradients
+    m = tbptt_model()
+    first = DataSet(ds.features[:, :TBPTT_K], ds.labels[:, :TBPTT_K])
+    args = m._step_args(first)
+    loss_k, _, g_k = solver.value_and_grad(m._loss, m.train_state, *args)
+    with plain_lstm():
+        loss_p, _, g_p = solver.value_and_grad(m._loss, m.train_state,
+                                               *args)
+    gerr = grad_errors(g_k, g_p)
+    lerr = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    chains = {}
+    for name in ("kernels", "plain", "plain_f64"):
+        m = tbptt_model()
+        if name == "kernels":
+            rec = tbptt_chain(m, ds)
+        else:
+            with plain_lstm():
+                rec = (tbptt_chain(m, ds) if name == "plain" else
+                       tbptt_chain(as_f64(m), f64_data(ds)))
+        rec["params"] = m.params
+        chains[name] = rec
+    diff = chain_diff(chains["kernels"], chains["plain"])
+    noise = chain_diff(chains["plain"], chains["plain_f64"])
+    exact = chain_diff(chains["kernels"], chains["plain_f64"])
+    bounds = {k: max(CHAIN_FLOOR[k], CHAIN_NOISE * KERNEL_EPS * noise[k])
+              for k in CHAIN_FLOOR}
+    log(f"  first segment, kernels vs plain: loss rel {lerr:.3g}, gradients "
+        f"rel L2 worst {gerr['worst']:.3g} ({gerr['name']}), all "
+        f"{gerr['all']:.3g}")
+    log(f"  the {len(chains['kernels']['losses'])}-segment chain, kernels vs "
+        f"plain: loss {diff['loss']:.3g}, carries {diff['carry']:.3g}, "
+        f"parameters {diff['param']:.3g} ({diff['param_worst']}); the plain "
+        f"f32 chain against float64: loss {noise['loss']:.3g}, carries "
+        f"{noise['carry']:.3g}, parameters {noise['param']:.3g}; the "
+        f"kernels' against float64: loss {exact['loss']:.3g}, carries "
+        f"{exact['carry']:.3g}, parameters {exact['param']:.3g}; bounds "
+        f"{bounds}")
+    if lerr > LOSS_RTOL or gerr["worst"] > LSTM_GRAD_RTOL:
+        raise AssertionError("the first TBPTT segment through the kernels "
+                             "disagrees with the plain path")
+    if any(diff[k] > bounds[k] for k in bounds):
+        raise AssertionError("the kernels' TBPTT segment chain disagrees "
+                             "with the plain versions' chain")
+    return {"first_loss_rel": lerr, "first_grad_rel_l2": gerr,
+            "chain_diff": diff, "chain_noise": noise,
+            "kernels_vs_f64": exact, "bounds": bounds}
+
+
+def _stream_check(card, model, ds, fl):
+    """rnn_time_step over the sequence in segments of TBPTT_K against
+    output() on the whole of it. Returns (report, launches)."""
+    import torch
+    x = torch.as_tensor(ds.features, device="cuda")
+    segs = x.shape[1] // TBPTT_K
+
+    def streamed():
+        carries, outs = None, []
+        for s in range(0, x.shape[1], TBPTT_K):
+            y, carries = model.rnn_time_step(x[:, s:s + TBPTT_K], carries)
+            outs.append(y)
+        return torch.cat(outs, 1)
+    fl.reset_launch_counts()
+    got = streamed()
+    torch.cuda.synchronize()
+    launches = dict(fl.LAUNCHES)
+    whole = model.output(x)
+    with plain_lstm():
+        p_stream, p_whole = streamed(), model.output(x)
+    drift = row_rel_err(got, whole)
+    plain_drift = row_rel_err(p_stream, p_whole)
+    kvp = row_rel_err(whole, p_whole)
+    bound, ok = stream_bound(drift, plain_drift, kvp)
+    log(f"  rnn_time_step in {segs} calls of {TBPTT_K} vs output() on "
+        f"{x.shape[1]} ticks: {drift:.3g} of each row's largest (plain path "
+        f"{plain_drift:.3g}; kernels vs plain whole {kvp:.3g}; bound "
+        f"{bound:.3g}); launches {launches}")
+    if launches != {"lstm_fwd": 2 * segs, "lstm_bwd": 0} or not ok:
+        raise AssertionError("streamed rnn_time_step disagrees with output()"
+                             " (or launched other than 2 lstm_fwd a call)")
+    return ({"drift": drift, "plain_drift": plain_drift,
+             "kernels_vs_plain": kvp, "bound": bound}, launches)
+
+
+def family_inputs(rng):
+    """FAMILY_BATCH one-hot corpus windows of FAMILY_T, next-char labels,
+    and a right-padded ragged mask (the padded steps zeroed in x)."""
+    import numpy as np
+    x, y_ids, _ = corpus_windows(FAMILY_BATCH, FAMILY_T, rng)
+    lens = rng.integers(FAMILY_T // 3, FAMILY_T + 1, FAMILY_BATCH)
+    lens[0] = FAMILY_T
+    m = (np.arange(FAMILY_T)[None] < lens[:, None]).astype(np.float32)
+    x = x * m[:, :, None]
+    return x, np.eye(77, dtype=np.float32)[y_ids], m, lens
+
+
+def family_model(layer, last=False, device="cuda"):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import (OutputLayer,
+                                                           RnnOutputLayer)
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    head = (OutputLayer if last else RnnOutputLayer)(n_out=77)
+    conf = (NeuralNetConfiguration.Builder().seed(123).updater(Adam(2e-3))
+            .list().layer(layer).layer(head)
+            .set_input_type(InputType.recurrent(77, FAMILY_T)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _family(card, rng, fl):
+    """The recurrent layers at width 256 on a ragged batch: the kernel-
+    running ones against the plain path, the others card against CPU."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as R
+    from deeplearning4j_tpu_torch.optimize import solver
+    x, y, m, lens = family_inputs(rng)
+    xt = torch.as_tensor(x, device="cuda")
+    mt = torch.as_tensor(m, device="cuda")
+    out = {}
+    for mode in ("concat", "add", "mul", "average"):
+        model = family_model(R.Bidirectional(
+            fwd=R.LSTM(n_out=FAMILY_H), mode=mode))
+        fl.reset_launch_counts()
+        probs = model.output(xt, mask=mt)
+        torch.cuda.synchronize()
+        fwd = dict(fl.LAUNCHES)
+        with plain_lstm():
+            ref = model.output(xt, mask=mt)
+        perr = (probs - ref).abs().max().item()
+        args = model._step_args(DataSet(x, y, m))
+        fl.reset_launch_counts()
+        loss_k, _, g_k = solver.value_and_grad(model._loss,
+                                               model.train_state, *args)
+        torch.cuda.synchronize()
+        step = dict(fl.LAUNCHES)
+        with plain_lstm():
+            loss_p, _, g_p = solver.value_and_grad(model._loss,
+                                                   model.train_state, *args)
+        gerr = grad_errors(g_k, g_p)
+        lerr = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        log(f"  Bidirectional(LSTM({FAMILY_H})) {mode}: probabilities "
+            f"kernels vs plain {perr:.3g}, launches {fwd}; one step: loss "
+            f"rel {lerr:.3g}, gradients rel L2 worst {gerr['worst']:.3g} "
+            f"({gerr['name']}), launches {step}")
+        if (fwd != {"lstm_fwd": 2, "lstm_bwd": 0}
+                or step != {"lstm_fwd": 2, "lstm_bwd": 2}
+                or perr > LSTM_PROB_TOL or lerr > LOSS_RTOL
+                or gerr["worst"] > LSTM_GRAD_RTOL):
+            raise AssertionError(f"Bidirectional {mode} disagrees with the "
+                                 "plain path or launched the wrong kernels")
+        out[f"bidirectional_{mode}"] = {"prob_err": perr, "loss_rel": lerr,
+                                        "grad_rel_l2": gerr["worst"]}
+    for name, layer, last in (
+            ("last_time_step", R.LastTimeStep(inner=R.LSTM(n_out=FAMILY_H)),
+             True),
+            ("mask_zero", R.MaskZeroLayer(inner=R.LSTM(n_out=FAMILY_H)),
+             False)):
+        model = family_model(layer, last)
+        mask = None if name == "mask_zero" else mt
+        fl.reset_launch_counts()
+        probs = model.output(xt, mask=mask)
+        torch.cuda.synchronize()
+        launches = dict(fl.LAUNCHES)
+        with plain_lstm():
+            ref = model.output(xt, mask=mask)
+        perr = (probs - ref).abs().max().item()
+        log(f"  {name}(LSTM({FAMILY_H})): probabilities kernels vs plain "
+            f"{perr:.3g}, launches {launches}")
+        if launches != {"lstm_fwd": 1, "lstm_bwd": 0} or \
+                perr > LSTM_PROB_TOL:
+            raise AssertionError(f"{name} disagrees with the plain path")
+        out[name] = {"prob_err": perr}
+    for name, layer in (("graves_lstm", R.GravesLSTM(n_out=FAMILY_H)),
+                        ("graves_bidirectional",
+                         R.GravesBidirectionalLSTM(n_out=FAMILY_H)),
+                        ("simple_rnn", R.SimpleRnn(n_out=FAMILY_H))):
+        cpu = family_model(layer, device="cpu")
+        model = family_model(layer)
+        model.set_params(cpu.params, cpu.model_state)
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        probs = model.output(xt, mask=mt)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        err = row_rel_err(probs.cpu(), cpu.output(x, mask=m))
+        log(f"  {name}({FAMILY_H}) card vs CPU: {err:.3g} of each row's "
+            f"largest, {ms:.1f} ms, launches {dict(fl.LAUNCHES)} [{card}]")
+        if err > DIGITS_PROB_TOL or any(fl.LAUNCHES.values()):
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+        out[name] = {"prob_err": err, "output_ms": ms}
+    return out
+
+
+def _graph(card, rng, fl):
+    """The streaming example's graph at width 256: a TBPTT fit with a
+    features mask (no labels mask), card against CPU within the CPU f32
+    fit's distance from float64 (the chain bounds), then a tick at a time
+    against output(). Returns (report, launches)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    def graph(device):
+        g = (NeuralNetConfiguration.Builder().seed(7).updater(Adam(5e-3))
+             .graph_builder().add_inputs("in")
+             .set_input_types(InputType.recurrent(3)))
+        g.add_layer("lstm", LSTM(n_out=FAMILY_H,
+                                 activation=Activation.TANH), "in")
+        g.add_layer("out", RnnOutputLayer(n_out=2, loss=LossFunction.MCXENT,
+                                          activation=Activation.SOFTMAX),
+                    "lstm")
+        g.set_outputs("out")
+        g.backprop_type("tbptt").tbptt_fwd_length(GRAPH_K)
+        return ComputationGraph(g.build(), device=device).init()
+
+    n, t = GRAPH_N, GRAPH_T
+    x = rng.normal(0, 1, (n, t, 3)).astype(np.float32)
+    run_mean = np.cumsum(x[..., 0], axis=1) / np.arange(1, t + 1)
+    y = np.zeros((n, t, 2), np.float32)
+    y[..., 1] = run_mean > 0
+    y[..., 0] = 1.0 - y[..., 1]
+    lens = rng.integers(t // 2, t + 1, n)
+    m = (np.arange(t)[None] < lens[:, None]).astype(np.float32)
+    runs = {}
+    counted = {"lstm_fwd": 0, "lstm_bwd": 0}
+    for name, device in (("card", "cuda"), ("cpu", "cpu"),
+                         ("cpu_f64", "cpu")):
+        g = graph(device)
+        ds = DataSet(x, y, m)
+        if name == "cpu_f64":
+            g, ds = as_f64(g), f64_data(ds)
+        losses = []
+        fl.reset_launch_counts()
+        for _ in range(GRAPH_FITS):
+            g.fit(ds)
+            losses += [v.item() for v in g.last_segment_losses]
+        if device == "cuda":
+            for k in counted:
+                counted[k] += fl.LAUNCHES[k]
+        runs[name] = (g, losses)
+    segs = -(-t // GRAPH_K) * GRAPH_FITS
+
+    def rel(a, b):
+        return max(abs(u - v) / abs(v) for u, v in zip(a, b))
+    card_g, card_l = runs["card"]
+    lerr = rel(card_l, runs["cpu"][1])
+    lnoise = rel(runs["cpu"][1], runs["cpu_f64"][1])
+    perr, worst = rel_param_err(card_g.params, runs["cpu"][0].params)
+    pnoise, _ = rel_param_err(runs["cpu"][0].params,
+                              runs["cpu_f64"][0].params)
+    lb = max(CHAIN_FLOOR["loss"], CHAIN_NOISE * KERNEL_EPS * lnoise)
+    pb = max(CHAIN_FLOOR["param"], CHAIN_NOISE * KERNEL_EPS * pnoise)
+    log(f"  graph in -> LSTM({FAMILY_H}) -> RnnOutputLayer(2), TBPTT "
+        f"{GRAPH_K}, {GRAPH_FITS} fits of {n} x {t} with a features mask: "
+        f"launches {counted} (expected {segs} + {segs}); "
+        f"card vs CPU: segment losses {lerr:.3g} (bound {lb:.3g}), "
+        f"parameters {perr:.3g} ({worst}; bound {pb:.3g}); the CPU's f32 "
+        f"against float64: losses {lnoise:.3g}, parameters {pnoise:.3g}")
+    if (counted != {"lstm_fwd": segs, "lstm_bwd": segs} or lerr > lb
+            or perr > pb):
+        raise AssertionError("the TBPTT graph on the card disagrees with "
+                             "the CPU (or launched the wrong kernels)")
+    # then a tick at a time against output(x, mask=None)
+    xt = torch.as_tensor(x, device="cuda")
+    card_g.rnn_clear_previous_state()
+    fl.reset_launch_counts()
+    streamed = torch.stack([card_g.rnn_time_step(xt[:, s])
+                            for s in range(t)], 1)
+    torch.cuda.synchronize()
+    launches = dict(fl.LAUNCHES)
+    for k in counted:
+        counted[k] += launches[k]
+    whole = card_g.output(xt)
+    with plain_lstm():
+        card_g.rnn_clear_previous_state()
+        p_stream = torch.stack([card_g.rnn_time_step(xt[:, s])
+                                for s in range(t)], 1)
+        p_whole = card_g.output(xt)
+    drift = row_rel_err(streamed, whole)
+    plain_drift = row_rel_err(p_stream, p_whole)
+    kvp = row_rel_err(whole, p_whole)
+    bound, ok = stream_bound(drift, plain_drift, kvp)
+    log(f"  rnn_time_step a tick at a time vs output(): {drift:.3g} (plain "
+        f"{plain_drift:.3g}, kernels vs plain {kvp:.3g}, bound {bound:.3g}),"
+        f" launches {launches}")
+    if launches != {"lstm_fwd": t, "lstm_bwd": 0} or not ok:
+        raise AssertionError("the graph's streamed rnn_time_step disagrees "
+                             "with output()")
+    return ({"segment_loss_err": lerr, "loss_bound": lb, "param_err": perr,
+             "param_bound": pb, "stream_drift": drift,
+             "stream_bound": bound}, counted)
+
+
+def _graves_generation(card, rng):
+    """GenerationEngine(max_slots=8) over 2 x GravesLSTM(256) + the head
+    (seed 123; peepholes drawn from the same seed): greedy streams against
+    reference_decode under the near-tie rule."""
+    import torch
+    from deeplearning4j_tpu_torch.generation import (GenerationEngine,
+                                                     reference_decode)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    conf = (NeuralNetConfiguration.Builder().seed(123).list()
+            .layer(GravesLSTM(n_out=FAMILY_H))
+            .layer(GravesLSTM(n_out=FAMILY_H))
+            .layer(RnnOutputLayer(n_out=77))
+            .set_input_type(InputType.recurrent(77)).build())
+    model = MultiLayerNetwork(conf, device="cuda").init()
+    gen = torch.Generator().manual_seed(123)
+    params = {k: dict(v) for k, v in model.params.items()}
+    for name in ("layer_0", "layer_1"):
+        for k in ("pI", "pF", "pO"):
+            params[name][k] = 0.5 * torch.rand(FAMILY_H, generator=gen) \
+                - 0.25
+    model.set_params(params)
+    eye = torch.eye(77, device="cuda")
+    prompts = _gen_prompts(GRAVES_STREAMS, GEN_PROMPT_CHARS, GEN_SEED)
+    eng = GenerationEngine(model, max_slots=GEN_SLOTS, stop_text=None,
+                           registry=MetricsRegistry(), session_id="graves")
+    try:
+        t0 = time.perf_counter()
+        got = _gen_streams(eng, prompts, max_new_tokens=GRAVES_NEW)
+        wall = time.perf_counter() - t0
+        eng.assert_warm()
+        max_active = eng.stats()["slots"]["max_active"]
+    finally:
+        eng.shutdown()
+    full, parts = 0, []
+    for i, (p, g) in enumerate(zip(prompts, got)):
+        ref = reference_decode(model, p, GRAVES_NEW)
+        tie = _first_near_tie(model, eye, p, ref)
+        agree = _common_prefix(g["ids"], ref)
+        if g["ids"] == ref:
+            full += 1
+        else:
+            parts.append({"stream": i, "agree": agree, "near_tie": tie})
+            if agree < tie:
+                raise AssertionError(
+                    f"Graves stream {i} parts from reference_decode at "
+                    f"{agree}, before the oracle's first near tie at {tie}")
+    tok_s = GRAVES_STREAMS * GRAVES_NEW / wall
+    log(f"  Graves generation, {GEN_SLOTS} slots: {full} of "
+        f"{GRAVES_STREAMS} greedy streams of {GRAVES_NEW} equal "
+        f"reference_decode in full, the others part at near ties {parts}; "
+        f"max active {max_active}; {tok_s:.0f} tokens/s [{card}]")
+    return {"full": full, "parted": parts, "tokens_per_s": tok_s,
+            "max_active": max_active}
+
+
+def phase_rnn_tbptt(report, card, profile=False):
+    """The recurrent family on the card (module docstring, phase 14)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {dt: fl.lstm_fwd_plan(TBPTT_K, TBPTT_BATCH, FAMILY_H,
+                                  dt == "bfloat16", sms)._asdict()
+             for dt in ("float32", "bfloat16")}
+    log(f"  lstm_fwd_plan at the segment shape (T {TBPTT_K}, N "
+        f"{TBPTT_BATCH}, H {FAMILY_H}): {plans}")
+    rng = np.random.default_rng(123)
+    t0 = time.perf_counter()
+    out, model, launches = _tbptt_gates(report, card, fl, rng)
+    out["fwd_plans"] = plans
+    out["chain"] = _tbptt_chains(card, rng)
+    stream, sl = _stream_check(card, model, corpus_batch(
+        rng, TBPTT_BATCH, TBPTT_CHARS), fl)
+    out["stream"] = stream
+    if profile:
+        ds = corpus_batch(rng, TBPTT_BATCH, TBPTT_CHARS)
+        out["profile"] = profile_calls(lambda: model.fit(ds), card,
+                                       "TBPTT batches", n=1, warmup=1)
+    out["family"] = _family(card, rng, fl)
+    out["graph"], gl = _graph(card, rng, fl)
+    out["graves_generation"] = _graves_generation(card, rng)
+    for k in launches:
+        launches[k] += sl[k] + gl[k]
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase {out['phase_seconds']:.1f} s; launches counted for the "
+        f"kernels line {launches}")
+    report["rnn_tbptt"] = out
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the attention slice (TPU kernels 9-11): kernels, serving, training
 # ---------------------------------------------------------------------------
 
@@ -3073,11 +3741,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
-                    "digits_eval,digits_train,generate,serve_http",
+                    "digits_eval,digits_train,generate,serve_http,"
+                    "rnn_tbptt",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the served forward, the train steps "
-                    "and a full-slot generation run with torch.profiler")
+                    help="also trace the served forward, the train steps, "
+                    "a full-slot generation run and a TBPTT batch with "
+                    "torch.profiler")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3196,6 +3866,14 @@ def main(argv=None) -> int:
             "generation, the entry point in a subprocess")
         for name, n in phase_serve_http(report, card).items():
             launches[name] += n
+    if "rnn_tbptt" in phases:
+        log(f"[rnn_tbptt] TextGenerationLSTM f32 by TBPTT ({TBPTT_BATCHES} "
+            f"batches of {TBPTT_BATCH} x {TBPTT_CHARS} chars, segments of "
+            f"{TBPTT_K}, one of {TBPTT_RAGGED}), the chain against the plain "
+            "path, streaming; the recurrent layers at width "
+            f"{FAMILY_H}; the streaming graph; Graves generation")
+        for name, n in phase_rnn_tbptt(report, card, args.profile).items():
+            launches[name] += n
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3207,9 +3885,10 @@ def main(argv=None) -> int:
                  ("name", "route", "source", "replaces")}
         # the main paths' launches: served traffic (in-process and over
         # HTTP) and the K-step train call (conv kernels); scoring,
-        # generation, HTTP predict and the K-step train call (LSTM
-        # kernels); two output() calls and the K-step train call (flash
-        # kernels)
+        # generation, HTTP predict, the K-step train call, the TBPTT
+        # batches, the streamed rnn_time_step calls and the TBPTT graph
+        # (LSTM kernels); two output() calls and the K-step train call
+        # (flash kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

@@ -24,7 +24,11 @@ sessions, an f32/bf16/int8 head). ``python -m deeplearning4j_tpu_torch
 serve`` starts them as a user does: a saved zip behind the HTTP server
 (``ui/``: ``/api/predict``, ``/api/generate`` as SSE, ``/metrics``,
 ``/healthz``), through ``parallel.inference.ParallelInference`` or the
-fleet front door (``parallel.fleet.FleetRouter``).
+fleet front door (``parallel.fleet.FleetRouter``). Recurrent models
+(``nn.layers.recurrent``: LSTM, GravesLSTM, SimpleRnn, the bidirectional
+and wrapper layers) train by truncated BPTT on both model types, the
+LSTM segments through the same two kernels, and a ``ComputationGraph``
+streams them with stored state (``rnn_time_step``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.

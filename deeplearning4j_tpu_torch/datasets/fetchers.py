@@ -4,8 +4,10 @@ The parts of the JAX package's ``datasets/fetchers.py`` (numpy only)
 that the LeNet/``MultiLayerNetwork`` flow needs, copied: ``MnistDataFetcher``
 and ``MnistDataSetIterator`` (the canonical IDX files when cached under
 ``DL4J_TPU_DATA_DIR``, else the same seeded synthetic stand-in),
-``write_idx_gz`` and ``IrisDataSetIterator``; and ``DigitsDataSetIterator``,
-the real-data iterator.
+``write_idx_gz``, ``IrisDataSetIterator`` and ``UciSequenceDataSetIterator``
+(the UCI synthetic-control series when cached, else its six regimes
+generated from the seed); and ``DigitsDataSetIterator``, the real-data
+iterator.
 
 ``DigitsDataSetIterator`` reads ``resources/digits.npz`` beside this
 module: scikit-learn's bundled copy of the UCI "Optical Recognition of
@@ -225,3 +227,58 @@ class IrisDataSetIterator(_ArrayBackedIterator):
         perm = rng.permutation(150)
         ds = DataSet(x[perm], _one_hot(y[perm], 3))
         self._it = ArrayDataSetIterator(ds, batch_size)
+
+
+class UciSequenceDataSetIterator(_ArrayBackedIterator):
+    """UCI synthetic-control time series: 600 univariate length-60 series,
+    6 classes (reference: UciSequenceDataFetcher/-Iterator). Reads cached
+    ``uci/synthetic_control.data`` (600x60 whitespace floats, class = row
+    block of 100), else generates the same six regimes procedurally.
+    Features (N, 60, 1), normalized per series; labels one-hot at every
+    step (N, 60, 6), the RnnOutputLayer format."""
+
+    CLASSES = 6
+    LENGTH = 60
+
+    def __init__(self, batch_size: int, train: bool = True, seed: int = 23):
+        path = os.path.join(DATA_DIR, "uci", "synthetic_control.data")
+        if os.path.exists(path):
+            series = np.loadtxt(path).astype(np.float32)
+            labels = np.repeat(np.arange(6), 100)
+        else:
+            series, labels = self._synthesize(seed)
+        # the reference's split: 450 train / 150 test after a shuffle
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(series.shape[0])
+        cut = int(0.75 * len(order))
+        keep = order[:cut] if train else order[cut:]
+        series, labels = series[keep], labels[keep]
+        mu = series.mean(axis=1, keepdims=True)
+        sd = series.std(axis=1, keepdims=True) + 1e-6
+        feats = ((series - mu) / sd)[:, :, None].astype(np.float32)
+        lab = np.repeat(_one_hot(labels, self.CLASSES)[:, None, :],
+                        self.LENGTH, axis=1)
+        self._wrap(DataSet(feats, lab), batch_size, seed)
+
+    @classmethod
+    def _synthesize(cls, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(seed)
+        t = np.arange(cls.LENGTH, dtype=np.float32)
+        rows, labels = [], []
+        for k in range(cls.CLASSES):
+            for _ in range(100):
+                base = 30 + rng.normal(0, 2, cls.LENGTH)
+                if k == 1:    # cyclic
+                    base += 15 * np.sin(2 * np.pi * t / rng.uniform(10, 15))
+                elif k == 2:  # increasing trend
+                    base += rng.uniform(0.2, 0.5) * t
+                elif k == 3:  # decreasing trend
+                    base -= rng.uniform(0.2, 0.5) * t
+                elif k == 4:  # upward shift
+                    base[cls.LENGTH // 2:] += rng.uniform(7.5, 20)
+                elif k == 5:  # downward shift
+                    base[cls.LENGTH // 2:] -= rng.uniform(7.5, 20)
+                rows.append(base)
+                labels.append(k)
+        return (np.asarray(rows, np.float32),
+                np.asarray(labels, np.int64))

@@ -46,9 +46,11 @@ Sampled streams are therefore checked inside the port only; greedy
 streams equal the JAX package's.
 
 The head has three precision arms (f32 / bf16 / int8 via
-``ops/quantize.py``); the LSTM stack is always f32. ``GravesLSTM`` cores,
-which the JAX package's tick accepts, are not ported yet (ROADMAP): the
-spec check accepts ``LSTM`` only. The tick, the prefill and the verify
+``ops/quantize.py``); the LSTM stack is always f32. Its cores are
+``LSTM`` or ``GravesLSTM``: a Graves core's peepholes are elementwise
+(``i`` and ``f`` see ``c_prev``, ``o`` the new ``c``), so they add no
+product and a row still does not depend on its bucket. The tick, the
+prefill and the verify
 are plain torch: the JAX package runs them through ``LSTM.step_one``,
 which reaches no TPU kernel. ``reference_decode`` and ``probe_head`` go
 through the model's own ``rnn_time_step`` (on the card, the ``lstm_fwd``
@@ -139,7 +141,9 @@ class DecodeSpec:
 
 def extract_decode_spec(model) -> DecodeSpec:
     """Validate the network shape the tick supports: a stack of LSTM
-    cells over one-hot token inputs under a dense softmax head. Anything
+    cells (``GravesLSTM`` peepholes included: the tick calls each core's
+    own ``gate_update``) over one-hot token inputs under a dense softmax
+    head. Anything
     else fails here, at engine construction, not inside the first
     tick."""
     from deeplearning4j_tpu_torch.nn.layers.recurrent import (
@@ -329,7 +333,7 @@ def _stack_step(cores, dp, tokens, hs, cs):
             zx = p["Wx"][tokens] + p["b"]
         else:
             zx = _mm(x, p["Wx"]) + p["b"]
-        hy, cy = core.gate_update(zx + _mm(hs[i], p["Wh"]), cs[i])
+        hy, cy = core.gate_update(zx + _mm(hs[i], p["Wh"]), cs[i], p)
         h_new.append(hy)
         c_new.append(cy)
         x = hy

@@ -40,7 +40,10 @@ from deeplearning4j_tpu_torch.datasets.feeder import (DEFAULT_DEPTH,
 from deeplearning4j_tpu_torch.datasets.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.evaluation.evaluation import (
     Evaluation, RegressionEvaluation)
-from deeplearning4j_tpu_torch.optimize.solver import TrainState
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    carry_core, first_bidirectional_name, warn_tbptt_bidirectional)
+from deeplearning4j_tpu_torch.optimize.solver import (TrainState,
+                                                      make_tbptt_train_step)
 from deeplearning4j_tpu_torch.optimize.updaters import tree_leaves, tree_map
 
 # params[layer][key], where a layer's params may nest further
@@ -79,6 +82,9 @@ class BaseModel:
         self.epoch_count = 0
         # the last fit's feeder (its stall_ms), None after an unfed fit
         self.last_feeder: Optional[DeviceFeeder] = None
+        self._tbptt_step = None
+        # the per-segment losses (device tensors) of the last TBPTT batch
+        self.last_segment_losses = []
 
     # ---- fit loop -------------------------------------------------------
     def fit(self, data, epochs: int = 1, k_steps: Optional[int] = None,
@@ -148,6 +154,54 @@ class BaseModel:
         take the unfed path; everything else can be staged ahead."""
         return getattr(getattr(self, "conf", None), "backprop_type",
                        None) != "tbptt"
+
+    # ---- truncated BPTT (reference: doTruncatedBPTT) --------------------
+    def _named_layers(self):
+        """(name, layer) of every layer, in order; a subclass provides."""
+        raise NotImplementedError
+
+    def _recurrent_carry_nodes(self):
+        """(name, core, is_lstm) of every layer whose hidden state crosses
+        TBPTT segments and ``rnn_time_step`` calls: LSTM and SimpleRnn
+        cores, looking through LastTimeStep and MaskZeroLayer."""
+        return [(name,) + cc for name, layer in self._named_layers()
+                if (cc := carry_core(layer)) is not None]
+
+    def _zero_carries(self, batch_size: int) -> Dict[str, Any]:
+        """Zero initial states at a new batch, in the compute dtype (bf16
+        carries under bf16 compute, the dtype of the ``zx`` the LSTM
+        kernels see)."""
+        dt = (torch.bfloat16 if self.conf.global_config.compute_dtype
+              == "bfloat16" else torch.float32)
+        out = {}
+        for name, core, is_lstm in self._recurrent_carry_nodes():
+            h = torch.zeros((batch_size, core.n_out), dtype=dt,
+                            device=self.device)
+            out[name] = (h, h) if is_lstm else h
+        return out
+
+    def _carries_of(self, model_state) -> Dict[str, Any]:
+        """The carries a new state hands on: (h, c) of an LSTM core, h of
+        a SimpleRnn."""
+        return {name: ((model_state[name]["last_h"],
+                        model_state[name]["last_c"])
+                       if is_lstm else model_state[name]["last_h"])
+                for name, _, is_lstm in self._recurrent_carry_nodes()}
+
+    def _build_tbptt_step(self):
+        self._check_trainable()
+        return make_tbptt_train_step(self._loss, self._tx, self._carries_of)
+
+    def _start_tbptt(self, batch_size: int) -> Dict[str, Any]:
+        """Warn about a bidirectional layer (its backward direction is cut
+        at every segment boundary), build the segment step once, and
+        return the batch's zero carries."""
+        bidi = first_bidirectional_name(self._named_layers())
+        if bidi is not None:
+            warn_tbptt_bidirectional(bidi)
+        if self._tbptt_step is None:
+            self._tbptt_step = self._build_tbptt_step()
+        return self._zero_carries(batch_size)
 
     def _staged_step_args(self, features, labels, fmask, lmask):
         """Adapt staged tensors to this model's step signature (the

@@ -9,9 +9,15 @@ walks the layers in order (with the configuration's preprocessors and an
 output layer's loss plus L1/L2 in promote(f32, loss dtype), differentiated
 by ``torch.autograd``. ``fit`` (models/base.py) takes a DataSet (one
 step of standard BPTT) or an iterator (through the device feeder);
-``_build_scan_train_step`` runs K steps in one call; truncated BPTT is not
-ported yet. ``rnn_time_step`` is the stateful streaming forward: the caller
-threads each LSTM's (h, c) carry.
+``_build_scan_train_step`` runs K steps in one call. With
+``backprop_type="tbptt"`` a batch of sequences trains segment by segment
+(reference: doTruncatedBPTT, MultiLayerNetwork.java:1521): each
+``tbptt_fwd_length`` slice of time is one optimizer step whose recurrent
+layers start from the state the previous segment handed on, with the
+gradients cut at the boundary; a ragged last segment is padded and
+masked. ``rnn_time_step`` is the stateful streaming forward: the caller
+threads each recurrent layer's carry ((h, c) for an LSTM core, h for a
+SimpleRnn).
 
 The model lives on one device, chosen at construction: ``cuda`` unless
 the caller passes ``device="cpu"`` (utils/device.py).
@@ -19,7 +25,7 @@ the caller passes ``device="cpu"`` (utils/device.py).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -29,15 +35,40 @@ from deeplearning4j_tpu_torch.models.base import (BaseModel, Tree,
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
-from deeplearning4j_tpu_torch.nn.layers.recurrent import (LSTM,
-                                                          unwrap_recurrent)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import carry_core
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
                                                       make_scan_train_step,
                                                       make_train_step)
 from deeplearning4j_tpu_torch.optimize.updaters import tree_map
 from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
 
-Carries = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+# recurrent layer name -> (h, c) of an LSTM core, or h of a SimpleRnn
+Carries = Dict[str, Any]
+
+
+def _pad_time(a: torch.Tensor, pad: int) -> torch.Tensor:
+    """``a`` with ``pad`` zero steps appended on the time axis (the MLN's
+    and the graph's ragged TBPTT tails)."""
+    return torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])],
+                     dim=1)
+
+
+def _pad_tbptt_tail(f, l, fm, lm, k, seq_labels):
+    """A ragged last TBPTT segment padded to length ``k`` along time, the
+    padded steps masked out of the recurrence and the loss. Without a
+    labels mask the labels mask is the padded features mask (the loss
+    falls back to it), never ones: ones would unmask steps the features
+    mask excludes."""
+    n, t = f.shape[0], f.shape[1]
+    pad = k - t
+    f = _pad_time(f, pad)
+    base_fm = fm if fm is not None else torch.ones(
+        (n, t), dtype=torch.float32, device=f.device)
+    fm = _pad_time(base_fm, pad)
+    if seq_labels:
+        l = _pad_time(l, pad)
+        lm = _pad_time(lm, pad) if lm is not None else fm
+    return f, l, fm, lm
 
 
 class MultiLayerNetwork(BaseModel):
@@ -77,6 +108,7 @@ class MultiLayerNetwork(BaseModel):
         self.opt_state = self._tx.init(params)
         self.iteration = 0
         self._train_step = None
+        self._tbptt_step = None
         # dropout's random numbers (the JAX package's step keys)
         self._generator = torch.Generator(device=self.device).manual_seed(
             seed)
@@ -94,10 +126,14 @@ class MultiLayerNetwork(BaseModel):
     def _forward(self, params: Tree, model_state: Tree, x: torch.Tensor,
                  fmask: Optional[torch.Tensor], train: bool,
                  generator: Optional[torch.Generator] = None,
-                 upto: Optional[int] = None, collect: bool = False):
+                 upto: Optional[int] = None, collect: bool = False,
+                 carries: Optional[Carries] = None):
         """Forward through layers [0, upto): (activation, new state), or
         (list of activations, new state) with ``collect`` (reference:
-        feedForwardToLayer:955). Recurrent layers see the features mask."""
+        feedForwardToLayer:955). Recurrent layers see the features mask;
+        ``carries`` maps a recurrent layer's name to its initial state
+        (TBPTT segments, ``rnn_time_step``; reference:
+        rnnActivateUsingStoredState:2881)."""
         dt = self.conf.global_config.compute_dtype
         x = compute_cast(x, dt)
         n = len(self.layers) if upto is None else upto
@@ -112,22 +148,28 @@ class MultiLayerNetwork(BaseModel):
                                        RecurrentType) else None
             ctx = LayerContext(train=train, generator=generator, mask=mask)
             lp = cast_params(params.get(layer.name, {}), dt)
-            x, new_state[layer.name] = layer.apply(
-                lp, model_state.get(layer.name, {}), x, ctx)
+            st = model_state.get(layer.name, {})
+            if carries is not None and layer.name in carries:
+                x, new_state[layer.name] = layer.apply(
+                    lp, st, x, ctx, initial_state=carries[layer.name])
+            else:
+                x, new_state[layer.name] = layer.apply(lp, st, x, ctx)
             if collect:
                 acts.append(x)
         return (acts if collect else x), new_state
 
     def _loss(self, params, model_state, features, labels, fmask, lmask,
-              generator, iteration):
-        """(training loss, new state): forward to the last hidden layer,
-        the output layer's loss on its logits with the output layer's
-        parameters in the compute dtype, plus each layer's L1/L2, in
-        promote(f32, loss dtype) (reference: computeGradientAndScore:2360).
-        The new state (each LSTM's last carry) is detached."""
+              generator, iteration, carries: Optional[Carries] = None):
+        """(training loss, new state): forward to the last hidden layer
+        (from ``carries``' initial states), the output layer's loss on its
+        logits with the output layer's parameters in the compute dtype,
+        plus each layer's L1/L2, in promote(f32, loss dtype) (reference:
+        computeGradientAndScore:2360). The new state (each recurrent
+        layer's last carry) is detached."""
         n = len(self.layers)
         x, new_state = self._forward(params, model_state, features, fmask,
-                                     True, generator, upto=n - 1)
+                                     True, generator, upto=n - 1,
+                                     carries=carries)
         out = self.layers[-1]
         pp = self._preprocessors.get(n - 1)
         if pp is not None:
@@ -151,10 +193,6 @@ class MultiLayerNetwork(BaseModel):
         return loss.to(acc) + reg.to(acc), new_state
 
     def _check_trainable(self):
-        if self.conf.backprop_type == "tbptt":
-            raise NotImplementedError(
-                "backprop_type='tbptt': truncated BPTT fit is not ported yet "
-                "(ROADMAP.md, queue 1); use backprop_type='standard'")
         for l in self.layers:
             if l.constraints or l.weight_noise is not None:
                 raise NotImplementedError(
@@ -169,6 +207,39 @@ class MultiLayerNetwork(BaseModel):
         """K steps per call over (K, B, ...) staged tensors."""
         self._check_trainable()
         return make_scan_train_step(self._loss, self._tx)
+
+    def _named_layers(self):
+        return [(l.name, l) for l in self.layers]
+
+    def _fit_batch(self, batch):
+        """One step of standard BPTT, or with ``backprop_type="tbptt"``
+        and a sequence batch, one step per ``tbptt_fwd_length`` segment
+        (the iteration count advances by the number of segments)."""
+        if (self.conf.backprop_type != "tbptt" or batch.features.ndim != 3
+                or not self._recurrent_carry_nodes()):
+            return super()._fit_batch(batch)
+        features, labels, fmask, lmask = self._step_args(batch)
+        carries = self._start_tbptt(features.shape[0])
+        k = self.conf.tbptt_fwd_length
+        t_len = features.shape[1]
+        seq_labels = labels.ndim == 3
+        losses = []
+        for lo in range(0, t_len, k):
+            hi = min(lo + k, t_len)
+            f = features[:, lo:hi]
+            l = labels[:, lo:hi] if seq_labels else labels
+            fm = None if fmask is None else fmask[:, lo:hi]
+            # a labels mask is per step only for sequence labels; for 2-D
+            # labels it is per output and is not sliced
+            lm = (lmask if not seq_labels
+                  else None if lmask is None else lmask[:, lo:hi])
+            if hi - lo < k:
+                f, l, fm, lm = _pad_tbptt_tail(f, l, fm, lm, k, seq_labels)
+            self.train_state, loss, carries = self._tbptt_step(
+                self.train_state, f, l, fm, lm, self._generator, carries)
+            losses.append(loss)
+        self.last_segment_losses = losses
+        self._last_loss = losses[-1]
 
     def _step_args(self, batch: DataSet):
         """(features, labels, fmask, lmask) on the device."""
@@ -233,9 +304,10 @@ class MultiLayerNetwork(BaseModel):
                       ) -> Tuple[torch.Tensor, Carries]:
         """Stateful single- or multi-step inference (reference:
         rnnTimeStep, MultiLayerNetwork.java:2806): ``carries`` maps each
-        LSTM's name to its (h, c); returns (output, new carries). A (N, F)
-        input is one timestep. Parameters are used as stored, as the JAX
-        package's ``rnn_time_step`` uses them."""
+        recurrent layer's name to its state ((h, c) of an LSTM core, h of
+        a SimpleRnn, wrapped or not); returns (output, new carries). A
+        (N, F) input is one timestep. Parameters are used as stored, as
+        the JAX package's ``rnn_time_step`` uses them."""
         if self.params is None:
             self.init()
         x = self._as_tensor(features)
@@ -250,10 +322,12 @@ class MultiLayerNetwork(BaseModel):
                 ctx = LayerContext(train=False)
                 lp = self.params.get(layer.name, {})
                 st = self.model_state.get(layer.name, {})
-                if isinstance(unwrap_recurrent(layer), LSTM):
+                cc = carry_core(layer)
+                if cc is not None:
                     x, s = layer.apply(lp, st, x, ctx,
                                        initial_state=carries.get(layer.name))
-                    carries[layer.name] = (s["last_h"], s["last_c"])
+                    carries[layer.name] = ((s["last_h"], s["last_c"])
+                                           if cc[1] else s["last_h"])
                 else:
                     x, _ = layer.apply(lp, st, x, ctx)
         return x, carries

@@ -21,6 +21,7 @@ builder API:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
@@ -107,9 +108,9 @@ class ListBuilder:
         self._tbptt_back_length: int = 20
 
     def backprop_type(self, kind: str) -> "ListBuilder":
-        """'standard' or 'tbptt' (reference: BackpropType.TruncatedBPTT).
-        A tbptt configuration builds and round-trips; its fit is not
-        ported yet."""
+        """'standard' or 'tbptt' (reference: BackpropType.TruncatedBPTT):
+        a tbptt fit trains ``tbptt_fwd_length``-step segments with the
+        recurrent state carried between them."""
         kind = kind.lower()
         if kind not in ("standard", "tbptt", "truncated_bptt"):
             raise ValueError(f"unknown backprop type {kind!r}")
@@ -121,7 +122,15 @@ class ListBuilder:
         return self
 
     def tbptt_back_length(self, k: int) -> "ListBuilder":
+        """Stored for configuration parity: gradients are cut at the
+        segment boundary, so the back length is the forward length (a
+        warning when they differ)."""
         self._tbptt_back_length = int(k)
+        if self._tbptt_back_length != self._tbptt_fwd_length:
+            warnings.warn(
+                "tbptt_back_length != tbptt_fwd_length: gradients truncate "
+                "at the fwd-length chunk boundary; back length is ignored",
+                stacklevel=2)
         return self
 
     def layer(self, layer: Layer) -> "ListBuilder":

@@ -19,6 +19,7 @@ algorithm). Multi-input/multi-output, layer nodes + combinator vertices.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn.config import GlobalConfig
@@ -77,13 +78,41 @@ class GraphBuilder:
         self._outputs = list(names)
         return self
 
+    def backprop_type(self, kind: str) -> "GraphBuilder":
+        """'standard' or 'tbptt', with ListBuilder.backprop_type's alias
+        set (reference: GraphBuilder.backpropType)."""
+        kind = kind.lower()
+        if kind not in ("standard", "tbptt", "truncated_bptt"):
+            raise ValueError(f"unknown backprop type {kind!r}")
+        self._backprop_type = "tbptt" if kind != "standard" else "standard"
+        return self
+
+    def tbptt_fwd_length(self, k: int) -> "GraphBuilder":
+        self._tbptt_fwd_length = int(k)
+        return self
+
+    def tbptt_back_length(self, k: int) -> "GraphBuilder":
+        """Accepted for API parity: gradients are cut at the segment
+        boundary, so the back length is the forward length (build()
+        warns when they differ)."""
+        self._tbptt_back_length = int(k)
+        return self
+
     def build(self) -> "ComputationGraphConfiguration":
+        fwd = getattr(self, "_tbptt_fwd_length", 20)
+        back = getattr(self, "_tbptt_back_length", fwd)
+        if back != fwd:
+            warnings.warn("tbptt_back_length != tbptt_fwd_length: "
+                          "gradients truncate at the fwd chunk boundary "
+                          f"({fwd}), not at {back}")
         conf = ComputationGraphConfiguration(
             global_config=self._cfg,
             network_inputs=tuple(self._inputs),
             network_input_types=tuple(self._input_types),
             nodes=tuple(self._nodes),
             network_outputs=tuple(self._outputs),
+            backprop_type=getattr(self, "_backprop_type", "standard"),
+            tbptt_fwd_length=fwd,
         )
         conf.resolve()
         return conf

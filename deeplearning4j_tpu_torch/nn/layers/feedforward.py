@@ -1,10 +1,11 @@
 """Dense, activation, dropout and embedding layers.
 
 Analogs of the reference's ``DenseLayer``, ``ActivationLayer``,
-``DropoutLayer`` and ``EmbeddingSequenceLayer`` (nn/conf/layers/), the
-four of the JAX package's ``nn/layers/feedforward.py`` that the ported
-models run (the ResNet50's output layer is a dense layer; the transformer
-stack starts with the embedding).
+``DropoutLayer``, ``EmbeddingLayer`` and ``EmbeddingSequenceLayer``
+(nn/conf/layers/), the five of the JAX package's
+``nn/layers/feedforward.py`` that the ported models run (the ResNet50's
+output layer is a dense layer; the transformer stack and the sequence
+models start with an embedding).
 """
 
 from __future__ import annotations
@@ -98,6 +99,49 @@ class DropoutLayer(Layer):
 
 @register_serializable
 @dataclasses.dataclass(frozen=True)
+class EmbeddingLayer(FeedForwardLayer):
+    """Index lookup (reference: EmbeddingLayer, a dense layer whose input
+    is an index): (N,) or (N, 1) ids → act(W[id] + b), W (n_in, n_out).
+    Ids go in as an integer tensor (or float32, exact below 2^24)."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return FeedForwardType(self.n_out)
+
+    def initialize(self, generator, input_type):
+        if self.n_in is None:
+            raise ValueError("EmbeddingLayer requires explicit n_in "
+                             "(vocab size)")
+        dt = self.param_dtype()
+        params = {"W": self.weight_init.init(generator, (self.n_in,
+                                                         self.n_out),
+                                             self.n_in, self.n_out, dt)}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,), dtype=dt)
+        return params
+
+    def apply(self, params, state, x, ctx):
+        idx = _ids(x, "EmbeddingLayer")
+        if idx.ndim > 1 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        y = params["W"][idx]
+        if self.has_bias:
+            y = y + params["b"]
+        return self.activation.apply(y), state
+
+
+def _ids(x: torch.Tensor, who: str) -> torch.Tensor:
+    """Token ids as int64; a bf16/f16 feature tensor raises, since bf16
+    rounds every id above 256."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        raise TypeError(
+            f"{who}: token ids arrived as {x.dtype}, which rounds ids above "
+            "256; pass them as an integer tensor (a float feature array is "
+            "cast to the compute dtype)")
+    return x.to(torch.long)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
 class EmbeddingSequenceLayer(FeedForwardLayer):
     """Sequence of indices (N, T) (or (N, T, 1)) → (N, T, n_out) rows of
     W (n_in, n_out) (reference: EmbeddingSequenceLayer). Ids are passed as
@@ -117,12 +161,7 @@ class EmbeddingSequenceLayer(FeedForwardLayer):
                                            self.n_in, self.n_out, dt)}
 
     def apply(self, params, state, x, ctx):
-        if x.dtype in (torch.bfloat16, torch.float16):
-            raise TypeError(
-                f"EmbeddingSequenceLayer: token ids arrived as {x.dtype}, "
-                "which rounds ids above 256; pass them as an integer tensor "
-                "(a float feature array is cast to the compute dtype)")
-        idx = x.to(torch.long)
+        idx = _ids(x, "EmbeddingSequenceLayer")
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
         return params["W"][idx], state

@@ -1,7 +1,7 @@
 """Output layers and global pooling.
 
-Analogs of the reference's ``OutputLayer``, ``RnnOutputLayer`` and
-``GlobalPoolingLayer``
+Analogs of the reference's ``OutputLayer``, ``RnnOutputLayer``,
+``LossLayer``, ``RnnLossLayer`` and ``GlobalPoolingLayer``
 (nn/conf/layers/). An output layer is a dense projection plus a loss;
 models call ``compute_loss`` for training and ``apply`` for inference.
 (SOFTMAX, MCXENT/NLL) and (SIGMOID, XENT) pairs take the loss on the
@@ -12,6 +12,7 @@ the JAX package does.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -73,9 +74,52 @@ class RnnOutputLayer(OutputLayer):
 
 @register_serializable
 @dataclasses.dataclass(frozen=True)
+class LossLayer(Layer):
+    """A loss with no parameters (reference: nn/conf/layers/LossLayer):
+    the activation on the input, then the loss against the labels."""
+    loss: LossFunction = LossFunction.MCXENT
+    activation: Activation = Activation.IDENTITY
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def apply(self, params, state, x, ctx):
+        return self.activation.apply(x), state
+
+    def compute_loss(self, params, state, x, labels, ctx):
+        fused = _fused_loss(self.activation, self.loss, labels, x, ctx.mask)
+        if fused is not None:
+            return fused
+        return self.loss(labels, self.activation.apply(x), ctx.mask)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class RnnLossLayer(LossLayer):
+    """Per-timestep loss without a projection (reference:
+    nn/conf/layers/RnnLossLayer.java): input and labels (N, T, F), the
+    (N, T) mask weighting the steps as in ``RnnOutputLayer``."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if not isinstance(input_type, RecurrentType):
+            raise ValueError(
+                "RnnLossLayer expects recurrent (N, T, F) input, got "
+                f"{input_type}")
+        return input_type
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
 class GlobalPoolingLayer(Layer):
     """Global pooling over the spatial dims of an NHWC map, (N,H,W,C) →
-    (N,C) (reference: nn/layers/pooling/GlobalPoolingLayer.java)."""
+    (N,C), or over time, (N,T,F) → (N,F) with the sequence mask
+    (reference: nn/layers/pooling/GlobalPoolingLayer.java). With a mask,
+    MAX fills masked steps with -inf (a fully masked row gives -inf) and
+    AVG divides by the unmasked count (at least 1)."""
     pooling_type: PoolingType = PoolingType.MAX
     pnorm: int = 2
 
@@ -91,11 +135,24 @@ class GlobalPoolingLayer(Layer):
         return input_type
 
     def apply(self, params, state, x, ctx):
-        if x.ndim != 4:
-            raise NotImplementedError(
-                "GlobalPoolingLayer: only NHWC (4-D) inputs are ported")
-        dims = (1, 2)
+        dims = (1, 2) if x.ndim == 4 else (1,)
+        mask = None if x.ndim == 4 else ctx.mask
         pt = self.pooling_type
+        pn = float(self.pnorm)
+        if mask is not None:
+            m = mask[:, :, None].to(x.dtype)
+            if pt is PoolingType.MAX:
+                return torch.amax(x.masked_fill(m <= 0, -math.inf),
+                                  dim=dims), state
+            if pt is PoolingType.SUM:
+                return torch.sum(x * m, dim=dims), state
+            if pt is PoolingType.AVG:
+                denom = torch.clamp(torch.sum(m, dim=dims), min=1.0)
+                return torch.sum(x * m, dim=dims) / denom, state
+            if pt is PoolingType.PNORM:
+                return torch.sum((x.abs() * m) ** pn, dim=dims) ** (
+                    1.0 / pn), state
+            raise ValueError(pt)
         if pt is PoolingType.MAX:
             return torch.amax(x, dim=dims), state
         if pt is PoolingType.AVG:
@@ -103,6 +160,5 @@ class GlobalPoolingLayer(Layer):
         if pt is PoolingType.SUM:
             return torch.sum(x, dim=dims), state
         if pt is PoolingType.PNORM:
-            pn = float(self.pnorm)
             return torch.sum(x.abs() ** pn, dim=dims) ** (1.0 / pn), state
         raise ValueError(pt)

@@ -121,6 +121,17 @@ def value_and_grad(loss_fn: LossFn, ts: TrainState, features, labels,
     return loss.detach(), new_ms, gtree
 
 
+def _update(loss_fn: LossFn, tx: GradientTransformation, ts: TrainState,
+            features, labels, fmask, lmask, generator):
+    """(new train state, loss) of one optimizer step."""
+    loss, new_ms, grads = value_and_grad(loss_fn, ts, features, labels,
+                                         fmask, lmask, generator)
+    with torch.no_grad():
+        updates, new_opt = tx.update(grads, ts.opt_state, ts.params)
+        new_params = apply_updates(ts.params, updates)
+    return TrainState(new_params, new_ms, new_opt, ts.iteration + 1), loss
+
+
 def make_train_step(loss_fn: LossFn, tx: GradientTransformation):
     """``loss_fn(params, model_state, features, labels, fmask, lmask,
     generator, iteration) -> (loss, new_model_state)``.
@@ -130,13 +141,29 @@ def make_train_step(loss_fn: LossFn, tx: GradientTransformation):
     device (no host sync)."""
     def step(ts: TrainState, features, labels, fmask=None, lmask=None,
              generator=None):
-        loss, new_ms, grads = value_and_grad(loss_fn, ts, features, labels,
-                                             fmask, lmask, generator)
-        with torch.no_grad():
-            updates, new_opt = tx.update(grads, ts.opt_state, ts.params)
-            new_params = apply_updates(ts.params, updates)
-        return TrainState(new_params, new_ms, new_opt,
-                          ts.iteration + 1), loss
+        return _update(loss_fn, tx, ts, features, labels, fmask, lmask,
+                       generator)
+    return step
+
+
+def make_tbptt_train_step(loss_fn: LossFn, tx: GradientTransformation,
+                          carries_of: Callable[[Any], Any]):
+    """One truncated-BPTT segment (reference: doTruncatedBPTT).
+
+    ``loss_fn`` is ``make_train_step``'s with a ``carries=`` keyword (the
+    recurrent layers' initial states); ``carries_of(new_model_state)``
+    picks the carries the segment hands on. Returns ``step(train_state,
+    features, labels, fmask, lmask, generator, carries) ->
+    (new_train_state, loss, new_carries)``. The loss's new state is
+    detached, so the carries cross the segment boundary with their
+    gradients cut: that is the truncation."""
+    def step(ts: TrainState, features, labels, fmask=None, lmask=None,
+             generator=None, carries=None):
+        def lf(*args):
+            return loss_fn(*args, carries=carries)
+        ts, loss = _update(lf, tx, ts, features, labels, fmask, lmask,
+                           generator)
+        return ts, loss, carries_of(ts.model_state)
     return step
 
 

@@ -1130,3 +1130,201 @@ def test_swap_params_keeps_the_ladder_warm_on_the_card(card):
         np.testing.assert_array_equal(e1.output(x), before)
         e1.assert_warm()
         assert e1.recompiles_after_warmup == 0
+
+
+# ---- the recurrent family on the card (truncated BPTT, the layers, the
+# streaming graph, Graves generation) ----------------------------------
+# Against the same port model on the CPU (the plain versions): segment
+# losses within 1e-5 relative and parameters after one TBPTT batch within
+# 1e-3 of each array's largest (a few Adam steps over f32 sums taken in
+# another order, with lstm_fwd's activations within 1e-6 of expf/tanhf:
+# chip_smoke.py's CHAIN_* comment); probabilities within 1e-5.
+
+
+def _tbptt_pair(card, cell="LSTM", wrap=None, compute="float32"):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as R
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    core = getattr(R, cell)(n_out=32)
+    conf = (NeuralNetConfiguration.Builder().seed(5).updater(Adam(5e-3))
+            .gradient_normalization("clip_value", 5.0)
+            .compute_dtype(compute).list()
+            .layer(R.LSTM(n_out=32))
+            .layer(core if wrap is None else getattr(R, wrap)(inner=core))
+            .layer(RnnOutputLayer(n_out=7))
+            .set_input_type(InputType.recurrent(5))
+            .backprop_type("tbptt").tbptt_fwd_length(6).build())
+    return (MultiLayerNetwork(conf, device=card).init(),
+            MultiLayerNetwork(conf, device="cpu").init())
+
+
+def _seq_data(n, t, f=5, c=7, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, t, f)).astype(np.float32)
+    y = np.eye(c, dtype=np.float32)[rng.integers(0, c, (n, t))]
+    m = np.ones((n, t), np.float32)
+    m[1, t - 4:] = 0.0
+    m[2, t // 2:] = 0.0
+    return x, y, m
+
+
+@pytest.mark.parametrize("cell,wrap", [("LSTM", None), ("SimpleRnn", None),
+                                       ("LSTM", "MaskZeroLayer")])
+def test_tbptt_on_the_card_matches_the_cpu(card, cell, wrap):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    gpu, cpu = _tbptt_pair(card, cell, wrap)
+    x, y, m = _seq_data(6, 16)               # segments 6, 6 and a tail of 4
+    fl.reset_launch_counts()
+    gpu.fit(DataSet(x, y, m))
+    lstms = 2 if cell == "LSTM" else 1
+    assert fl.LAUNCHES == {"lstm_fwd": 3 * lstms, "lstm_bwd": 3 * lstms}
+    cpu.fit(DataSet(x, y, m))
+    assert gpu.iteration == cpu.iteration == 3
+    np.testing.assert_allclose([v.item() for v in gpu.last_segment_losses],
+                               [v.item() for v in cpu.last_segment_losses],
+                               rtol=1e-5)
+    want = flatten_paths(cpu.params)
+    for k, v in flatten_paths(gpu.params).items():
+        err = (v.cpu() - want[k]).abs().max().item()
+        assert err <= 1e-3 * want[k].abs().max().item(), k
+
+
+def test_tbptt_bf16_carries_on_the_card(card):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    gpu, _ = _tbptt_pair(card, compute="bfloat16")
+    x, y, m = _seq_data(4, 12)
+    fl.reset_launch_counts()
+    gpu.fit(DataSet(x, y, m))
+    assert fl.LAUNCHES == {"lstm_fwd": 4, "lstm_bwd": 4}
+    assert gpu.model_state["layer_1"]["last_h"].dtype == torch.bfloat16
+    assert all(np.isfinite(v.item()) for v in gpu.last_segment_losses)
+
+
+@pytest.mark.parametrize("mode", ["concat", "add", "mul", "average"])
+def test_bidirectional_lstm_on_the_card_matches_plain(card, mode):
+    """A right-padded ragged mask: the reversed pass starts with masked
+    ticks; output and gradients through the kernels against the plain
+    versions on the card, 2 lstm_fwd a call and 2 + 2 a step."""
+    from unittest import mock
+    from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (LSTM,
+                                                              Bidirectional)
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    layer = Bidirectional(fwd=LSTM(n_in=5, n_out=40), mode=mode)
+    p = {k: {kk: v.to(card).requires_grad_() for kk, v in d.items()}
+         for k, d in layer.initialize(torch.Generator().manual_seed(0),
+                                      InputType.recurrent(5, 16)).items()}
+    x, _, m = _seq_data(6, 16)
+    xt, mt = torch.tensor(x, device=card), torch.tensor(m, device=card)
+    w = torch.randn(6, 16, 80 if mode == "concat" else 40, device=card)
+
+    def run():
+        y, _ = layer.apply(p, {}, xt, LayerContext(mask=mt))
+        leaves = [v for d in p.values() for v in d.values()]
+        return y.detach(), torch.autograd.grad((y * w).sum(), leaves)
+    fl.reset_launch_counts()
+    y, g = run()
+    assert fl.LAUNCHES == {"lstm_fwd": 2, "lstm_bwd": 2}
+    with mock.patch.object(fl, "lstm_fwd", fl.lstm_fwd_reference), \
+            mock.patch.object(fl, "lstm_bwd", fl.lstm_bwd_reference):
+        y_ref, g_ref = run()
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    for a, b in zip(g, g_ref):
+        assert (a - b).norm() <= 1e-4 * b.norm()
+    assert torch.all(y[2, 8:] == 0)
+
+
+def test_recurrent_graph_on_the_card_streams_like_output(card):
+    """A TBPTT graph with a features mask trains on the card (1 + 1
+    launches a segment) as on the CPU, and streams a tick at a time like
+    output()."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    def graph(device):
+        g = (NeuralNetConfiguration.Builder().seed(7).updater(Adam(5e-3))
+             .graph_builder().add_inputs("in")
+             .set_input_types(InputType.recurrent(5)))
+        g.add_layer("lstm", LSTM(n_out=48), "in")
+        g.add_layer("out", RnnOutputLayer(n_out=7), "lstm")
+        g.set_outputs("out")
+        g.backprop_type("tbptt").tbptt_fwd_length(8)
+        return ComputationGraph(g.build(), device=device).init()
+    gpu, cpu = graph(card), graph("cpu")
+    x, y, m = _seq_data(6, 20)
+    fl.reset_launch_counts()
+    gpu.fit(DataSet(x, y, m))
+    assert fl.LAUNCHES == {"lstm_fwd": 3, "lstm_bwd": 3}
+    cpu.fit(DataSet(x, y, m))
+    np.testing.assert_allclose([v.item() for v in gpu.last_segment_losses],
+                               [v.item() for v in cpu.last_segment_losses],
+                               rtol=1e-5)
+    xt = torch.tensor(x, device=card)
+    whole = gpu.output(xt, mask=torch.tensor(m, device=card))
+    np.testing.assert_allclose(whole.cpu().numpy(),
+                               cpu.output(x, mask=m).numpy(), atol=1e-5)
+    gpu.rnn_clear_previous_state()
+    streamed = torch.stack([gpu.rnn_time_step(xt[:, s]) for s in range(20)],
+                           1)
+    torch.testing.assert_close(streamed, gpu.output(xt), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_graves_generation_on_the_card_matches_reference_decode(card):
+    """2 x GravesLSTM(32) with peepholes drawn from a seed: the engine's
+    greedy streams equal reference_decode up to the first near tie."""
+    import random
+    from deeplearning4j_tpu_torch.generation import (GenerationEngine,
+                                                     reference_decode)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    conf = (NeuralNetConfiguration.Builder().seed(3).list()
+            .layer(GravesLSTM(n_out=32)).layer(GravesLSTM(n_out=32))
+            .layer(RnnOutputLayer(n_out=31))
+            .set_input_type(InputType.recurrent(31)).build())
+    model = MultiLayerNetwork(conf, device=card).init()
+    gen = torch.Generator().manual_seed(3)
+    params = {k: dict(v) for k, v in model.params.items()}
+    for name in ("layer_0", "layer_1"):
+        for k in ("pI", "pF", "pO"):
+            params[name][k] = torch.rand(32, generator=gen) - 0.5
+    model.set_params(params)
+    eng = GenerationEngine(model, max_slots=4, registry=MetricsRegistry())
+    try:
+        rng = random.Random(5)
+        cfgs = [([rng.randrange(31) for _ in range(rng.randrange(2, 7))],
+                 rng.randrange(10, 30)) for _ in range(6)]
+        streams = [eng.submit(p, max_new_tokens=m) for p, m in cfgs]
+        eye = torch.eye(31, device=card)
+        for (p, m), s in zip(cfgs, streams):
+            got = s.result(timeout=120)["ids"]
+            ref = reference_decode(model, p, m)
+            probs, _ = model.rnn_time_step(eye[p + ref[:-1]][None])
+            top2 = probs[0, len(p) - 1:].topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            tie = int(np.argmax(gaps < 1e-4)) if (gaps < 1e-4).any() \
+                else len(ref)
+            assert got[:tie] == ref[:tie]
+        eng.assert_warm()
+    finally:
+        eng.shutdown()

@@ -595,3 +595,132 @@ def test_engine_greedy_streams_match_jax(model, jmodel, mode):
     assert [r["ids"] for r in port] == [r["ids"] for r in ref]
     assert [r["reason"] for r in port] == [r["reason"] for r in ref]
     assert {r["reason"] for r in port} == {"stop", "length"}
+
+
+# ---- GravesLSTM cores ---------------------------------------------------
+
+
+def _graves_jax_model():
+    """2 x GravesLSTM(32) under the dense head, one-hot over the small
+    vocab; peepholes drawn from a seed (they initialize to zero)."""
+    from deeplearning4j_tpu.models.multi_layer_network import \
+        MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.inputs import InputType
+    from deeplearning4j_tpu.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu.nn.layers.recurrent import GravesLSTM
+    conf = (NeuralNetConfiguration.Builder().seed(123).list()
+            .layer(GravesLSTM(n_out=32)).layer(GravesLSTM(n_out=32))
+            .layer(RnnOutputLayer(n_out=SMALL_VOCAB))
+            .set_input_type(InputType.recurrent(SMALL_VOCAB)).build())
+    jm = JMLN(conf).init()
+    rng = np.random.default_rng(9)
+    params = jax.tree_util.tree_map(np.asarray, jm.train_state.params)
+    for name in ("layer_0", "layer_1"):
+        for k in ("pI", "pF", "pO"):
+            params[name][k] = rng.uniform(-0.5, 0.5, 32).astype(np.float32)
+    jm.train_state = jm.train_state._replace(
+        params=jax.tree_util.tree_map(jnp.asarray, params))
+    return jm
+
+
+@pytest.fixture(scope="module")
+def graves(request):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.serialization import (
+        _ensure_registry, params_from_jax)
+    from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+    _ensure_registry()
+    jm = _graves_jax_model()
+    tm = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        jm.conf.to_json()), device="cpu").init()
+    ts = jax.tree_util.tree_map(np.asarray, jm.train_state)
+    params_from_jax(ts.params, ts.model_state, model=tm)
+    return jm, tm
+
+
+def test_graves_spec_and_tick_match_jax(graves):
+    from deeplearning4j_tpu.generation import decode as JD
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
+    jm, tm = graves
+    spec = extract_decode_spec(tm)
+    assert spec.lstm_names == ("layer_0", "layer_1")
+    assert all(isinstance(c, GravesLSTM) for c in D._lstm_cores(tm, spec))
+    dp = D.commit_decode_params(tm, spec, "f32")
+    assert {"pI", "pF", "pO"} <= set(dp["lstm"][0])
+    S = 5
+    h, c, ctl = _tick_inputs(S, seed=3)
+    samp = (np.ones(S, np.float32), np.zeros(S, np.int32),
+            np.ones(S, bool))
+    jspec = JD.extract_decode_spec(jm)
+    jh, jc, _, jtok = jax.jit(JD.build_tick(jm, jspec))(
+        JD.commit_decode_params(jm, jspec, "f32"), h, c,
+        np.zeros((S, 2), np.uint32), ctl["tokens"], ctl["reset"],
+        ctl["seeds"], ctl["active"], *samp, np.zeros((S, 2), np.uint32),
+        np.zeros(S, bool))
+    th, tc, _, ttok = D.build_tick(tm, spec)(
+        dp, [_port(x) for x in h], [_port(x) for x in c],
+        torch.zeros((S, 2), dtype=torch.int64),
+        *map(_port, (ctl["tokens"], ctl["reset"], ctl["seeds"],
+                     ctl["active"], *samp, np.zeros((S, 2), np.uint32),
+                     np.zeros(S, bool))))
+    for a, b in zip(th + tc, list(jh) + list(jc)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=CARRY_TOL)
+    assert ttok.tolist() == np.asarray(jtok).tolist()
+
+
+@pytest.mark.parametrize("mode", ["plain", "chunked", "speculative"])
+def test_graves_engine_greedy_streams_match_jax(graves, mode):
+    """Greedy streams of a Graves-core model through the port's engine
+    (tick, chunked prefill or speculative verify, each applying the
+    peepholes) equal the JAX package's engine and ``reference_decode``."""
+    from deeplearning4j_tpu.generation import GenerationEngine as JEngine
+    from deeplearning4j_tpu.observe.registry import \
+        MetricsRegistry as JRegistry
+    jm, tm = graves
+    kw = {"plain": {}, "chunked": {"prefill_chunk": 8},
+          "speculative": {"speculative": 3}}[mode]
+    rng = random.Random(17)
+    cfgs = [([rng.randrange(SMALL_VOCAB)
+              for _ in range(rng.randrange(2, 20))],
+             rng.randrange(8, 24)) for _ in range(6)]
+    results = []
+    for make in (lambda: GenerationEngine(tm, max_slots=4, stop_text=None,
+                                          registry=MetricsRegistry(),
+                                          session_id=f"graves-{mode}", **kw),
+                 lambda: JEngine(jm, max_slots=4, stop_text=None,
+                                 registry=JRegistry(),
+                                 session_id=f"graves-{mode}", **kw)):
+        eng = make()
+        try:
+            streams = [eng.submit(p, max_new_tokens=m, greedy=True)
+                       for p, m in cfgs]
+            results.append([s.result(timeout=120)["ids"] for s in streams])
+            eng.assert_warm()
+        finally:
+            eng.shutdown()
+    assert results[0] == results[1]
+    assert results[0][:2] == [reference_decode(tm, p, m)
+                              for p, m in cfgs[:2]]
+
+
+def test_graves_sampled_stream_does_not_depend_on_its_bucket(graves):
+    _, tm = graves
+    eng = GenerationEngine(tm, max_slots=4, stop_text=None,
+                           registry=MetricsRegistry(),
+                           session_id="graves-bucket")
+    try:
+        kw = dict(greedy=False, temperature=0.8, top_k=10, seed=5,
+                  max_new_tokens=40)
+        alone = eng.submit([4, 2, 7], **kw).result(timeout=60)["ids"]
+        others = [eng.submit([j], greedy=False, seed=j, max_new_tokens=60)
+                  for j in range(3)]
+        crowd = eng.submit([4, 2, 7], **kw).result(timeout=60)["ids"]
+        for s in others:
+            s.result(timeout=60)
+        assert eng.stats()["slots"]["max_active"] == 4
+        assert alone == crowd
+    finally:
+        eng.shutdown()

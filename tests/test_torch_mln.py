@@ -170,19 +170,6 @@ def test_k_step_call_equals_k_fits():
                            for ln, lp in a.params.items()}, 1e-6, "params")
 
 
-def test_tbptt_fit_is_not_ported():
-    from deeplearning4j_tpu.nn.config import \
-        MultiLayerConfiguration as JConf
-    d = json.loads(_jax_conf().to_json())
-    d["backprop_type"] = "tbptt"
-    conf = MultiLayerConfiguration.from_json(json.dumps(d))
-    assert JConf.from_json(conf.to_json()).backprop_type == "tbptt"
-    tm = MultiLayerNetwork(conf, device="cpu").init()
-    x = np.zeros((2, T, F), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.fit(DataSet(x, np.zeros((2, T, V), np.float32)))
-
-
 def test_lstm_v1_fixture_matches_expected_outputs():
     res = REPO / "tests" / "resources" / "regression"
     exp = json.loads((res / "expected_outputs.json").read_text())["lstm_v1"]

@@ -38,7 +38,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "'evaluation.results', 'nn.dropout', 'optimize.schedules', "
             "'__main__', 'parallel.fleet', 'parallel.inference', "
             "'observe.health', 'ui.server', 'ui.serving_module', "
-            "'ui.generation_module', 'streaming.serde')}\n"
+            "'ui.generation_module', 'streaming.serde', "
+            "'nn.layers.output', 'nn.layers.feedforward', "
+            "'nn.graph.vertices', 'nn.graph.config', 'nn.preprocessors', "
+            "'models.computation_graph')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,

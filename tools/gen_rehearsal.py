@@ -7,6 +7,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py rehearse [NEW_TOKENS]   # default 32
     python3 tools/gen_rehearsal.py serve
     python3 tools/gen_rehearsal.py ops
+    python3 tools/gen_rehearsal.py rnn
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -20,6 +21,12 @@ times are CPU times, which say nothing about the card.
 ResNet50 is cut to 32×32 with 10 classes, one client sends 4 requests,
 and the wrappers of ``fused_mm``, ``fused_c3`` and ``lstm_fwd`` count a
 launch for each plain call, so the launch gates run too.
+
+``rnn`` runs ``phase_rnn_tbptt`` the same way at a cut size (batches
+of 4 windows of 200 chars, 3 of them, width 32 for the layer family,
+short Graves streams), with ``lstm_fwd`` and ``lstm_bwd`` counting a
+launch for each plain call and the card's memory counters stubbed, so
+every gate of the phase runs.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -79,14 +86,8 @@ def serve() -> None:
     on_card = cli.cmd_serve
     cli.cmd_serve = lambda argv, block=True: on_card(
         list(argv) + ["--device", "cpu"], block)
-    for mod, names in ((fused_conv, ("fused_mm", "fused_c3")),
-                       (fused_lstm, ("lstm_fwd",))):
-        for name in names:
-            def counted(*a, _fn=getattr(mod, name), _name=name, _mod=mod,
-                        **kw):
-                _mod._count(_name)
-                return _fn(*a, **kw)
-            setattr(mod, name, counted)
+    _count_launches(fused_conv, ("fused_mm", "fused_c3"))
+    _count_launches(fused_lstm, ("lstm_fwd",))
 
     class CpuServe(smoke._ServeProcess):
         def __init__(self, args, last):
@@ -97,6 +98,33 @@ def serve() -> None:
     smoke.SERVE_LATENCY_REPS, smoke.GEN_NEW, smoke.SERVE_DURATION = 3, 16, 12
     t0 = time.perf_counter()
     print(smoke.phase_serve_http({}, "CPU rehearsal"))
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
+def _count_launches(mod, names):
+    """Each wrapper in ``names`` counts a launch for each (plain) call."""
+    for name in names:
+        def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
+            mod._count(_name)
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+
+
+def rnn() -> None:
+    from deeplearning4j_tpu_torch.ops import fused_lstm
+    smoke = _cpu_smoke()
+    _count_launches(fused_lstm, ("lstm_fwd", "lstm_bwd"))
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(
+        multi_processor_count=132)
+    smoke.TBPTT_BATCH, smoke.TBPTT_CHARS, smoke.TBPTT_BATCHES = 4, 200, 3
+    smoke.TBPTT_RAGGED = 220
+    smoke.FAMILY_BATCH, smoke.FAMILY_H = 4, 32
+    smoke.GRAPH_N, smoke.GRAPH_FITS = 8, 2
+    smoke.GRAVES_STREAMS, smoke.GRAVES_NEW, smoke.GEN_SLOTS = 2, 8, 2
+    t0 = time.perf_counter()
+    print(smoke.phase_rnn_tbptt({}, "CPU rehearsal"))
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
@@ -127,13 +155,15 @@ def ops() -> None:
 
 
 def main(argv) -> int:
-    if not argv or argv[0] not in ("rehearse", "serve", "ops"):
+    if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
         ops()
     elif argv[0] == "serve":
         serve()
+    elif argv[0] == "rnn":
+        rnn()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
