@@ -183,6 +183,35 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    TBPTT beside standard BPTT over the same chars in one call, peak
    memory, and with ``--profile`` the busy share of a TBPTT batch.
 
+15. zoo — the convolutional model library (plain torch, no kernel on its
+   main path). The bench ResNet50 (bench.py:46-56: 64x64x3, 200 classes,
+   bf16, s2d stem) from the train phase's weights, trained as the train
+   phase trains the pallas arm (Nesterovs(1e-2, 0.9), batch 128, K = 4,
+   24 steps) by ``fused_impl="xla"`` and by the per-layer graph
+   (``fused_blocks=False``, weights by ``unfuse_resnet50_params``): every
+   loss finite, the best after the first below the first, no launch of
+   kernels 1-6, step ms, images/s and peak memory beside the pallas arm's
+   (the train phase); the f32 gradients at batch 8 of the "xla" and
+   "pallas" blocks on the same weights within the train phase's noise-set
+   bound (kernels 1-6 run here); both statistics routes of
+   ``conv_bn_stats_xla`` timed at every 1x1 call of the bench shape in
+   bf16 and the rule they set. VGG16 (benchmarks/baseline_suite.py:32-64:
+   64x64x3, 200 classes, bf16, Nesterovs) trained in K = 4 step calls at
+   batch 128 (the batch's loss, read by the model's f32 twin, falls;
+   images/s, peak memory) and served through ``ServingEngine`` at every
+   bucket, bitwise ``model.output``. YOLO2 at 416x416x3 (20 classes, the
+   VOC anchors, f32): output and train-mode loss against the same model
+   on the CPU within the card's own noise rule, Adam at a warm-up rate
+   on one batch of 8 seeded synthetic boxes lowers the loss,
+   ``get_predicted_objects`` returns boxes, the same as the CPU's
+   decode. AlexNet, VGG19, Darknet19,
+   TinyYOLO, GoogLeNet, InceptionResNetV1 and FaceNetNN4Small2 at their
+   defaults: f32 output of 2 rows against the CPU under the same rule,
+   one finite train step that moves the parameters, the parameter count.
+   The committed digit LeNet frozen through its last dense layer with an
+   even/odd head from ``n_out_replace``, fitted on the digits: the frozen
+   parameters and state bitwise unchanged; held-out accuracy.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
@@ -396,6 +425,34 @@ BERT_PROB_TOL, BERT_GRAD_RTOL = 5e-5, 1e-4
 DIGITS_PROB_TOL, DIGITS_PARAM_TOL = 1e-5, 1e-4
 DIGITS_EPOCHS, DIGITS_BATCH = 12, 64
 DIGITS_ACC = {"LeNet": 0.98, "SimpleCNN": 0.95}
+# zoo: the bench ResNet50 (bench.py:46-56: 64x64x3, 200 classes, bf16,
+# s2d stem) in the two new arms, trained like the train phase's pallas arm
+# (Nesterovs(1e-2, 0.9), batch TRAIN_BATCH, K = TRAIN_K, TRAIN_CALLS
+# calls); VGG16 at benchmarks/baseline_suite.py:32-64 (64x64x3, 200
+# classes, bf16) trained in VGG_CALLS K-step calls of VGG_BATCH and served
+# at every bucket; YOLO2 at 416x416x3 (20 classes, the VOC anchors, f32)
+# trained by Adam on one batch of YOLO_BATCH for YOLO_STEPS steps; the
+# other zoo models at their defaults on ZOO_ROWS rows; the digit LeNet's
+# transfer over TRANSFER_EPOCHS epochs. The card's f32 output against the
+# same model on the CPU: each row within max(ZOO_FLOOR, ZOO_NOISE x the
+# card's own noise: the rows reversed, and each row alone, against the
+# batch) of the row's largest magnitude
+ZOO_BENCH = dict(num_classes=200, height=64, width=64, channels=3,
+                 s2d_stem=True, compute_dtype="bfloat16")
+ZOO_ARMS = {"xla": dict(fused_blocks=True, fused_impl="xla"),
+            "unfused": dict(fused_blocks=False)}
+VGG = dict(num_classes=200, height=64, width=64, compute_dtype="bfloat16")
+VGG_BATCH, VGG_CALLS = 512, 6      # the suite's batch
+YOLO = dict(num_classes=20, height=416, width=416)
+# YOLO2's default Adam(1e-3) diverges from random weights: its first step
+# moves each of the head's 1024 input weights of a box by ±1e-3 together,
+# shifting the raw outputs by up to ~1 and exp(tw) by a factor e (an
+# H100 read 2535 -> 1.0e9 in one step); 1e-5 is a warm-up rate
+YOLO_BATCH, YOLO_STEPS, YOLO_LR = 8, 12, 1e-5
+ZOO_OTHERS = ("AlexNet", "VGG19", "Darknet19", "TinyYOLO", "GoogLeNet",
+              "InceptionResNetV1", "FaceNetNN4Small2")
+ZOO_ROWS, ZOO_FLOOR, ZOO_NOISE = 2, 1e-4, 3.0
+TRANSFER_EPOCHS = 3
 
 
 def log(msg=""):
@@ -3737,12 +3794,569 @@ def phase_digits_train(report, card, profile=False):
     report["digits_train"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the convolutional model library (no kernel on its main path)
+# ---------------------------------------------------------------------------
+
+def _zoo_model(name, device="cuda", **kw):
+    from deeplearning4j_tpu_torch.zoo import models as Z
+    return getattr(Z, name)(**kw).init(device=device)
+
+
+def _copy_model(model, device):
+    """The same configuration on ``device`` with ``model``'s parameters
+    and state."""
+    cls = type(model)
+    out = cls(model.conf, device=device).init()
+    out.set_params(model.params, model.model_state)
+    return out
+
+
+def _row_err(got, ref):
+    """The largest |got - ref| of each row over that row's largest |ref|,
+    worst row."""
+    got = got.float().cpu().reshape(got.shape[0], -1)
+    ref = ref.float().cpu().reshape(ref.shape[0], -1)
+    return ((got - ref).abs().amax(1) / ref.abs().amax(1).clamp_min(
+        1e-30)).max().item()
+
+
+def card_vs_cpu(model, cpu_model, x):
+    """(error, bound, noise): the card's f32 output of ``x`` against the
+    same model's on the CPU, row by row relative to the row's largest
+    magnitude; the bound is max(ZOO_FLOOR, ZOO_NOISE x the card's own
+    noise: the same rows reversed, each row alone, and the batch with
+    cuDNN off (other convolution algorithms), against the batch's
+    output)."""
+    import numpy as np
+    import torch
+    y = model.output(x)
+    rev = model.output(np.ascontiguousarray(x[::-1])).flip(0)
+    alone = torch.cat([model.output(x[i:i + 1]) for i in range(len(x))])
+    with torch.backends.cudnn.flags(enabled=False):
+        other = model.output(x)
+    noise = max(_row_err(rev, y), _row_err(alone, y), _row_err(other, y))
+    err = _row_err(y, cpu_model.output(x))
+    return err, max(ZOO_FLOOR, ZOO_NOISE * noise), noise
+
+
+def _zoo_batch(rng, n, cfg):
+    """(x, one-hot y) on the card: ``n`` random images of ``cfg``'s size."""
+    import numpy as np
+    import torch
+    c = cfg["num_classes"]
+    x = rng.normal(0, 1, (n, cfg["height"], cfg["width"], 3)).astype(
+        np.float32)
+    y = np.eye(c, dtype=np.float32)[rng.integers(0, c, n)]
+    return (torch.from_numpy(x).to(device="cuda"),
+            torch.from_numpy(y).to(device="cuda"))
+
+
+def _zoo_labels(out_shape, boxes, rng):
+    """One-hot classes, or YOLO labels (N, H, W, 4 + C): boxes in grid
+    units, a one-hot class in about half the cells, the rest empty."""
+    import numpy as np
+    if len(out_shape) == 2:
+        return np.eye(out_shape[1], dtype=np.float32)[
+            rng.integers(0, out_shape[1], out_shape[0])]
+    n, h, w, d = out_shape
+    c = d // len(boxes) - 5
+    y = np.zeros((n, h, w, 4 + c), np.float32)
+    y[..., 0] = rng.uniform(0, w, (n, h, w))
+    y[..., 1] = rng.uniform(0, h, (n, h, w))
+    y[..., 2:4] = rng.uniform(0.5, 4.0, (n, h, w, 2))
+    obj = rng.uniform(size=(n, h, w)) < 0.5
+    y[..., 4:][obj] = np.eye(c, dtype=np.float32)[
+        rng.integers(0, c, int(obj.sum()))]
+    return y
+
+
+def _params_moved(model, before):
+    import torch
+    return sum(any(not torch.equal(v, before[k][n]) for n, v in lp.items())
+               for k, lp in model.params.items())
+
+
+def _snapshot(model):
+    return {k: {n: v.detach().clone() for n, v in lp.items()}
+            for k, lp in model.params.items()}
+
+
+def _zoo_resnet_arms(out, card, params_np, state_np):
+    """The bench ResNet50 trained by each new arm from the train phase's
+    weights: 24 steps in K-step calls, no kernel launch."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.serialization import params_from_jax
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.zoo.models import (ResNet50,
+                                                     unfuse_resnet50_params)
+    rng = np.random.default_rng(3)
+    b, k = TRAIN_BATCH, TRAIN_K
+    x, y = _zoo_batch(rng, b, ZOO_BENCH)
+    xk = x.unsqueeze(0).expand(k, *x.shape).contiguous()
+    yk = y.unsqueeze(0).expand(k, *y.shape).contiguous()
+    arms = {}
+    for arm, kw in ZOO_ARMS.items():
+        model = ResNet50(**ZOO_BENCH, **kw).init()
+        if kw["fused_blocks"]:
+            p, s = params_np, state_np
+        else:
+            p, s = unfuse_resnet50_params(params_np, state_np)
+            p = {n: p.get(n, {}) for n in model.params}
+            s = {n: s.get(n, {}) for n in model.model_state}
+        params_from_jax(p, s, model.device, model=model)
+        scan = model._build_scan_train_step()
+
+        def call():
+            model.train_state, losses = scan(model.train_state, (xk,), (yk,))
+            return losses
+
+        fc.reset_launch_counts()
+        losses = [call(), call()]                 # the first compiles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        for _ in range(TRAIN_CALLS - 2):
+            losses.append(call())
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in fc.LAUNCHES.items() if c}
+        step_ms = start.elapsed_time(end) / ((TRAIN_CALLS - 2) * k)
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.cat(losses).float().cpu().numpy()
+        log(f"  ResNet50 {arm}: {model.num_params()} params; train step at "
+            f"batch {b}: {step_ms:.3f} ms, {1e3 * b / step_ms:.1f} images/s, "
+            f"peak memory {peak / 2**20:.1f} MiB [{card}]; losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}")
+        if launched:
+            raise AssertionError(f"the {arm} arm launched {launched}")
+        if not np.isfinite(losses).all() or not losses[1:].min() < losses[0]:
+            raise AssertionError(f"the {arm} arm's loss did not fall (or is "
+                                 "not finite)")
+        arms[arm] = {"step_ms": step_ms, "images_per_s": 1e3 * b / step_ms,
+                     "peak_memory_bytes": peak, "losses": losses.tolist(),
+                     "params": model.num_params()}
+        del model, scan
+        torch.cuda.empty_cache()
+    pallas = out.get("pallas_arm")
+    line = "  bench ResNet50 step ms at batch 128 (bf16, K=4): " + ", ".join(
+        f"{a} {v['step_ms']:.3f}" for a, v in arms.items())
+    log(line + (f", pallas {pallas['step_ms']:.3f} (the train phase)"
+                if pallas else ", pallas: the train phase did not run")
+        + f" [{card}]")
+    out["arms"] = arms
+
+
+def _zoo_grad_check(out, card, params_np, state_np):
+    """f32 gradients at batch 8: the "xla" block against the "pallas"
+    block (kernels 1-6) on the same weights, beside each arm's own
+    summation-order noise (the batch's rows permuted)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.serialization import params_from_jax
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    rng = np.random.default_rng(8)
+    x, y = _zoo_batch(rng, 8, ZOO_BENCH)
+    perm = torch.from_numpy(rng.permutation(8)).to(device="cuda")
+    grads, launches = {}, {}
+    for impl in ("xla", "pallas"):
+        m = ResNet50(**dict(ZOO_BENCH, compute_dtype="float32"),
+                     fused_blocks=True, fused_impl=impl).init()
+        params_from_jax(params_np, state_np, m.device, model=m)
+        g = lambda xx, yy: solver.value_and_grad(m._loss, m.train_state,
+                                                 (xx,), (yy,))
+        fc.reset_launch_counts()
+        grads[impl] = (g(x, y), g(x[perm], y[perm]))
+        torch.cuda.synchronize()
+        launches[impl] = dict(fc.LAUNCHES)
+    (lx, _, gx), (_, _, gxq) = grads["xla"]
+    (lp, _, gp), (_, _, gpq) = grads["pallas"]
+    err = grad_errors(gx, gp)
+    noise_x, noise_p = grad_errors(gxq, gx), grad_errors(gpq, gp)
+    loss_err = abs(lx.item() - lp.item()) / abs(lp.item())
+    log(f"  f32 gradients at batch 8, xla vs pallas block: loss rel "
+        f"{loss_err:.3g}, rel L2 worst {err['worst']:.3g} ({err['name']}), "
+        f"median {err['median']:.3g}, all {err['all']:.3g}; own noise on "
+        f"permuted rows: xla worst {noise_x['worst']:.3g} all "
+        f"{noise_x['all']:.3g}, pallas worst {noise_p['worst']:.3g} all "
+        f"{noise_p['all']:.3g}; pallas launches {launches['pallas']}")
+    if any(launches["xla"].values()):
+        raise AssertionError("the xla block launched a kernel")
+    if not all(launches["pallas"][n] for n in ("fused_mm", "fused_c3",
+                                               "fused_mm_bwd")):
+        raise AssertionError("the pallas block ran without its kernels")
+    for key in ("worst", "all"):
+        limit = max(GRAD_RTOL, GRAD_NOISE * max(noise_x[key],
+                                                noise_p[key]))
+        if err[key] > limit:
+            raise AssertionError(f"xla and pallas gradients disagree ({key}:"
+                                 f" {err[key]:.3g} > {limit:.3g})")
+    if loss_err > LOSS_RTOL:
+        raise AssertionError("xla and pallas losses disagree")
+    out["xla_vs_pallas_grads"] = {
+        "loss_rel_err": loss_err, "grad_rel_l2": err, "xla_noise": noise_x,
+        "pallas_noise": noise_p, "pallas_launches": launches["pallas"]}
+
+
+def _zoo_gram_rule(out, card):
+    """Both statistics routes of conv_bn_stats_xla at every 1×1 call of the
+    bench shape (batch 128, bf16): forward, and forward + backward."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    conf = ResNet50(**ZOO_BENCH, fused_blocks=True, fused_impl="xla").conf()
+    calls = {c: n for c, n in path_calls(conf, TRAIN_BATCH).items()
+             if c.kernel == "fused_mm"}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for call, count in calls.items():
+        n, h, w, cin = call.x_shape
+        cout = call.w_shape[1]
+        x = torch.randn(call.x_shape, generator=g, device="cuda").to(
+            torch.bfloat16).requires_grad_(True)
+        wt = (torch.randn((cin, cout), generator=g, device="cuda")
+              / cin ** 0.5).to(torch.bfloat16).requires_grad_(True)
+        s = (1 + 0.1 * torch.randn(cin, generator=g, device="cuda")
+             ).requires_grad_(True)
+        b = (0.1 * torch.randn(cin, generator=g, device="cuda")
+             ).requires_grad_(True)
+        times = {}
+        for mode in ("always", "never"):
+            def fwd():
+                with torch.no_grad():
+                    return fc.conv_bn_stats_xla(x, wt, s, b, call.relu_in,
+                                                call.norm_in, call.stride,
+                                                gram=mode)
+
+            def step():
+                y, st = fc.conv_bn_stats_xla(x, wt, s, b, call.relu_in,
+                                             call.norm_in, call.stride,
+                                             gram=mode)
+                torch.autograd.backward([y, st], [torch.ones_like(y),
+                                                  torch.ones_like(st)])
+            times[mode] = (cuda_time(fwd, iters=10), cuda_time(step, iters=5))
+        gram_wins = times["always"][1] < times["never"][1]
+        rows.append({"m": n * -(-h // call.stride) * -(-w // call.stride),
+                     "cin": cin, "cout": cout, "stride": call.stride,
+                     "norm_in": call.norm_in, "per_step": count,
+                     "gram_ms": times["always"], "direct_ms": times["never"],
+                     "gram_wins": gram_wins,
+                     "auto": fc.gram_route("auto")})
+        log(f"  1x1 M {rows[-1]['m']:6d} {cin:4d}->{cout:4d} s{call.stride} "
+            f"x{count}: fwd gram {times['always'][0]:.4f} direct "
+            f"{times['never'][0]:.4f} ms; fwd+bwd gram "
+            f"{times['always'][1]:.4f} direct {times['never'][1]:.4f} ms -> "
+            f"{'gram' if gram_wins else 'direct'}"
+            f" (auto: {'gram' if rows[-1]['auto'] else 'direct'})")
+    total = lambda pick: sum(r["per_step"] * (r["gram_ms"][1] if pick(r)
+                                              else r["direct_ms"][1])
+                             for r in rows)
+    policies = {"auto": total(lambda r: r["auto"]),
+                "always": total(lambda r: True),
+                "never": total(lambda r: False),
+                "best": total(lambda r: r["gram_wins"])}
+    wins = sorted((r["cin"], r["cout"]) for r in rows if r["gram_wins"])
+    losses = sorted((r["cin"], r["cout"]) for r in rows if not r["gram_wins"])
+    log(f"  Gram rule from these times [{card}]: the Gram route wins at "
+        f"(cin, cout) {wins}, the direct route at {losses}; one step's 1x1 "
+        f"statistics ms (fwd+bwd) by policy: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in policies.items()))
+    out["gram"] = {"calls": rows, "policy_ms": policies}
+
+
+def _zoo_vgg16(out, card):
+    """VGG16 at the baseline suite's shape: K-step training and serving."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+    model = _zoo_model("VGG16", **VGG)
+    shape = (VGG["height"], VGG["width"], 3)
+    rng = np.random.default_rng(16)
+    b, k = VGG_BATCH, TRAIN_K
+    x, y = _zoo_batch(rng, b, VGG)
+    xk = x.unsqueeze(0).expand(k, *x.shape).contiguous()
+    yk = y.unsqueeze(0).expand(k, *y.shape).contiguous()
+    scan = model._build_scan_train_step()
+
+    def call():                      # a MultiLayerNetwork takes tensors
+        model.train_state, losses = scan(model.train_state, xk, yk)
+        return losses
+
+    # the bf16 loss is a bf16 logsumexp, whose ulp at ln 200 (2^-5) is
+    # larger than what a few steps take off, so the loss is read before
+    # and after the steps by the f32 twin of the model (no dropout)
+    twin = _zoo_model("VGG16", **dict(VGG, compute_dtype="float32"))
+    data = DataSet(x, y)
+    twin.set_params(model.params, model.model_state)
+    first = twin.score(data)
+    losses = [call()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(VGG_CALLS - 1):
+        losses.append(call())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ((VGG_CALLS - 1) * k)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).float().cpu().numpy()
+    twin.set_params(model.params, model.model_state)
+    last = twin.score(data)
+    log(f"  VGG16 {shape}/{VGG['num_classes']} bf16: {model.num_params()} "
+        f"params; train step "
+        f"at batch {b}: {step_ms:.3f} ms, {1e3 * b / step_ms:.1f} images/s, "
+        f"peak memory {peak / 2**20:.1f} MiB [{card}]; bf16 losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; the batch's loss read in "
+        f"f32 {first:.5f} -> {last:.5f} over {len(losses)} steps")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError("VGG16's loss did not fall (or is not finite)")
+    engine = ServingEngine(
+        model, batch_limit=32, feature_shape=shape,
+        precision="bf16" if VGG["compute_dtype"] == "bfloat16" else "f32")
+    n_bitwise, sizes = 0, list(engine.ladder)
+    t0 = time.perf_counter()
+    for size in sizes:
+        rows = rng.normal(0, 1, (size,) + shape).astype(np.float32)
+        served = engine.output(rows)
+        ref = model.output(rows).float().cpu().numpy()
+        n_bitwise += int(np.array_equal(np.asarray(served, np.float32), ref))
+    engine.shutdown()
+    log(f"  VGG16 served through ServingEngine at buckets {sizes}: "
+        f"{n_bitwise}/{len(sizes)} answers bitwise model.output "
+        f"({time.perf_counter() - t0:.2f}s)")
+    if n_bitwise != len(sizes):
+        raise AssertionError("VGG16's served answers differ from "
+                             "model.output")
+    out["vgg16"] = {"step_ms": step_ms, "images_per_s": 1e3 * b / step_ms,
+                    "peak_memory_bytes": peak, "losses": losses.tolist(),
+                    "f32_loss_before": first, "f32_loss_after": last,
+                    "params": model.num_params(), "served_buckets": sizes}
+
+
+def _zoo_yolo2(out, card):
+    """YOLO2 at 416x416x3 (20 classes, the VOC anchors), f32: Adam on one
+    fixed batch of synthetic boxes; the card against the CPU; decoding."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import \
+        get_predicted_objects
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo.models import YOLO2
+    conf = YOLO2(**YOLO).conf()
+    conf.global_config = dataclasses.replace(conf.global_config,
+                                             updater=Adam(YOLO_LR))
+    model = ComputationGraph(conf, device="cuda").init()
+    cpu = _copy_model(model, "cpu")
+    layer = model.conf.node("yolo").layer
+    rng = np.random.default_rng(2)
+    it = model.conf.network_input_types[0]
+    x = rng.normal(0, 1, (YOLO_BATCH,) + tuple(it.shape())).astype(
+        np.float32)
+    grid = tuple(model.output(x[:1]).shape[1:])
+    y = _zoo_labels((YOLO_BATCH,) + grid, layer.boxes, rng)
+    rows = x[:ZOO_ROWS]
+    err, bound, noise = card_vs_cpu(model, cpu, rows)
+    two = DataSet(rows, y[:ZOO_ROWS])
+    lc, lp = model.score(two), cpu.score(two)
+    lrev = model.score(DataSet(np.ascontiguousarray(rows[::-1]),
+                               np.ascontiguousarray(y[:ZOO_ROWS][::-1])))
+    with torch.backends.cudnn.flags(enabled=False):
+        lother = model.score(two)
+    loss_noise = max(abs(lrev - lc), abs(lother - lc)) / abs(lc)
+    loss_err = abs(lc - lp) / abs(lp)
+    loss_bound = max(LOSS_RTOL, ZOO_NOISE * loss_noise)
+    log(f"  YOLO2 {'x'.join(map(str, it.shape()))}/20 f32: "
+        f"{model.num_params()} params; card vs "
+        f"CPU output {err:.3g} (bound {bound:.3g}, card noise {noise:.3g}), "
+        f"train-mode loss {lc:.5f} vs {lp:.5f}: rel {loss_err:.3g} (bound "
+        f"{loss_bound:.3g}, noise {loss_noise:.3g})")
+    if err > bound or loss_err > loss_bound:
+        raise AssertionError("YOLO2 on the card disagrees with the CPU")
+    del cpu
+    data = DataSet(x, y)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(YOLO_STEPS):
+        model.fit(data)
+        losses.append(model._last_loss)
+    losses = torch.stack(losses).float().cpu().numpy()
+    step_ms = 1e3 * (time.perf_counter() - t0) / YOLO_STEPS
+    # boxes scoring at least half the best score, decoded on the card and,
+    # from the same output, on the CPU
+    pred = model.output(x[:2])
+    _, _, _, _, conf, probs = layer._decode(pred.float())
+    threshold = 0.5 * (conf * probs.amax(-1)).max().item()
+    dets = get_predicted_objects(layer, pred, threshold)
+    host = get_predicted_objects(layer, pred.cpu(), threshold)
+    same = [(d.example, d.predicted_class) for d in dets] == \
+        [(d.example, d.predicted_class) for d in host]
+    log(f"  YOLO2 Adam({YOLO_LR:g}) on one batch of {YOLO_BATCH}: losses "
+        f"{' '.join(f'{v:.2f}' for v in losses)}; {step_ms:.1f} ms a step "
+        f"[{card}]; {len(dets)} boxes above {threshold:.4f} (half the best "
+        f"score) after NMS, the same {same} from the CPU's decode; first "
+        f"{dets[:1]}")
+    if not np.isfinite(losses).all() or not losses[1:].min() < losses[0]:
+        raise AssertionError("YOLO2's loss did not fall")
+    if not dets or not same:
+        raise AssertionError("get_predicted_objects returned no box, or "
+                             "other boxes than the CPU's decode")
+    out["yolo2"] = {"params": model.num_params(), "output_err": err,
+                    "output_bound": bound, "output_noise": noise,
+                    "loss_err": loss_err, "loss_bound": loss_bound,
+                    "losses": losses.tolist(), "step_ms": step_ms,
+                    "detections": len(dets), "threshold": threshold}
+
+
+def _zoo_others(out, card):
+    """The rest of the zoo at each model's JAX default size: f32 output of
+    2 rows against the CPU, one train step, the parameter count."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    rows = {}
+    for name in ZOO_OTHERS:
+        t0 = time.perf_counter()
+        model = _zoo_model(name)
+        cpu = _copy_model(model, "cpu")
+        it = (model.conf.network_input_types[0] if hasattr(
+            model.conf, "network_input_types") else model.conf.input_type)
+        rng = np.random.default_rng(7)
+        x = rng.normal(0, 1, (ZOO_ROWS,) + tuple(it.shape())).astype(
+            np.float32)
+        err, bound, noise = card_vs_cpu(model, cpu, x)
+        del cpu
+        out_layer = (model.conf.node(model.conf.network_outputs[0]).layer
+                     if hasattr(model.conf, "nodes")
+                     else model.conf.layers[-1])
+        out_shape = tuple(model.output(x[:1]).shape)
+        y = _zoo_labels((ZOO_ROWS,) + out_shape[1:],
+                        getattr(out_layer, "boxes", ()), rng)
+        before = _snapshot(model)
+        model.fit(DataSet(x, y))
+        loss = float(model._last_loss)
+        moved = _params_moved(model, before)
+        rows[name] = {"params": model.num_params(), "output_err": err,
+                      "bound": bound, "noise": noise, "loss": loss,
+                      "layers_moved": moved,
+                      "seconds": time.perf_counter() - t0}
+        log(f"  {name} {'x'.join(map(str, it.shape()))}: "
+            f"{model.num_params()} params; card vs CPU {err:.3g} (bound "
+            f"{bound:.3g}, card noise {noise:.3g}); one step loss "
+            f"{loss:.4f}, {moved} layers moved "
+            f"({rows[name]['seconds']:.1f}s)")
+        if err > bound or not np.isfinite(loss) or moved == 0:
+            raise AssertionError(f"{name} on the card: output or step "
+                                 "failed its check")
+        del model, before
+        torch.cuda.empty_cache()
+    out["others"] = rows
+
+
+def _zoo_transfer(out, card):
+    """The committed digit LeNet, frozen up to its last dense layer, with a
+    new even/odd head by n_out_replace, fitted on the digits on the
+    card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    base = LeNet().init_pretrained(flavor="digits")            # cuda
+    names = [l.name for l in base.conf.layers]
+    model = (TransferLearning.Builder(base)
+             .fine_tune_configuration(FineTuneConfiguration.Builder()
+                                      .updater(Sgd(0.05)).build())
+             .set_feature_extractor(names[-2])
+             .n_out_replace(names[-1], 2)
+             .build())
+    before = _snapshot(model)
+    state = {k: {n: v.clone() for n, v in st.items()}
+             for k, st in model.model_state.items()}
+    data = {}
+    for split in (True, False):
+        x, yi = DigitsDataSetIterator.fetch(train=split)
+        data[split] = DataSet(x.reshape(len(x), -1).astype(np.float32),
+                              np.eye(2, dtype=np.float32)[yi % 2])
+    t0 = time.perf_counter()
+    model.fit(ArrayDataSetIterator(data[True], DIGITS_BATCH, shuffle=True,
+                                   seed=1), epochs=TRANSFER_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    frozen = [n for n in names[:-1] if before[n]]
+    same = all(torch.equal(v, model.params[n][k])
+               for n in frozen for k, v in before[n].items())
+    same_state = all(torch.equal(v, model.model_state[n][k])
+                     for n, st in state.items() for k, v in st.items())
+    head_moved = not torch.equal(before[names[-1]]["W"],
+                                 model.params[names[-1]]["W"])
+    acc = model.evaluate(ArrayDataSetIterator(data[False],
+                                              DIGITS_BATCH)).accuracy()
+    log(f"  transfer: LeNet digits frozen through {names[-2]} "
+        f"({len(frozen)} layers), new even/odd head, {TRANSFER_EPOCHS} "
+        f"epochs in {wall:.2f}s: frozen params bitwise {same}, state "
+        f"bitwise {same_state}, head moved {head_moved}; held-out accuracy "
+        f"{acc:.4f} [{card}]")
+    if not (same and same_state and head_moved):
+        raise AssertionError("the transfer-learning freeze did not hold")
+    out["transfer"] = {"frozen_layers": frozen, "epochs": TRANSFER_EPOCHS,
+                       "seconds": wall, "heldout_accuracy": acc}
+
+
+def phase_zoo(report, card):
+    """The convolutional model library on the card; returns the launches
+    of kernels 1-6 on its main path (none: every arm here is plain
+    torch)."""
+    import torch
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    t0 = time.perf_counter()
+    out = {}
+    if "train" in report:
+        out["pallas_arm"] = {k: report["train"][k]
+                             for k in ("step_ms", "images_per_s",
+                                       "peak_memory_bytes")}
+    seed_model = ResNet50(**ZOO_BENCH, fused_blocks=True,
+                          fused_impl="xla").init(device="cpu")
+    params_np, state_np = nontrivial_bn(seed_model)
+    del seed_model
+    for part in (lambda: _zoo_resnet_arms(out, card, params_np, state_np),
+                 lambda: _zoo_grad_check(out, card, params_np, state_np),
+                 lambda: _zoo_gram_rule(out, card),
+                 lambda: _zoo_yolo2(out, card),
+                 lambda: _zoo_others(out, card),
+                 lambda: _zoo_transfer(out, card),
+                 lambda: _zoo_vgg16(out, card)):
+        t1 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        log(f"  ({time.perf_counter() - t1:.1f}s)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  zoo phase: {out['seconds']:.1f}s [{card}]")
+    report["zoo"] = out
+    return {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
-                    "rnn_tbptt",
+                    "rnn_tbptt,zoo",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -3873,6 +4487,15 @@ def main(argv=None) -> int:
             "path, streaming; the recurrent layers at width "
             f"{FAMILY_H}; the streaming graph; Graves generation")
         for name, n in phase_rnn_tbptt(report, card, args.profile).items():
+            launches[name] += n
+    # the model library runs no kernel of SOURCES on its main path (its
+    # xla-vs-pallas gradient check launches kernels 1-6 to compare them)
+    if "zoo" in phases:
+        log("[zoo] the bench ResNet50 (64x64x3/200 bf16) fused_impl=\"xla\" "
+            "and unfused beside pallas; the Gram rule; VGG16 train + serve; "
+            "YOLO2 416x416; the rest of the zoo card vs CPU; LeNet "
+            "transfer")
+        for name, n in phase_zoo(report, card).items():
             launches[name] += n
 
     os.makedirs("chiprun_out", exist_ok=True)

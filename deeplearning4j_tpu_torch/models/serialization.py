@@ -39,7 +39,9 @@ def _ensure_registry():
     import deeplearning4j_tpu_torch.nn.layers.convolution  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.feedforward  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.fused  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.layers.misc  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.normalization  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.layers.objdetect  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.output  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.recurrent  # noqa: F401
     import deeplearning4j_tpu_torch.nn.graph.vertices  # noqa: F401

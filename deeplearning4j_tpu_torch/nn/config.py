@@ -208,8 +208,11 @@ class MultiLayerConfiguration:
             if pp is not None:
                 preprocessors[i] = pp
                 cur = pp.output_type(cur)
+            # a wrapper (FrozenLayer) shows its layer's n_in but has no
+            # such field: it is left as it is, as the JAX package leaves it
             if getattr(layer, "n_in", 0) is None and hasattr(
-                    layer, "resolved_n_in"):
+                    layer, "resolved_n_in") and "n_in" in {
+                        f.name for f in dataclasses.fields(layer)}:
                 layer = dataclasses.replace(layer,
                                             n_in=layer.resolved_n_in(cur))
                 resolved[i] = layer

@@ -1,21 +1,25 @@
 """Graph vertices — DAG combinators for ComputationGraph.
 
-The JAX package's ``GraphVertex`` contract and its ``MergeVertex``,
-``ElementWiseVertex`` and three recurrent vertices (reference:
-nn/conf/graph/, nn/conf/graph/rnn/). A vertex is a stateless function over
-its input tensors; the graph hands ``LastTimeStepVertex`` the sequence
-mask. The other vertices wait for a slice whose model uses them.
+The JAX package's ``GraphVertex`` contract and its vertex set (reference:
+nn/conf/graph/, nn/conf/graph/rnn/): ``MergeVertex``,
+``ElementWiseVertex``, ``StackVertex``/``UnstackVertex``,
+``SubsetVertex``, ``ScaleVertex``, ``ShiftVertex``, ``L2NormalizeVertex``,
+``L2Vertex``, ``ReshapeVertex``, ``PreprocessorVertex`` and the three
+recurrent vertices. A vertex is a stateless function over its input
+tensors; the graph hands ``LastTimeStepVertex`` the sequence mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import (ConvolutionalType,
                                                 FeedForwardType, InputType,
                                                 RecurrentType)
+from deeplearning4j_tpu_torch.nn.preprocessors import Preprocessor
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
 
 
@@ -71,6 +75,142 @@ class ElementWiseVertex(GraphVertex):
                 y = torch.maximum(y, x)
             return y
         raise ValueError(self.op)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class StackVertex(GraphVertex):
+    """Stack along the batch axis (reference: StackVertex)."""
+
+    def output_type(self, *its):
+        return its[0]
+
+    def apply(self, *xs):
+        return torch.cat(xs, dim=0)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class UnstackVertex(GraphVertex):
+    """Rows [i·N/k, (i+1)·N/k) of a batch stacked from k (reference:
+    UnstackVertex)."""
+    from_index: int = 0
+    stack_size: int = 1
+
+    def output_type(self, *its):
+        return its[0]
+
+    def apply(self, x):
+        step = x.shape[0] // self.stack_size
+        return x[self.from_index * step:(self.from_index + 1) * step]
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class SubsetVertex(GraphVertex):
+    """Feature-axis slice [from, to], both ends included (reference:
+    SubsetVertex)."""
+    from_index: int = 0
+    to_index: int = 0
+
+    def output_type(self, *its):
+        n = self.to_index - self.from_index + 1
+        it = its[0]
+        if isinstance(it, RecurrentType):
+            return RecurrentType(n, it.timesteps)
+        if isinstance(it, ConvolutionalType):
+            return ConvolutionalType(it.height, it.width, n)
+        return FeedForwardType(n)
+
+    def apply(self, x):
+        return x[..., self.from_index:self.to_index + 1]
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class ScaleVertex(GraphVertex):
+    scale: float = 1.0
+
+    def output_type(self, *its):
+        return its[0]
+
+    def apply(self, x):
+        return x * self.scale
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class ShiftVertex(GraphVertex):
+    shift: float = 0.0
+
+    def output_type(self, *its):
+        return its[0]
+
+    def apply(self, x):
+        return x + self.shift
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class L2NormalizeVertex(GraphVertex):
+    """x / (||x|| + eps), the norm over every axis but the batch axis."""
+    eps: float = 1e-8
+
+    def output_type(self, *its):
+        return its[0]
+
+    def apply(self, x):
+        norm = torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
+        return x / (norm.reshape((-1,) + (1,) * (x.ndim - 1)) + self.eps)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class L2Vertex(GraphVertex):
+    """Pairwise L2 distance of two inputs, sqrt(Σ (a - b)² + eps), as
+    (N, 1)."""
+    eps: float = 1e-8
+
+    def output_type(self, *its):
+        return FeedForwardType(1)
+
+    def apply(self, a, b):
+        d = (a - b).reshape(a.shape[0], -1)
+        return torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + self.eps)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class ReshapeVertex(GraphVertex):
+    """Reshape the trailing dims (the batch axis kept): 1 → feed-forward,
+    2 → (T, F) recurrent, 3 → NHWC."""
+    shape: Tuple[int, ...] = ()
+
+    def output_type(self, *its):
+        s = self.shape
+        if len(s) == 1:
+            return FeedForwardType(s[0])
+        if len(s) == 2:
+            return RecurrentType(s[1], s[0])
+        if len(s) == 3:
+            return ConvolutionalType(s[0], s[1], s[2])
+        raise ValueError(f"unsupported reshape arity: {s}")
+
+    def apply(self, x):
+        return x.reshape((x.shape[0],) + tuple(self.shape))
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class PreprocessorVertex(GraphVertex):
+    """A preprocessor as a graph node (reference: PreprocessorVertex)."""
+    preprocessor: Optional[Preprocessor] = None
+
+    def output_type(self, *its):
+        return self.preprocessor.output_type(its[0])
+
+    def apply(self, x):
+        return self.preprocessor.apply(x)
 
 
 @register_serializable

@@ -1,11 +1,10 @@
 """Dense, activation, dropout and embedding layers.
 
 Analogs of the reference's ``DenseLayer``, ``ActivationLayer``,
-``DropoutLayer``, ``EmbeddingLayer`` and ``EmbeddingSequenceLayer``
-(nn/conf/layers/), the five of the JAX package's
-``nn/layers/feedforward.py`` that the ported models run (the ResNet50's
-output layer is a dense layer; the transformer stack and the sequence
-models start with an embedding).
+``DropoutLayer``, ``EmbeddingLayer``, ``EmbeddingSequenceLayer`` and
+``ElementWiseMultiplicationLayer`` (nn/conf/layers/), and the JAX
+package's shape-only ``ReshapeLayer`` and ``PermuteLayer`` (the Keras
+``Reshape`` and ``Permute``).
 """
 
 from __future__ import annotations
@@ -16,7 +15,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.nn.inputs import (FeedForwardType, InputType,
+from deeplearning4j_tpu_torch.nn.inputs import (ConvolutionalType,
+                                                FeedForwardType, InputType,
                                                 RecurrentType)
 from deeplearning4j_tpu_torch.nn.layers.base import FeedForwardLayer, Layer
 from deeplearning4j_tpu_torch.ops.activations import Activation
@@ -165,3 +165,134 @@ class EmbeddingSequenceLayer(FeedForwardLayer):
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
         return params["W"][idx], state
+
+
+def _type_for_trailing(shape):
+    """Trailing (non-batch) dims → InputType (1 → feed-forward, 2 → (T, F)
+    recurrent, 3 → NHWC), as ``ReshapeVertex`` maps them."""
+    if len(shape) == 1:
+        return FeedForwardType(shape[0])
+    if len(shape) == 2:
+        return RecurrentType(shape[1], shape[0])
+    if len(shape) == 3:
+        return ConvolutionalType(shape[0], shape[1], shape[2])
+    raise ValueError(f"unsupported shape arity: {shape}")
+
+
+def _known_shape(input_type: InputType, who: str):
+    shape = input_type.shape()
+    if any(d < 0 for d in shape):
+        raise ValueError(f"{who} needs a fully-known input shape; got "
+                         f"{shape} (unknown timesteps)")
+    return shape
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class ReshapeLayer(Layer):
+    """Reshape the trailing (non-batch) dims to ``shape`` in row-major
+    order (Keras ``Reshape``); one -1 is inferred."""
+    shape: tuple = ()
+
+    @property
+    def has_params(self):
+        return False
+
+    def resolved_shape(self, input_type: InputType):
+        total = 1
+        for d in _known_shape(input_type, "ReshapeLayer"):
+            total *= d
+        s = [int(v) for v in self.shape]
+        if s.count(-1) > 1:
+            raise ValueError(f"ReshapeLayer shape {s} has multiple -1s")
+        known = 1
+        for v in s:
+            if v != -1:
+                known *= v
+        if -1 in s:
+            if known == 0 or total % known:
+                raise ValueError(
+                    f"cannot infer -1 in reshape {s} from {total} elements")
+            s[s.index(-1)] = total // known
+        elif known != total:
+            raise ValueError(
+                f"reshape {tuple(s)} incompatible with input "
+                f"{input_type.shape()} ({total} elements)")
+        return tuple(s)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return _type_for_trailing(self.resolved_shape(input_type))
+
+    def apply(self, params, state, x, ctx):
+        return x.reshape((x.shape[0],) + tuple(int(v) for v in
+                                               self.shape)), state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class PermuteLayer(Layer):
+    """Transpose the trailing (non-batch) dims by the 1-indexed ``dims``
+    (Keras ``Permute``: dims=(2, 1) swaps the first two non-batch
+    axes)."""
+    dims: tuple = ()
+
+    @property
+    def has_params(self):
+        return False
+
+    def _perm(self, rank: int):
+        dims = tuple(int(d) for d in self.dims)
+        if sorted(dims) != list(range(1, rank + 1)):
+            raise ValueError(f"PermuteLayer dims {dims} is not a "
+                             f"permutation of 1..{rank}")
+        return dims
+
+    def output_type(self, input_type: InputType) -> InputType:
+        shape = _known_shape(input_type, "PermuteLayer")
+        dims = self._perm(len(shape))
+        return _type_for_trailing(tuple(shape[d - 1] for d in dims))
+
+    def apply(self, params, state, x, ctx):
+        return x.permute((0,) + self._perm(x.ndim - 1)), state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class ElementWiseMultiplicationLayer(FeedForwardLayer):
+    """y = act(x ⊙ W + b), W and b per feature (reference:
+    ElementWiseMultiplicationLayer): n_in = n_out; W is drawn by the
+    weight init with fan-in = fan-out = n."""
+
+    def __post_init__(self):
+        if self.n_in is not None and self.n_out and self.n_in != self.n_out:
+            raise ValueError(
+                "ElementWiseMultiplicationLayer must have the same input "
+                f"and output size. Got n_in={self.n_in}, n_out={self.n_out}")
+
+    def resolved_n_out(self, input_type):
+        return self.n_out or self.resolved_n_in(input_type)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if isinstance(input_type, RecurrentType):
+            return RecurrentType(self.resolved_n_out(input_type),
+                                 input_type.timesteps)
+        return FeedForwardType(self.resolved_n_out(input_type))
+
+    def initialize(self, generator, input_type):
+        n = self.resolved_n_in(input_type)
+        if self.n_out and self.n_out != n:
+            raise ValueError(
+                "ElementWiseMultiplicationLayer must have the same input "
+                f"and output size. Got n_in={n}, n_out={self.n_out}")
+        dt = self.param_dtype()
+        params = {"W": self.weight_init.init(generator, (n,), n, n, dt)}
+        if self.has_bias:
+            params["b"] = torch.zeros((n,), dtype=dt)
+        return params
+
+    def apply(self, params, state, x, ctx):
+        x = self.maybe_dropout(x, ctx)
+        y = x * params["W"]
+        if self.has_bias:
+            y = y + params["b"]
+        return self.activation.apply(y), state

@@ -19,8 +19,15 @@ input pass.
 
 The port of the JAX package's ``nn/layers/fused.py``: same fields, same
 parameter and state names and layouts (W1/Wds (Cin, Cout), W2 HWIO,
-``bn*_gamma``/``bn*_beta``, state ``bn*_mean``/``bn*_var``). Only the
-``"pallas"`` implementation is ported (``"xla"`` waits).
+``bn*_gamma``/``bn*_beta``, state ``bn*_mean``/``bn*_var``), so both
+implementations load the same weights:
+
+* ``impl="pallas"``: the convs run through the fused conv kernels;
+* ``impl="xla"``: the same arithmetic by plain convolutions with the
+  statistics taken beside them (``fused_conv.conv_bn_stats_xla``, its
+  ``"auto"`` statistics route), no kernel.
+
+Each is a named choice; neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -60,10 +67,10 @@ class FusedBottleneckBlock(Layer):
     impl: str = "pallas"
 
     def __post_init__(self):
-        if self.impl != "pallas":
-            raise NotImplementedError(
-                f"FusedBottleneckBlock impl={self.impl!r}: only the kernel "
-                "implementation ('pallas') is ported")
+        if self.impl not in ("pallas", "xla"):
+            raise ValueError(
+                f"FusedBottleneckBlock impl must be 'pallas' or 'xla', "
+                f"got {self.impl!r}")
 
     # ---- shape ----------------------------------------------------------
     def _out_hw(self, it: ConvolutionalType) -> Tuple[int, int]:
@@ -75,9 +82,10 @@ class FusedBottleneckBlock(Layer):
 
     def kernel_calls(self, input_type: ConvolutionalType,
                      batch: int) -> List[ConvCall]:
-        """The fused-conv launches one forward of this block makes on a
-        ``batch``-row input, in order (shapes, flags): what a benchmark
-        needs to hold each kernel to the path's real shapes."""
+        """The convs one forward of this block makes on a ``batch``-row
+        input, in order (shapes, flags): the fused-conv launches under
+        ``impl="pallas"``, what a benchmark needs to hold each kernel (or
+        the "xla" arm's conv) to the path's real shapes."""
         it = input_type
         cin, f, f4 = it.channels, self.filters, self.filters * 4
         ho, wo = self._out_hw(it)
@@ -189,7 +197,8 @@ class FusedBottleneckBlock(Layer):
                 return state[f"{name}_scale"], state[f"{name}_shift"]
             return self._bn_form(params, state, name)
 
-        conv = fused_conv.fused_conv_bn_act
+        conv = (fused_conv.conv_bn_stats_xla if self.impl == "xla"
+                else fused_conv.fused_conv_bn_act)
         if "in_scale" in state and not train:
             ones, zeros = state["in_scale"], state["in_shift"]
         else:
@@ -201,11 +210,13 @@ class FusedBottleneckBlock(Layer):
         # W1/Wds take the block input as it is (norm_in=False); inference
         # normalizes with running statistics, so no conv needs its stats
         y1, st1 = conv(x, params["W1"], ones, zeros, False, False,
-                       self.stride, train)
+                       self.stride, want_stats=train)
         s1, b1 = bn_form("bn1", st1, rows(y1))
-        y2, st2 = conv(y1, params["W2"], s1, b1, True, True, 1, train)
+        y2, st2 = conv(y1, params["W2"], s1, b1, True, True, 1,
+                       want_stats=train)
         s2, b2 = bn_form("bn2", st2, rows(y2))
-        y3, st3 = conv(y2, params["W3"], s2, b2, True, True, 1, train)
+        y3, st3 = conv(y2, params["W3"], s2, b2, True, True, 1,
+                       want_stats=train)
         s3, b3 = bn_form("bn3", st3, rows(y3))
 
         # tail normalize + add + ReLU in the compute dtype, on (M, C) views
@@ -215,7 +226,7 @@ class FusedBottleneckBlock(Layer):
         main = y3.reshape(-1, f4) * s3.to(dt) + b3.to(dt)
         if self.downsample:
             yds, stds = conv(x, params["Wds"], ones, zeros, False, False,
-                             self.stride, train)
+                             self.stride, want_stats=train)
             sds, bds = bn_form("bnds", stds, rows(yds))
             shortcut = yds.reshape(-1, f4) * sds.to(dt) + bds.to(dt)
         else:

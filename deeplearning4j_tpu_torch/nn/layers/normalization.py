@@ -1,9 +1,10 @@
-"""Batch and layer normalization.
+"""Batch, local response and layer normalization.
 
 Analog of the reference's ``BatchNormalization``
-(nn/layers/normalization/BatchNormalization.java:41), and the JAX
-package's ``LayerNormalization`` (no reference analog; the transformer
-blocks need it). Running statistics
+(nn/layers/normalization/BatchNormalization.java:41) and
+``LocalResponseNormalization``, and the JAX package's
+``LayerNormalization`` (no reference analog; the transformer blocks need
+it). Running statistics
 live in the layer **state** dict (not params), as in the JAX package: in
 training ``apply`` normalizes with the batch statistics (f32, biased
 variance) and returns the running averages updated with ``decay`` as the
@@ -71,6 +72,34 @@ class BatchNormalization(Layer):
         if not self.lock_gamma_beta:
             y = y * params["gamma"] + params["beta"]
         return y, new_state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN on the last (NHWC channel) axis (reference:
+    LocalResponseNormalization): y = x / (k + alpha·Σ x²)^beta, the sum
+    over a zero-padded window of ``n`` channels centred on each channel.
+    ``alpha`` multiplies the window's sum as it is (``F.local_response_norm``
+    would divide it by ``n`` and wants NCHW, so it is not used)."""
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def apply(self, params, state, x, ctx):
+        half = self.n // 2
+        c = x.shape[-1]
+        sq = torch.nn.functional.pad(x * x, (half, half))
+        ssum = sum(sq[..., i:i + c] for i in range(self.n))
+        return x / torch.pow(self.k + self.alpha * ssum, self.beta), state
 
 
 @register_serializable

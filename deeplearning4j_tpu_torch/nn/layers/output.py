@@ -1,8 +1,8 @@
 """Output layers and global pooling.
 
 Analogs of the reference's ``OutputLayer``, ``RnnOutputLayer``,
-``LossLayer``, ``RnnLossLayer`` and ``GlobalPoolingLayer``
-(nn/conf/layers/). An output layer is a dense projection plus a loss;
+``LossLayer``, ``RnnLossLayer``, ``CnnLossLayer``,
+``CenterLossOutputLayer`` and ``GlobalPoolingLayer`` (nn/conf/layers/). An output layer is a dense projection plus a loss;
 models call ``compute_loss`` for training and ``apply`` for inference.
 (SOFTMAX, MCXENT/NLL) and (SIGMOID, XENT) pairs take the loss on the
 logits (``stable_mcxent_from_logits``, ``stable_xent_from_logits``), as
@@ -114,6 +114,24 @@ class RnnLossLayer(LossLayer):
 
 @register_serializable
 @dataclasses.dataclass(frozen=True)
+class CnnLossLayer(LossLayer):
+    """Per-pixel loss over NHWC maps (reference: CnnLossLayer): labels of
+    the same NHWC shape, an (N, H, W) mask weighting the pixels; the maps
+    are flattened to (N, H·W, C) and scored as a sequence."""
+
+    def compute_loss(self, params, state, x, labels, ctx):
+        n = x.shape[0]
+        x2 = x.reshape(n, -1, x.shape[-1])
+        l2 = labels.reshape(n, -1, labels.shape[-1])
+        mask = None if ctx.mask is None else ctx.mask.reshape(n, -1)
+        fused = _fused_loss(self.activation, self.loss, l2, x2, mask)
+        if fused is not None:
+            return fused
+        return self.loss(l2, self.activation.apply(x2), mask)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
 class GlobalPoolingLayer(Layer):
     """Global pooling over the spatial dims of an NHWC map, (N,H,W,C) →
     (N,C), or over time, (N,T,F) → (N,F) with the sequence mask
@@ -162,3 +180,39 @@ class GlobalPoolingLayer(Layer):
         if pt is PoolingType.PNORM:
             return torch.sum(x.abs() ** pn, dim=dims) ** (1.0 / pn), state
         raise ValueError(pt)
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax + center loss (reference: CenterLossOutputLayer): the
+    output layer's loss plus ``lambda_/2 · mean ||x - c_y||²``, where the
+    per-class centers ``centers`` (n_out, n_in) are a parameter that
+    gradient descent learns, as in the JAX package (the reference's EMA
+    update with rate ``alpha`` is SGD on the same term; ``alpha`` is kept
+    for configuration parity)."""
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def initialize(self, generator, input_type):
+        params = super().initialize(generator, input_type)
+        params["centers"] = torch.zeros(
+            (self.n_out, self.resolved_n_in(input_type)),
+            dtype=self.param_dtype())
+        return params
+
+    def compute_loss(self, params, state, x, labels, ctx):
+        x = self.maybe_dropout(x, ctx)
+        logits = self.pre_output(params, x)
+        fused = _fused_loss(self.activation, self.loss, labels, logits,
+                            ctx.mask)
+        base = fused if fused is not None else self.loss(
+            labels, self.activation.apply(logits), ctx.mask)
+        # the JAX package's einsum of f32 labels and centers in x's dtype
+        # promotes, so the center term runs in promote(labels, x)
+        dt = torch.promote_types(labels.dtype, x.dtype)
+        assigned = torch.matmul(labels.to(dt),
+                                params["centers"].to(x.dtype).to(dt))
+        center = 0.5 * self.lambda_ * torch.mean(
+            torch.sum(torch.square(x - assigned), dim=-1))
+        return base + center

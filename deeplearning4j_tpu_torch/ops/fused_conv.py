@@ -858,3 +858,95 @@ def stats_to_scale_shift(stats, count, gamma, beta, eps):
     var = torch.clamp(stats[1].float() / count - mean * mean, min=0.0)
     inv = gamma.float() * torch.rsqrt(var + eps)
     return inv, beta.float() - mean * inv, mean, var
+
+
+# ---------------------------------------------------------------------------
+# the "xla" arm of the fused block: plain convolutions with the statistics
+# taken beside them (the JAX package's conv_bn_stats_xla), no kernel
+# ---------------------------------------------------------------------------
+
+def _gram_product(e2: torch.Tensor) -> torch.Tensor:
+    """eᵀe of an (M, C) matrix as f32, accumulated in f32 from e's dtype.
+    A bf16 ``torch.matmul`` would return a bf16 Gram (Σy² rounded to 8
+    bits breaks the batch-norm variance), so bf16 on the card asks
+    ``torch.mm`` for an f32 result; on the CPU, which has no such ``mm``,
+    the operands are upcast first (bf16 products are exact in f32, so
+    the result is the same f32-accumulated sum)."""
+    if e2.dtype == torch.bfloat16 and e2.is_cuda:
+        return torch.mm(e2.t(), e2, out_dtype=torch.float32)
+    e32 = e2.float()
+    return torch.matmul(e32.t(), e32)
+
+
+class _Gram(torch.autograd.Function):
+    """G = eᵀe over all leading axes of e, f32; the backward is
+    de = e·(dG + dGᵀ) in e's dtype (the JAX package's ``_gram`` custom
+    VJP)."""
+
+    @staticmethod
+    def forward(ctx, e):
+        ctx.save_for_backward(e)
+        return _gram_product(e.reshape(-1, e.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, dg):
+        (e,) = ctx.saved_tensors
+        d = (dg + dg.t()).to(e.dtype)
+        return torch.matmul(e, d)
+
+
+GRAM_MODES = ("auto", "always", "never")
+
+
+def gram_route(mode: str = "auto") -> bool:
+    """Whether a 1×1 conv of ``conv_bn_stats_xla`` takes its statistics
+    from the Gram of its input (``always``) or from its output
+    (``never``). ``auto`` is the rule an H100 set (chip_smoke.py's zoo
+    phase times both routes, forward and backward, at every 1×1 call of
+    the bench ResNet50 at batch 128 in bf16): in six runs the direct
+    route won 13 to 16 of the 16 calls, expanding or not, by up to 3.5×;
+    the Gram's few wins fell on other calls in each run and would have
+    saved at most 2.8 of 49.6 ms a step; the Gram's extra
+    products (eᵀe, and e·(dG + dGᵀ) in the backward) cost more on the
+    card than the output bytes they save. So ``auto`` takes the direct
+    route, whatever the widths."""
+    if mode not in GRAM_MODES:
+        raise ValueError(f"gram must be one of {GRAM_MODES}, got {mode!r}")
+    return mode == "always"
+
+
+def conv_bn_stats_xla(x, w, scale, shift, relu_in: bool = True,
+                      norm_in: bool = True, stride: int = 1,
+                      want_stats: bool = True, gram: str = "auto"):
+    """The plain sibling of ``fused_conv_bn_act``: the same ``(y, (Σy,
+    Σy²))`` contract by plain torch ops and autograd, no kernel (the JAX
+    package's ``conv_bn_stats_xla``, which leaves the convs to XLA).
+
+    ``w`` (Cin, Cout) is a 1×1 conv (``stride`` subsamples the normalized
+    input BEFORE the product); ``w`` (3, 3, Cin, Cout) a 3×3 SAME,
+    stride-1 conv. y is computed in the input's dtype. A 1×1 conv on the
+    Gram route takes Σy = (Σe)·W and Σy² = diag(Wᵀ(eᵀe)W) from the
+    unrounded input side in f32, so it never re-reads the Cout-wide
+    output; the direct route (and every 3×3) sums the rounded y. The two
+    round differently; ``gram`` picks the route (``gram_route``).
+    ``want_stats=False`` (inference) skips the statistics."""
+    e = _norm_in(x, scale, shift, relu_in, norm_in)
+    w = w.to(e.dtype)
+    if w.ndim == 2:
+        if stride != 1:
+            e = e[:, ::stride, ::stride, :]
+        y = torch.matmul(e, w)
+        if not want_stats:
+            return y.to(x.dtype), None
+        if gram_route(gram):
+            wf = w.float()
+            colsum = e.float().reshape(-1, e.shape[-1]).sum(0)
+            s2 = ((_Gram.apply(e) @ wf) * wf).sum(0)
+            return y.to(x.dtype), torch.stack([colsum @ wf, s2])
+        return y.to(x.dtype), _stats(y.float())
+    if stride != 1:
+        raise ValueError("the 3×3 conv of conv_bn_stats_xla is stride-1 "
+                         "only")
+    y = F.conv2d(e.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y.to(x.dtype), (_stats(y.float()) if want_stats else None)

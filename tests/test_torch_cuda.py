@@ -1328,3 +1328,181 @@ def test_graves_generation_on_the_card_matches_reference_decode(card):
         eng.assert_warm()
     finally:
         eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the convolutional model library (plain torch on the card, no kernel):
+# each layer against the same layer on the CPU, f32 with TF32 off; cuDNN
+# and the CPU sum in other orders, so |diff| <= 1e-5·max|cpu| + 1e-6
+# ---------------------------------------------------------------------------
+
+def _library_layers():
+    from deeplearning4j_tpu_torch.nn.graph import vertices as V
+    from deeplearning4j_tpu_torch.nn.inputs import (ConvolutionalType,
+                                                    FeedForwardType,
+                                                    RecurrentType)
+    from deeplearning4j_tpu_torch.nn.layers import convolution as C
+    from deeplearning4j_tpu_torch.nn.layers import feedforward as FF
+    from deeplearning4j_tpu_torch.nn.layers import misc as M
+    from deeplearning4j_tpu_torch.nn.layers import normalization as N
+    from deeplearning4j_tpu_torch.nn.layers.fused import \
+        FusedBottleneckBlock
+    from deeplearning4j_tpu_torch.nn.layers.output import \
+        CenterLossOutputLayer
+    cm = C.ConvolutionMode
+    img, seq = ConvolutionalType(9, 8, 6), RecurrentType(6, 10)
+    return [
+        (C.SeparableConvolution2D(n_out=5, kernel_size=(3, 3),
+                                  convolution_mode=cm.SAME,
+                                  depth_multiplier=2), img),
+        (C.Deconvolution2D(n_out=5, kernel_size=(3, 3), stride=(2, 2),
+                           convolution_mode=cm.SAME), img),
+        (C.Deconvolution2D(n_out=5, kernel_size=(3, 2), stride=(2, 1),
+                           padding=(1, 0), convolution_mode=cm.TRUNCATE),
+         img),
+        (C.Upsampling2D(size=(2, 3)), img),
+        (C.Cropping2D(crop=(1, 2, 0, 1)), img),
+        (C.SpaceToBatchLayer(block_size=(3, 2)), img),
+        (C.Convolution1DLayer(n_out=7, kernel_size=3, stride=2), seq),
+        (C.Subsampling1DLayer(kernel_size=3, stride=2), seq),
+        (C.Upsampling1D(size=2), seq),
+        (C.ZeroPadding1DLayer(pad=(1, 2)), seq),
+        (C.Cropping1D(crop=(2, 1)), seq),
+        (N.LocalResponseNormalization(), img),
+        (FF.ReshapeLayer(shape=(-1, 6)), img),
+        (FF.PermuteLayer(dims=(2, 1)), seq),
+        (FF.ElementWiseMultiplicationLayer(n_out=6), FeedForwardType(6)),
+        (M.FrozenLayer(underlying=N.BatchNormalization()), img),
+        (M.MaskLayer(), seq),
+        (CenterLossOutputLayer(n_out=5), FeedForwardType(6)),
+        (FusedBottleneckBlock(filters=4, stride=2, downsample=True,
+                              impl="xla"), img),
+        (V.L2NormalizeVertex(), img),
+    ]
+
+
+def _card_close(got, want):
+    want = want.float()
+    assert (got.float().cpu() - want).abs().max() <= \
+        1e-5 * want.abs().max() + 1e-6
+
+
+@pytest.mark.parametrize("idx", range(20))
+def test_library_layer_on_the_card_matches_the_cpu(card, idx):
+    from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
+    layer, it = _library_layers()[idx]
+    g = torch.Generator().manual_seed(idx)
+    x = torch.randn((4,) + tuple(it.shape()), generator=g)
+    if not hasattr(layer, "initialize"):                 # a vertex
+        _card_close(layer.apply(x.to(card)), layer.apply(x))
+        return
+    p = layer.initialize(g, it)
+    st = layer.init_state(it)
+    for train in (False, True):
+        ctx = LayerContext(train=train)
+        pc = {k: v.to(card).requires_grad_(train) for k, v in p.items()}
+        pp = {k: v.clone().requires_grad_(train) for k, v in p.items()}
+        yc, _ = layer.apply(pc, {k: v.to(card) for k, v in st.items()},
+                            x.to(card), ctx)
+        yp, _ = layer.apply(pp, st, x, ctx)
+        _card_close(yc, yp)
+        if train and p:
+            # (an output layer's centers take no part in its forward)
+            gc = torch.autograd.grad(yc.square().sum(), list(pc.values()),
+                                     allow_unused=True)
+            gp = torch.autograd.grad(yp.square().sum(), list(pp.values()),
+                                     allow_unused=True)
+            for a, b in zip(gc, gp):
+                assert (a is None) == (b is None)
+                if b is not None:
+                    assert (a.cpu() - b).norm() <= 1e-4 * b.norm() + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,cin,cout,stride", [
+    (8192, 64, 256, 1), (2048, 128, 512, 1), (512, 256, 1024, 1),
+    (128, 512, 2048, 1), (8192, 256, 512, 2), (8192, 256, 64, 1)])
+def test_gram_route_against_direct_route_on_the_card(card, dtype, m, cin,
+                                                     cout, stride):
+    """The two statistics routes of ``conv_bn_stats_xla`` on the card: the
+    same y; (Σy, Σy²) within 1e-4 (f32) or 1e-2 (bf16: the direct route
+    sums the rounded y, the Gram route the unrounded product) of their
+    largest entry; the bf16 Gram is f32 and equals the upcast product
+    within 1e-4 of its largest entry."""
+    side = int(round((m / 32) ** 0.5)) * stride
+    x, w, s, b = _inputs(card, (32, side, side, cin), (cin, cout), dtype)
+    ya, sa = fc.conv_bn_stats_xla(x, w, s, b, True, True, stride,
+                                  gram="always")
+    yb, sb = fc.conv_bn_stats_xla(x, w, s, b, True, True, stride,
+                                  gram="never")
+    assert torch.equal(ya, yb)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (sa - sb).abs().max() <= tol * sb.abs().max()
+    e = x.reshape(-1, cin)
+    gram = fc._gram_product(e)
+    assert gram.dtype == torch.float32
+    ref = e.float().t() @ e.float()
+    # f32 sums of M products in two orders (cuBLAS's and the upcast's)
+    assert (gram - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("ResNet50", dict(height=32, width=32, num_classes=10)),
+    ("ResNet50", dict(height=32, width=32, num_classes=10,
+                      fused_blocks=True, fused_impl="xla", s2d_stem=True)),
+    ("VGG16", dict(height=32, width=32, num_classes=10)),
+    ("AlexNet", dict(height=67, width=67, num_classes=10)),
+    ("Darknet19", dict(height=32, width=32, num_classes=10)),
+    ("TinyYOLO", dict(height=64, width=64, num_classes=4)),
+    ("YOLO2", dict(height=64, width=64, num_classes=4)),
+    ("GoogLeNet", dict(height=32, width=32, num_classes=7)),
+    ("InceptionResNetV1", dict(height=32, width=32, num_classes=9)),
+    ("FaceNetNN4Small2", dict(height=32, width=32, num_classes=11)),
+])
+def test_zoo_model_on_the_card_matches_the_cpu(card, name, kw):
+    """Each zoo model's f32 output on the card against the same model on
+    the CPU, and one train step moves every trainable layer."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.zoo import models as Z
+    zoo = getattr(Z, name)(**kw)
+    mc, mp = zoo.init(), zoo.init(device="cpu")
+    assert mc.device.type == "cuda"
+    x = torch.randn((2, kw["height"], kw["width"], 3),
+                    generator=torch.Generator().manual_seed(0)).numpy()
+    yc, yp = mc.output(x), mp.output(x)
+    assert (yc.cpu() - yp).abs().max() <= 1e-4 * yp.abs().max()
+    if yp.ndim == 2:
+        y = np.eye(yp.shape[1], dtype=np.float32)[[0, 1]]
+        before = {k: {n: v.clone() for n, v in lp.items()}
+                  for k, lp in mc.params.items()}
+        mc.fit(DataSet(x, y))
+        assert torch.isfinite(torch.tensor(mc.score()))
+        moved = [k for k, lp in mc.params.items()
+                 if any(not torch.equal(v, before[k][n])
+                        for n, v in lp.items())]
+        assert len(moved) == sum(1 for lp in before.values() if lp)
+
+
+def test_yolo_loss_on_the_card_matches_the_cpu(card):
+    from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        Yolo2OutputLayer, get_predicted_objects)
+    layer = Yolo2OutputLayer(boxes=((1.0, 1.5), (2.0, 1.0)))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 4, 4, 2 * 8), generator=g)
+    y = torch.zeros((3, 4, 4, 7))
+    y[..., :2] = torch.rand((3, 4, 4, 2), generator=g) * 4
+    y[..., 2:4] = 0.5 + torch.rand((3, 4, 4, 2), generator=g) * 2
+    y[..., 4] = 1.0
+    xc = x.to(card).requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    lc = layer.compute_loss({}, {}, xc, y.to(card), LayerContext())
+    lp = layer.compute_loss({}, {}, xp, y, LayerContext())
+    assert abs(lc.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    (gc,), (gp,) = (torch.autograd.grad(lc, xc),
+                    torch.autograd.grad(lp, xp))
+    assert (gc.cpu() - gp).norm() <= 1e-5 * gp.norm()
+    dc = get_predicted_objects(layer, x.to(card), 0.3)
+    dp = get_predicted_objects(layer, x, 0.3)
+    assert [(d.example, d.predicted_class) for d in dc] == \
+        [(d.example, d.predicted_class) for d in dp]

@@ -106,7 +106,9 @@ def test_kernel_calls_describe_the_forward():
 def test_training_forward_runs_and_xla_is_not_ported():
     """The train forward normalizes with batch statistics and returns new
     running statistics (held against the JAX block in
-    test_torch_train_block.py); ``impl="xla"`` is not ported."""
+    test_torch_train_block.py). ``impl="xla"`` is ported now (held
+    against JAX in test_torch_fused_xla.py); an implementation that
+    neither package has raises."""
     tb = FusedBottleneckBlock(filters=4, stride=1, downsample=True)
     it = ConvolutionalType(4, 4, 8)
     p = tb.initialize(torch.Generator().manual_seed(0), it)
@@ -116,8 +118,9 @@ def test_training_forward_runs_and_xla_is_not_ported():
     assert y.shape == (2, 4, 4, 16) and torch.isfinite(y).all()
     assert set(new) == set(st) and new is not st
     assert not torch.equal(new["bn1_mean"], st["bn1_mean"])
-    with pytest.raises(NotImplementedError):
-        FusedBottleneckBlock(impl="xla")
+    assert FusedBottleneckBlock(impl="xla").impl == "xla"
+    with pytest.raises(ValueError):
+        FusedBottleneckBlock(impl="cudnn")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

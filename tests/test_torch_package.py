@@ -121,6 +121,30 @@ def test_lstm_entry_points_default_to_cuda_and_raise_without_it(
         == "cpu"
 
 
+@pytest.mark.parametrize("name", [
+    "ResNet50", "VGG16", "VGG19", "AlexNet", "Darknet19", "TinyYOLO",
+    "YOLO2", "GoogLeNet", "InceptionResNetV1", "FaceNetNN4Small2"])
+def test_zoo_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, name):
+    """Every zoo model's ``init()`` (and a transfer-learning build from a
+    card model's configuration) raises without a card unless the CPU is
+    asked for; the configuration itself needs no device."""
+    from deeplearning4j_tpu_torch.zoo import models as Z
+    kw = (dict(num_classes=3, height=32, width=32, fused_blocks=True,
+               fused_impl="xla") if name == "ResNet50" else {})
+    zoo = getattr(Z, name)(**kw)
+    conf = zoo.conf()
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.init()
+    cls = (Z.ComputationGraph if hasattr(conf, "nodes")
+           else Z.MultiLayerNetwork)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls(conf)
+    if name == "ResNet50":
+        assert zoo.init(device="cpu").device.type == "cpu"
+
+
 def test_digit_models_and_the_feeder_default_to_cuda_and_raise_without_it(
         monkeypatch):
     """LeNet and SimpleCNN, built or restored, raise without a card unless

@@ -8,6 +8,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py serve
     python3 tools/gen_rehearsal.py ops
     python3 tools/gen_rehearsal.py rnn
+    python3 tools/gen_rehearsal.py zoo
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -27,6 +28,13 @@ of 4 windows of 200 chars, 3 of them, width 32 for the layer family,
 short Graves streams), with ``lstm_fwd`` and ``lstm_bwd`` counting a
 launch for each plain call and the card's memory counters stubbed, so
 every gate of the phase runs.
+
+``zoo`` runs ``phase_zoo`` the same way at a cut size (the bench
+ResNet50 and VGG16 at 32×32 in f32, batch 8, K = 2; YOLO2 and the rest of
+the zoo at 64×64; one transfer epoch), with CUDA events timed by the host
+clock and the six conv wrappers counting a launch for each plain call,
+so every gate of the phase runs; its times say nothing about the
+card.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -128,6 +136,47 @@ def rnn() -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+class _HostEvent:
+    """``torch.cuda.Event`` timed by the host clock."""
+
+    def __init__(self, *args, **kwargs):
+        self.t = 0.0
+
+    def record(self, *args):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+def zoo() -> None:
+    from deeplearning4j_tpu_torch.ops import fused_conv
+    smoke = _cpu_smoke()
+    _count_launches(fused_conv, ("fused_mm", "fused_c3", "fused_mm_bwd",
+                                 "fused_c3_bwd", "fused_c3_bwd_in",
+                                 "fused_c3_bwd_w"))
+    torch.cuda.Event = _HostEvent
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    smoke.TRAIN_BATCH, smoke.TRAIN_K, smoke.TRAIN_CALLS = 8, 2, 3
+    # bf16 convolutions are slow on the CPU: the rehearsal trains in f32
+    smoke.ZOO_BENCH = dict(smoke.ZOO_BENCH, height=32, width=32,
+                           compute_dtype="float32")
+    smoke.VGG = dict(smoke.VGG, height=32, width=32,
+                     compute_dtype="float32")
+    smoke.VGG_BATCH, smoke.YOLO_BATCH, smoke.YOLO_STEPS = 8, 2, 3
+    smoke.YOLO = dict(smoke.YOLO, height=64, width=64)
+    smoke.TRANSFER_EPOCHS = 1
+    on_card = smoke._zoo_model
+    side = lambda name: 67 if name == "AlexNet" else 64   # AlexNet's least
+    smoke._zoo_model = lambda name, device="cpu", **kw: on_card(
+        name, device, **dict(dict(height=side(name), width=side(name)),
+                             **kw))
+    t0 = time.perf_counter()
+    print(smoke.phase_zoo({}, "CPU rehearsal"))
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def ops() -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,7 +204,7 @@ def ops() -> None:
 
 
 def main(argv) -> int:
-    if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn"):
+    if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -164,6 +213,8 @@ def main(argv) -> int:
         serve()
     elif argv[0] == "rnn":
         rnn()
+    elif argv[0] == "zoo":
+        zoo()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
