@@ -212,10 +212,43 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    even/odd head from ``n_out_replace``, fitted on the digits: the frozen
    parameters and state bitwise unchanged; held-out accuracy.
 
+16. keras_import — the Keras importer (modelimport/) on the card. The
+   card's machine has no h5py and no keras, so the importer's conversion
+   runs on committed resources (tools/keras_card_resources.py, read by
+   ``KerasResourceArchive``). The 14 committed fixtures (k1_*, k2_* .h5,
+   k3_* .keras) imported and run in f32, each within rtol 1e-4, atol 1e-5
+   of its ``tests/resources/keras/*_io.npz`` (k3_attention through
+   ``flash_fwd`` at 3 heads x Dh 4, k1_lstm and k3_temporal's
+   Bidirectional through ``lstm_fwd``); k1_lstm fine-tuned by one Adam
+   step (``lstm_fwd`` + ``lstm_bwd``), its gradients against the plain
+   path. BERT-base (12 x 768, 12 heads, FFN 3072, vocab 30522, seq 128)
+   from its committed configuration with seeded weights: f32 hidden states
+   within 1e-4 of each position's largest against Keras's; bf16
+   ``output()`` at 64 x 128 (12 ``flash_fwd`` a call); the fine-tune of
+   benchmarks/baseline_suite.py:296-356 (AVG pooling + 2-class head, bf16,
+   Adam(2e-5), ``shadow_cast``) at 128 x 128, K = 4, 3 calls: K x (12, 12,
+   12) flash launches a call, the loss falls, the shadow-cast call bitwise
+   the same call without it, one f32 step's gradients within 1e-4
+   relative L2 of the plain path; the frozen encoder's leaves bitwise
+   after a call. InceptionV3 at 299x299x3, 1000 classes: output and
+   ``avg_pool`` within rtol 1e-3, atol 1e-5 of Keras's, f32 inference at
+   128, the fine-tune of benchmarks/baseline_suite.py:216-270 (200
+   classes, bf16, Adam(1e-4)) at 64, K = 4, 2 calls, a finite loss that
+   moves (no TPU kernel on that path). Then constraints, weight noise and
+   the legacy optimizers: the committed TextGenerationLSTM with a
+   MaxNormConstraint, one Sgd step card against CPU, the norms bounded;
+   DropConnect at rate 0 bitwise the plain step, its zeros and scaling at
+   0.3, WeightNoise's mean and spread, a noisy step through the LSTM
+   kernels; LBFGS and conjugate gradient on the digits LeNet, card
+   against CPU. Step ms, tokens/s or images/s and peak memory for each.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
-Details go to ``chiprun_out/chip_smoke.json``.
+Each run keeps its log and its details in its own directory,
+``chiprun_out/<UTC time>-<pid>/`` (``chip_smoke.log``,
+``chip_smoke.json``); a failure prints ``[fail] phase=<name>: <error>``
+and its traceback there and on the output, and the run exits non-zero.
 """
 
 from __future__ import annotations
@@ -228,6 +261,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 from unittest import mock
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
@@ -302,10 +336,11 @@ SLICE = dict(num_classes=200, height=64, width=64, channels=3,
              compute_dtype="bfloat16")
 # the LSTM kernels' shapes (T, N, H): the slice (TextGenerationLSTM at
 # batch 128), the repo's LSTM throughput geometry
-# (benchmarks/baseline_suite.py:381-446) and a TBPTT segment of rnn_tbptt
-# (50 ticks of a batch of 32)
+# (benchmarks/baseline_suite.py:381-446), a TBPTT segment of rnn_tbptt
+# (50 ticks of a batch of 32) and the imported Keras LSTM fixture of
+# keras_import (k1_lstm: 7 ticks, 4 rows, 8 units)
 LSTM_SHAPES = {"slice": (60, 128, 256), "benchmark": (128, 256, 512),
-               "tbptt": (50, 32, 256)}
+               "tbptt": (50, 32, 256), "keras": (7, 4, 8)}
 # LSTM kernel vs plain version, |diff| relative to max(1, max|ref|) per
 # output: f32 1e-4 (the same f32 products summed in another order, carried
 # through T ticks); bf16 3e-2 (a sum-order difference can flip one bf16
@@ -394,6 +429,9 @@ ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 ATTN_SLICE = (64, 128, 12, 64)
 ATTN_LONG = ((16, 1024), (8, 2048), (4, 4096))
 ATTN_EDGE = (2, 37, 3, 16)
+# the imported Keras attention fixture (k3_attention: 3 heads x Dh 4 over
+# 10 steps, batch 4), a shape the BERT geometry never gives the kernels
+ATTN_KERAS = (4, 10, 3, 4)
 # flash kernel vs plain version, |diff| relative to max(1, max|ref|):
 # f32 2e-5 (tests/test_pallas_kernels.py's bound: the same f32 products
 # summed in another order); bf16 2^-7, one bf16 ulp at the largest
@@ -455,8 +493,14 @@ ZOO_ROWS, ZOO_FLOOR, ZOO_NOISE = 2, 1e-4, 3.0
 TRANSFER_EPOCHS = 3
 
 
+_RUN_LOG = None      # the run's own log file (main opens it)
+
+
 def log(msg=""):
     print(msg, flush=True)
+    if _RUN_LOG is not None:
+        _RUN_LOG.write(f"{msg}\n")
+        _RUN_LOG.flush()
 
 
 def card_line() -> str:
@@ -3237,6 +3281,13 @@ def phase_attn_kernels(gen):
     # bert_train's calls: bf16, unmasked, at the train batch
     shapes.append(("train", (BERT_TRAIN_BATCH,) + ATTN_SLICE[1:], "bfloat16",
                    "none"))
+    # keras_import's new shapes: the Keras attention fixture (f32 as
+    # imported, bf16 for the 2-byte staging at Dh 4) and the imported
+    # BERT-base fine-tune's batch
+    shapes += [("keras", ATTN_KERAS, dtype, "none")
+               for dtype in ("float32", "bfloat16")]
+    shapes.append(("keras_finetune", (KERAS_BERT_FT_BATCH,) + ATTN_SLICE[1:],
+                   "bfloat16", "none"))
     rows = []
     for where, (n, t, h, dh), dtype, mode in shapes:
         for r in check_attn_shape(where, n, t, h, dh, dtype, mode, gen):
@@ -4351,12 +4402,779 @@ def phase_zoo(report, card):
     return {}
 
 
+# ---------------------------------------------------------------------------
+# keras_import: the Keras importer on committed configurations and weights
+# ---------------------------------------------------------------------------
+
+# The card's machine has neither h5py nor keras, so the importer's file
+# reading stays on a CPU (modelimport/hdf5.py, held against h5py by the
+# tests) and tools/keras_card_resources.py commits what the conversion
+# needs under KERAS_RES: each fixture's model_config, Keras version and
+# training_config (<name>.json) with the legacy-named weight dicts that
+# Hdf5Archive.layer_weights returns (<name>.npz, "layer::key" entries); and
+# for BERT-base and InceptionV3 the configuration with a manifest (each
+# layer's weights in Keras order: their legacy keys and shape), whose
+# weights both sides draw by seeded_keras_arrays, and Keras's outputs on
+# those weights (<name>_golden.npz).
+KERAS_RES = os.path.join("deeplearning4j_tpu_torch", "modelimport",
+                         "resources")
+KERAS_FIXTURES = ("k1_mlp", "k1_cnn_atrous", "k1_lstm", "k1_merge",
+                  "k2_googlenet_bits", "k2_yolo_bits", "k2_temporal",
+                  "k2_reshape_permute", "k2_selu_alpha_dropout", "k3_conv",
+                  "k3_temporal", "k3_merges", "k3_attention",
+                  "k3_pool_extras")
+KERAS_SEED = 16
+
+
+def keras_layer_seed(layer_name: str, seed: int = KERAS_SEED) -> int:
+    """A layer's own seed, from a hash of its name: an order slip between
+    the two sides moves that layer's weights, never every later layer's."""
+    import hashlib
+    digest = hashlib.sha256(f"{seed}:{layer_name}".encode()).digest()
+    return int.from_bytes(digest[:8], "little")
+
+
+def _keras_fans(shape):
+    """Keras's glorot fans (keras.src.initializers: the receptive field is
+    the product of all but the last two axes)."""
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    rf = math.prod(shape[:-2])
+    return shape[-2] * rf, shape[-1] * rf
+
+
+def seeded_keras_arrays(layer_name, groups, seed: int = KERAS_SEED):
+    """The imported full-width models' weights, one array per (keys,
+    shape) group of a layer in Keras's weight order, drawn from the
+    layer's own generator: kernels glorot-uniform, embeddings, biases,
+    beta and moving mean U(±0.05), gamma U(0.8, 1.2), moving variance
+    U(0.5, 1.5). float32 uniforms mapped in float32. The one definition
+    that tools/keras_card_resources.py (which sets these weights into
+    Keras for the goldens) and the card's reader both call."""
+    import numpy as np
+    rng = np.random.default_rng(keras_layer_seed(layer_name, seed))
+    out = []
+    for keys, shape in groups:
+        shape = tuple(int(d) for d in shape)
+        leaf = keys[0].split("/")[-1]
+        if leaf.endswith("kernel"):
+            fan_in, fan_out = _keras_fans(shape)
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            lo, hi = -lim, lim
+        elif leaf in ("embeddings", "bias", "beta", "moving_mean"):
+            lo, hi = -0.05, 0.05
+        elif leaf == "gamma":
+            lo, hi = 0.8, 1.2
+        elif leaf == "moving_variance":
+            lo, hi = 0.5, 1.5
+        else:
+            raise ValueError(f"no seeded rule for weight {keys[0]!r} of "
+                             f"layer {layer_name!r}")
+        u = rng.random(shape, dtype=np.float32)
+        out.append(np.float32(lo) + np.float32(hi - lo) * u)
+    return out
+
+
+def inception_input(images_u8):
+    """uint8 pixels -> InceptionV3's [-1, 1] input (numpy float32), as the
+    resource tool and the card both make it."""
+    import numpy as np
+    return images_u8.astype(np.float32) / np.float32(127.5) - np.float32(1)
+
+
+class KerasResourceArchive:
+    """The importer's archive interface (modelimport/keras.py:
+    ``model_config``, ``keras_version``, ``read_attribute_as_json``,
+    ``layer_weights``) over a committed resource: ``<stem>.json`` and
+    either ``<stem>.npz`` (a fixture's weight dicts) or the json's
+    manifest, whose weights come from ``seeded_keras_arrays``."""
+
+    def __init__(self, stem: str):
+        import numpy as np
+        with open(stem + ".json") as f:
+            self._meta = json.load(f)
+        self._dicts = None
+        if os.path.exists(stem + ".npz"):
+            self._dicts = {}
+            with np.load(stem + ".npz") as z:
+                for key in z.files:
+                    layer, name = key.split("::", 1)
+                    self._dicts.setdefault(layer, {})[name] = z[key]
+
+    def model_config(self):
+        return self._meta["model_config"]
+
+    def keras_version(self) -> int:
+        return int(self._meta["keras_version"])
+
+    def read_attribute_as_json(self, name):
+        value = self._meta.get(name)
+        if value is None:
+            raise KeyError(name)
+        return value
+
+    def layer_weights(self, name):
+        if self._dicts is not None:
+            return dict(self._dicts.get(name, {}))
+        groups = self._meta["manifest"].get(name, [])
+        out = {}
+        for (keys, _), arr in zip(groups, seeded_keras_arrays(name, groups)):
+            for k in keys:
+                out[k] = arr
+        return out
+
+
+# the keras_import phase's bounds and sizes. Fixtures: each output within
+# rtol 1e-4, atol 1e-5 of its _io.npz (tests/test_keras_fixtures.py:45).
+# BERT-base f32: each position's |diff| within 1e-4 of that position's
+# largest |Keras value| (the same f32 products summed in other orders
+# through 12 blocks). InceptionV3 f32: rtol 1e-3, atol 1e-5
+# (tests/test_keras_import.py:333), output and avg_pool features.
+KERAS_FIXTURE_TOL = (1e-4, 1e-5)
+KERAS_BERT_ROW_TOL = 1e-4
+KERAS_IV3_TOL = (1e-3, 1e-5)
+# the fixtures' kernel launches per output() call: k3_attention attends
+# once (3 heads x Dh 4), k1_lstm runs one LSTM, k3_temporal a
+# Bidirectional(LSTM) (the forward kernel twice)
+KERAS_FIXTURE_LAUNCHES = {"k3_attention": {"flash_fwd": 1},
+                          "k1_lstm": {"lstm_fwd": 1},
+                          "k3_temporal": {"lstm_fwd": 2}}
+# the imported BERT-base: bf16 output() at 64 x 128; the fine-tune of
+# benchmarks/baseline_suite.py:296-356 (AVG pooling + 2-class head,
+# bf16 compute, Adam(2e-5), shadow cast) at 128 x 128 in K-step calls (the
+# suite's K is 16; 4 keeps the phase short); the frozen-encoder variant of
+# tests/test_bert_finetune.py:63-120 at 32 x 128, Adam(1e-2)
+KERAS_BERT_SERVE_BATCH = 64
+KERAS_BERT_FT_BATCH, KERAS_BERT_FT_K, KERAS_BERT_FT_CALLS = 128, 4, 3
+KERAS_BERT_FROZEN_BATCH = 32
+# the imported InceptionV3: f32 inference at 128; the fine-tune of
+# benchmarks/baseline_suite.py:216-270 (200 classes by n_out_replace, bf16
+# compute, Adam(1e-4)) at 64 in K-step calls
+KERAS_IV3_SERVE_BATCH = 128
+KERAS_IV3_FT_BATCH, KERAS_IV3_FT_K, KERAS_IV3_FT_CALLS = 64, 4, 2
+# item 4a on the card: the committed TextGenerationLSTM at 32 x 60 corpus
+# windows under Sgd (Adam's first step turns a sign flip of a near-zero
+# gradient into a full step), card against CPU within DIGITS_PARAM_TOL;
+# DropConnect's zero share within 5 sigma of p; WeightNoise's mean and
+# standard deviation; LBFGS and CG on the digits LeNet from its seed
+KERAS_4A_BATCH, KERAS_4A_LR = 32, 0.5
+KERAS_4A_DROP, KERAS_4A_NOISE = 0.3, 0.01
+KERAS_4A_ITERS, KERAS_4A_ROWS = 3, 256
+
+
+def _kernel_counts():
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    return {**fa.LAUNCHES, **fl.LAUNCHES}
+
+
+def _counted(launches, fn):
+    """``fn()``, with the kernel launches it made added to ``launches``
+    (the phase's main-path count) and returned."""
+    before = _kernel_counts()
+    out = fn()
+    import torch
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in _kernel_counts().items()}
+    for k, v in made.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, {k: v for k, v in made.items() if v}
+
+
+def keras_resource(name):
+    """The committed resource ``name`` as an archive, with the host seconds
+    its weights take to read or draw."""
+    arch = KerasResourceArchive(os.path.join(KERAS_RES, name))
+    weights = arch.layer_weights
+    arch.weight_seconds = 0.0
+
+    def timed(layer):
+        t0 = time.perf_counter()
+        out = weights(layer)
+        arch.weight_seconds += time.perf_counter() - t0
+        return out
+    arch.layer_weights = timed
+    return arch
+
+
+def _keras_fixtures(out, card, launches):
+    """The 14 fixtures through the importer on the card, against their
+    _io.npz; one imported LSTM's Adam step, its gradients against the
+    plain path."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    rtol, atol = KERAS_FIXTURE_TOL
+    rows = {}
+    for name in KERAS_FIXTURES:
+        model = _import_archive(keras_resource(name), "cuda")
+        io = np.load(os.path.join("tests", "resources", "keras",
+                                  name + "_io.npz"))
+        y, made = _counted(launches, lambda: model.output(io["x"]))
+        y = y.float().cpu().numpy()
+        ok = y.shape == io["y"].shape and bool(
+            np.allclose(y, io["y"], rtol=rtol, atol=atol))
+        err = float(np.abs(y - io["y"]).max()) if y.shape == io["y"].shape \
+            else math.inf
+        want = KERAS_FIXTURE_LAUNCHES.get(name, {})
+        rows[name] = {"model": type(model).__name__, "max_abs_err": err,
+                      "ok": ok, "launches": made}
+        log(f"  {name:22s} {type(model).__name__:17s} max|diff| {err:.3g} "
+            f"launches {made or '-'}{'' if ok else '  <-- DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fixture {name}: the card's output is not "
+                                 f"within rtol {rtol}, atol {atol} of its "
+                                 "_io.npz")
+        if made != want:
+            raise AssertionError(f"fixture {name}: launches {made}, expected "
+                                 f"{want}")
+
+    # k1_lstm fine-tuned by Adam: one fit step through lstm_fwd + lstm_bwd
+    base = _import_archive(keras_resource("k1_lstm"), "cuda")
+    ft = (TransferLearning.Builder(base).fine_tune_configuration(
+        FineTuneConfiguration.Builder().updater(Adam(1e-3)).build()).build())
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(16, 7, 6)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 16)]
+    before = {k: v.clone() for k, v in flatten_paths(ft.params).items()}
+    _, made = _counted(launches, lambda: ft.fit(DataSet(x, y)))
+    loss = ft.score()
+    after = flatten_paths(ft.params)
+    moved = sum(int(not torch.equal(after[k], before[k])) for k in before)
+    args = ft._step_args(DataSet(x, y))
+    loss_k, _, g_k = solver.value_and_grad(ft._loss, ft.train_state, *args)
+    with plain_lstm():
+        loss_p, _, g_p = solver.value_and_grad(ft._loss, ft.train_state,
+                                               *args)
+    err = grad_errors(g_k, g_p)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"  k1_lstm + Adam(1e-3): one fit step, launches {made}, loss "
+        f"{loss:.5f}, {moved} of {len(before)} arrays moved; gradients "
+        f"kernels vs plain rel L2 worst {err['worst']:.3g} ({err['name']}), "
+        f"loss rel {loss_err:.3g}")
+    if made != {"lstm_fwd": 1, "lstm_bwd": 1} or not math.isfinite(loss) \
+            or moved != len(before) or ft.iteration != 1:
+        raise AssertionError("the imported LSTM's Adam step did not run "
+                             "through lstm_fwd and lstm_bwd and move every "
+                             "array")
+    if loss_err > LOSS_RTOL or err["worst"] > LSTM_GRAD_RTOL:
+        raise AssertionError("the imported LSTM's gradients through the "
+                             "kernels disagree with the plain path")
+    out["fixtures"] = rows
+    out["lstm_adam_step"] = {"launches": made, "loss": loss,
+                             "grad_rel_l2": err, "loss_rel_err": loss_err}
+
+
+def _bert_graft(model, dtype, lr, frozen=False):
+    """The fine-tune of benchmarks/baseline_suite.py:296-356: AVG pooling
+    and a 2-class OutputLayer grafted on the imported encoder by
+    TransferLearning.GraphBuilder; ``frozen`` freezes the encoder
+    (tests/test_bert_finetune.py:63-120)."""
+    from deeplearning4j_tpu_torch.nn.layers.output import (
+        GlobalPoolingLayer, OutputLayer, PoolingType)
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    enc = model.conf.network_outputs[0]
+    ftc = FineTuneConfiguration.Builder().updater(Adam(lr))
+    if dtype == "bfloat16":
+        ftc = ftc.compute_dtype("bfloat16")
+    gb = TransferLearning.GraphBuilder(model).fine_tune_configuration(
+        ftc.build())
+    if frozen:
+        gb = gb.set_feature_extractor(enc)
+    return (gb.add_layer("pool", GlobalPoolingLayer(
+        pooling_type=PoolingType.AVG), enc)
+        .add_layer("cls", OutputLayer(n_out=2), "pool")
+        .set_outputs("cls").build())
+
+
+def _bert_batch(rng, n, seq, vocab, k=None):
+    """(ids, positions) as int64 on the card (an id is cast once, by the
+    embedding's gather; bf16 compute never sees it), one-hot 2-class
+    labels; stacked K times when ``k`` is given."""
+    import numpy as np
+    import torch
+    ids = torch.from_numpy(rng.integers(0, vocab, (n, seq))).cuda()
+    pos = torch.arange(seq, device="cuda").expand(n, seq)
+    y = torch.from_numpy(np.eye(2, dtype=np.float32)[
+        rng.integers(0, 2, n)]).cuda()
+    if k is None:
+        return (ids, pos), (y,)
+    st = lambda a: a.unsqueeze(0).expand(k, *a.shape)
+    return (st(ids), st(pos)), (st(y),)
+
+
+def _same_state(a, b):
+    """Bitwise equality of two parameter dicts."""
+    import torch
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    fa, fb = flatten_paths(a), flatten_paths(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def _keras_bert(out, card, launches):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    from deeplearning4j_tpu_torch.models.base import cast_params
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        SelfAttentionLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optimize import solver
+    res = {}
+    arch = keras_resource("bert_base")
+    t0 = time.perf_counter()
+    model = _import_archive(arch, "cuda")
+    torch.cuda.synchronize()
+    res["import_s"] = time.perf_counter() - t0
+    res["weight_draw_s"] = arch.weight_seconds
+    g = np.load(os.path.join(KERAS_RES, "bert_base_golden.npz"))
+    ids = torch.from_numpy(g["ids"]).long().cuda()
+    seq = ids.shape[1]
+    pos = torch.arange(seq, device="cuda").expand_as(ids)
+    blocks = sum(isinstance(n.layer, SelfAttentionLayer)
+                 for n in model.conf.nodes)
+    h, made = _counted(launches, lambda: model.output(ids, pos))
+    e = g["hidden_head"].shape[1]
+    got = torch.cat([h[:, :e], h[:, -e:]], 1).float().cpu()
+    ref = torch.from_numpy(np.concatenate([g["hidden_head"],
+                                           g["hidden_tail"]], 1))
+    err = ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+    log(f"  BERT-base imported: {model.num_params()} params, import "
+        f"{res['import_s']:.1f}s of which {res['weight_draw_s']:.1f}s draw "
+        f"the seeded weights; f32 output of {tuple(ids.shape)} against "
+        f"Keras at {2 * e} positions: |diff| / position max {err:.3g} "
+        f"(absolute {(got - ref).abs().max().item():.3g}), launches {made}")
+    if not err <= KERAS_BERT_ROW_TOL or made != {"flash_fwd": blocks}:
+        raise AssertionError("the imported BERT-base disagrees with Keras "
+                             f"(or did not attend through {blocks} flash_fwd "
+                             "launches)")
+    res["f32_row_rel_err"] = err
+    vocab = model.params["tok_embed"]["W"].shape[0]
+
+    # bf16 output() at 64 x 128
+    m16 = (TransferLearning.GraphBuilder(model).fine_tune_configuration(
+        FineTuneConfiguration.Builder().compute_dtype("bfloat16").build())
+        .build())
+    rng = np.random.default_rng(6)
+    (ids64, pos64), _ = _bert_batch(rng, KERAS_BERT_SERVE_BATCH, seq, vocab)
+    torch.cuda.reset_peak_memory_stats()
+    y16, made = _counted(launches, lambda: m16.output(ids64, pos64))
+    peak = torch.cuda.max_memory_allocated()
+    if made != {"flash_fwd": blocks} or not torch.isfinite(y16).all() or \
+            tuple(y16.shape) != (KERAS_BERT_SERVE_BATCH, seq, h.shape[-1]):
+        raise AssertionError(f"bf16 output(): launches {made} (expected "
+                             f"{blocks} flash_fwd) or a non-finite or "
+                             "misshapen output")
+    with torch.inference_mode():
+        out_ms = cuda_time(lambda: m16.output(ids64, pos64), iters=10)
+    tok = KERAS_BERT_SERVE_BATCH * seq
+    log(f"  bf16 output() at {KERAS_BERT_SERVE_BATCH} x {seq}: {out_ms:.3f} "
+        f"ms, {1e3 * tok / out_ms:.1f} tokens/s, peak memory "
+        f"{peak / 2**20:.1f} MiB, launches {made} a call [{card}]")
+    res["serve"] = {"batch": KERAS_BERT_SERVE_BATCH, "output_ms": out_ms,
+                    "tokens_per_s": 1e3 * tok / out_ms,
+                    "peak_memory_bytes": peak, "launches_per_call": made}
+    del m16, y16
+
+    # the bf16 fine-tune with the shadow cast, and the same call without it
+    b, k = KERAS_BERT_FT_BATCH, KERAS_BERT_FT_K
+    ft = _bert_graft(model, "bfloat16", 2e-5)
+    twin = ft.clone()
+    feats, labels = _bert_batch(np.random.default_rng(0), b, seq, vocab, k)
+    shadow = ft._build_scan_train_step(
+        shadow_cast=lambda p: cast_params(p, "bfloat16"))
+    plain = twin._build_scan_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    (ts, l0), made = _counted(launches, lambda: shadow(ft.train_state, feats,
+                                                       labels))
+    twin.train_state, l0_plain = plain(twin.train_state, feats, labels)
+    bitwise = torch.equal(l0, l0_plain) and _same_state(ts.params,
+                                                        twin.params)
+    ft.train_state = ts
+    del twin
+    want = {n: k * blocks for n in ATTN_KERNELS}
+    log(f"  fine-tune bf16 at {b} x {seq}, K={k}: launches of one call "
+        f"{made}; the shadow-cast call against the same call without it: "
+        f"{'bitwise' if bitwise else 'DIFFERENT'}")
+    if made != want:
+        raise AssertionError(f"expected {want} flash launches a call")
+    if not bitwise:
+        raise AssertionError("the shadow-cast call is not bitwise the same "
+                             "call without it")
+    losses = [l0]
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(KERAS_BERT_FT_CALLS - 1):
+        (ft.train_state, ls), _ = _counted(
+            launches, lambda: shadow(ft.train_state, feats, labels))
+        losses.append(ls)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ((KERAS_BERT_FT_CALLS - 1) * k)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).float().cpu().numpy()
+    log(f"  fine-tune step: {step_ms:.3f} ms, {1e3 * b * seq / step_ms:.1f} "
+        f"tokens/s, peak memory {peak / 2**20:.1f} MiB [{card}]; losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    if not np.isfinite(losses).all() or not losses[1:].min() < losses[0]:
+        raise AssertionError("the fine-tune loss did not fall (or is not "
+                             "finite)")
+    res["finetune"] = {"batch": b, "seq": seq, "k": k,
+                       "losses": losses.tolist(), "step_ms": step_ms,
+                       "tokens_per_s": 1e3 * b * seq / step_ms,
+                       "peak_memory_bytes": peak, "launches_per_call": made,
+                       "shadow_bitwise": bitwise}
+    del ft, shadow, plain, feats, labels
+    torch.cuda.empty_cache()
+
+    # one f32 step of the grafted model: kernels against plain versions
+    ft32 = _bert_graft(model, "float32", 2e-5)
+    (f4, p4), (y4,) = _bert_batch(np.random.default_rng(1), 4, seq, vocab)
+    args = ft32._step_args(MultiDataSet((f4, p4), (y4,)))
+    loss_k, _, g_k = solver.value_and_grad(ft32._loss, ft32.train_state,
+                                           *args)
+    with plain_flash():
+        loss_p, _, g_p = solver.value_and_grad(ft32._loss, ft32.train_state,
+                                               *args)
+    gerr = grad_errors(g_k, g_p)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"  f32 fine-tune step at 4 x {seq}, kernels vs plain: loss rel "
+        f"{loss_err:.3g}, gradients rel L2 worst {gerr['worst']:.3g} "
+        f"({gerr['name']}), median {gerr['median']:.3g}, all "
+        f"{gerr['all']:.3g}")
+    if loss_err > LOSS_RTOL or gerr["worst"] > BERT_GRAD_RTOL:
+        raise AssertionError("the f32 fine-tune step through the flash "
+                             "kernels disagrees with the plain path")
+    res["f32_step"] = {"loss_rel_err": loss_err, "grad_rel_l2": gerr}
+    del ft32, g_k, g_p
+
+    # the frozen encoder (set_feature_extractor): frozen leaves bitwise
+    fz = _bert_graft(model, "bfloat16", 1e-2, frozen=True)
+    frozen_names = [n for n in fz.layer_names if n not in ("pool", "cls")]
+    snap = {n: {k: v.clone() for k, v in
+                flatten_paths(fz.params[n]).items()} for n in frozen_names}
+    head = fz.params["cls"]["W"].clone()
+    feats, labels = _bert_batch(np.random.default_rng(2),
+                                KERAS_BERT_FROZEN_BATCH, seq, vocab, k)
+    step = fz._build_scan_train_step(
+        shadow_cast=lambda p: cast_params(p, "bfloat16"))
+    (fz.train_state, fl_), made = _counted(
+        launches, lambda: step(fz.train_state, feats, labels))
+    kept = all(_same_state(snap[n], flatten_paths(fz.params[n]))
+               for n in frozen_names)
+    moved = not torch.equal(head, fz.params["cls"]["W"])
+    log(f"  frozen encoder at {KERAS_BERT_FROZEN_BATCH} x {seq}, K={k}: "
+        f"{len(frozen_names)} frozen layers "
+        f"{'bitwise unchanged' if kept else 'CHANGED'}, the head "
+        f"{'moved' if moved else 'DID NOT MOVE'}, launches {made}, losses "
+        f"{' '.join(f'{v:.4f}' for v in fl_.float().cpu().tolist())}")
+    if not kept or not moved or not torch.isfinite(fl_).all():
+        raise AssertionError("the frozen-encoder fine-tune changed a frozen "
+                             "leaf or left the head as it was")
+    res["frozen"] = {"layers": len(frozen_names), "launches": made}
+    out["bert_base"] = res
+
+
+def _keras_inception(out, card, launches):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    res = {}
+    arch = keras_resource("inception_v3")
+    t0 = time.perf_counter()
+    model = _import_archive(arch, "cuda")
+    torch.cuda.synchronize()
+    res["import_s"] = time.perf_counter() - t0
+    res["weight_draw_s"] = arch.weight_seconds
+    g = np.load(os.path.join(KERAS_RES, "inception_v3_golden.npz"))
+    x = torch.from_numpy(inception_input(g["images_u8"])).cuda()
+    inp, head = model.conf.network_inputs[0], model.conf.network_outputs[0]
+    with torch.inference_mode():
+        acts, _ = model._walk(model.params, model.model_state, {inp: x})
+    rtol, atol = KERAS_IV3_TOL
+    errs = {}
+    for what, key in ((head, "predictions"), ("avg_pool", "avg_pool")):
+        got = acts[what].float().cpu().numpy()
+        ref = g[key]
+        errs[key] = {"max_abs": float(np.abs(got - ref).max()),
+                     "max_rel": float((np.abs(got - ref) /
+                                       np.maximum(np.abs(ref), 1e-30)).max()),
+                     "ok": bool(np.allclose(got, ref, rtol=rtol, atol=atol))}
+    log(f"  InceptionV3 imported: {model.num_params()} params, import "
+        f"{res['import_s']:.1f}s of which {res['weight_draw_s']:.1f}s draw "
+        f"the seeded weights; f32 against Keras on 2 images: " + ", ".join(
+            f"{k} max|diff| {v['max_abs']:.3g} (rel {v['max_rel']:.3g})"
+            for k, v in errs.items()))
+    if not all(v["ok"] for v in errs.values()):
+        raise AssertionError(f"the imported InceptionV3 is not within rtol "
+                             f"{rtol}, atol {atol} of Keras")
+    res["vs_keras"] = errs
+
+    rng = np.random.default_rng(8)
+    side = g["images_u8"].shape[1:]
+    xb = torch.from_numpy(inception_input(rng.integers(
+        0, 256, (KERAS_IV3_SERVE_BATCH,) + side, dtype=np.uint8))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    yb = model.output(xb)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(yb).all():
+        raise AssertionError("InceptionV3 output at batch 128 not finite")
+    ms = cuda_time(lambda: model.output(xb), iters=5, warmup=1)
+    log(f"  f32 output() at {KERAS_IV3_SERVE_BATCH}: {ms:.3f} ms, "
+        f"{1e3 * KERAS_IV3_SERVE_BATCH / ms:.1f} images/s, peak memory "
+        f"{peak / 2**20:.1f} MiB [{card}]")
+    res["serve"] = {"batch": KERAS_IV3_SERVE_BATCH, "output_ms": ms,
+                    "images_per_s": 1e3 * KERAS_IV3_SERVE_BATCH / ms,
+                    "peak_memory_bytes": peak}
+    del xb, yb, acts
+
+    b, k = KERAS_IV3_FT_BATCH, KERAS_IV3_FT_K
+    ft = (TransferLearning.GraphBuilder(model).fine_tune_configuration(
+        FineTuneConfiguration.Builder().updater(Adam(1e-4))
+        .compute_dtype("bfloat16").build())
+        .n_out_replace(head, 200).build())
+    del model
+    x = torch.from_numpy(rng.normal(size=(b,) + side)
+                         .astype(np.float32)).cuda()
+    y = torch.zeros((b, 200), device="cuda")
+    y[torch.arange(b), torch.from_numpy(rng.integers(0, 200, b)).cuda()] = 1
+    xs, ys = x.unsqueeze(0).expand(k, *x.shape), y.unsqueeze(0).expand(
+        k, *y.shape)
+    scan = ft._build_scan_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    (ft.train_state, l0), made = _counted(
+        launches, lambda: scan(ft.train_state, (xs,), (ys,)))
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    losses = [l0]
+    start.record()
+    for _ in range(KERAS_IV3_FT_CALLS - 1):
+        ft.train_state, ls = scan(ft.train_state, (xs,), (ys,))
+        losses.append(ls)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ((KERAS_IV3_FT_CALLS - 1) * k)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).float().cpu().numpy()
+    log(f"  fine-tune bf16 at {b}, K={k}: {step_ms:.3f} ms a step, "
+        f"{1e3 * b / step_ms:.1f} images/s, peak memory {peak / 2**20:.1f} "
+        f"MiB [{card}]; kernel launches {made or 'none'}; losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    if not np.isfinite(losses).all() or losses.max() == losses.min() \
+            or made:
+        raise AssertionError("the InceptionV3 fine-tune loss is not finite "
+                             "or does not move (or a TPU kernel ran)")
+    res["finetune"] = {"batch": b, "k": k, "losses": losses.tolist(),
+                       "step_ms": step_ms, "images_per_s": 1e3 * b / step_ms,
+                       "peak_memory_bytes": peak}
+    out["inception_v3"] = res
+
+
+def _lstm_4a(layer_kw, device):
+    """The committed TextGenerationLSTM's configuration with ``layer_kw``
+    (constraints, weight noise) set on every layer and Sgd(KERAS_4A_LR),
+    on ``device``, from the committed weights."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    base = TextGenerationLSTM().init_pretrained(device=device)
+    conf = base.conf
+    g = dataclasses.replace(conf.global_config, updater=Sgd(KERAS_4A_LR))
+    conf = dataclasses.replace(
+        conf, global_config=g,
+        layers=tuple(dataclasses.replace(l, **layer_kw) for l in conf.layers))
+    m = MultiLayerNetwork(conf, device=device).init()
+    m.set_params(base.params, base.model_state)
+    return m
+
+
+def _keras_4a(out, card, launches):
+    """Constraints, weight noise and the legacy optimizers on the card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.nn.constraints import MaxNormConstraint
+    from deeplearning4j_tpu_torch.nn.distributions import NormalDistribution
+    from deeplearning4j_tpu_torch.nn.weightnoise import (DropConnect,
+                                                         WeightNoise)
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.optimize.legacy import optimize_model
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    res = {}
+    x_np, y_ids, _ = corpus_windows(KERAS_4A_BATCH, 60,
+                                    np.random.default_rng(11))
+    ds = DataSet(x_np, np.eye(77, dtype=np.float32)[y_ids])
+    norms = lambda w: torch.linalg.norm(w.float().reshape(-1, w.shape[-1]),
+                                        dim=0)
+
+    # MaxNorm at the median column norm of the first LSTM's Wx
+    probe = _lstm_4a({}, "cpu")
+    c = float(norms(probe.params["layer_0"]["Wx"]).median())
+    kw = {"constraints": (MaxNormConstraint(max_norm=c),)}
+    card_m, cpu_m, free = (_lstm_4a(kw, "cuda"), _lstm_4a(kw, "cpu"),
+                           _lstm_4a({}, "cuda"))
+    _, made = _counted(launches, lambda: card_m.fit(ds))
+    cpu_m.fit(ds)
+    free.fit(ds)
+    err, worst = rel_param_err(card_m.params, cpu_m.params)
+    top = max(norms(v).max().item() for n, lp in card_m.params.items()
+              for k, v in lp.items() if k != "b")
+    bound = not _same_state(card_m.params, free.params)
+    log(f"  MaxNorm({c:.4f}) on the TextGenerationLSTM, one Sgd step at "
+        f"{KERAS_4A_BATCH} x 60: card vs CPU {err:.3g} ({worst}); largest "
+        f"column norm after {top:.6f}; "
+        f"{'binds' if bound else 'DOES NOT BIND'}; launches {made}")
+    if err > DIGITS_PARAM_TOL or top > c * (1 + 1e-5) or not bound or \
+            made != {"lstm_fwd": 2, "lstm_bwd": 2}:
+        raise AssertionError("the constrained step disagrees with the CPU, "
+                             "leaves a column above the max norm, or did "
+                             "not run through the LSTM kernels")
+    res["max_norm"] = {"max_norm": c, "card_vs_cpu": err, "launches": made}
+    del card_m, cpu_m, free
+
+    # DropConnect at rate 0: its noise is the identity, bitwise, and its
+    # step the plain step within DIGITS_PARAM_TOL (bitwise on the CPU,
+    # tests/test_torch_constraints_noise.py; on an H100 the rate-0 step
+    # read 2.37e-08 from the plain one, which repeats bitwise: the log
+    # names the gradient that differs most); at 0.3 its zeros and its
+    # scaling; a noisy step through the kernels
+    zero, plain, again = (_lstm_4a({"weight_noise": DropConnect(p=0.0)},
+                                   "cuda"), _lstm_4a({}, "cuda"),
+                          _lstm_4a({}, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noised = DropConnect(p=0.0).apply_noise(plain.params, gen)
+    ident = _same_state(noised, plain.params)
+    args = plain._step_args(ds)
+    g_zero = solver.value_and_grad(zero._loss, zero.train_state, *args,
+                                   generator=zero._generator)[2]
+    g_plain = solver.value_and_grad(plain._loss, plain.train_state,
+                                    *args)[2]
+    gdiff = grad_errors(g_zero, g_plain)
+    _, made0 = _counted(launches, lambda: zero.fit(ds))
+    plain.fit(ds)
+    again.fit(ds)
+    same = _same_state(zero.params, plain.params) and \
+        zero.score() == plain.score()
+    repeat = _same_state(again.params, plain.params)
+    err0 = rel_param_err(zero.params, plain.params)[0]
+    err_repeat = rel_param_err(again.params, plain.params)[0]
+    w = plain.params["layer_0"]["Wx"]
+    dropped = DropConnect(p=KERAS_4A_DROP).apply_noise({"Wx": w}, gen)["Wx"]
+    share = (dropped == 0).float().mean().item()
+    sigma = math.sqrt(KERAS_4A_DROP * (1 - KERAS_4A_DROP) / w.numel())
+    kept = dropped != 0
+    scaled = torch.equal(dropped[kept], (w / (1 - KERAS_4A_DROP))[kept])
+    noisy = WeightNoise(NormalDistribution(0.0, KERAS_4A_NOISE)).apply_noise(
+        {"Wx": w}, gen)["Wx"] - w
+    mean, std = noisy.mean().item(), noisy.std().item()
+    noisy_m = _lstm_4a({"weight_noise": DropConnect(p=KERAS_4A_DROP)},
+                       "cuda")
+    _, made1 = _counted(launches, lambda: noisy_m.fit(ds))
+    log(f"  DropConnect(0): noise "
+        f"{'the identity' if ident else 'NOT the identity'}; its step "
+        f"{'bitwise' if same else 'not bitwise'} the "
+        f"plain step ({err0:.3g}; the plain step against its repeat "
+        f"{'bitwise' if repeat else f'{err_repeat:.3g}'}; gradients rel "
+        f"L2 worst {gdiff['worst']:.3g} ({gdiff['name']}); launches "
+        f"{made0}); DropConnect({KERAS_4A_DROP}) zeros "
+        f"{share:.5f} (sigma {sigma:.2g}), kept weights "
+        f"{'exactly' if scaled else 'NOT'} w/(1-p); WeightNoise N(0, "
+        f"{KERAS_4A_NOISE}) mean {mean:.3g}, std {std:.5f}; a DropConnect "
+        f"step: loss {noisy_m.score():.4f}, launches {made1}")
+    if not ident or err0 > DIGITS_PARAM_TOL or \
+            abs(share - KERAS_4A_DROP) > 5 * sigma or not scaled or \
+            abs(mean) > 5 * KERAS_4A_NOISE / math.sqrt(w.numel()) or \
+            abs(std / KERAS_4A_NOISE - 1) > 0.02 or \
+            not math.isfinite(noisy_m.score()) or \
+            made1 != {"lstm_fwd": 2, "lstm_bwd": 2}:
+        raise AssertionError("weight noise: the rate-0 step is not the plain "
+                             "step, or the noise's statistics are off")
+    res["weight_noise"] = {"rate0_identity": ident, "rate0_bitwise": same,
+                           "rate0_err": err0, "plain_repeat_bitwise": repeat,
+                           "plain_repeat_err": err_repeat,
+                           "rate0_grad_rel_l2": gdiff, "zero_share": share,
+                           "noise_mean": mean, "noise_std": std}
+    del zero, plain, again, noisy_m
+
+    # LBFGS and conjugate gradient on the digits LeNet from its seed
+    images, labels = DigitsDataSetIterator.fetch(train=True)
+    dd = DataSet(images[:KERAS_4A_ROWS], np.eye(10, dtype=np.float32)[
+        labels[:KERAS_4A_ROWS]])
+    res["legacy"] = {}
+    for algo in ("lbfgs", "cg"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = LeNet().init(device=dev)
+            t0 = time.perf_counter()
+            with torch.backends.cudnn.flags(enabled=False):
+                r = optimize_model(m, dd, algo, KERAS_4A_ITERS, 0.0)
+            runs[dev] = (m, r, time.perf_counter() - t0)
+        (mc, rc, sc), (mp, rp, _) = runs["cuda"], runs["cpu"]
+        perr, worst = rel_param_err(mc.params, mp.params)
+        lerr = abs(rc.loss - rp.loss) / abs(rp.loss)
+        log(f"  {algo}: {rc.iterations} iterations, loss {rc.loss:.6f} "
+            f"(CPU {rp.loss:.6f}, {rp.iterations}); card vs CPU loss rel "
+            f"{lerr:.3g}, params {perr:.3g} ({worst}); {sc:.2f}s on the card "
+            "(cuDNN off)")
+        if rc.iterations != rp.iterations or rc.iterations < 1 or \
+                lerr > DIGITS_PARAM_TOL or perr > DIGITS_PARAM_TOL:
+            raise AssertionError(f"{algo} on the card disagrees with the CPU")
+        res["legacy"][algo] = {"iterations": rc.iterations, "loss": rc.loss,
+                               "loss_rel_err": lerr, "param_err": perr,
+                               "seconds": sc}
+    out["item_4a"] = res
+
+
+def phase_keras_import(report, card):
+    """The Keras importer on the card; returns the flash and LSTM kernel
+    launches of its main paths."""
+    import torch
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    for name, part in (("fixtures", _keras_fixtures),
+                       ("bert_base", _keras_bert),
+                       ("inception_v3", _keras_inception),
+                       ("item_4a", _keras_4a)):
+        t1 = time.perf_counter()
+        log(f"  [{name}]")
+        part(out, card, launches)
+        torch.cuda.empty_cache()
+        log(f"  ({time.perf_counter() - t1:.1f}s)")
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(launches)
+    log(f"  keras_import phase: {out['seconds']:.1f}s, main-path launches "
+        f"{launches} [{card}]")
+    report["keras_import"] = out
+    return launches
+
+
 def main(argv=None) -> int:
+    global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
-                    "rnn_tbptt,zoo",
+                    "rnn_tbptt,zoo,keras_import",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -4372,135 +5190,162 @@ def main(argv=None) -> int:
     # the port itself (fails in a directory without the repository)
     from deeplearning4j_tpu_torch.ops import cuda_build
 
-    report = {}
+    # every run keeps its own log and report
+    run_dir = os.path.join("chiprun_out", time.strftime(
+        "%Y%m%dT%H%M%SZ", time.gmtime()) + f"-{os.getpid()}")
+    os.makedirs(run_dir, exist_ok=True)
+    _RUN_LOG = open(os.path.join(run_dir, "chip_smoke.log"), "w")
+    report = {"run_dir": run_dir, "phases": sorted(phases),
+              "phase_seconds": {}}
+    log(f"[run] log and report in {run_dir}")
+
+    def phase(name, fn):
+        """``fn()``, its seconds recorded; a failure is named with its
+        phase and its traceback, then raised again."""
+        t0 = time.perf_counter()
+        try:
+            result = fn()
+        except BaseException as e:
+            log(f"[fail] phase={name}: {type(e).__name__}: {e}")
+            log(traceback.format_exc().rstrip())
+            raise
+        report["phase_seconds"][name] = time.perf_counter() - t0
+        log(f"[{name}] {report['phase_seconds'][name]:.1f}s")
+        return result
+
+    try:
+        return _run(args, phases, report, phase, torch, cuda_build)
+    finally:
+        with open(os.path.join(run_dir, "chip_smoke.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        _RUN_LOG.close()
+        _RUN_LOG = None
+
+
+def _run(args, phases, report, phase, torch, cuda_build) -> int:
     card = card_line()
-    log(f"[env] {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x"
-        f"{torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    report["card"] = card
+
+    def env():
+        log(f"[env] {card}; torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x"
+            f"{torch.cuda.device_count()}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        report["card"] = card
+    phase("env", env)
 
     if "build" in phases:
-        t0 = time.perf_counter()
-        cuda_build.build()
-        report["build_seconds"] = time.perf_counter() - t0
-        log(f"[build] {report['build_seconds']:.1f}s")
-        report["ptxas"] = {}
-        for name, (sec, text) in cuda_build.build_log.items():
-            report["ptxas"][name] = ptxas_report(text)
-            for fn, regs, spills in report["ptxas"][name]:
-                log(f"  {name}: {fn[:60]} registers={regs} spills={spills}")
-        report["hmma"] = hmma_counts(cuda_build, MMA_SOURCES)
+        def build():
+            t0 = time.perf_counter()
+            cuda_build.build()
+            report["build_seconds"] = time.perf_counter() - t0
+            log(f"[build] {report['build_seconds']:.1f}s")
+            report["ptxas"] = {}
+            for name, (sec, text) in cuda_build.build_log.items():
+                report["ptxas"][name] = ptxas_report(text)
+                for fn, regs, spills in report["ptxas"][name]:
+                    log(f"  {name}: {fn[:60]} registers={regs} "
+                        f"spills={spills}")
+            report["hmma"] = hmma_counts(cuda_build, MMA_SOURCES)
+        phase("build", build)
 
     summary = {}
     if "kernels" in phases:
-        log("[kernels] every path shape at batch 32, f32 and bf16")
-        summary = phase_kernels(report)
-        log("[kernels] lstm_fwd and lstm_bwd at (T, N, H) = "
-            f"{list(LSTM_SHAPES.values())}, f32 and bf16, masked or not")
-        rows = phase_lstm_kernels(torch.Generator(device="cuda")
-                                  .manual_seed(0))
-        report["lstm_kernel_calls"] = rows
-        if not all(r["ok"] and r["bitwise_repeat"] for r in rows):
-            raise AssertionError("an LSTM kernel disagrees with its plain "
-                                 "version or differs between two runs")
-        for name in ("lstm_fwd", "lstm_bwd"):
-            summary[name] = _lstm_summary(name, rows)
-        log("[kernels] flash_fwd, flash_bwd_dkv and flash_bwd_dq at "
-            f"(N, T, H, Dh) = {ATTN_SLICE} (f32 and bf16; unmasked, ragged "
-            f"key mask, causal), (N, T) = {list(ATTN_LONG)} bf16 causal or "
-            f"not, {ATTN_EDGE} f32 and bf16 causal with masked rows, and "
-            "batch "
-            f"{BERT_TRAIN_BATCH} bf16 unmasked (bert_train's calls)")
-        rows = phase_attn_kernels(torch.Generator(device="cuda")
-                                  .manual_seed(0))
-        report["attn_kernel_calls"] = rows
-        if not all(r["ok"] and r["bitwise_repeat"] for r in rows):
-            raise AssertionError("a flash kernel disagrees with its plain "
-                                 "version or differs between two runs")
-        for name in ATTN_KERNELS:
-            summary[name] = _attn_summary(name, rows)
+        def kernels():
+            log("[kernels] every path shape at batch 32, f32 and bf16")
+            summary.update(phase_kernels(report))
+            log("[kernels] lstm_fwd and lstm_bwd at (T, N, H) = "
+                f"{list(LSTM_SHAPES.values())}, f32 and bf16, masked or not")
+            rows = phase_lstm_kernels(torch.Generator(device="cuda")
+                                      .manual_seed(0))
+            report["lstm_kernel_calls"] = rows
+            if not all(r["ok"] and r["bitwise_repeat"] for r in rows):
+                raise AssertionError("an LSTM kernel disagrees with its "
+                                     "plain version or differs between two "
+                                     "runs")
+            for name in ("lstm_fwd", "lstm_bwd"):
+                summary[name] = _lstm_summary(name, rows)
+            log("[kernels] flash_fwd, flash_bwd_dkv and flash_bwd_dq at "
+                f"(N, T, H, Dh) = {ATTN_SLICE} (f32 and bf16; unmasked, "
+                f"ragged key mask, causal), (N, T) = {list(ATTN_LONG)} bf16 "
+                f"causal or not, {ATTN_EDGE} f32 and bf16 causal with masked "
+                f"rows, batch {BERT_TRAIN_BATCH} bf16 unmasked (bert_train's "
+                f"calls), {ATTN_KERAS} f32 and bf16 (the imported Keras "
+                f"attention fixture) and batch {KERAS_BERT_FT_BATCH} bf16 "
+                "(the imported BERT fine-tune)")
+            rows = phase_attn_kernels(torch.Generator(device="cuda")
+                                      .manual_seed(0))
+            report["attn_kernel_calls"] = rows
+            if not all(r["ok"] and r["bitwise_repeat"] for r in rows):
+                raise AssertionError("a flash kernel disagrees with its "
+                                     "plain version or differs between two "
+                                     "runs")
+            for name in ATTN_KERNELS:
+                summary[name] = _attn_summary(name, rows)
+        phase("kernels", kernels)
 
     launches = {name: 0 for name in SOURCES}
-    if "slice" in phases:
-        log("[slice] ResNet50 64x64x3/200 bf16 served through ServingEngine")
-        for name, n in phase_slice(report, card, args.profile).items():
-            launches[name] += n
-    if "train" in phases:
-        log(f"[train] ResNet50 64x64x3/200 bf16, batch {TRAIN_BATCH}, "
-            f"K={TRAIN_K} steps per call")
-        for name, n in phase_train(report, card, args.profile).items():
-            launches[name] += n
-    if "lstm_serve" in phases:
-        log(f"[lstm_serve] pretrained TextGenerationLSTM f32: output() on "
-            f"{LSTM_SERVE_WINDOWS} windows of 60, {GEN_CHARS} greedy chars")
-        for name, n in phase_lstm_serve(report, card, args.profile).items():
-            launches[name] += n
-    if "lstm_train" in phases:
-        log(f"[lstm_train] TextGenerationLSTM f32, batch {LSTM_TRAIN_BATCH}"
-            f" x 60, Adam(2e-3) + clip 5, K={LSTM_TRAIN_K} steps per call")
-        for name, n in phase_lstm_train(report, card, args.profile).items():
-            launches[name] += n
+
+    def run(name, note, fn):
+        if name in phases:
+            log(f"[{name}] {note}")
+            for k, n in (phase(name, fn) or {}).items():
+                launches[k] += n
+
+    run("slice", "ResNet50 64x64x3/200 bf16 served through ServingEngine",
+        lambda: phase_slice(report, card, args.profile))
+    run("train", f"ResNet50 64x64x3/200 bf16, batch {TRAIN_BATCH}, "
+        f"K={TRAIN_K} steps per call",
+        lambda: phase_train(report, card, args.profile))
+    run("lstm_serve", f"pretrained TextGenerationLSTM f32: output() on "
+        f"{LSTM_SERVE_WINDOWS} windows of 60, {GEN_CHARS} greedy chars",
+        lambda: phase_lstm_serve(report, card, args.profile))
+    run("lstm_train", f"TextGenerationLSTM f32, batch {LSTM_TRAIN_BATCH} x "
+        f"60, Adam(2e-3) + clip 5, K={LSTM_TRAIN_K} steps per call",
+        lambda: phase_lstm_train(report, card, args.profile))
     bert = (f"{BERT['blocks']} x {BERT['width']}/{BERT['heads']} heads, "
             f"vocab {BERT['vocab']}, seq {BERT['seq']}")
-    if "bert_serve" in phases:
-        log(f"[bert_serve] BERT-base geometry ({bert}) bf16: output() on "
-            f"{BERT_SERVE_BATCH} x {BERT['seq']} ids")
-        for name, n in phase_bert_serve(report, card, args.profile).items():
-            launches[name] += n
-    if "bert_train" in phases:
-        log(f"[bert_train] BERT-base geometry ({bert}) bf16, Adam(1e-4), "
-            f"batch {BERT_TRAIN_BATCH} x {BERT['seq']}, K={BERT_TRAIN_K} "
-            "steps per call")
-        for name, n in phase_bert_train(report, card, args.profile).items():
-            launches[name] += n
+    run("bert_serve", f"BERT-base geometry ({bert}) bf16: output() on "
+        f"{BERT_SERVE_BATCH} x {BERT['seq']} ids",
+        lambda: phase_bert_serve(report, card, args.profile))
+    run("bert_train", f"BERT-base geometry ({bert}) bf16, Adam(1e-4), batch "
+        f"{BERT_TRAIN_BATCH} x {BERT['seq']}, K={BERT_TRAIN_K} steps per "
+        "call", lambda: phase_bert_train(report, card, args.profile))
     # the digits slice runs no kernel of SOURCES (plain torch convolutions)
-    if "digits_eval" in phases:
-        log("[digits_eval] pretrained LeNet and SimpleCNN on the held-out "
-            "UCI digits, card against CPU")
-        phase_digits_eval(report, card)
-    if "digits_train" in phases:
-        log(f"[digits_train] LeNet f32 Adam(1e-3) from scratch, "
-            f"fit(DigitsDataSetIterator({DIGITS_BATCH}), "
-            f"epochs={DIGITS_EPOCHS}); updaters; SimpleCNN two epochs")
-        phase_digits_train(report, card, args.profile)
+    run("digits_eval", "pretrained LeNet and SimpleCNN on the held-out UCI "
+        "digits, card against CPU", lambda: phase_digits_eval(report, card))
+    run("digits_train", f"LeNet f32 Adam(1e-3) from scratch, "
+        f"fit(DigitsDataSetIterator({DIGITS_BATCH}), "
+        f"epochs={DIGITS_EPOCHS}); updaters; SimpleCNN two epochs",
+        lambda: phase_digits_train(report, card, args.profile))
     # the generation engine runs no kernel of SOURCES (plain torch ticks)
-    if "generate" in phases:
-        log(f"[generate] GenerationEngine over the pretrained "
-            f"TextGenerationLSTM f32, {GEN_SLOTS} slots: {GEN_STREAMS} "
-            f"staggered greedy streams of {GEN_NEW} tokens, bucket "
-            "invariance, chunked/speculative/session modes, int8 and bf16 "
-            "heads")
-        phase_generate(report, card, args.profile)
-    if "serve_http" in phases:
-        log("[serve_http] python -m deeplearning4j_tpu_torch serve: the "
-            "ResNet50 zip (bf16) over /api/predict and the fleet front "
-            "door, the TextGenerationLSTM zip's predict and SSE "
-            "generation, the entry point in a subprocess")
-        for name, n in phase_serve_http(report, card).items():
-            launches[name] += n
-    if "rnn_tbptt" in phases:
-        log(f"[rnn_tbptt] TextGenerationLSTM f32 by TBPTT ({TBPTT_BATCHES} "
-            f"batches of {TBPTT_BATCH} x {TBPTT_CHARS} chars, segments of "
-            f"{TBPTT_K}, one of {TBPTT_RAGGED}), the chain against the plain "
-            "path, streaming; the recurrent layers at width "
-            f"{FAMILY_H}; the streaming graph; Graves generation")
-        for name, n in phase_rnn_tbptt(report, card, args.profile).items():
-            launches[name] += n
+    run("generate", f"GenerationEngine over the pretrained "
+        f"TextGenerationLSTM f32, {GEN_SLOTS} slots: {GEN_STREAMS} "
+        f"staggered greedy streams of {GEN_NEW} tokens, bucket invariance, "
+        "chunked/speculative/session modes, int8 and bf16 heads",
+        lambda: phase_generate(report, card, args.profile))
+    run("serve_http", "python -m deeplearning4j_tpu_torch serve: the "
+        "ResNet50 zip (bf16) over /api/predict and the fleet front door, "
+        "the TextGenerationLSTM zip's predict and SSE generation, the entry "
+        "point in a subprocess", lambda: phase_serve_http(report, card))
+    run("rnn_tbptt", f"TextGenerationLSTM f32 by TBPTT ({TBPTT_BATCHES} "
+        f"batches of {TBPTT_BATCH} x {TBPTT_CHARS} chars, segments of "
+        f"{TBPTT_K}, one of {TBPTT_RAGGED}), the chain against the plain "
+        f"path, streaming; the recurrent layers at width {FAMILY_H}; the "
+        "streaming graph; Graves generation",
+        lambda: phase_rnn_tbptt(report, card, args.profile))
     # the model library runs no kernel of SOURCES on its main path (its
     # xla-vs-pallas gradient check launches kernels 1-6 to compare them)
-    if "zoo" in phases:
-        log("[zoo] the bench ResNet50 (64x64x3/200 bf16) fused_impl=\"xla\" "
-            "and unfused beside pallas; the Gram rule; VGG16 train + serve; "
-            "YOLO2 416x416; the rest of the zoo card vs CPU; LeNet "
-            "transfer")
-        for name, n in phase_zoo(report, card).items():
-            launches[name] += n
-
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1, default=str)
+    run("zoo", "the bench ResNet50 (64x64x3/200 bf16) fused_impl=\"xla\" "
+        "and unfused beside pallas; the Gram rule; VGG16 train + serve; "
+        "YOLO2 416x416; the rest of the zoo card vs CPU; LeNet transfer",
+        lambda: phase_zoo(report, card))
+    run("keras_import", "the 14 Keras fixtures, the imported BERT-base "
+        "(f32 against Keras, bf16 output, the bf16 fine-tune with the "
+        "shadow cast, the frozen encoder) and InceptionV3 at 299 (against "
+        "Keras, inference, the fine-tune) from committed configurations; "
+        "constraints, weight noise, LBFGS and CG",
+        lambda: phase_keras_import(report, card))
 
     kernels = []
     for name, k in summary.items():
@@ -4509,16 +5354,22 @@ def main(argv=None) -> int:
         # the main paths' launches: served traffic (in-process and over
         # HTTP) and the K-step train call (conv kernels); scoring,
         # generation, HTTP predict, the K-step train call, the TBPTT
-        # batches, the streamed rnn_time_step calls and the TBPTT graph
-        # (LSTM kernels); two output() calls and the K-step train call
-        # (flash kernels)
+        # batches, the streamed rnn_time_step calls, the TBPTT graph, the
+        # imported LSTM fixtures and the constrained and noisy
+        # TextGenerationLSTM steps (LSTM kernels); two output() calls, the
+        # K-step train call, the imported BERT-base's output, fine-tune
+        # and frozen-encoder calls and the Keras attention fixture (flash
+        # kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             entry[key] = k[key]
         kernels.append(entry)
+    report["kernels_line"] = kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
+    if _RUN_LOG is not None:
+        _RUN_LOG.write(json.dumps({"kernels": kernels}) + f"\n{card}\n")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

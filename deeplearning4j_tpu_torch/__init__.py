@@ -28,7 +28,10 @@ fleet front door (``parallel.fleet.FleetRouter``). Recurrent models
 (``nn.layers.recurrent``: LSTM, GravesLSTM, SimpleRnn, the bidirectional
 and wrapper layers) train by truncated BPTT on both model types, the
 LSTM segments through the same two kernels, and a ``ComputationGraph``
-streams them with stored state (``rnn_time_step``).
+streams them with stored state (``rnn_time_step``). ``modelimport``
+imports Keras models (``.h5``, ``.keras``) onto the card, where an
+imported attention runs the flash kernels and an imported LSTM the LSTM
+kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.

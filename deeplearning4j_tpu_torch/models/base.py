@@ -21,8 +21,10 @@ numpy evaluation classes (evaluation/evaluation.py). ``score`` and
 advanced by each step (the JAX package's host mirror of its device
 scalar). The port has no autotune, so ``k_steps`` and ``prefetch`` are
 the caller's or the defaults (1 and ``feeder.DEFAULT_DEPTH``).
-Listeners, telemetry, the tracer and the flight recorder are not ported
-yet (ROADMAP).
+``conf_global`` is the configuration's global part and ``clone`` a
+copy that trains on independently (``_clone_into``). Listeners,
+telemetry, the tracer, the flight recorder and layerwise ``pretrain``
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from deeplearning4j_tpu_torch.evaluation.evaluation import (
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     carry_core, first_bidirectional_name, warn_tbptt_bidirectional)
 from deeplearning4j_tpu_torch.optimize.solver import (TrainState,
+                                                      make_constrain_fn,
                                                       make_tbptt_train_step)
 from deeplearning4j_tpu_torch.optimize.updaters import tree_leaves, tree_map
 
@@ -189,8 +192,9 @@ class BaseModel:
                 for name, _, is_lstm in self._recurrent_carry_nodes()}
 
     def _build_tbptt_step(self):
-        self._check_trainable()
-        return make_tbptt_train_step(self._loss, self._tx, self._carries_of)
+        return make_tbptt_train_step(
+            self._loss, self._tx, self._carries_of,
+            make_constrain_fn(self._constraint_layers()))
 
     def _start_tbptt(self, batch_size: int) -> Dict[str, Any]:
         """Warn about a bidirectional layer (its backward direction is cut
@@ -301,12 +305,43 @@ class BaseModel:
     def num_params(self) -> int:
         return sum(v.numel() for v in tree_leaves(self.params or {}))
 
+    @property
+    def conf_global(self):
+        """The configuration's global settings (seed, updater, compute
+        dtype, ...)."""
+        return self.conf.global_config
+
+    def _clone_into(self, m: "BaseModel") -> "BaseModel":
+        """``m`` (a fresh model of this configuration, not initialized)
+        given copies of this model's parameters, state, optimizer state,
+        counters and generator state: the two then train independently
+        from the same point."""
+        if self.params is not None:
+            m._tx = m._make_tx()
+            m.params, m.model_state, m.opt_state = (
+                _copy_tree(t) for t in (self.params, self.model_state,
+                                        self.opt_state))
+            m.iteration = self.iteration
+            m.epoch_count = self.epoch_count
+            m._generator = torch.Generator(device=self.device)
+            m._generator.set_state(self._generator.get_state())
+        return m
+
     def _as_tensor(self, a) -> Optional[torch.Tensor]:
         if a is None:
             return None
         if isinstance(a, torch.Tensor):
             return a.to(self.device)
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+
+def _copy_tree(tree):
+    """A copy of nested dicts, lists and tuples whose tensors are cloned."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def conform(template: Tree, new: Tree, device: torch.device,

@@ -43,6 +43,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.nn.layers.recurrent import \
     first_bidirectional_name
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
+                                                      make_constrain_fn,
                                                       make_scan_train_step,
                                                       make_train_step)
 from deeplearning4j_tpu_torch.optimize.updaters import (tree_leaves,
@@ -145,6 +146,7 @@ class ComputationGraph(BaseModel):
                 self.conf.layer_input_type(name), RecurrentType) else None)
             ctx = LayerContext(train=train, generator=generator, mask=mask)
             lp = cast_params(params.get(name, {}), dt)
+            lp = node.layer.apply_weight_noise(lp, ctx)
             if stop_before_loss and name in self.conf.network_outputs and \
                     hasattr(node.layer, "compute_loss"):
                 acts[name] = (x, lp, ctx)
@@ -201,21 +203,18 @@ class ComputationGraph(BaseModel):
                                                                    {}))
         return total, tree_map(lambda t: t.detach(), new_state)
 
-    def _check_trainable(self):
-        for n in self._layer_nodes:
-            if n.layer.constraints or n.layer.weight_noise is not None:
-                raise NotImplementedError(
-                    f"layer '{n.name}': constraints and weight noise are not "
-                    "ported yet")
+    def _constraint_layers(self):
+        return [n.layer for n in self._layer_nodes]
 
     def _build_train_step(self):
-        self._check_trainable()
-        return make_train_step(self._loss, self._tx)
+        return make_train_step(self._loss, self._tx,
+                               make_constrain_fn(self._constraint_layers()))
 
-    def _build_scan_train_step(self):
+    def _build_scan_train_step(self, shadow_cast=None):
         """K steps per call over (K, B, ...) tuples of inputs/labels."""
-        self._check_trainable()
-        return make_scan_train_step(self._loss, self._tx)
+        return make_scan_train_step(
+            self._loss, self._tx, make_constrain_fn(self._constraint_layers()),
+            shadow_cast=shadow_cast)
 
     def _step_args(self, batch):
         """(features, labels, fmasks, lmasks) tuples on the device."""
@@ -444,15 +443,25 @@ class ComputationGraph(BaseModel):
         return outs[0] if len(outs) == 1 else outs
 
     def summary(self) -> str:
+        """One line a node (name, type, inputs, parameter count) and the
+        total, in the JAX package's layout."""
         lines = [f"{'name':<24}{'type':<26}{'inputs':<30}{'params':>10}"]
         for name in self._topo:
             node = self._nodes[name]
             kind = (type(node.layer).__name__ if node.layer is not None
                     else type(node.vertex).__name__)
-            n = sum(v.numel() for v in (self.params or {}).get(name,
-                                                                {}).values())
+            n = 0
+            if self.params is not None and node.layer is not None:
+                n = sum(v.numel()
+                        for v in tree_leaves(self.params.get(name, {})))
             lines.append(f"{name:<24}{kind:<26}"
                          f"{','.join(node.inputs):<30}{n:>10}")
-        lines.append(f"total params: {self.num_params()}")
+        if self.params is not None:
+            lines.append(f"total params: {self.num_params()}")
         return "\n".join(lines)
 
+    def clone(self) -> "ComputationGraph":
+        """An independent copy on the same device (see
+        ``MultiLayerNetwork.clone``)."""
+        return self._clone_into(ComputationGraph(self.conf,
+                                                 device=self.device))

@@ -37,9 +37,10 @@ from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.nn.layers.recurrent import carry_core
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
+                                                      make_constrain_fn,
                                                       make_scan_train_step,
                                                       make_train_step)
-from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+from deeplearning4j_tpu_torch.optimize.updaters import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # recurrent layer name -> (h, c) of an LSTM core, or h of a SimpleRnn
@@ -148,6 +149,7 @@ class MultiLayerNetwork(BaseModel):
                                        RecurrentType) else None
             ctx = LayerContext(train=train, generator=generator, mask=mask)
             lp = cast_params(params.get(layer.name, {}), dt)
+            lp = layer.apply_weight_noise(lp, ctx)
             st = model_state.get(layer.name, {})
             if carries is not None and layer.name in carries:
                 x, new_state[layer.name] = layer.apply(
@@ -183,6 +185,7 @@ class MultiLayerNetwork(BaseModel):
         ctx = LayerContext(train=True, generator=generator, mask=mask)
         out_lp = cast_params(params.get(out.name, {}),
                              self.conf.global_config.compute_dtype)
+        out_lp = out.apply_weight_noise(out_lp, ctx)
         loss = out.compute_loss(out_lp, model_state.get(out.name, {}), x,
                                 labels, ctx)
         reg = torch.zeros((), dtype=torch.float32, device=loss.device)
@@ -192,21 +195,18 @@ class MultiLayerNetwork(BaseModel):
         new_state = tree_map(lambda t: t.detach(), new_state)
         return loss.to(acc) + reg.to(acc), new_state
 
-    def _check_trainable(self):
-        for l in self.layers:
-            if l.constraints or l.weight_noise is not None:
-                raise NotImplementedError(
-                    f"layer '{l.name}': constraints and weight noise are not "
-                    "ported yet")
+    def _constraint_layers(self):
+        return self.layers
 
     def _build_train_step(self):
-        self._check_trainable()
-        return make_train_step(self._loss, self._tx)
+        return make_train_step(self._loss, self._tx,
+                               make_constrain_fn(self._constraint_layers()))
 
-    def _build_scan_train_step(self):
+    def _build_scan_train_step(self, shadow_cast=None):
         """K steps per call over (K, B, ...) staged tensors."""
-        self._check_trainable()
-        return make_scan_train_step(self._loss, self._tx)
+        return make_scan_train_step(
+            self._loss, self._tx, make_constrain_fn(self._constraint_layers()),
+            shadow_cast=shadow_cast)
 
     def _named_layers(self):
         return [(l.name, l) for l in self.layers]
@@ -299,6 +299,29 @@ class MultiLayerNetwork(BaseModel):
                                     self._as_tensor(features), None, train,
                                     collect=True)
         return acts
+
+    # ---- misc -----------------------------------------------------------
+    def summary(self) -> str:
+        """One line a layer (index, name, type, parameter count, output
+        shape) and the total, in the JAX package's layout."""
+        lines = [f"{'idx':<4}{'name':<22}{'type':<26}{'params':>10}  out"]
+        for i, l in enumerate(self.layers):
+            n = 0
+            if self.params is not None:
+                n = sum(v.numel()
+                        for v in tree_leaves(self.params.get(l.name, {})))
+            out_t = l.output_type(self._input_types[i])
+            lines.append(f"{i:<4}{l.name:<22}{type(l).__name__:<26}"
+                         f"{n:>10}  {out_t.shape()}")
+        lines.append("total params: "
+                     f"{self.num_params() if self.params is not None else '?'}")
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """An independent copy on the same device: the same configuration,
+        parameters, state, optimizer state and counters (no re-init)."""
+        return self._clone_into(MultiLayerNetwork(self.conf,
+                                                  device=self.device))
 
     def rnn_time_step(self, features, carries: Optional[Carries] = None
                       ) -> Tuple[torch.Tensor, Carries]:

@@ -47,6 +47,9 @@ def _ensure_registry():
     import deeplearning4j_tpu_torch.nn.graph.vertices  # noqa: F401
     import deeplearning4j_tpu_torch.nn.preprocessors  # noqa: F401
     import deeplearning4j_tpu_torch.nn.config  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.constraints  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.distributions  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.weightnoise  # noqa: F401
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -61,8 +61,8 @@ class Layer:
     updater: Optional[Updater] = None   # per-layer override; None = global
     frozen: bool = False
     dtype: Optional[str] = None   # param dtype override ("float32"/"bfloat16")
-    weight_noise: Optional[Any] = None
-    constraints: Tuple = ()
+    weight_noise: Optional[Any] = None  # nn.weightnoise.IWeightNoise
+    constraints: Tuple = ()             # nn.constraints.LayerConstraint s
 
     # ---- contract -------------------------------------------------------
     def output_type(self, input_type: InputType) -> InputType:
@@ -120,6 +120,16 @@ class Layer:
             return Dropout(float(self.dropout)).apply_dropout(
                 x, ctx.generator)
         return self.dropout.apply_dropout(x, ctx.generator)
+
+    def apply_weight_noise(self, params: Params,
+                           ctx: LayerContext) -> Params:
+        """``params`` perturbed for this forward pass when a weight-noise
+        conf is set, in training with a generator (reference:
+        conf/weightnoise/, BaseLayer.getParamWithNoise); else unchanged."""
+        if self.weight_noise is None or not ctx.train \
+                or ctx.generator is None or not params:
+            return params
+        return self.weight_noise.apply_noise(params, ctx.generator)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -122,19 +122,30 @@ def value_and_grad(loss_fn: LossFn, ts: TrainState, features, labels,
 
 
 def _update(loss_fn: LossFn, tx: GradientTransformation, ts: TrainState,
-            features, labels, fmask, lmask, generator):
-    """(new train state, loss) of one optimizer step."""
-    loss, new_ms, grads = value_and_grad(loss_fn, ts, features, labels,
+            features, labels, fmask, lmask, generator,
+            constrain_fn=None, shadow=None):
+    """(new train state, loss) of one optimizer step. With ``shadow`` (a
+    low-precision copy of ``ts.params``) the forward and backward run on
+    the shadow and its gradients are cast to the masters' dtypes before
+    the update; ``constrain_fn`` projects the new parameters."""
+    work = ts if shadow is None else ts._replace(params=shadow)
+    loss, new_ms, grads = value_and_grad(loss_fn, work, features, labels,
                                          fmask, lmask, generator)
     with torch.no_grad():
+        if shadow is not None:
+            grads = tree_map(lambda g, p: g.to(p.dtype), grads, ts.params)
         updates, new_opt = tx.update(grads, ts.opt_state, ts.params)
         new_params = apply_updates(ts.params, updates)
+        if constrain_fn is not None:
+            new_params = constrain_fn(new_params)
     return TrainState(new_params, new_ms, new_opt, ts.iteration + 1), loss
 
 
-def make_train_step(loss_fn: LossFn, tx: GradientTransformation):
+def make_train_step(loss_fn: LossFn, tx: GradientTransformation,
+                    constrain_fn=None):
     """``loss_fn(params, model_state, features, labels, fmask, lmask,
-    generator, iteration) -> (loss, new_model_state)``.
+    generator, iteration) -> (loss, new_model_state)``; ``constrain_fn``
+    (``make_constrain_fn``) projects the parameters after each update.
 
     Returns ``step(train_state, features, labels, fmask, lmask,
     generator) -> (new_train_state, loss)``; the loss stays on the
@@ -142,12 +153,13 @@ def make_train_step(loss_fn: LossFn, tx: GradientTransformation):
     def step(ts: TrainState, features, labels, fmask=None, lmask=None,
              generator=None):
         return _update(loss_fn, tx, ts, features, labels, fmask, lmask,
-                       generator)
+                       generator, constrain_fn)
     return step
 
 
 def make_tbptt_train_step(loss_fn: LossFn, tx: GradientTransformation,
-                          carries_of: Callable[[Any], Any]):
+                          carries_of: Callable[[Any], Any],
+                          constrain_fn=None):
     """One truncated-BPTT segment (reference: doTruncatedBPTT).
 
     ``loss_fn`` is ``make_train_step``'s with a ``carries=`` keyword (the
@@ -162,7 +174,7 @@ def make_tbptt_train_step(loss_fn: LossFn, tx: GradientTransformation,
         def lf(*args):
             return loss_fn(*args, carries=carries)
         ts, loss = _update(lf, tx, ts, features, labels, fmask, lmask,
-                           generator)
+                           generator, constrain_fn)
         return ts, loss, carries_of(ts.model_state)
     return step
 
@@ -175,24 +187,66 @@ def _at(batch, i):
     return batch[i]
 
 
-def make_scan_train_step(loss_fn: LossFn, tx: GradientTransformation):
+def make_scan_train_step(loss_fn: LossFn, tx: GradientTransformation,
+                         constrain_fn=None, shadow_cast=None):
     """K optimizer steps in one call over pre-staged (K, B, ...) device
     tensors (features/labels, or tuples of them, and masks or None).
 
     Returns ``steps(train_state, features, labels, fmask, lmask,
     generator) -> (new_train_state, losses)``: the K per-step losses as
     one device tensor, with no host sync inside the call; the iteration
-    count advances by K."""
-    step = make_train_step(loss_fn, tx)
+    count advances by K.
 
+    ``shadow_cast``: optional ``params -> low-precision params`` (e.g.
+    ``lambda p: cast_params(p, "bfloat16")``), the JAX package's bf16
+    shadow. The call carries a cast copy of the parameters beside the
+    f32 masters: each step's forward and backward consume the shadow
+    (the model's own ``cast_params`` is then a no-op), the gradients are
+    cast to the masters' dtypes, the optimizer updates the masters, and
+    the shadow is refreshed right after the update. The values the
+    layers see are the ones the model's own cast gives, and the backward
+    of that cast is the same cast of the gradient, so the losses and
+    parameters are bitwise those of the same steps without it. (Eagerly
+    the cast is not fused into the update as XLA fuses it; it moves from
+    the top of the loss to the end of the step.)"""
     def steps(ts: TrainState, features, labels, fmask=None, lmask=None,
               generator=None):
         first = features[0] if isinstance(features, (tuple, list)) \
             else features
+        shadow = None
+        if shadow_cast is not None:
+            with torch.no_grad():
+                shadow = shadow_cast(ts.params)
         losses = []
         for i in range(first.shape[0]):
-            ts, loss = step(ts, _at(features, i), _at(labels, i),
-                            _at(fmask, i), _at(lmask, i), generator)
+            ts, loss = _update(loss_fn, tx, ts, _at(features, i),
+                               _at(labels, i), _at(fmask, i), _at(lmask, i),
+                               generator, constrain_fn, shadow)
+            if shadow_cast is not None:
+                with torch.no_grad():
+                    shadow = shadow_cast(ts.params)
             losses.append(loss)
         return ts, torch.stack(losses)
     return steps
+
+
+def make_constrain_fn(layers):
+    """The post-update parameter projection of the layers' constraint
+    configs (reference: conf/constraint/, applied in
+    BaseMultiLayerUpdater.update after the updater step), or None when no
+    layer has constraints."""
+    constrained = {l.name: l.constraints for l in layers if l.constraints}
+    if not constrained:
+        return None
+
+    def constrain(params):
+        out = dict(params)
+        for name, constraints in constrained.items():
+            p = out.get(name)
+            if not p:
+                continue
+            for c in constraints:
+                p = c.apply(p)
+            out[name] = p
+        return out
+    return constrain

@@ -1506,3 +1506,135 @@ def test_yolo_loss_on_the_card_matches_the_cpu(card):
     dp = get_predicted_objects(layer, x, 0.3)
     assert [(d.example, d.predicted_class) for d in dc] == \
         [(d.example, d.predicted_class) for d in dp]
+
+
+# ---- Keras import on the card -------------------------------------------
+# The card's machine has no h5py and no keras: the importer's conversion
+# runs on the committed resources of deeplearning4j_tpu_torch/modelimport/
+# resources through chip_smoke.py's KerasResourceArchive. Bounds: each
+# fixture within rtol 1e-4, atol 1e-5 of its _io.npz
+# (tests/test_keras_fixtures.py:45); card against the same import on the
+# CPU within 1e-5 of the output's largest magnitude; gradients through
+# the kernels within 1e-4 relative L2 of the plain path.
+
+def _keras_res():
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke, os.path.join(root, chip_smoke.KERAS_RES), root
+
+
+_KERAS_FIXTURES = ("k1_mlp", "k1_cnn_atrous", "k1_lstm", "k1_merge",
+                   "k2_googlenet_bits", "k2_yolo_bits", "k2_temporal",
+                   "k2_reshape_permute", "k2_selu_alpha_dropout", "k3_conv",
+                   "k3_temporal", "k3_merges", "k3_attention",
+                   "k3_pool_extras")
+
+
+@pytest.mark.parametrize("name", _KERAS_FIXTURES)
+def test_keras_fixture_on_the_card(card, name):
+    import os
+
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    cs, res, root = _keras_res()
+    stem = os.path.join(res, name)
+    gpu = _import_archive(cs.KerasResourceArchive(stem), "cuda")
+    cpu = _import_archive(cs.KerasResourceArchive(stem), "cpu")
+    io = np.load(os.path.join(root, "tests", "resources", "keras",
+                              name + "_io.npz"))
+    got = gpu.output(io["x"]).cpu().numpy()
+    np.testing.assert_allclose(got, io["y"], rtol=1e-4, atol=1e-5)
+    ref = cpu.output(io["x"]).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_imported_small_bert_on_the_card(card):
+    """The small BERT geometry from its committed configuration and seeded
+    weights: the output against Keras's, 2 flash_fwd launches a call, and
+    one f32 step of the grafted fine-tune's gradients against the plain
+    path."""
+    import contextlib
+    import os
+    from unittest import mock
+
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    from deeplearning4j_tpu_torch.nn.layers.output import (
+        GlobalPoolingLayer, OutputLayer, PoolingType)
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    cs, res, _ = _keras_res()
+    model = _import_archive(cs.KerasResourceArchive(
+        os.path.join(res, "bert_small")), "cuda")
+    g = np.load(os.path.join(res, "bert_small_golden.npz"))
+    ids = torch.from_numpy(g["ids"]).long().cuda()
+    pos = torch.arange(ids.shape[1], device="cuda").expand_as(ids)
+    before = fa.LAUNCHES["flash_fwd"]
+    out = model.output(ids, pos)
+    assert fa.LAUNCHES["flash_fwd"] - before == 2
+    np.testing.assert_allclose(out.cpu().numpy(), g["hidden"], rtol=1e-4,
+                               atol=1e-5)
+    enc = model.conf.network_outputs[0]
+    ft = (TransferLearning.GraphBuilder(model).fine_tune_configuration(
+        FineTuneConfiguration.Builder().updater(Adam(1e-3)).build())
+        .add_layer("pool", GlobalPoolingLayer(pooling_type=PoolingType.AVG),
+                   enc)
+        .add_layer("cls", OutputLayer(n_out=2), "pool")
+        .set_outputs("cls").build())
+    y = torch.eye(2, device="cuda")[torch.tensor([0, 1], device="cuda")]
+    args = ft._step_args(MultiDataSet((ids, pos), (y,)))
+    _, _, g_k = solver.value_and_grad(ft._loss, ft.train_state, *args)
+    with contextlib.ExitStack() as stack:
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            stack.enter_context(mock.patch.object(
+                fa, name, getattr(fa, name + "_reference")))
+        _, _, g_p = solver.value_and_grad(ft._loss, ft.train_state, *args)
+    fk, fp = flatten_paths(g_k), flatten_paths(g_p)
+    for k, r in fp.items():
+        assert (fk[k] - r).norm() <= 1e-4 * r.norm() + 1e-12, k
+
+
+def test_shadow_cast_steps_bitwise_on_the_card(card):
+    """Two K-step calls of a bf16 graft of the small BERT: with the shadow
+    cast and without it, the losses and parameters are bitwise equal."""
+    import os
+
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    from deeplearning4j_tpu_torch.models.base import cast_params
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    from deeplearning4j_tpu_torch.nn.layers.output import (
+        GlobalPoolingLayer, OutputLayer, PoolingType)
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    cs, res, _ = _keras_res()
+    model = _import_archive(cs.KerasResourceArchive(
+        os.path.join(res, "bert_small")), "cuda")
+    enc = model.conf.network_outputs[0]
+    ft = (TransferLearning.GraphBuilder(model).fine_tune_configuration(
+        FineTuneConfiguration.Builder().updater(Adam(1e-3))
+        .compute_dtype("bfloat16").build())
+        .add_layer("pool", GlobalPoolingLayer(pooling_type=PoolingType.AVG),
+                   enc)
+        .add_layer("cls", OutputLayer(n_out=2), "pool")
+        .set_outputs("cls").build())
+    twin = ft.clone()
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 50, (3, 8, 12), generator=gen).cuda()
+    pos = torch.arange(12, device="cuda").expand(3, 8, 12)
+    y = torch.eye(2)[torch.randint(0, 2, (3, 8), generator=gen)].cuda()
+    ts_a, la = ft._build_scan_train_step(
+        shadow_cast=lambda p: cast_params(p, "bfloat16"))(
+        ft.train_state, (ids, pos), (y,))
+    ts_b, lb = twin._build_scan_train_step()(twin.train_state, (ids, pos),
+                                             (y,))
+    assert torch.equal(la, lb)
+    fa_, fb_ = flatten_paths(ts_a.params), flatten_paths(ts_b.params)
+    assert all(torch.equal(fa_[k], fb_[k]) for k in fa_)

@@ -9,6 +9,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py ops
     python3 tools/gen_rehearsal.py rnn
     python3 tools/gen_rehearsal.py zoo
+    python3 tools/gen_rehearsal.py keras
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -36,6 +37,14 @@ clock and the six conv wrappers counting a launch for each plain call,
 so every gate of the phase runs; its times say nothing about the
 card.
 
+``keras`` runs ``phase_keras_import`` the same way (every ``"cuda"``
+turned to ``"cpu"``) on the committed fixtures and on BERT and
+InceptionV3 resources that ``tools/keras_card_resources.py`` writes into
+a temporary directory at a cut size (BERT 2 x 32 with 4 heads and a
+vocabulary of 64 at seq 128; InceptionV3 at 75×75×3), with cut batches,
+the flash and LSTM wrappers counting a launch for each plain call, so
+every gate of the phase runs. It needs keras and h5py.
+
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
 is one launch or more per op.
@@ -59,8 +68,9 @@ def _cpu_resolve(device=None):
     return torch.device("cpu")
 
 
-def _cpu_smoke():
-    """chip_smoke.py executed with its card pinned to the CPU."""
+def _cpu_smoke(mode="device"):
+    """chip_smoke.py executed with its card pinned to the CPU; with
+    ``mode="cpu_all"`` every ``"cuda"`` string and ``.cuda()`` too."""
     from deeplearning4j_tpu_torch.generation import engine, session
     from deeplearning4j_tpu_torch.models import (computation_graph,
                                                  multi_layer_network,
@@ -73,6 +83,8 @@ def _cpu_smoke():
     src = src.replace('device="cuda"', 'device="cpu"').replace(
         "torch.cuda.synchronize()", "None").replace(
         'dev != "cuda:0"', 'dev != "cpu"')
+    if mode == "cpu_all":
+        src = src.replace('"cuda"', '"cpu"').replace(".cuda()", ".cpu()")
     smoke = types.ModuleType("chip_smoke_cpu")
     smoke.__file__ = str(ROOT / "chip_smoke.py")
     exec(compile(src, "chip_smoke_cpu", "exec"), smoke.__dict__)
@@ -177,6 +189,55 @@ def zoo() -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+def keras() -> None:
+    import shutil
+    import tempfile
+
+    import keras as K
+
+    from deeplearning4j_tpu_torch.modelimport.bert import build_keras_bert
+    from deeplearning4j_tpu_torch.ops import flash_attention, fused_lstm
+    sys.path.insert(0, str(ROOT / "tools"))
+    import keras_card_resources as tool
+    smoke = _cpu_smoke("cpu_all")
+    _count_launches(flash_attention, ("flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq"))
+    _count_launches(fused_lstm, ("lstm_fwd", "lstm_bwd"))
+    torch.cuda.Event = _HostEvent
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    res = tempfile.mkdtemp()
+    try:
+        for name in smoke.KERAS_FIXTURES:
+            for ext in (".json", ".npz"):
+                shutil.copy(ROOT / smoke.KERAS_RES / (name + ext), res)
+        tool.IV3_SHAPE = (75, 75, 3)
+        small = {"bert_base": build_keras_bert(
+            vocab=64, width=32, n_layers=2, n_heads=4, ffn=64, max_len=128,
+            seq_len=128),
+            "inception_v3": K.applications.InceptionV3(
+                weights=None, input_shape=tool.IV3_SHAPE, classes=1000)}
+        for name, km in small.items():
+            tool.set_seeded(km)
+            meta = tool.model_resource(km)
+            tool.check_seeded(km, meta)
+            tool.dump_json(meta, f"{res}/{name}.json")
+            import numpy as np
+            np.savez(f"{res}/{name}_golden.npz", **tool.golden(name, km))
+        smoke.KERAS_RES = res
+        smoke.KERAS_BERT_SERVE_BATCH = 4
+        smoke.KERAS_BERT_FT_BATCH, smoke.KERAS_BERT_FT_K = 4, 2
+        smoke.KERAS_BERT_FROZEN_BATCH = 4
+        smoke.KERAS_IV3_SERVE_BATCH, smoke.KERAS_IV3_FT_BATCH = 2, 2
+        smoke.KERAS_IV3_FT_K = 2
+        smoke.KERAS_4A_BATCH, smoke.KERAS_4A_ROWS = 4, 64
+        t0 = time.perf_counter()
+        print(smoke.phase_keras_import({}, "CPU rehearsal"))
+        print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+    finally:
+        shutil.rmtree(res)
+
+
 def ops() -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -204,7 +265,8 @@ def ops() -> None:
 
 
 def main(argv) -> int:
-    if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo"):
+    if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
+                                   "keras"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -215,6 +277,8 @@ def main(argv) -> int:
         rnn()
     elif argv[0] == "zoo":
         zoo()
+    elif argv[0] == "keras":
+        keras()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
