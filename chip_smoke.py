@@ -242,6 +242,47 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    kernels; LBFGS and conjugate gradient on the digits LeNet, card
    against CPU. Step ms, tokens/s or images/s and peak memory for each.
 
+17. observed_fit — the observed training loop (listeners, telemetry, the
+   span tracer, the flight recorder, early stopping, StatsListener, record
+   readers) through ``fit(iterator)``. The slice ResNet50 (bf16, fused
+   blocks, s2d stem, 200 classes, the ``nontrivial_bn`` weights) trained
+   at batch 128 by ``EarlyStoppingTrainer`` -> ``fit(iterator,
+   k_steps=4)`` for two epochs of 3 calls with a held-out
+   ``DataSetLossCalculator``, with a ``TelemetryCollector`` (per layer,
+   histograms, flushed every 8 steps), ``ScoreIterationListener``,
+   ``PerformanceListener``, ``CollectScoresIterationListener``,
+   ``CheckpointListener``, ``StatsListener`` (served by ``UIServer``), a
+   ``SpanTracer`` and a ``FlightRecorder``: the first epoch's parameters
+   and losses bitwise those of the same batches through the K-step call
+   made directly; each call's launches K x the train phase's per step,
+   and the profiler's count of the hand-written kernels the same with
+   and without telemetry; the telemetry's loss column bitwise the calls'
+   losses, its first grad_norm within 1e-5 of ``vector_norm`` of
+   ``value_and_grad``'s gradients, no non-finite count, the fetches one
+   per 8 steps plus the tail flush of each fit; sync debug mode "error"
+   around every telemetry record, every collector step that does not
+   flush and the listeners' calls (after the first flush); the
+   dashboard's ``/api/sessions``, the trace's spans, the checkpoint; the
+   early-stopping result's restored best model re-scored bitwise. A
+   clone fitted with one NaN batch (its row's non-finite count, the
+   histograms written though not due, one ``nonfinite`` dump); a
+   listener allocating past ``mem_get_info`` inside ``fit`` (the OOM
+   surfaces, one ``oom`` dump with the allocator's numbers, one more step
+   after ``empty_cache``). ms per step and the busy share with every
+   observer on and with none, 3 interleaved epochs each. The ResNet50
+   ``ServingEngine`` with a tracer: 32 requests bitwise the untraced
+   engine's, each batch's queue_wait, batch_form, dispatch, device and
+   fetch spans. The rnn_tbptt model (segments of 50, 32 x 1000 chars), 2
+   batches by ``fit`` with telemetry: 2 + 2 LSTM launches a segment, the
+   rows' losses bitwise the segments'. The bert_train model, 2 calls of
+   ``fit(iterator, k_steps=4)`` with telemetry and a tracer: 48 launches
+   of each flash kernel a call, the losses bitwise the same K-step calls
+   made directly (with the feeder's ones labels mask). The committed
+   digits written as CSV, read by ``CSVRecordReader`` ->
+   ``RecordReaderDataSetIterator`` into one LeNet epoch: the parameters
+   bitwise those of the same batches from ``DigitsDataSetIterator``.
+   cuDNN runs deterministic algorithms in this phase.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
@@ -5168,13 +5209,763 @@ def phase_keras_import(report, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the observed training loop: listeners, telemetry, tracer, flight recorder,
+# early stopping, StatsListener and record readers through fit(iterator)
+# ---------------------------------------------------------------------------
+
+OBS_BATCH, OBS_K, OBS_CALLS, OBS_EPOCHS = 128, 4, 3, 2   # 12 steps an epoch
+OBS_FLUSH, OBS_HIST_INTERVAL = 8, 4
+OBS_HELD_OUT = 256
+OBS_GRAD_RTOL = 1e-5
+OBS_REPEATS = 3
+OBS_TBPTT_BATCHES = 2
+OBS_BERT_CALLS = 2
+OBS_SERVE_REQUESTS = 32
+OBS_SCRATCH = os.path.join("build", "observed_fit")   # large files, removed
+
+
+class _SyncGuard:
+    """Sync debug mode "error" around the telemetry record of every step,
+    every collector step that does not flush and the listeners' calls,
+    armed after the model's first flush (the record's first call builds
+    its constants on the card). ``calls`` counts the guarded calls."""
+
+    def __init__(self, torch, collector):
+        self.torch = torch
+        self.tc = collector
+        self.armed = False
+        self.calls = {"record": 0, "on_step": 0, "listeners": 0}
+        record, on_step = collector.spec.record, collector.on_step
+
+        def guarded_record(*a, **k):
+            with self.region("record"):
+                return record(*a, **k)
+
+        def guarded_on_step(ts, steps=1):
+            if collector.will_flush(steps):
+                on_step(ts, steps)
+                self.armed = True
+                return
+            with self.region("on_step"):
+                on_step(ts, steps)
+        collector.spec.record = guarded_record
+        collector.on_step = guarded_on_step
+
+    def region(self, what):
+        import contextlib
+        guard = self
+
+        @contextlib.contextmanager
+        def cm():
+            if not guard.armed:
+                yield
+                return
+            guard.calls[what] += 1
+            guard.torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                guard.torch.cuda.set_sync_debug_mode("default")
+        return cm()
+
+    def listeners(self, inner):
+        """``inner`` wrapped: its iteration_done calls run guarded."""
+        from deeplearning4j_tpu_torch.optimize.listeners import \
+            TrainingListener
+        guard = self
+
+        class Guarded(TrainingListener):
+            def on_epoch_start(self, model, epoch):
+                for lst in inner:
+                    lst.on_epoch_start(model, epoch)
+
+            def on_epoch_end(self, model, epoch):
+                for lst in inner:
+                    lst.on_epoch_end(model, epoch)
+
+            def iteration_done(self, *args):
+                with guard.region("listeners"):
+                    for lst in inner:
+                        lst.iteration_done(*args)
+
+            def on_crash_dump(self, model, path, reason):
+                for lst in inner:
+                    lst.on_crash_dump(model, path, reason)
+        return Guarded()
+
+
+def _spy(step, log_to, counters=()):
+    """``step`` wrapped: each call's returned losses (and, per counter
+    module, the launches it made) are appended to ``log_to``."""
+    def call(ts, *args):
+        before = [dict(m.LAUNCHES) for m in counters]
+        ts, losses = step(ts, *args)
+        made = {}
+        for m, b in zip(counters, before):
+            made.update({k: m.LAUNCHES[k] - b[k] for k in b})
+        log_to.append((losses, made))
+        return ts, losses
+    return call
+
+
+def _flushes_expected(calls_per_fit, k, interval):
+    """The collector's fetches over fits of ``calls_per_fit`` K-step calls
+    each: one whenever ``interval`` steps have accumulated, and the tail
+    flush that ends every fit."""
+    n, pending = 0, 0
+    for calls in calls_per_fit:
+        for _ in range(calls):
+            pending += k
+            if pending >= interval:
+                n, pending = n + 1, 0
+        n, pending = n + 1, 0
+    return n
+
+
+def _hand_kernel_counts(fn):
+    """{device kernel: launches} of one call of ``fn`` (torch.profiler,
+    the card's activity only) for the hand-written kernels: every CUDA
+    kernel of csrc/ lives in the ``dl4j`` namespace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "dl4j::" in e.key}
+
+
+def _sync_sites(fn):
+    """{python file:line: count} of the synchronizing CUDA operations one
+    call of ``fn`` makes (sync debug mode "warn")."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def _params_equal(a, b):
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    fa, fb = flatten_paths(a), flatten_paths(b)
+    bad = [k for k in fb if not fa[k].equal(fb[k])]
+    return not bad and set(fa) == set(fb), bad[:3]
+
+
+def _observed_resnet(card, out, run_dir):
+    """ResNet50 at SLICE through EarlyStoppingTrainer -> fit(iterator,
+    k_steps=4) with every observer attached; the gates of the module
+    docstring's phase 17, step 1."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition)
+    from deeplearning4j_tpu_torch.models.serialization import params_from_jax
+    from deeplearning4j_tpu_torch.observe import (FlightRecorder, SpanTracer,
+                                                  TelemetryCollector)
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener, CollectScoresIterationListener,
+        PerformanceListener, ScoreIterationListener, TrainingListener)
+    from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage,
+                                             StatsListener, UIServer)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    b, k = OBS_BATCH, OBS_K
+    laps = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the last lap, for the log."""
+        laps.append(time.perf_counter())
+        return f"{laps[-1] - laps[-2]:.1f}s"
+    model = ResNet50(**SLICE).init()
+    params_np, state_np = nontrivial_bn(model)
+    params_from_jax(params_np, state_np, model.device, model=model)
+    per_step = {}                   # as the train phase counts them
+    for call, n in path_calls(model.conf, 1).items():
+        if call.kernel == "fused_mm":
+            bwd = ["fused_mm_bwd"]
+        elif call.x_shape[3] <= fc.C3_MERGED_MAX_CIN and call.norm_in:
+            bwd = ["fused_c3_bwd"]
+        else:
+            bwd = ["fused_c3_bwd_in", "fused_c3_bwd_w"]
+        for name in [call.kernel] + bwd:
+            per_step[name] = per_step.get(name, 0) + n
+    twin = model.clone()                    # nothing attached
+    grad_ref = model.clone()                # the first step's state
+    rng = np.random.default_rng(17)
+    n_train = OBS_CALLS * k * b
+    img, classes = _image_shape(), SLICE["num_classes"]
+    x = rng.normal(0, 1, (n_train,) + img).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n_train)]
+    xt = rng.normal(0, 1, (OBS_HELD_OUT,) + img).astype(np.float32)
+    yt = np.eye(classes, dtype=np.float32)[rng.integers(0, classes,
+                                                        OBS_HELD_OUT)]
+    train = ArrayDataSetIterator(DataSet(x, y), b)
+    held_out = DataSetLossCalculator(ArrayDataSetIterator(DataSet(xt, yt),
+                                                          b))
+
+    tc = TelemetryCollector(flush_interval=OBS_FLUSH, histograms=True,
+                            hist_interval=OBS_HIST_INTERVAL)
+    tracer = SpanTracer()
+    recorder = FlightRecorder(os.path.join(run_dir, "dumps"))
+    storage = InMemoryStatsStorage()
+    ui = UIServer(port=0).attach(storage)
+    ui.start()
+    stats = StatsListener(storage, session_id="observed_resnet50")
+    perf = PerformanceListener(1)
+    score = ScoreIterationListener(1)
+    collect = CollectScoresIterationListener(1)
+    # a full checkpoint (about 180 MB) is written under build/, not into
+    # the run directory, and removed when the phase ends
+    ckpt = CheckpointListener(os.path.join(OBS_SCRATCH, "checkpoints"),
+                              every_n_epochs=OBS_EPOCHS, keep_last=1)
+    after_epoch = {}
+
+    class Snapshot(TrainingListener):
+        def on_epoch_end(self, m, epoch):
+            after_epoch.setdefault(epoch, {
+                ln: {kk: v.clone() for kk, v in lp.items()}
+                for ln, lp in m.params.items()})
+
+    model.set_telemetry(tc)
+    guard = _SyncGuard(torch, tc)
+    model.set_listeners(guard.listeners([score, perf, collect, stats]),
+                        ckpt, Snapshot())
+    model.set_tracer(tracer)
+    model.set_flight_recorder(recorder)
+    calls = []
+    model._scan_step = _spy(model._build_scan_train_step(), calls, (fc,))
+    conf = (EarlyStoppingConfiguration.Builder()
+            .model_saver(InMemoryModelSaver())
+            .score_calculator(held_out)
+            .epoch_termination_conditions(
+                MaxEpochsTerminationCondition(OBS_EPOCHS)).build())
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = EarlyStoppingTrainer(conf, model, train, k_steps=k).fit()
+    torch.cuda.synchronize()
+    es_s = time.perf_counter() - t0
+    log(f"  [setup and fit {lap()}] early stopping: {result} in "
+        f"{es_s:.1f}s; scores "
+        f"{result.score_vs_epoch} [{card}]")
+
+    # attaching the observers changes nothing: the first epoch's 3 calls
+    # made directly on the same staged batches (the feeder's ones labels
+    # mask) from the same state
+    scan = twin._build_scan_train_step()
+    ones = torch.ones((k, b), device="cuda")
+    direct = []
+    for c in range(OBS_CALLS):
+        sl = slice(c * k * b, (c + 1) * k * b)
+        xs = torch.from_numpy(x[sl].reshape((k, b) + img)).cuda()
+        ys = torch.from_numpy(y[sl].reshape(k, b, classes)).cuda()
+        twin.train_state, ls = scan(twin.train_state, (xs,), (ys,), None,
+                                    (ones,), twin._generator)
+        direct.append(ls)
+    same, bad = _params_equal(after_epoch[0], twin.params)
+    fit_losses = torch.cat([ls for ls, _ in calls]).float().cpu().numpy()
+    direct_losses = torch.cat(direct).float().cpu().numpy()
+    log(f"  [{lap()}] epoch 0 with every observer vs {OBS_CALLS} direct "
+        f"K={k} calls: "
+        f"parameters bitwise {same} {bad}; losses bitwise "
+        f"{np.array_equal(fit_losses[:OBS_CALLS * k], direct_losses)}")
+    if not same or not np.array_equal(fit_losses[:OBS_CALLS * k],
+                                      direct_losses):
+        raise AssertionError(f"observers changed the training: {bad}")
+
+    # launches: per call exactly K x the train phase's per-step counts
+    for i, (_, made) in enumerate(calls):
+        want = {name: k * n for name, n in per_step.items()}
+        if {kk: v for kk, v in made.items() if kk in want} != want:
+            raise AssertionError(f"call {i}: launches {made}, expected "
+                                 f"{want}")
+    launches = {name: sum(made[name] for _, made in calls)
+                for name in per_step}
+    log(f"  {len(calls)} calls of {k} steps: launches {launches} "
+        f"(= {len(calls)} x {k} x {per_step})")
+
+    # telemetry rows against the returned losses and a plain gradient
+    rows = tc.history
+    row_losses = np.array([r["loss"] for r in rows], np.float32)
+    rows_bitwise = bool(np.array_equal(row_losses, fit_losses))
+    _, _, g0 = solver.value_and_grad(
+        grad_ref._loss, grad_ref.train_state,
+        (torch.from_numpy(x[:b]).cuda(),), (torch.from_numpy(y[:b]).cuda(),),
+        None, (torch.ones(b, device="cuda"),), grad_ref._generator)
+    gnorm = torch.linalg.vector_norm(torch.cat(
+        [g.reshape(-1).float() for g in solver.tree_leaves(g0)])).item()
+    grad_err = abs(rows[0]["grad_norm"] - gnorm) / gnorm
+    nonfinite = sum(r["nonfinite_count"] for r in rows)
+    fetches = _flushes_expected([OBS_CALLS] * OBS_EPOCHS, k, OBS_FLUSH)
+    log(f"  [{lap()}] telemetry: {len(rows)} rows, loss column bitwise "
+        f"{rows_bitwise}, grad_norm rel err {grad_err:.3g} "
+        f"against vector_norm of value_and_grad, nonfinite {nonfinite}, "
+        f"{tc.fetch_count} fetches (expected {fetches}), "
+        f"{len(tc.hist_history)} histogram rows; sync guard calls "
+        f"{guard.calls}")
+    if not rows_bitwise or grad_err > OBS_GRAD_RTOL \
+            or nonfinite or tc.fetch_count != fetches \
+            or len(rows) != OBS_EPOCHS * OBS_CALLS * k \
+            or min(guard.calls.values()) == 0:
+        raise AssertionError("telemetry rows, fetches or sync guard")
+
+    # the profiler's count of the hand-written kernels: telemetry adds none
+    a, p = model.clone(), model.clone()
+    a.set_telemetry(TelemetryCollector(flush_interval=OBS_FLUSH,
+                                       histograms=True, hist_interval=1))
+    a._ensure_ring()
+    a_step, p_step = a._build_scan_train_step(), p._build_scan_train_step()
+    xs = torch.from_numpy(x[:k * b].reshape((k, b) + img)).cuda()
+    ys = torch.from_numpy(y[:k * b].reshape(k, b, classes)).cuda()
+
+    def run(m, step):
+        def f():
+            m.train_state, _ = step(m.train_state, (xs,), (ys,), None,
+                                    (ones,), m._generator)
+        return f
+    run(a, a_step)()
+    run(p, p_step)()
+    sync_sites = {arm: _sync_sites(run(m, st)) for arm, m, st in
+                  (("observed", a, a_step), ("plain", p, p_step))}
+    log(f"  [{lap()}] syncs inside one {k}-step call (sync debug mode \"warn\"): "
+        f"{sync_sites}")
+    prof_obs = _hand_kernel_counts(run(a, a_step))
+    prof_plain = _hand_kernel_counts(run(p, p_step))
+    log(f"  [{lap()}] profiler, one {k}-step call: {sum(prof_obs.values())} hand-"
+        f"written kernel launches observed, {sum(prof_plain.values())} "
+        f"without telemetry ({len(prof_obs)} kernels)")
+    if prof_obs != prof_plain or not prof_obs:
+        raise AssertionError(f"telemetry changed the hand-written kernel "
+                             f"launches: {prof_obs} vs {prof_plain}")
+    del a, p
+
+    # the dashboard, the trace, the checkpoints
+    import urllib.request
+    with urllib.request.urlopen(ui.url + "/api/sessions") as r:
+        sessions = json.loads(r.read())
+    ui.stop()
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt.dir, f))
+                     for f in os.listdir(ckpt.dir))
+    trace_path = tracer.save(os.path.join(run_dir, "observed_fit.trace.json"))
+    spans = {}
+    for ev in tracer.events:
+        spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    ckpts = sorted(os.listdir(ckpt.dir))
+    log(f"  [{lap()}] /api/sessions {sessions}; {len(storage.get_all_updates('observed_resnet50'))} "
+        f"stats records; trace {trace_path}: {spans}; checkpoints {ckpts}; "
+        f"score listener {len(score.scores)}, collected {len(collect.scores)}"
+        f", performance {len(perf.history)} records")
+    if "observed_resnet50" not in sessions or not {
+            "etl", "host_to_device", "dispatch", "telemetry_flush", "eval",
+            "checkpoint"} <= set(spans) or len(ckpts) != 1:
+        raise AssertionError("dashboard session, trace spans or checkpoints")
+
+    # early stopping: the restored best model re-scores to the saved score
+    rescore = held_out.calculate_score(result.best_model)
+    log(f"  best epoch {result.best_model_epoch} "
+        f"({result.termination_reason.value}: "
+        f"{result.termination_details}), saved score "
+        f"{result.best_model_score!r}, restored re-scored {rescore!r}")
+    if rescore != result.best_model_score or result.best_model_epoch < 0:
+        raise AssertionError("the restored best model scores differently")
+
+    out["resnet50"] = {
+        "early_stopping_s": es_s, "best_epoch": result.best_model_epoch,
+        "termination": [result.termination_reason.value,
+                        result.termination_details],
+        "scores": result.score_vs_epoch, "rows": len(rows),
+        "fetches": tc.fetch_count, "grad_norm_rel_err": grad_err,
+        "guarded_calls": guard.calls, "spans": spans,
+        "checkpoint_ms": [e["dur"] / 1e3 for e in tracer.events
+                          if e["name"] == "checkpoint"],
+        "checkpoint_bytes": ckpt_bytes,
+        "profiler_hand_launches": sum(prof_obs.values()),
+        "sync_sites_per_call": sync_sites,
+        "launches_per_call": {n: k * v for n, v in per_step.items()}}
+    model.set_listeners()
+    return model, launches, (x, y, ones)
+
+
+def _observed_faults(card, out, run_dir, model, data):
+    """A NaN batch and an OOM inside fit, each on a clone."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.observe import (FlightRecorder,
+                                                  TelemetryCollector)
+    from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+    x, y, _ = data
+    b = OBS_BATCH
+    nan = model.clone()
+    tc = TelemetryCollector(flush_interval=2, histograms=True,
+                            hist_interval=100)
+    rec = FlightRecorder(os.path.join(run_dir, "nan_dumps"))
+    nan.set_telemetry(tc)
+    nan.set_flight_recorder(rec)
+    xn = x[:3 * b].copy()
+    xn[b + 5, 3, 3, 1] = np.nan            # in the second batch
+    it0 = nan.iteration
+    nan.fit(ArrayDataSetIterator(DataSet(xn, y[:3 * b]), b))
+    row = next(r for r in tc.history if r["iteration"] == it0 + 2)
+    hist_iters = [h["iteration"] for h in tc.hist_history]
+    reasons = [os.path.basename(p).split("_")[1] for p in rec.dumps]
+    log(f"  NaN batch: row {it0 + 2} nonfinite_count "
+        f"{row['nonfinite_count']:.0f}, histograms at {hist_iters} "
+        f"(interval 100), dumps {reasons}")
+    if not row["nonfinite_count"] > 0 or it0 + 2 not in hist_iters \
+            or reasons != ["nonfinite"]:
+        raise AssertionError("the NaN step's row, histograms or dump")
+    del nan
+
+    oom = model.clone()
+    rec = FlightRecorder(os.path.join(run_dir, "oom_dumps"))
+    oom.set_flight_recorder(rec)
+
+    class Hog(TrainingListener):
+        """Asks for more than the card has: past ``mem_get_info``'s free
+        bytes and the allocator's cached ones alike."""
+        def iteration_done(self, *args):
+            _, total = torch.cuda.mem_get_info()
+            torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+    oom.set_listeners(Hog())
+    raised = None
+    try:
+        oom.fit(ArrayDataSetIterator(DataSet(x[:b], y[:b]), b))
+    except torch.OutOfMemoryError as e:
+        raised = e
+    if raised is None or len(rec.dumps) != 1 or "dump_oom_" not in \
+            rec.dumps[0]:
+        raise AssertionError(f"OOM inside fit: raised {raised!r}, dumps "
+                             f"{rec.dumps}")
+    with open(os.path.join(rec.dumps[0], "memory.json")) as f:
+        mem = json.load(f)
+    dev = mem["devices"][0]
+    torch.cuda.empty_cache()
+    oom.set_listeners()
+    oom.fit(DataSet(x[b:2 * b], y[b:2 * b]))
+    after = oom.score()
+    log(f"  OOM inside fit: {type(raised).__name__} surfaced, dump "
+        f"{os.path.basename(rec.dumps[0])}: in use {dev.get('bytes_in_use')}"
+        f", reserved {dev.get('bytes_reserved')}, free "
+        f"{dev.get('bytes_free')} of {dev.get('bytes_limit')}; after "
+        f"empty_cache one more step, loss {after:.4f}")
+    if dev.get("bytes_in_use") is None or not math.isfinite(after):
+        raise AssertionError("the OOM dump's memory section or the step "
+                             "after it")
+    out["faults"] = {"nan_row": row, "nan_hist_iterations": hist_iters,
+                     "oom_memory": dev, "loss_after_oom": after}
+    del oom
+
+
+def _observed_times(card, out, run_dir, model, data):
+    """ms per step and the card's busy share of one fit epoch (3 K-step
+    calls) with every observer on and with none, interleaved."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.observe import (FlightRecorder, SpanTracer,
+                                                  TelemetryCollector)
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener, PerformanceListener,
+        ScoreIterationListener)
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, \
+        StatsListener
+    x, y, _ = data
+    on, off = model.clone(), model.clone()
+    on.set_telemetry(TelemetryCollector(flush_interval=OBS_FLUSH,
+                                        histograms=True,
+                                        hist_interval=OBS_HIST_INTERVAL))
+    on.set_listeners(ScoreIterationListener(1), PerformanceListener(1),
+                     CollectScoresIterationListener(1),
+                     StatsListener(InMemoryStatsStorage()))
+    on.set_tracer(SpanTracer())
+    on.set_flight_recorder(FlightRecorder(os.path.join(run_dir,
+                                                       "time_dumps")))
+    off.set_flight_recorder(FlightRecorder(enabled=False))
+    train = lambda: ArrayDataSetIterator(DataSet(x, y), OBS_BATCH)
+    steps = OBS_CALLS * OBS_K
+
+    def epoch(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.fit(train(), k_steps=OBS_K)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+    for m in (on, off):
+        epoch(m)                                   # warm
+    ms = {"on": [], "off": []}
+    for _ in range(OBS_REPEATS):
+        for arm, m in (("on", on), ("off", off)):
+            ms[arm].append(epoch(m))
+    # busy share: the device time a step in one profiled epoch (the
+    # card's activity only) over the mean wall time a step of the
+    # unprofiled epochs
+    busy = {}
+    for arm, m in (("on", on), ("off", off)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA
+                                 if torch.cuda.is_available()
+                                 else ProfilerActivity.CPU]) as prof:
+            epoch(m)
+        dev = sum(getattr(e, "device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type.name == "CUDA") / 1e3 / steps
+        busy[arm] = dev / float(np.mean(ms[arm]))
+    for arm in ("on", "off"):
+        v = np.array(ms[arm])
+        log(f"  {arm:>3}: {v.mean():.2f} ms/step (min {v.min():.2f}, max "
+            f"{v.max():.2f}, {OBS_REPEATS} interleaved epochs of {steps} "
+            f"steps at batch {OBS_BATCH}), busy {100 * busy[arm]:.1f}% "
+            f"[{card}]")
+    out["times"] = {"ms_per_step": ms, "busy": busy, "card": card}
+
+
+def _observed_tbptt(card, out):
+    """The rnn_tbptt model and segment shape, 2 batches through fit with
+    telemetry and a ScoreIterationListener."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.observe import TelemetryCollector
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        ScoreIterationListener, TrainingListener)
+    model = tbptt_model()
+    rng = np.random.default_rng(23)
+    data = [corpus_batch(rng, TBPTT_BATCH, TBPTT_CHARS)
+            for _ in range(OBS_TBPTT_BATCHES)]
+    segs = TBPTT_CHARS // TBPTT_K
+    tc = TelemetryCollector(flush_interval=segs)
+    seg_losses = []
+
+    class Segments(TrainingListener):
+        def iteration_done(self, m, *args):
+            seg_losses.extend(float(v) for v in m.last_segment_losses)
+    score = ScoreIterationListener(1)
+    model.set_telemetry(tc)
+    model.set_listeners(score, Segments())
+    fl.reset_launch_counts()
+    model.fit(ListDataSetIterator(data))
+    launches = dict(fl.LAUNCHES)
+    rows = [r["loss"] for r in tc.history]
+    n = OBS_TBPTT_BATCHES * segs
+    log(f"  TBPTT ({OBS_TBPTT_BATCHES} batches of {TBPTT_BATCH} x "
+        f"{TBPTT_CHARS}, segments of {TBPTT_K}): launches {launches} "
+        f"(expected 2 + 2 a segment, {n} segments), {len(rows)} rows, "
+        f"losses bitwise the segments' {rows == seg_losses}, scores "
+        f"{score.scores}")
+    if launches != {"lstm_fwd": 2 * n, "lstm_bwd": 2 * n} \
+            or rows != seg_losses or len(rows) != n:
+        raise AssertionError("TBPTT launches or telemetry rows")
+    out["tbptt"] = {"launches": launches, "rows": len(rows)}
+    return launches
+
+
+def _observed_bert(card, out):
+    """The bert_train model, 2 calls of fit(iterator, k_steps=4) with
+    telemetry and a tracer, against direct calls on the same batches."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.observe import (SpanTracer,
+                                                  TelemetryCollector)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    c, b, k = BERT, BERT_TRAIN_BATCH, BERT_TRAIN_K
+    model = bert_model("bfloat16")
+    twin = model.clone()
+    rng = np.random.default_rng(29)
+    batches = []
+    for _ in range(2):
+        ids = rng.integers(0, c["vocab"], (b, c["seq"]))
+        lab = np.zeros((b, c["seq"], c["vocab"]), np.float32)
+        lab[np.arange(b)[:, None], np.arange(c["seq"])[None, :],
+            rng.integers(0, c["vocab"], (b, c["seq"]))] = 1.0
+        batches.append(DataSet(ids, lab))
+    order = [batches[i % 2] for i in range(OBS_BERT_CALLS * k)]
+    tc = TelemetryCollector(flush_interval=k)
+    tracer = SpanTracer()
+    model.set_telemetry(tc)
+    model.set_tracer(tracer)
+    calls = []
+    model._scan_step = _spy(model._build_scan_train_step(), calls, (fa,))
+    t0 = time.perf_counter()
+    model.fit(ListDataSetIterator(order), k_steps=k)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    scan = twin._build_scan_train_step()
+    ones = torch.ones((k, b, c["seq"]), device="cuda")
+    xk = torch.from_numpy(np.stack([d.features for d in order[:k]])).cuda()
+    yk = torch.from_numpy(np.stack([d.labels for d in order[:k]])).cuda()
+    direct = []
+    for _ in range(OBS_BERT_CALLS):
+        twin.train_state, ls = scan(twin.train_state, xk, yk, None, ones,
+                                    twin._generator)
+        direct.append(ls)
+    fit_losses = torch.cat([ls for ls, _ in calls]).float().cpu().numpy()
+    direct_losses = torch.cat(direct).float().cpu().numpy()
+    rows = np.array([r["loss"] for r in tc.history], np.float32)
+    want = {name: k * c["blocks"] for name in ATTN_KERNELS}
+    made = [{kk: v for kk, v in m.items() if kk in want} for _, m in calls]
+    log(f"  BERT ({b} x {c['seq']}, K={k}, {OBS_BERT_CALLS} fit calls in "
+        f"{fit_s:.1f}s): flash launches a call {made}, losses bitwise the "
+        f"direct calls' {np.array_equal(fit_losses, direct_losses)}, rows "
+        f"bitwise {np.array_equal(rows, fit_losses)}, spans "
+        f"{sorted({e['name'] for e in tracer.events})}")
+    if any(m != want for m in made) or len(made) != OBS_BERT_CALLS \
+            or not np.array_equal(fit_losses, direct_losses) \
+            or not np.array_equal(rows, fit_losses):
+        raise AssertionError("BERT launches or losses")
+    out["bert"] = {"fit_s": fit_s, "losses": fit_losses.tolist()}
+    return {name: sum(m[name] for m in made) for name in ATTN_KERNELS}
+
+
+def _observed_records(card, out):
+    """The committed digits as CSV, through CSVRecordReader ->
+    RecordReaderDataSetIterator into one LeNet epoch, against the same
+    batches from DigitsDataSetIterator."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    rows = []
+    for ds in DigitsDataSetIterator(DIGITS_BATCH, train=True):
+        rows.append(np.concatenate(
+            [ds.features, ds.labels.argmax(1)[:, None]], axis=1))
+    rows = np.concatenate(rows)
+    os.makedirs(OBS_SCRATCH, exist_ok=True)
+    path = os.path.join(OBS_SCRATCH, "digits_train.csv")
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(",".join(repr(float(np.float32(v))) for v in r) + "\n")
+    a = LeNet().init()
+    b = a.clone()
+    it = RecordReaderDataSetIterator(CSVRecordReader(path=path),
+                                     DIGITS_BATCH, label_index=28 * 28,
+                                     num_classes=10)
+    a.fit(it)
+    b.fit(DigitsDataSetIterator(DIGITS_BATCH, train=True))
+    same, bad = _params_equal(a.params, b.params)
+    log(f"  records: {len(rows)} digits as CSV -> CSVRecordReader -> "
+        f"RecordReaderDataSetIterator({DIGITS_BATCH}): one LeNet epoch "
+        f"({a.iteration} steps) bitwise the digits iterator's {same} {bad}")
+    if not same or a.iteration != b.iteration:
+        raise AssertionError("records-fed LeNet differs")
+    out["records"] = {"rows": len(rows), "steps": a.iteration}
+
+
+def _observed_serving(card, out, model):
+    """The ResNet50 ServingEngine with a SpanTracer: 32 requests answered
+    bitwise as by the untraced engine, every batch's spans in the trace."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.observe import SpanTracer
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+    rng = np.random.default_rng(31)
+    reqs = [rng.normal(0, 1, (int(n),) + _image_shape()).astype(np.float32)
+            for n in rng.integers(1, 33, OBS_SERVE_REQUESTS)]
+    tracer = SpanTracer()
+    answers = {}
+    fc.reset_launch_counts()
+    for name, tr in (("traced", tracer), ("untraced", None)):
+        with ServingEngine(model, batch_limit=32,
+                           feature_shape=_image_shape(),
+                           precision=("bf16" if SLICE["compute_dtype"]
+                                      == "bfloat16" else "f32"),
+                           tracer=tr) as eng:
+            if name == "traced":
+                fc.reset_launch_counts()
+            answers[name] = [eng.output(x) for x in reqs]
+            if name == "traced":
+                served = {kk: fc.LAUNCHES[kk] for kk in FORWARD}
+    same = all(np.array_equal(p, q) for p, q in zip(answers["traced"],
+                                                    answers["untraced"]))
+    spans = {}
+    for ev in tracer.events:
+        spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    log(f"  traced serving: {OBS_SERVE_REQUESTS} requests bitwise the "
+        f"untraced engine's {same}; spans {spans}; launches {served}")
+    per_batch = ("queue_wait", "batch_form", "dispatch", "device", "fetch")
+    if not same or any(spans.get(s, 0) != OBS_SERVE_REQUESTS
+                       for s in per_batch):
+        raise AssertionError("traced serving differs or lacks spans")
+    out["serving"] = {"spans": spans}
+    return served
+
+
+def phase_observed_fit(report, card):
+    """The observed training loop (module docstring, phase 17)."""
+    import torch
+    run_dir = os.path.join(report["run_dir"], "observed_fit")
+    os.makedirs(run_dir, exist_ok=True)
+    out = {}
+    launches = {}
+
+    def add(d):
+        for kk, v in d.items():
+            launches[kk] = launches.get(kk, 0) + v
+    seconds = out["seconds"] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t0
+        log(f"  ({name}: {seconds[name]:.1f}s)")
+        return result
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, made, data = timed("resnet50", lambda: _observed_resnet(
+            card, out, run_dir))
+        add(made)
+        timed("faults", lambda: _observed_faults(card, out, run_dir, model,
+                                                  data))
+        timed("times", lambda: _observed_times(card, out, run_dir, model,
+                                                data))
+        add(timed("serving", lambda: _observed_serving(card, out, model)))
+        del model, data
+        torch.cuda.empty_cache()
+        add(timed("tbptt", lambda: _observed_tbptt(card, out)))
+        add(timed("bert", lambda: _observed_bert(card, out)))
+        torch.cuda.empty_cache()
+        timed("records", lambda: _observed_records(card, out))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        import shutil
+        shutil.rmtree(OBS_SCRATCH, ignore_errors=True)
+    report["observed_fit"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
-                    "rnn_tbptt,zoo,keras_import",
+                    "rnn_tbptt,zoo,keras_import,observed_fit",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -5346,6 +6137,12 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         "Keras, inference, the fine-tune) from committed configurations; "
         "constraints, weight noise, LBFGS and CG",
         lambda: phase_keras_import(report, card))
+    run("observed_fit", "the observed training loop: ResNet50 64x64x3/200 "
+        f"bf16 through EarlyStoppingTrainer -> fit(iterator, k_steps="
+        f"{OBS_K}) with telemetry, listeners, StatsListener, a tracer and a "
+        "flight recorder; NaN and OOM dumps; observers on/off times; traced "
+        "serving; TBPTT and BERT fits with telemetry; CSV records into "
+        "LeNet", lambda: phase_observed_fit(report, card))
 
     kernels = []
     for name, k in summary.items():
@@ -5359,7 +6156,8 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         # TextGenerationLSTM steps (LSTM kernels); two output() calls, the
         # K-step train call, the imported BERT-base's output, fine-tune
         # and frozen-encoder calls and the Keras attention fixture (flash
-        # kernels)
+        # kernels); and the observed fits' K-step calls (conv and flash
+        # kernels), TBPTT batches (LSTM kernels) and traced serving
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

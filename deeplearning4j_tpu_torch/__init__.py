@@ -1,4 +1,4 @@
-"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of deeplearning4j_tpu.
+"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of ``deeplearning4j_tpu``.
 
 The JAX package (``deeplearning4j_tpu``) stays the reference; this package
 mirrors its layout and names module for module, imports only ``torch``
@@ -31,7 +31,11 @@ LSTM segments through the same two kernels, and a ``ComputationGraph``
 streams them with stored state (``rnn_time_step``). ``modelimport``
 imports Keras models (``.h5``, ``.keras``) onto the card, where an
 imported attention runs the flash kernels and an imported LSTM the LSTM
-kernels.
+kernels. ``fit`` is observed as in the JAX package: listeners
+(``optimize.listeners``, ``ui.StatsListener``), in-step telemetry in a
+ring on the card, a span tracer and a flight recorder (``observe``);
+``earlystopping`` trains through it, and ``datasets.records`` feeds it
+from CSV and in-memory records.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.

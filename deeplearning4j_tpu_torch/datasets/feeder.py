@@ -28,9 +28,15 @@ the arrays go to the step as tensors on the CPU, as the JAX package's
 
 ``stall_ms`` (the ms the step loop waited for data in the current or
 last pass) and ``pass_stall_ms`` (one entry per finished pass) are read
-by the caller; the JAX package's registry gauges, tracer spans and its
-``prepare``/``group_prepare`` hooks (for the parallel wrapper) wait for
-the modules that use them (ROADMAP).
+by the caller. As in the JAX package, ``dl4j_feed_depth`` (staged
+batches at the last hand-off) and ``dl4j_etl_stall_ms`` go to the
+metrics registry, and the tracer gets ``etl`` spans (host batch
+production), ``host_to_device`` spans (the staging issue: the pinned
+copy and the enqueue of the asynchronous copy, not the transfer on the
+wire) and ``feed_stall`` spans whenever the queue ran dry. The
+``prepare`` (``DataSet -> DataSet``) and ``group_prepare`` (``[DataSet]
+-> (f, l, fm, lm)``) hooks run on the host before normalization and
+stacking, for the parallel wrapper (ROADMAP.md, queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.observe.registry import default_registry
+from deeplearning4j_tpu_torch.observe.tracer import NULL_TRACER
 from deeplearning4j_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DEFAULT_DEPTH = 2
@@ -231,17 +239,29 @@ class DeviceFeeder:
     k_steps : >1 groups K batches into one stacked (K, B, ...) item for
         the K-step call; an epoch's remainder that does not fill a group
         is yielded as per-batch items at the same bucket shape
+    prepare : optional host hook ``DataSet -> DataSet`` applied before
+        normalization and stacking (the real example count is taken
+        before it)
+    group_prepare : optional hook ``[DataSet] -> (f, l, fm, lm)``
+        replacing the default stack of a group; it runs for K = 1
+        groups too
     group_remainder : an epoch's short tail group is yielded "split"
         (per-batch items, the default) or "pad"ded to a full group by
         repeating its last batch
     transport : the card's staging primitives (default ``CudaTransport``
         on a CUDA device; tests pass a stand-in)
+    tracer, registry, session_id : the span tracer (default: none), the
+        metrics registry (default: the process one) and the series label
     """
 
     def __init__(self, source: Iterable, *, device: DeviceLike = None,
                  depth: Optional[int] = None,
                  byte_budget: Optional[int] = None, k_steps: int = 1,
-                 group_remainder: str = "split", transport=None):
+                 prepare: Optional[Callable[[DataSet], DataSet]] = None,
+                 group_prepare: Optional[Callable[[List[DataSet]], tuple]]
+                 = None,
+                 group_remainder: str = "split", transport=None,
+                 tracer=None, registry=None, session_id: str = "train"):
         depth = DEFAULT_DEPTH if depth is None else int(depth)
         if depth < 1:
             raise ValueError("feeder depth must be >= 1")
@@ -254,7 +274,18 @@ class DeviceFeeder:
         self.depth = depth
         self.byte_budget = byte_budget
         self.k_steps = int(k_steps)
+        self.prepare = prepare
+        self.group_prepare = group_prepare
         self.group_remainder = group_remainder
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.session_id = session_id
+        reg = registry if registry is not None else default_registry()
+        self._g_depth = reg.gauge(
+            "dl4j_feed_depth", "device batches staged ahead of the step "
+            "loop by the input feeder")
+        self._g_stall = reg.gauge(
+            "dl4j_etl_stall_ms", "cumulative ms the step loop waited on "
+            "the input feeder (0 = ETL fully hidden behind compute)")
         if transport is None and self.device.type == "cuda":
             transport = CudaTransport(self.device)
         self.transport = transport
@@ -267,6 +298,7 @@ class DeviceFeeder:
                                            and bs > 0 else None)
         self.stall_ms = 0.0
         self.pass_stall_ms: List[float] = []   # stall_ms of each pass
+        self.max_depth_seen = 0
         self._staged_bytes = 0
 
     # ---- host-side production -------------------------------------------
@@ -281,17 +313,25 @@ class DeviceFeeder:
 
     def _make_group(self, group: List[DataSet]) -> _HostItem:
         """Stack a K-group of batches, each padded to the bucket, into
-        (K, B, ...) host arrays; the real example count is kept."""
+        (K, B, ...) host arrays (or ``group_prepare``'s layout); the real
+        example count is taken before the hooks run."""
         n_real = sum(b.num_examples() for b in group)
-        norm = [self._arrays_of(self._normalize(b)) for b in group]
-        arrays = tuple(
-            None if any(a[i] is None for a in norm)
-            else np.stack([np.asarray(a[i]) for a in norm])
-            for i in range(4))
+        prepared = [self.prepare(b) if self.prepare is not None else b
+                    for b in group]
+        if self.group_prepare is not None:
+            arrays = self.group_prepare(prepared)
+        else:
+            norm = [self._arrays_of(self._normalize(b)) for b in prepared]
+            arrays = tuple(
+                None if any(a[i] is None for a in norm)
+                else np.stack([np.asarray(a[i]) for a in norm])
+                for i in range(4))
         return _HostItem(arrays, len(group), n_real)
 
     def _make_single(self, batch: DataSet, normalize: bool) -> _HostItem:
         n_real = batch.num_examples()
+        if self.prepare is not None:
+            batch = self.prepare(batch)
         if normalize:
             batch = self._normalize(batch)
         return _HostItem(self._arrays_of(batch), 1, n_real)
@@ -307,7 +347,9 @@ class DeviceFeeder:
                 group = []
                 yield _HostItem((None,) * 4, 0, 0, raw=b)
                 continue
-            if self.k_steps > 1:
+            if self.k_steps > 1 or self.group_prepare is not None:
+                # a group_prepare hook defines the staged layout, so it
+                # runs for K = 1 groups too
                 group.append(b)
                 if len(group) == self.k_steps:
                     yield self._make_group(group)
@@ -341,6 +383,7 @@ class DeviceFeeder:
         if item.k == 0:
             return FeedItem(None, None, None, None, 0, item.n_examples,
                             0.0, 0, raw=item.raw)
+        start = time.perf_counter()
         arrays = [None if a is None else np.ascontiguousarray(a)
                   for a in item.arrays]
         nbytes = sum(a.nbytes for a in arrays if a is not None)
@@ -360,6 +403,8 @@ class DeviceFeeder:
             event = self.transport.record()
             for slot in slots:
                 slot.event = event
+        self.tracer.add_span("host_to_device", start, time.perf_counter(),
+                             cat="data", wire=True, k=item.k, bytes=nbytes)
         self._staged_bytes += nbytes
         return FeedItem(staged[0], staged[1], staged[2], staged[3], item.k,
                         item.n_examples, 0.0, nbytes, event=event)
@@ -389,17 +434,24 @@ class DeviceFeeder:
                 except StopIteration:
                     exhausted = True
                     break
+                self.tracer.add_span("etl", t0, time.perf_counter(),
+                                     cat="data")
                 staged = self._stage(item)
                 if not pending:
                     # the queue ran dry: the consumer waited for the host
                     # production and the staging issue of THIS item
-                    stall = (time.perf_counter() - t0) * 1000.0
+                    t1 = time.perf_counter()
+                    stall = (t1 - t0) * 1000.0
                     wait_ms += stall
                     self.stall_ms += stall
+                    self.tracer.add_span("feed_stall", t0, t1, cat="data")
                 pending.append(staged)
             if not pending:
                 self.pass_stall_ms.append(self.stall_ms)
                 break
+            self.max_depth_seen = max(self.max_depth_seen, len(pending))
+            self._g_depth.set(len(pending), session=self.session_id)
+            self._g_stall.set(self.stall_ms, session=self.session_id)
             out = pending.popleft()
             self._staged_bytes -= out.nbytes
             yield out._replace(queue_wait_ms=wait_ms)

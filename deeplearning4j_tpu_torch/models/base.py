@@ -22,14 +22,25 @@ advanced by each step (the JAX package's host mirror of its device
 scalar). The port has no autotune, so ``k_steps`` and ``prefetch`` are
 the caller's or the defaults (1 and ``feeder.DEFAULT_DEPTH``).
 ``conf_global`` is the configuration's global part and ``clone`` a
-copy that trains on independently (``_clone_into``). Listeners,
-telemetry, the tracer, the flight recorder and layerwise ``pretrain``
-are not ported yet (ROADMAP).
+copy that trains on independently (``_clone_into``).
+
+The observed loop is the JAX package's too: listeners
+(optimize/listeners.py; ``set_listeners``, ``add_listeners``) fire once
+a dispatch and at each epoch's start and end; an attached
+``TelemetryCollector`` (``set_telemetry``) has every optimizer step,
+TBPTT segments included, write a row into a ring on the card that is
+fetched once every ``flush_interval`` steps and once more when a fit
+ends; a ``SpanTracer`` (``set_tracer``) records ``etl``,
+``host_to_device``, ``dispatch`` and ``telemetry_flush`` spans; and
+every exception leaving ``fit`` passes through the flight recorder
+(``set_flight_recorder``, else the process-wide default) before it is
+raised again. Layerwise ``pretrain`` is not ported (ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +55,9 @@ from deeplearning4j_tpu_torch.evaluation.evaluation import (
     Evaluation, RegressionEvaluation)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     carry_core, first_bidirectional_name, warn_tbptt_bidirectional)
+from deeplearning4j_tpu_torch.observe.flight_recorder import \
+    default_flight_recorder
+from deeplearning4j_tpu_torch.observe.tracer import get_tracer
 from deeplearning4j_tpu_torch.optimize.solver import (TrainState,
                                                       make_constrain_fn,
                                                       make_tbptt_train_step)
@@ -73,8 +87,9 @@ def cast_params(lp: Dict[str, Any], dt: str) -> Dict[str, Any]:
 
 class BaseModel:
     """The fit core shared by the models (parameters, state, optimizer
-    state and iteration as one ``train_state``; ``fit``, ``score``,
-    ``set_params``); a subclass provides ``init``, ``_build_train_step``,
+    state, iteration and the telemetry ring as one ``train_state``;
+    ``fit``, ``score``, ``set_params``, the listener and observability
+    hooks); a subclass provides ``init``, ``_build_train_step``,
     ``_step_args`` and ``compute_loss``."""
 
     def __init__(self):
@@ -88,6 +103,102 @@ class BaseModel:
         self._tbptt_step = None
         # the per-segment losses (device tensors) of the last TBPTT batch
         self.last_segment_losses = []
+        self.listeners: List[Any] = []
+        # observability (observe/): all optional; unset, they cost one
+        # branch a step
+        self._telemetry = None
+        self._telemetry_buf: Any = ()
+        self.tracer = None
+        # None: the process-wide default recorder, armed unless
+        # DL4J_CRASH_DUMPS=0 (the reference's CrashReportingUtil is on
+        # by default too)
+        self._flight_recorder = None
+        # set by a listener (the early-stopping trainer's iteration
+        # conditions) to end the running fit after the current dispatch
+        self._stop_requested = False
+
+    # ---- listeners and observability -------------------------------------
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
+    @property
+    def telemetry(self):
+        """The attached TelemetryCollector, or None."""
+        return self._telemetry
+
+    def set_telemetry(self, collector):
+        """Attach an ``observe.TelemetryCollector``: the next train steps
+        built record its spec's row each optimizer step into a ring on
+        the model's device, carried in the train state, and the
+        collector fetches the ring every ``flush_interval`` steps in one
+        transfer. Pass None to detach."""
+        if collector is not None:
+            collector.spec_for(self)
+        self._telemetry = collector
+        # the spec is part of the built steps: rebuild them
+        self._train_step = None
+        self._scan_step = None
+        self._tbptt_step = None
+        return self
+
+    def set_tracer(self, tracer):
+        """Attach an ``observe.SpanTracer`` recording etl, host_to_device,
+        dispatch and telemetry_flush spans around the fit loop."""
+        self.tracer = tracer
+        return self
+
+    def set_flight_recorder(self, recorder):
+        """Attach an ``observe.FlightRecorder`` (post-mortem dumps on a
+        non-finite row, an OOM or any exception leaving ``fit``). Without
+        one the process-wide default recorder is used; a recorder with
+        ``enabled=False`` opts this model out without touching the
+        environment."""
+        self._flight_recorder = recorder
+        return self
+
+    def _recorder(self):
+        if self._flight_recorder is not None:
+            return self._flight_recorder
+        return default_flight_recorder()
+
+    def _telemetry_spec(self):
+        return (None if self._telemetry is None
+                else self._telemetry.spec_for(self))
+
+    def _ensure_ring(self):
+        if self._telemetry is not None:
+            self.train_state = self._telemetry.ensure_buffer(
+                self.train_state, self.device)
+
+    def _post_step(self, steps: int = 1) -> int:
+        """The epilogue of each dispatch: give the telemetry collector its
+        flush opportunity (one fetch when an interval completed, nothing
+        otherwise) and let the flight recorder scan what that flush
+        decoded (host-side history only). Returns the iteration count."""
+        tel = self._telemetry
+        if tel is not None:
+            if tel.will_flush(steps):
+                with get_tracer(self).span("telemetry_flush",
+                                           cat="telemetry"):
+                    tel.on_step(self.train_state, steps)
+                rec = self._recorder()
+                if rec is not None:
+                    rec.poll(self)
+            else:
+                tel.on_step(self.train_state, steps)
+        return self.iteration
+
+    def _notify(self, it: int, loss, etl_ms: float, n_examples: int):
+        """The listeners' ``iteration_done`` after a dispatch."""
+        for lst in self.listeners:
+            lst.iteration_done(self, it, self.epoch_count, loss, etl_ms,
+                               n_examples)
+        self._last_loss = loss
 
     # ---- fit loop -------------------------------------------------------
     def fit(self, data, epochs: int = 1, k_steps: Optional[int] = None,
@@ -106,7 +217,25 @@ class BaseModel:
         into one K-step call (padding a ragged batch to the bucket with a
         zero labels mask) and needs the feeder: without it, it raises.
         ``iteration`` advances by one per optimizer step, ``epoch_count``
-        by one per epoch, and the iterator is reset after each epoch."""
+        by one per epoch, and the iterator is reset after each epoch.
+        Listeners fire once a dispatch (with a K-step call's last loss)
+        and at each epoch's start and end; telemetry records a row per
+        optimizer step and is flushed once more when the fit ends.
+
+        Any exception leaving the loop (an OOM included) first passes
+        through the flight recorder, which writes a post-mortem dump, and
+        is then raised again: the crash still surfaces, and the evidence
+        survives."""
+        try:
+            return self._fit_inner(data, epochs, k_steps, prefetch,
+                                   byte_budget)
+        except Exception as e:
+            rec = self._recorder()
+            if rec is not None:
+                rec.record_crash(self, exc=e)
+            raise
+
+    def _fit_inner(self, data, epochs, k_steps, prefetch, byte_budget):
         if self.params is None:
             self.init()
         if self._train_step is None:
@@ -115,7 +244,12 @@ class BaseModel:
             raise TypeError("MultiDataSet requires a ComputationGraph; wrap "
                             "single-input data in a DataSet for "
                             "MultiLayerNetwork")
+        self._stop_requested = False
+        tracer = get_tracer(self)
         if isinstance(data, (DataSet, MultiDataSet)):
+            # one step: _post_step already flushed if an interval
+            # completed (a flush here would make a fit-per-batch calling
+            # loop fetch every step)
             self._fit_batch(data)
             return self
         iterator = data
@@ -135,19 +269,42 @@ class BaseModel:
                 and not isinstance(iterator, AsyncDataSetIterator)):
             source = AsyncDataSetIterator(iterator)
         feeder = (DeviceFeeder(source, device=self.device, depth=depth,
-                               byte_budget=byte_budget, k_steps=k)
+                               byte_budget=byte_budget, k_steps=k,
+                               tracer=tracer)
                   if feed else None)
         self.last_feeder = feeder
         for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self, self.epoch_count)
             if feeder is not None:
                 for item in feeder:
-                    self._fit_item(feeder, item)
+                    self._fit_item(feeder, item, tracer)
+                    if self._stop_requested:
+                        break
             else:
+                it_start = time.perf_counter()
                 for batch in iterator:
-                    self._fit_batch(batch)
+                    now = time.perf_counter()
+                    tracer.add_span("etl", it_start, now, cat="data")
+                    self._fit_batch(batch, etl_ms=(now - it_start) * 1e3)
+                    if self._stop_requested:
+                        break
+                    it_start = time.perf_counter()
             if isinstance(source, DataSetIterator):
                 source.reset()
+            for lst in self.listeners:
+                lst.on_epoch_end(self, self.epoch_count)
             self.epoch_count += 1
+            if self._stop_requested:
+                break
+        # the tail flush: the last (< flush_interval) rows are not left
+        # on the card when training ends
+        if self._telemetry is not None:
+            with tracer.span("telemetry_flush", cat="telemetry"):
+                self._telemetry.flush(self.train_state)
+            rec = self._recorder()
+            if rec is not None:
+                rec.poll(self)
         return self
 
     _multi_inputs = False   # a ComputationGraph also takes MultiDataSets
@@ -194,47 +351,80 @@ class BaseModel:
     def _build_tbptt_step(self):
         return make_tbptt_train_step(
             self._loss, self._tx, self._carries_of,
-            make_constrain_fn(self._constraint_layers()))
+            make_constrain_fn(self._constraint_layers()),
+            telemetry=self._telemetry_spec())
 
     def _start_tbptt(self, batch_size: int) -> Dict[str, Any]:
         """Warn about a bidirectional layer (its backward direction is cut
-        at every segment boundary), build the segment step once, and
-        return the batch's zero carries."""
+        at every segment boundary), build the segment step once, attach
+        the telemetry ring, and return the batch's zero carries."""
         bidi = first_bidirectional_name(self._named_layers())
         if bidi is not None:
             warn_tbptt_bidirectional(bidi)
         if self._tbptt_step is None:
             self._tbptt_step = self._build_tbptt_step()
+        self._ensure_ring()
         return self._zero_carries(batch_size)
+
+    def _tbptt_segment(self, *args, carries):
+        """One segment's dispatch (a ``dispatch`` span); returns (loss,
+        carries handed on)."""
+        with get_tracer(self).span("dispatch", cat="step"):
+            self.train_state, loss, carries = self._tbptt_step(
+                self.train_state, *args, self._generator, carries)
+        return loss, carries
+
+    def _end_tbptt(self, losses, etl_ms: float, n_examples: int):
+        """After a TBPTT batch: the epilogue over its segments (the
+        iteration count went up by one a segment) and the listeners, once,
+        with the last segment's loss."""
+        self.last_segment_losses = losses
+        self._notify(self._post_step(len(losses)), losses[-1], etl_ms,
+                     n_examples)
 
     def _staged_step_args(self, features, labels, fmask, lmask):
         """Adapt staged tensors to this model's step signature (the
         ComputationGraph wraps singles into input/output tuples)."""
         return features, labels, fmask, lmask
 
-    def _fit_batch(self, batch):
-        """One step on a host batch (moved to the device here)."""
-        self.train_state, self._last_loss = self._train_step(
-            self.train_state, *self._step_args(batch), self._generator)
+    def _dispatch(self, step, args, **span_args):
+        """One train-step call on the current train state, inside a
+        ``dispatch`` span; returns the call's loss (or losses)."""
+        with get_tracer(self).span("dispatch", cat="step", **span_args):
+            self.train_state, loss = step(self.train_state, *args,
+                                          self._generator)
+        return loss
 
-    def _fit_item(self, feeder: DeviceFeeder, item):
+    def _fit_batch(self, batch, etl_ms: float = 0.0):
+        """One step on a host batch (moved to the device here, inside a
+        ``host_to_device`` span)."""
+        with get_tracer(self).span("host_to_device", cat="data"):
+            args = self._step_args(batch)
+        self._ensure_ring()
+        loss = self._dispatch(self._train_step, args)
+        self._notify(self._post_step(), loss, etl_ms, batch.num_examples())
+
+    def _fit_item(self, feeder: DeviceFeeder, item, tracer):
         """One feeder item: a passthrough object (``k == 0``) takes the
-        unfed step, a staged batch one step, a K-group one K-step call."""
+        unfed step, a staged batch one step, a K-group one K-step call
+        (the iteration advances by K, telemetry records K rows, the
+        listeners fire once with the last inner loss and the group's real
+        example count)."""
         if item.k == 0:
-            self._fit_batch(item.raw)
+            self._fit_batch(item.raw, etl_ms=item.queue_wait_ms)
             return
         item = feeder.hand_off(item)
         args = self._staged_step_args(item.features, item.labels,
                                       item.features_mask, item.labels_mask)
+        self._ensure_ring()
         if item.k == 1:
-            self.train_state, self._last_loss = self._train_step(
-                self.train_state, *args, self._generator)
-            return
-        if self._scan_step is None:
-            self._scan_step = self._build_scan_train_step()
-        self.train_state, losses = self._scan_step(
-            self.train_state, *args, self._generator)
-        self._last_loss = losses[-1]
+            loss = self._dispatch(self._train_step, args)
+        else:
+            if self._scan_step is None:
+                self._scan_step = self._build_scan_train_step()
+            loss = self._dispatch(self._scan_step, args, k=item.k)[-1]
+        self._notify(self._post_step(item.k), loss, item.queue_wait_ms,
+                     item.n_examples)
 
     # ---- evaluation -------------------------------------------------------
     def _output_for_eval(self, batch: DataSet) -> torch.Tensor:
@@ -282,14 +472,15 @@ class BaseModel:
 
     @property
     def train_state(self) -> TrainState:
-        """(params, model_state, opt_state, iteration) as one value, the
-        shape the train steps take and return."""
+        """(params, model_state, opt_state, iteration, telemetry ring) as
+        one value, the shape the train steps take and return."""
         return TrainState(self.params, self.model_state, self.opt_state,
-                          self.iteration)
+                          self.iteration, self._telemetry_buf)
 
     @train_state.setter
     def train_state(self, ts: TrainState):
-        self.params, self.model_state, self.opt_state, self.iteration = ts
+        (self.params, self.model_state, self.opt_state, self.iteration,
+         self._telemetry_buf) = TrainState(*ts)
 
     def set_params(self, params: Tree, model_state: Optional[Tree] = None):
         """Replace parameters (and state) with tensors of the same names

@@ -42,6 +42,7 @@ from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.nn.layers.recurrent import \
     first_bidirectional_name
+from deeplearning4j_tpu_torch.observe.tracer import get_tracer
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
                                                       make_constrain_fn,
                                                       make_scan_train_step,
@@ -208,13 +209,14 @@ class ComputationGraph(BaseModel):
 
     def _build_train_step(self):
         return make_train_step(self._loss, self._tx,
-                               make_constrain_fn(self._constraint_layers()))
+                               make_constrain_fn(self._constraint_layers()),
+                               telemetry=self._telemetry_spec())
 
     def _build_scan_train_step(self, shadow_cast=None):
         """K steps per call over (K, B, ...) tuples of inputs/labels."""
         return make_scan_train_step(
             self._loss, self._tx, make_constrain_fn(self._constraint_layers()),
-            shadow_cast=shadow_cast)
+            shadow_cast=shadow_cast, telemetry=self._telemetry_spec())
 
     def _step_args(self, batch):
         """(features, labels, fmasks, lmasks) tuples on the device."""
@@ -244,7 +246,7 @@ class ComputationGraph(BaseModel):
     def _named_layers(self):
         return [(n.name, n.layer) for n in self._layer_nodes]
 
-    def _fit_batch(self, batch):
+    def _fit_batch(self, batch, etl_ms: float = 0.0):
         """One step of standard BPTT, or with ``backprop_type="tbptt"``,
         recurrent nodes and a 3-D input, one step per segment."""
         feats = (batch.features if isinstance(batch, MultiDataSet)
@@ -252,16 +254,17 @@ class ComputationGraph(BaseModel):
         if (self.conf.backprop_type == "tbptt"
                 and self._recurrent_carry_nodes()
                 and any(f.ndim == 3 for f in feats)):
-            return self._fit_batch_tbptt(batch)
-        return super()._fit_batch(batch)
+            return self._fit_batch_tbptt(batch, etl_ms)
+        return super()._fit_batch(batch, etl_ms)
 
-    def _fit_batch_tbptt(self, batch):
+    def _fit_batch_tbptt(self, batch, etl_ms: float = 0.0):
         """Segments of ``tbptt_fwd_length`` over a DAG: 3-D features and
         sequence labels are sliced along time, 2-D (static) inputs and
         labels go whole into every segment, and a ragged last segment pads
         every 3-D stream to the segment length with its padded steps
         masked out of the recurrence and the loss."""
-        feats, labels, fmasks, lmasks = self._step_args(batch)
+        with get_tracer(self).span("host_to_device", cat="data"):
+            feats, labels, fmasks, lmasks = self._step_args(batch)
         fmasks = fmasks or (None,) * len(feats)
         lmasks = lmasks or (None,) * len(labels)
         k = self.conf.tbptt_fwd_length
@@ -287,12 +290,11 @@ class ComputationGraph(BaseModel):
                                       for l, m in zip(labels, lmasks))))
             if hi - lo < k:
                 self._pad_tail(cf, cfm, cl, clm, k - (hi - lo), n, hi - lo)
-            self.train_state, loss, carries = self._tbptt_step(
-                self.train_state, tuple(cf), tuple(cl), tuple(cfm),
-                tuple(clm), self._generator, carries)
+            loss, carries = self._tbptt_segment(
+                tuple(cf), tuple(cl), tuple(cfm), tuple(clm),
+                carries=carries)
             losses.append(loss)
-        self.last_segment_losses = losses
-        self._last_loss = losses[-1]
+        self._end_tbptt(losses, etl_ms, n)
 
     def _pad_tail(self, cf, cfm, cl, clm, pad, n, t):
         """The multi-stream ragged tail, in place: every 3-D stream padded

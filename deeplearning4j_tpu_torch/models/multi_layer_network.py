@@ -36,6 +36,7 @@ from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.nn.layers.recurrent import carry_core
+from deeplearning4j_tpu_torch.observe.tracer import get_tracer
 from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
                                                       make_constrain_fn,
                                                       make_scan_train_step,
@@ -200,25 +201,27 @@ class MultiLayerNetwork(BaseModel):
 
     def _build_train_step(self):
         return make_train_step(self._loss, self._tx,
-                               make_constrain_fn(self._constraint_layers()))
+                               make_constrain_fn(self._constraint_layers()),
+                               telemetry=self._telemetry_spec())
 
     def _build_scan_train_step(self, shadow_cast=None):
         """K steps per call over (K, B, ...) staged tensors."""
         return make_scan_train_step(
             self._loss, self._tx, make_constrain_fn(self._constraint_layers()),
-            shadow_cast=shadow_cast)
+            shadow_cast=shadow_cast, telemetry=self._telemetry_spec())
 
     def _named_layers(self):
         return [(l.name, l) for l in self.layers]
 
-    def _fit_batch(self, batch):
+    def _fit_batch(self, batch, etl_ms: float = 0.0):
         """One step of standard BPTT, or with ``backprop_type="tbptt"``
         and a sequence batch, one step per ``tbptt_fwd_length`` segment
         (the iteration count advances by the number of segments)."""
         if (self.conf.backprop_type != "tbptt" or batch.features.ndim != 3
                 or not self._recurrent_carry_nodes()):
-            return super()._fit_batch(batch)
-        features, labels, fmask, lmask = self._step_args(batch)
+            return super()._fit_batch(batch, etl_ms)
+        with get_tracer(self).span("host_to_device", cat="data"):
+            features, labels, fmask, lmask = self._step_args(batch)
         carries = self._start_tbptt(features.shape[0])
         k = self.conf.tbptt_fwd_length
         t_len = features.shape[1]
@@ -235,11 +238,10 @@ class MultiLayerNetwork(BaseModel):
                   else None if lmask is None else lmask[:, lo:hi])
             if hi - lo < k:
                 f, l, fm, lm = _pad_tbptt_tail(f, l, fm, lm, k, seq_labels)
-            self.train_state, loss, carries = self._tbptt_step(
-                self.train_state, f, l, fm, lm, self._generator, carries)
+            loss, carries = self._tbptt_segment(f, l, fm, lm,
+                                                carries=carries)
             losses.append(loss)
-        self.last_segment_losses = losses
-        self._last_loss = losses[-1]
+        self._end_tbptt(losses, etl_ms, batch.num_examples())
 
     def _step_args(self, batch: DataSet):
         """(features, labels, fmask, lmask) on the device."""

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.observe.telemetry import has_buffer
 from deeplearning4j_tpu_torch.optimize.updaters import (
     GradientNormalizationConfig,
     GradientTransformation,
@@ -34,11 +35,15 @@ from deeplearning4j_tpu_torch.optimize.updaters import (
 class TrainState(NamedTuple):
     """What a step carries: parameters (f32 masters), non-trainable layer
     state (BN running statistics), optimizer state, and the iteration
-    count (a host int: reading it never waits on the card)."""
+    count (a host int: reading it never waits on the card).
+    ``telemetry`` carries the on-device metrics ring
+    (observe/telemetry.py) when a collector is attached; it defaults to
+    an empty tuple, so 4-field train states keep working."""
     params: Any
     model_state: Any
     opt_state: Any
     iteration: int
+    telemetry: Any = ()
 
 
 def multi_transform(groups: Dict[str, GradientTransformation],
@@ -123,11 +128,15 @@ def value_and_grad(loss_fn: LossFn, ts: TrainState, features, labels,
 
 def _update(loss_fn: LossFn, tx: GradientTransformation, ts: TrainState,
             features, labels, fmask, lmask, generator,
-            constrain_fn=None, shadow=None):
+            constrain_fn=None, shadow=None, telemetry=None):
     """(new train state, loss) of one optimizer step. With ``shadow`` (a
     low-precision copy of ``ts.params``) the forward and backward run on
     the shadow and its gradients are cast to the masters' dtypes before
-    the update; ``constrain_fn`` projects the new parameters."""
+    the update; ``constrain_fn`` projects the new parameters;
+    ``telemetry`` (a ``TelemetrySpec``) appends one row to the ring the
+    train state carries, from this step's loss, gradients, new
+    parameters and ``ts.params`` (still the previous ones: the update is
+    functional)."""
     work = ts if shadow is None else ts._replace(params=shadow)
     loss, new_ms, grads = value_and_grad(loss_fn, work, features, labels,
                                          fmask, lmask, generator)
@@ -138,14 +147,24 @@ def _update(loss_fn: LossFn, tx: GradientTransformation, ts: TrainState,
         new_params = apply_updates(ts.params, updates)
         if constrain_fn is not None:
             new_params = constrain_fn(new_params)
-    return TrainState(new_params, new_ms, new_opt, ts.iteration + 1), loss
+        buf = ts.telemetry
+        if telemetry is not None and has_buffer(buf):
+            buf = telemetry.record(buf, loss=loss, grads=grads,
+                                   params=new_params,
+                                   prev_params=ts.params,
+                                   iteration=ts.iteration)
+    return TrainState(new_params, new_ms, new_opt, ts.iteration + 1,
+                      buf), loss
 
 
 def make_train_step(loss_fn: LossFn, tx: GradientTransformation,
-                    constrain_fn=None):
+                    constrain_fn=None, telemetry=None):
     """``loss_fn(params, model_state, features, labels, fmask, lmask,
     generator, iteration) -> (loss, new_model_state)``; ``constrain_fn``
-    (``make_constrain_fn``) projects the parameters after each update.
+    (``make_constrain_fn``) projects the parameters after each update;
+    ``telemetry`` (``observe.TelemetrySpec``) records one row a step into
+    the ring ``TrainState.telemetry`` carries, on the card (no host
+    interaction).
 
     Returns ``step(train_state, features, labels, fmask, lmask,
     generator) -> (new_train_state, loss)``; the loss stays on the
@@ -153,13 +172,13 @@ def make_train_step(loss_fn: LossFn, tx: GradientTransformation,
     def step(ts: TrainState, features, labels, fmask=None, lmask=None,
              generator=None):
         return _update(loss_fn, tx, ts, features, labels, fmask, lmask,
-                       generator, constrain_fn)
+                       generator, constrain_fn, telemetry=telemetry)
     return step
 
 
 def make_tbptt_train_step(loss_fn: LossFn, tx: GradientTransformation,
                           carries_of: Callable[[Any], Any],
-                          constrain_fn=None):
+                          constrain_fn=None, telemetry=None):
     """One truncated-BPTT segment (reference: doTruncatedBPTT).
 
     ``loss_fn`` is ``make_train_step``'s with a ``carries=`` keyword (the
@@ -174,7 +193,7 @@ def make_tbptt_train_step(loss_fn: LossFn, tx: GradientTransformation,
         def lf(*args):
             return loss_fn(*args, carries=carries)
         ts, loss = _update(lf, tx, ts, features, labels, fmask, lmask,
-                           generator, constrain_fn)
+                           generator, constrain_fn, telemetry=telemetry)
         return ts, loss, carries_of(ts.model_state)
     return step
 
@@ -188,7 +207,8 @@ def _at(batch, i):
 
 
 def make_scan_train_step(loss_fn: LossFn, tx: GradientTransformation,
-                         constrain_fn=None, shadow_cast=None):
+                         constrain_fn=None, shadow_cast=None,
+                         telemetry=None):
     """K optimizer steps in one call over pre-staged (K, B, ...) device
     tensors (features/labels, or tuples of them, and masks or None).
 
@@ -208,7 +228,10 @@ def make_scan_train_step(loss_fn: LossFn, tx: GradientTransformation,
     of that cast is the same cast of the gradient, so the losses and
     parameters are bitwise those of the same steps without it. (Eagerly
     the cast is not fused into the update as XLA fuses it; it moves from
-    the top of the loss to the end of the step.)"""
+    the top of the loss to the end of the step.)
+
+    ``telemetry`` records one row for each of the K inner steps, with the
+    same row math as the single step's."""
     def steps(ts: TrainState, features, labels, fmask=None, lmask=None,
               generator=None):
         first = features[0] if isinstance(features, (tuple, list)) \
@@ -221,7 +244,8 @@ def make_scan_train_step(loss_fn: LossFn, tx: GradientTransformation,
         for i in range(first.shape[0]):
             ts, loss = _update(loss_fn, tx, ts, _at(features, i),
                                _at(labels, i), _at(fmask, i), _at(lmask, i),
-                               generator, constrain_fn, shadow)
+                               generator, constrain_fn, shadow,
+                               telemetry=telemetry)
             if shadow_cast is not None:
                 with torch.no_grad():
                     shadow = shadow_cast(ts.params)

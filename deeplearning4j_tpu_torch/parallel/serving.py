@@ -51,7 +51,15 @@ which chip_smoke.py measures against ``model.output``.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 queue 1 item): more than one replica (item 15), int8 precision (item
 11), the persisted AOT executable cache (item 12) and tuned configs
-(item 16); the span tracer is not ported (item 10).
+(item 16).
+
+Spans: with a ``tracer`` (observe/tracer.py) the engine records the JAX
+engine's spans — ``serve_compile`` (an instant at a bucket's first
+dispatch), ``serve_warmup``, and for every batch one ``queue_wait`` per
+request, ``batch_form``, ``dispatch`` (the host's launch of the forward
+and of the result's asynchronous copy to pinned memory), ``device``
+(until the copy's event completes) and ``fetch`` (the pinned result to
+numpy).
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from deeplearning4j_tpu_torch.models.serialization import flatten_paths
 from deeplearning4j_tpu_torch.observe.latency import LatencyRing
 from deeplearning4j_tpu_torch.observe.recompile import RecompileWatchdog
 from deeplearning4j_tpu_torch.observe.registry import default_registry
+from deeplearning4j_tpu_torch.observe.tracer import NULL_TRACER
 from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
 from deeplearning4j_tpu_torch.optimize.updaters import tree_map
 from deeplearning4j_tpu_torch.parallel.deadline import (Deadline,
@@ -101,7 +110,8 @@ class _InFlight(NamedTuple):
     requests: List[_Request]
     n_real: int
     bucket: int
-    t_dispatched: float
+    t_dispatched: float                 # before the forward's launch
+    t_launched: float = 0.0             # after it (and the copy's)
 
 
 def _concrete(device) -> torch.device:
@@ -137,6 +147,8 @@ class ServingEngine:
     model_version : opaque version label (the fleet's swap path sets it)
     registry, watchdog : the metrics registry (default: the process one)
         and recompile watchdog (default: one over that registry)
+    tracer : an ``observe.SpanTracer`` for the engine's spans (default:
+        none)
     """
 
     def __init__(self, model, *, batch_limit: Optional[int] = None,
@@ -147,8 +159,8 @@ class ServingEngine:
                  warmup: Optional[bool] = None,
                  aot_cache_dir: Optional[str] = None,
                  model_version: Optional[str] = None,
-                 tuned_config=None, registry=None, watchdog=None,
-                 session_id: str = "serve"):
+                 tuned_config=None, tracer=None, registry=None,
+                 watchdog=None, session_id: str = "serve"):
         batch_limit = int(resolve_tuned(batch_limit, tuned_config,
                                         "serving.batch_limit"))
         if aot_cache_dir is not None:
@@ -188,6 +200,7 @@ class ServingEngine:
         self.feature_shape = (None if feature_shape is None
                               else tuple(feature_shape))
         self.latency = LatencyRing()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.registry = registry if registry is not None \
             else default_registry()
         self.watchdog = watchdog if watchdog is not None else \
@@ -310,6 +323,9 @@ class ServingEngine:
             if self._stream is not None:
                 self._stream.synchronize()
             self.warmup_seconds = time.perf_counter() - t0
+            self.tracer.add_span("serve_warmup", t0, time.perf_counter(),
+                                 cat="serve", buckets=len(self.ladder),
+                                 replicas=self.n_replicas)
         self._warmed = True
         self._dispatcher.start()
         self._completer.start()
@@ -418,6 +434,8 @@ class ServingEngine:
             if self._warmed:
                 self._post_warmup_compiles += 1
             self._c_compiles.inc(1.0, phase=phase, **self._lab)
+            self.tracer.instant("serve_compile", cat="serve", bucket=bucket,
+                                where=str(REPLICA), phase=phase)
 
     def _run(self, x: np.ndarray, bucket: int):
         """Launch the forward for one padded batch on the engine's
@@ -638,6 +656,7 @@ class ServingEngine:
 
     def _dispatch_loop(self):
         while not self._shutdown.is_set():
+            t_form0 = time.perf_counter()
             batch = self._form_batch()
             if batch:
                 batch = self._shed_expired(batch)
@@ -645,7 +664,7 @@ class ServingEngine:
                 continue
             self._g_queue.set(self._queue.qsize(), **self._lab)
             try:
-                inflight = self._dispatch(batch)
+                inflight = self._dispatch(batch, t_form0)
             except Exception as e:
                 # a failed batch must fail its waiters, not kill the
                 # dispatcher (they would hang forever)
@@ -665,7 +684,11 @@ class ServingEngine:
                                 req.future.set_exception(err)
                         break
 
-    def _dispatch(self, batch: List[_Request]) -> _InFlight:
+    def _dispatch(self, batch: List[_Request],
+                  t_form0: Optional[float] = None) -> _InFlight:
+        tracer = self.tracer
+        if t_form0 is None:
+            t_form0 = time.perf_counter()
         n = sum(req.x.shape[0] for req in batch)
         bucket = self.bucket_of(n)
         x = np.empty((bucket,) + batch[0].x.shape[1:], self.dtype)
@@ -676,6 +699,12 @@ class ServingEngine:
             ofs += k
         if bucket > n:
             x[n:] = x[n - 1]     # finite padding rows, sliced off below
+        t_formed = time.perf_counter()
+        for req in batch:
+            tracer.add_span("queue_wait", req.t_enqueue, t_form0,
+                            cat="serve")
+        tracer.add_span("batch_form", t_form0, t_formed, cat="serve", n=n,
+                        bucket=bucket)
         if self._chaos_dispatch is not None:
             self._chaos_dispatch.fail(arg=str(REPLICA))
         t0 = time.perf_counter()
@@ -690,11 +719,14 @@ class ServingEngine:
                 done.record()
         else:
             host = out
+        t_launched = time.perf_counter()
+        tracer.add_span("dispatch", t_formed, t_launched, cat="serve",
+                        where=str(REPLICA))
         self._c_batches.inc(1.0, **self._lab)
         self.dispatch_count += 1
         self._c_replica_disp.inc(1.0, replica=str(REPLICA), **self._lab)
         self._g_occupancy.set(n / bucket, **self._lab)
-        return _InFlight(host, done, batch, n, bucket, t0)
+        return _InFlight(host, done, batch, n, bucket, t0, t_launched)
 
     # ---- completion ------------------------------------------------------
     def _complete_loop(self):
@@ -719,6 +751,11 @@ class ServingEngine:
                     host = host.float()
                 host = host.numpy()
             host = np.asarray(host)
+            t_fetched = time.perf_counter()
+            self.tracer.add_span("device", inflight.t_launched, t_ready,
+                                 cat="serve", where=str(REPLICA))
+            self.tracer.add_span("fetch", t_ready, t_fetched, cat="serve",
+                                 bytes=host.nbytes)
             ofs = 0
             for req in inflight.requests:
                 k = req.x.shape[0]

@@ -1,29 +1,28 @@
-"""Observability over HTTP: stats storage, the dashboard server and its
-module routes (serving, fleet, generation).
+"""Observability over HTTP: stats collection and storage, the dashboard
+server and its module routes (serving, fleet, generation).
 
-The port of the JAX package's ``ui/``. Ported: ``storage.py``,
-``codec.py``, ``modules.py``, ``i18n.py``, ``server.py`` (``UIServer``:
-``/metrics``, ``/healthz``, the dashboard, module routes with SSE
-streaming, drain), ``serving_module.py`` and ``generation_module.py``.
-The training listeners are not: ``StatsListener`` (``ui/stats.py``,
-which needs ``optimize/listeners.py``; ROADMAP.md, queue 1 item 10) and
-``TsneListener`` (it needs ``manifold/tsne.py``; item 9) raise on
-import.
+The port of the JAX package's ``ui/``: ``stats.py`` (``StatsListener``,
+which feeds the training dashboard's ``/train`` pages, ``/api/sessions``
+and the stats receiver), ``storage.py``, ``codec.py``, ``modules.py``,
+``i18n.py``, ``server.py`` (``UIServer``: ``/metrics``, ``/healthz``,
+the dashboard, module routes with SSE streaming, drain),
+``serving_module.py`` and ``generation_module.py``. ``TsneListener``
+needs ``manifold/tsne.py`` and is not ported (ROADMAP.md, queue 1 item
+9): importing it raises.
 """
 
 from deeplearning4j_tpu_torch.ui.server import UIServer
+from deeplearning4j_tpu_torch.ui.stats import StatsListener
 from deeplearning4j_tpu_torch.ui.storage import (
     InMemoryStatsStorage,
     RemoteUIStatsStorageRouter,
     SqliteStatsStorage,
 )
 
-__all__ = ["InMemoryStatsStorage", "SqliteStatsStorage",
+__all__ = ["StatsListener", "InMemoryStatsStorage", "SqliteStatsStorage",
            "RemoteUIStatsStorageRouter", "UIServer"]
 
-_NOT_PORTED = {"StatsListener": ("ui/stats.py and optimize/listeners.py",
-                                 10),
-               "TsneListener": ("ui/tsne_listener.py and manifold/tsne.py",
+_NOT_PORTED = {"TsneListener": ("ui/tsne_listener.py and manifold/tsne.py",
                                 9)}
 
 

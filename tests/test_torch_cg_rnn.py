@@ -33,6 +33,14 @@ from deeplearning4j_tpu_torch.nn.graph.config import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.optimize import solver
 
+
+@pytest.fixture(autouse=True)
+def _no_crash_dumps(monkeypatch):
+    """Some fits here raise on purpose: keep the flight recorders' default
+    post-mortem dumps (both packages') out of the temporary directory."""
+    monkeypatch.setenv("DL4J_CRASH_DUMPS", "0")
+
+
 F, H, C = 3, 5, 2
 FWD_REL, TREE_REL = 1e-5, 1e-4
 RNG = np.random.default_rng(2720)

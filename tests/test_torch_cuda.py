@@ -1638,3 +1638,96 @@ def test_shadow_cast_steps_bitwise_on_the_card(card):
     assert torch.equal(la, lb)
     fa_, fb_ = flatten_paths(ts_a.params), flatten_paths(ts_b.params)
     assert all(torch.equal(fa_[k], fb_[k]) for k in fa_)
+
+
+def _observed_resnet(card, k=2, flush=4):
+    """A narrow fused-block ResNet50 on the card, a clone with nothing
+    attached, and 2k batches of 8."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    m = ResNet50(num_classes=6, height=32, width=32, fused_blocks=True,
+                 s2d_stem=True).init()
+    plain = m.clone()
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (16 * k, 32, 32, 3)).astype(np.float32)
+    y = np.eye(6, dtype=np.float32)[rng.integers(0, 6, 16 * k)]
+    return m, plain, ArrayDataSetIterator(DataSet(x, y), 8), x, y
+
+
+def test_observers_change_no_parameter_bit_on_the_card(card, tmp_path):
+    """fit(iterator, k_steps=2) with telemetry (histograms), score and
+    performance listeners, a tracer and a flight recorder gives the
+    parameters bitwise of the same K-step calls made directly on the same
+    staged batches (with the feeder's ones labels mask)."""
+    from deeplearning4j_tpu_torch.observe import (FlightRecorder,
+                                                  SpanTracer,
+                                                  TelemetryCollector)
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        PerformanceListener, ScoreIterationListener)
+    torch.backends.cudnn.deterministic = True
+    m, plain, it, x, y = _observed_resnet(card)
+    m.set_telemetry(TelemetryCollector(flush_interval=4, histograms=True,
+                                       hist_interval=2))
+    m.set_listeners(ScoreIterationListener(1), PerformanceListener(1))
+    m.set_tracer(SpanTracer())
+    m.set_flight_recorder(FlightRecorder(str(tmp_path)))
+    m.fit(it, k_steps=2)
+    scan = plain._build_scan_train_step()
+    for lo in range(0, len(x), 16):
+        xs = torch.from_numpy(x[lo:lo + 16].reshape(2, 8, 32, 32, 3)).to(
+            card)
+        ys = torch.from_numpy(y[lo:lo + 16].reshape(2, 8, 6)).to(card)
+        ones = torch.ones((2, 8), device=card)
+        plain.train_state, _ = scan(plain.train_state, (xs,), (ys,), None,
+                                    (ones,), plain._generator)
+    for ln, lp in plain.params.items():
+        for key, v in lp.items():
+            assert m.params[ln][key].equal(v), (ln, key)
+    assert len(m.telemetry.history) == m.iteration == 4
+
+
+def test_no_sync_between_telemetry_flushes_on_the_card(card):
+    """With sync debug mode "error" around every telemetry record, every
+    collector step that does not flush and the listeners' calls, a
+    monitored fit raises nothing: telemetry and score listeners make no
+    device-to-host sync between flushes."""
+    from deeplearning4j_tpu_torch.observe import TelemetryCollector
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener, ScoreIterationListener,
+        TrainingListener)
+    m, _, it, _, _ = _observed_resnet(card, k=4)
+    tc = TelemetryCollector(flush_interval=4, histograms=True,
+                            hist_interval=2)
+    m.set_telemetry(tc)
+    record, on_step = tc.spec.record, tc.on_step
+
+    def guarded(fn, when=lambda *a, **k: True):
+        def call(*a, **k):
+            if not when(*a, **k):
+                return fn(*a, **k)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    class Guard(TrainingListener):
+        def __init__(self, on):
+            self.on = on
+
+        def iteration_done(self, *args):
+            torch.cuda.set_sync_debug_mode("error" if self.on
+                                           else "default")
+    m.fit(it, k_steps=2)                 # warm: the record's constants
+    tc.spec.record = guarded(record)
+    tc.on_step = guarded(on_step, lambda ts, steps=1: not tc.will_flush(
+        steps))
+    m.set_listeners(Guard(True), ScoreIterationListener(1),
+                    CollectScoresIterationListener(1), Guard(False))
+    try:
+        m.fit(it, k_steps=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tc.fetch_count == 6 and len(tc.history) == 16

@@ -49,6 +49,13 @@ from deeplearning4j_tpu_torch.models.serialization import (flatten_paths,
 TREE_REL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _no_crash_dumps(monkeypatch):
+    """Some fits here raise on purpose: keep the flight recorders' default
+    post-mortem dumps (both packages') out of the temporary directory."""
+    monkeypatch.setenv("DL4J_CRASH_DUMPS", "0")
+
+
 def _close_flat(got, want, rel, skip=()):
     g = {k: v.detach().float().numpy() for k, v in flatten_paths(got).items()}
     w = {k: np.asarray(v, np.float32) for k, v in jax_paths(want).items()}

@@ -346,3 +346,54 @@ def test_serving_series_match_the_jax_engine(model):
         series.append(found)
     jax_series, port_series = series
     assert port_series == jax_series
+
+
+def test_traced_engine_answers_bitwise_with_the_jax_span_names(model):
+    """An engine with a SpanTracer answers bitwise as one without, and its
+    trace holds the JAX engine's span names for the same traffic: the
+    warmup and each bucket's first dispatch, and per batch ``queue_wait``
+    (one a request), ``batch_form``, ``dispatch``, ``device`` and
+    ``fetch``."""
+    from deeplearning4j_tpu.models.multi_layer_network import \
+        MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu.nn.config import NeuralNetConfiguration as JConf
+    from deeplearning4j_tpu.nn.inputs import InputType as JType
+    from deeplearning4j_tpu.nn.layers.feedforward import DenseLayer as JD
+    from deeplearning4j_tpu.nn.layers.output import OutputLayer as JO
+    from deeplearning4j_tpu.observe.registry import \
+        MetricsRegistry as JRegistry
+    from deeplearning4j_tpu.observe.tracer import SpanTracer as JTracer
+    from deeplearning4j_tpu.parallel.serving import ServingEngine as JEngine
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.observe.tracer import SpanTracer
+    rng = np.random.default_rng(5)
+    reqs = [_x(rng, n) for n in (1, 3, 4, 2)]
+    tracer = SpanTracer()
+    answers = []
+    for tr in (None, tracer):
+        with ServingEngine(model, batch_limit=4, feature_shape=FEAT,
+                           registry=MetricsRegistry(), tracer=tr) as eng:
+            answers.append([eng.output(x) for x in reqs])
+    for got, want in zip(answers[1], answers[0]):
+        np.testing.assert_array_equal(got, want)
+    jm = JMLN(JConf.Builder().seed(1).list().layer(JD(n_out=4))
+              .layer(JO(n_out=3)).set_input_type(JType.feed_forward(5))
+              .build()).init()
+    jtracer = JTracer()
+    jeng = JEngine(jm, batch_limit=4, feature_shape=(5,),
+                   registry=JRegistry(), tracer=jtracer)
+    try:
+        for x in reqs:
+            jeng.output(np.zeros((x.shape[0], 5), np.float32))
+    finally:
+        jeng.shutdown()
+    names = lambda t: {e["name"] for e in t.events}
+    assert names(tracer) == names(jtracer) == {
+        "serve_compile", "serve_warmup", "queue_wait", "batch_form",
+        "dispatch", "device", "fetch"}
+    per_batch = [e["name"] for e in tracer.events
+                 if e["name"] in ("batch_form", "dispatch", "device",
+                                  "fetch")]
+    assert per_batch.count("batch_form") == per_batch.count("fetch") == \
+        sum(1 for e in tracer.events if e["name"] == "device") == 4
+    assert sum(e["name"] == "queue_wait" for e in tracer.events) == 4

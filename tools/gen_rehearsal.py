@@ -10,6 +10,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py rnn
     python3 tools/gen_rehearsal.py zoo
     python3 tools/gen_rehearsal.py keras
+    python3 tools/gen_rehearsal.py observed
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -44,6 +45,16 @@ a temporary directory at a cut size (BERT 2 x 32 with 4 heads and a
 vocabulary of 64 at seq 128; InceptionV3 at 75×75×3), with cut batches,
 the flash and LSTM wrappers counting a launch for each plain call, so
 every gate of the phase runs. It needs keras and h5py.
+
+``observed`` runs ``phase_observed_fit`` the same way (every ``"cuda"``
+turned to ``"cpu"``) at a cut size (the ResNet50 at 32×32×3 with 10
+classes in f32, batch 8; BERT 2 x 32 with 4 heads, a vocabulary of 64 at
+seq 16, batch 2; TBPTT batches of 4 x 200 chars; 4 served requests),
+with the conv, LSTM and flash wrappers counting a launch for each plain
+call. What exists only on the card is stubbed: sync debug mode is a
+no-op, ``mem_get_info`` raises the OOM the phase provokes, the dump's
+memory section gets a device entry, and the profiler's hand-written
+kernel count is a constant. Every other gate of the phase runs.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -264,9 +275,45 @@ def ops() -> None:
     print(collections.Counter(top).most_common(12))
 
 
+def observed() -> None:
+    from deeplearning4j_tpu_torch.observe import flight_recorder
+    from deeplearning4j_tpu_torch.ops import (flash_attention, fused_conv,
+                                              fused_lstm)
+    smoke = _cpu_smoke("cpu_all")
+    _count_launches(fused_conv, ("fused_mm", "fused_c3", "fused_mm_bwd",
+                                 "fused_c3_bwd", "fused_c3_bwd_in",
+                                 "fused_c3_bwd_w"))
+    _count_launches(fused_lstm, ("lstm_fwd", "lstm_bwd"))
+    _count_launches(flash_attention, ("flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq"))
+
+    def oom(*args):
+        raise torch.OutOfMemoryError("CPU rehearsal: past mem_get_info")
+    torch.cuda.mem_get_info = oom
+    torch.cuda.set_sync_debug_mode = lambda mode: None
+    section = flight_recorder.FlightRecorder._memory_section
+
+    def memory(self, model, reason):
+        out = section(self, model, reason)
+        out["devices"] = [{"id": 0, "bytes_in_use": 0}]
+        return out
+    flight_recorder.FlightRecorder._memory_section = memory
+    smoke._hand_kernel_counts = lambda fn: (fn(), {"rehearsal": 1})[1]
+    smoke.SLICE = dict(smoke.SLICE, height=32, width=32, num_classes=10,
+                       compute_dtype="float32")
+    smoke.OBS_BATCH, smoke.OBS_HELD_OUT, smoke.OBS_SERVE_REQUESTS = 8, 16, 4
+    smoke.BERT = dict(vocab=64, width=32, heads=4, blocks=2, seq=16)
+    smoke.BERT_TRAIN_BATCH = 2
+    smoke.TBPTT_BATCH, smoke.TBPTT_CHARS = 4, 200
+    report = {"run_dir": str(ROOT / "build" / "rehearsal")}
+    t0 = time.perf_counter()
+    print(smoke.phase_observed_fit(report, "CPU rehearsal"))
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def main(argv) -> int:
     if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
-                                   "keras"):
+                                   "keras", "observed"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -279,6 +326,8 @@ def main(argv) -> int:
         zoo()
     elif argv[0] == "keras":
         keras()
+    elif argv[0] == "observed":
+        observed()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
