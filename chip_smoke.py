@@ -283,6 +283,49 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    bitwise those of the same batches from ``DigitsDataSetIterator``.
    cuDNN runs deterministic algorithms in this phase.
 
+18. quant_serve — int8 serving (parallel/quant.py,
+   evaluation/quant_gate.py). ``int8_conv`` and ``int8_dot`` on the card
+   at LeNet's shapes and at K = 4608: the int32 accumulator equal to an
+   int64 host product, the output bitwise the CPU's. The committed LeNet
+   behind ``ServingEngine(precision=PrecisionPolicy.int8(digits test
+   split))`` at batch 32: 12 requests of 1-45 rows bitwise the
+   ``QuantizedModel``'s walk at the bucket, the gate passes, two
+   calibrations on the card give one hash (and whether it equals the CPU
+   port's is recorded, not gated), images/s and p50/p99 at 32 beside the
+   f32 engine, ``params_nbytes``. The TextGenerationLSTM with an int8
+   ``RnnOutputLayer`` and f32 LSTMs: exactly 2 ``lstm_fwd`` launches a
+   served call, the gate passes, top-1 agreement with the f32 engine,
+   sequences/s. The fleet: an int8 LeNet pool admitted behind a passing
+   ``QuantGate``, a swap behind an impossible gate refused with the old
+   version answering bitwise, ``dl4j_fleet_quant_gate_total`` counting
+   one pass and one fail.
+19. model_library — the rest of the model library. A 784 -> (256, 256) ->
+   32 Bernoulli VAE pretrained on the 1797 digits for 3 epochs (the
+   negative ELBO of a fixed batch falls; one pretrain step with injected
+   epsilon card against CPU within LOSS_RTOL and LIB_STEP_RTOL;
+   ``reconstruction_log_probability`` and ``generate_at_mean_given_z``);
+   an AutoEncoder 784-500-250 stack (corruption 0.3) pretrained, then
+   fitted (the loss falls). The MoE sequence stack (embedding 30522 ->
+   768, positions, 2 pre-LN blocks of 768 with 12 heads, MixtureOfExperts
+   of 8 experts of 3072, top 2, capacity factor 1.25, RnnOutputLayer
+   30522; bf16, Adam(1e-4)) at 32 x 128 with a ragged padding mask: 24
+   steps, 2 launches of each flash kernel a step, the loss falls (the
+   mean of the last 4 steps below the first), the aux loss finite and
+   counted in the loss, masked tokens' MoE output exactly 0, dispatch and
+   capacity drops recorded, one f32 step through the kernels against the
+   plain versions (loss, gradients, the parameters after the step). A LambdaLayer + SameDiffLayer network card against
+   CPU; ``check_model_gradients`` in float64 on the card for dense +
+   AutoEncoder + MoE + SameDiff + output; an f64 LSTM raising TypeError
+   from the kernel wrapper. ``memory_report`` of LeNet, the bench
+   ResNet50, TextGenerationLSTM and the BERT geometry;
+   ``device_memory_analysis(train=True)`` of LeNet and ResNet50 at 128
+   beside a real step's allocator peak. ``KMeansClustering(10)`` of
+   LeNet's 500-wide features of the digits card against CPU (centers,
+   inertia, purity); exact t-SNE of the 1797 digits (each of the first
+   20 steps card against CPU from the same state, the whole run's time,
+   KL and trustworthiness), Barnes-Hut on 300 points; a TsneListener in
+   a LeNet fit writing its coordinates to a running UIServer.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
@@ -5959,13 +6002,955 @@ def phase_observed_fit(report, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# quant_serve: int8 serving (parallel/quant.py, evaluation/quant_gate.py)
+# ---------------------------------------------------------------------------
+
+QUANT_BATCH = 32          # the served batch (and the engine's batch limit)
+QUANT_TIMED_CALLS = 40    # timed requests of QUANT_BATCH rows, per engine
+QUANT_LSTM_LAUNCHES = 2   # lstm_fwd launches a served TextGenerationLSTM call
+# int8 exactness on the card: (x NHWC, w HWIO, strides, padding, dilation,
+# groups) of int8_conv and (rows, K, N) of int8_dot: LeNet's shapes and a
+# K = 4608 contraction (past the f32 route's exact width of 1040)
+QUANT_CONV_CASES = (
+    ((32, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0)), (1, 1), 1),
+    ((32, 12, 12, 20), (5, 5, 20, 50), (1, 1), ((0, 0), (0, 0)), (1, 1), 1),
+    ((8, 6, 6, 512), (3, 3, 512, 16), (1, 1), ((0, 0), (0, 0)), (1, 1), 1))
+QUANT_DOT_CASES = ((32, 800, 500), (32, 500, 10), (64, 4608, 77))
+
+
+def _int64_conv(xq, wq, stride, dil):
+    """The exact integer convolution of int8 NHWC activations and HWIO
+    weights (no padding, one group) on the host in int64: (N, L, Cout)."""
+    import torch
+    kh, kw, _, cout = wq.shape
+    cols = torch.nn.functional.unfold(
+        xq.permute(0, 3, 1, 2).double(), (kh, kw), dilation=dil,
+        stride=stride).long()
+    w2 = wq.long().permute(2, 0, 1, 3).reshape(-1, cout)
+    return torch.einsum("nkl,ko->nlo", cols, w2)
+
+
+def quant_exactness():
+    """``int8_conv`` and ``int8_dot`` on the card: their int32
+    accumulators held against an int64 host product bitwise, and their
+    rescaled outputs against the CPU's bitwise."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.quantize import (
+        _int_matmul, int8_conv, int8_conv_accumulator, int8_dot,
+        quantize_act)
+    rows = []
+    g = torch.Generator().manual_seed(18)
+    for xs_, ws_, s, pad, d, grp in QUANT_CONV_CASES:
+        x = torch.randn(xs_, generator=g)
+        wq = torch.randint(-127, 128, ws_, generator=g, dtype=torch.int8)
+        xs = torch.tensor(float(x.abs().max()) / 127)
+        kw = dict(window_strides=s, padding=pad, rhs_dilation=d,
+                  feature_group_count=grp)
+        xq = quantize_act(x, xs)
+        acc = int8_conv_accumulator(xq.cuda(), wq.cuda(), **kw).cpu()
+        exact = _int64_conv(xq, wq, s, d)
+        ok = acc.dtype == torch.int32 and torch.equal(
+            acc.reshape(exact.shape).long(), exact)
+        ws = torch.rand(ws_[-1], generator=g) * 0.01
+        same = torch.equal(int8_conv(x.cuda(), wq.cuda(), ws.cuda(),
+                                     xs.cuda(), **kw).cpu(),
+                           int8_conv(x, wq, ws, xs, **kw))
+        rows.append({"op": "int8_conv", "x": list(xs_), "w": list(ws_),
+                     "K": ws_[0] * ws_[1] * ws_[2], "exact": bool(ok),
+                     "cpu_bitwise": bool(same)})
+    for m, k, n in QUANT_DOT_CASES:
+        x = torch.rand((m, k), generator=g) * 2 - 1
+        wq = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        xs = torch.tensor(1.0 / 127)
+        xq = quantize_act(x, xs)
+        acc = _int_matmul(xq.float().cuda(), wq.float().cuda()).cpu()
+        ok = acc.dtype == torch.int32 and torch.equal(
+            acc.long(), xq.long() @ wq.long())
+        ws = torch.rand(n, generator=g) * 0.01
+        same = torch.equal(int8_dot(x.cuda(), wq.cuda(), ws.cuda(),
+                                    xs.cuda()).cpu(), int8_dot(x, wq, ws, xs))
+        rows.append({"op": "int8_dot", "x": [m, k], "w": [k, n], "K": k,
+                     "exact": bool(ok), "cpu_bitwise": bool(same)})
+    return rows
+
+
+def _serve_times(eng, x, calls):
+    """Per-request ms of ``calls`` sequential requests of ``x`` (after one
+    warm request): p50, p99 and rows/s."""
+    import numpy as np
+    eng.output(x)
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        eng.output(x)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    ms = np.asarray(ms)
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "rows_per_s": 1e3 * len(x) * calls / float(ms.sum())}
+
+
+def _bucket_walk(eng, x):
+    """The int8 engine's answer as the QuantizedModel's direct walk gives
+    it: each chunk of at most the batch limit padded to its bucket with
+    its last row (the port's padded-bucket contract)."""
+    import numpy as np
+    import torch
+    qm = eng.quantized
+    fwd = qm.build_inference_fn()
+    out = []
+    for i in range(0, len(x), eng.batch_limit):
+        c = x[i:i + eng.batch_limit]
+        b = eng.bucket_of(len(c))
+        pad = np.concatenate([c, np.repeat(c[-1:], b - len(c), 0)])
+        y = fwd(qm.params, qm.model.model_state,
+                torch.from_numpy(pad).cuda())
+        out.append(y.float().cpu().numpy()[:len(c)])
+    return np.concatenate(out)
+
+
+def _quant_lenet(out, card):
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.evaluation.quant_gate import (
+        QuantGate, run_quant_gate)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.quant import (PrecisionPolicy,
+                                                         calibrate,
+                                                         params_nbytes)
+    from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    x, _ = DigitsDataSetIterator.fetch(train=False)
+    x = x.astype(np.float32)
+    lenet = LeNet().init_pretrained(flavor="digits")
+    policy = PrecisionPolicy.int8(x)
+    t0 = time.perf_counter()
+    eng = ServingEngine(lenet, batch_limit=QUANT_BATCH,
+                        feature_shape=x.shape[1:], precision=policy,
+                        registry=MetricsRegistry(), session_id="q-lenet")
+    start_s = time.perf_counter() - t0
+    f32 = ServingEngine(lenet, batch_limit=QUANT_BATCH,
+                        feature_shape=x.shape[1:],
+                        registry=MetricsRegistry(), session_id="f-lenet")
+    try:
+        rng = np.random.default_rng(18)
+        sizes = [1, 7, 32, 45] + [int(v) for v in rng.integers(1, 33, 8)]
+        lo, bitwise = 0, True
+        for n in sizes:
+            req = x[lo % 300:lo % 300 + n]
+            lo += n
+            bitwise &= bool(np.array_equal(eng.output(req),
+                                           _bucket_walk(eng, req)))
+        gate = run_quant_gate(lenet, policy, QuantGate(),
+                              quantized=eng.quantized, model_name="LeNet")
+        h1 = calibrate(lenet, policy).hash()
+        h2 = calibrate(lenet, policy).hash()
+        cpu = LeNet().init_pretrained(flavor="digits", device="cpu")
+        c_cpu = calibrate(cpu, policy)
+        c_card = eng.quantized.calibration
+        scale_rel = max(abs(c_card.scales[k] - c_cpu.scales[k])
+                        / c_cpu.scales[k] for k in c_cpu.scales)
+        t8 = _serve_times(eng, x[:QUANT_BATCH], QUANT_TIMED_CALLS)
+        tf = _serve_times(f32, x[:QUANT_BATCH], QUANT_TIMED_CALLS)
+        st = eng.stats()
+        res = {
+            "engine_start_s": start_s, "bitwise_vs_walk": bitwise,
+            "request_sizes": sizes,
+            "gate": gate.summary(), "gate_passed": gate.passed,
+            "top1_agreement": gate.top1_agreement,
+            "max_prob_delta": gate.max_logit_delta,
+            "hash_repeat_equal": h1 == h2 == c_card.hash(),
+            "hash": c_card.hash(), "cpu_hash": c_cpu.hash(),
+            "card_hash_equals_cpu": c_card.hash() == c_cpu.hash(),
+            "scale_rel_card_vs_cpu": scale_rel,
+            "quantized_layers": eng.quantized.quantized_layers,
+            "fallback": st["quant"]["fallback"],
+            "layer_errors": st["quant"]["layers"],
+            "int8": t8, "f32": tf,
+            "params_nbytes": {"int8": params_nbytes(eng.quantized.params),
+                              "f32": params_nbytes(lenet.params)},
+            "resident_bytes": {"int8": eng.params_resident_bytes,
+                               "f32": f32.params_resident_bytes}}
+        eng.assert_warm()
+    finally:
+        eng.shutdown()
+        f32.shutdown()
+    log(f"  LeNet int8: answers bitwise the QuantizedModel walk at the "
+        f"bucket over {len(sizes)} requests: {bitwise}; {gate.summary()}")
+    log(f"  LeNet calibration hash repeatable on the card: "
+        f"{res['hash_repeat_equal']}; equal to the CPU port's: "
+        f"{res['card_hash_equals_cpu']} (scales within "
+        f"{scale_rel:.3g} relative); quantized {res['quantized_layers']}")
+    log(f"  LeNet at {QUANT_BATCH}: int8 {t8['rows_per_s']:.1f} images/s "
+        f"p50 {t8['p50_ms']:.3f} p99 {t8['p99_ms']:.3f} ms; f32 "
+        f"{tf['rows_per_s']:.1f} images/s p50 {tf['p50_ms']:.3f} p99 "
+        f"{tf['p99_ms']:.3f} ms; params {res['params_nbytes']['int8']} "
+        f"against {res['params_nbytes']['f32']} bytes [{card}]")
+    if not (bitwise and gate.passed and res["hash_repeat_equal"]):
+        raise AssertionError("LeNet int8: the served answers, the gate or "
+                             "the calibration hash failed")
+    if res["params_nbytes"]["int8"] >= res["params_nbytes"]["f32"]:
+        raise AssertionError("int8 params are not smaller than f32")
+    out["lenet"] = res
+    return lenet, x, policy
+
+
+def _quant_lstm(out, card, launches):
+    import numpy as np
+    from deeplearning4j_tpu_torch.evaluation.quant_gate import (
+        QuantGate, run_quant_gate)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.quant import (PrecisionPolicy,
+                                                         params_nbytes)
+    from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+    model = TextGenerationLSTM().init_pretrained()
+    # the gate's case: 96 one-hot streams of 60 from default_rng(1234)
+    vocab = model.layers[-1].n_out
+    ids = np.random.default_rng(1234).integers(0, vocab, size=(96, 60))
+    feats = np.eye(vocab, dtype=np.float32)[ids]
+    policy = PrecisionPolicy.int8(feats)
+    eng, made = _counted(launches, lambda: ServingEngine(
+        model, batch_limit=QUANT_BATCH, feature_shape=feats.shape[1:],
+        precision=policy, registry=MetricsRegistry(), session_id="q-lstm"))
+    f32 = ServingEngine(model, batch_limit=QUANT_BATCH,
+                        feature_shape=feats.shape[1:],
+                        registry=MetricsRegistry(), session_id="f-lstm")
+    try:
+        per_call = []
+        for n in (32, 5, 32):
+            _, m = _counted(launches, lambda: eng.output(feats[:n]))
+            per_call.append(m.get("lstm_fwd", 0))
+        gate, m_gate = _counted(launches, lambda: run_quant_gate(
+            model, policy, QuantGate(), quantized=eng.quantized,
+            model_name="TextGenerationLSTM"))
+        y8 = eng.output(feats)
+        yf = f32.output(feats)
+        agree = float(np.mean(y8.argmax(-1) == yf.argmax(-1)))
+        t8 = _serve_times(eng, feats[:QUANT_BATCH], QUANT_TIMED_CALLS // 2)
+        tf = _serve_times(f32, feats[:QUANT_BATCH], QUANT_TIMED_CALLS // 2)
+        res = {"launches_engine_start": made, "lstm_fwd_per_call": per_call,
+               "gate": gate.summary(), "gate_passed": gate.passed,
+               "gate_launches": m_gate, "top1_agreement_vs_f32": agree,
+               "quantized_layers": eng.quantized.quantized_layers,
+               "int8": t8, "f32": tf,
+               "params_nbytes": {"int8": params_nbytes(eng.quantized.params),
+                                 "f32": params_nbytes(model.params)}}
+        eng.assert_warm()
+    finally:
+        eng.shutdown()
+        f32.shutdown()
+    log(f"  TextGenerationLSTM int8 (head {res['quantized_layers']}, LSTMs "
+        f"f32): lstm_fwd launches a served call {per_call}, engine start "
+        f"(calibration, probe, warmup) {made}, gate {m_gate}; "
+        f"{gate.summary()}; top-1 agreement with the f32 engine {agree:.4f}")
+    log(f"  TextGenerationLSTM at {QUANT_BATCH} x 60: int8 "
+        f"{t8['rows_per_s']:.1f} sequences/s (p50 {t8['p50_ms']:.3f} ms), "
+        f"f32 {tf['rows_per_s']:.1f} (p50 {tf['p50_ms']:.3f} ms); params "
+        f"{res['params_nbytes']['int8']} against "
+        f"{res['params_nbytes']['f32']} bytes [{card}]")
+    if per_call != [QUANT_LSTM_LAUNCHES] * 3 or not gate.passed:
+        raise AssertionError("TextGenerationLSTM int8: not 2 lstm_fwd "
+                             "launches a call, or the gate failed")
+    out["textgen"] = res
+
+
+def _quant_fleet(out, card, lenet, x, policy):
+    import numpy as np
+    from deeplearning4j_tpu_torch.evaluation.quant_gate import (
+        QuantGate, QuantGateError)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.fleet import FleetRouter
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    reg = MetricsRegistry()
+    router = FleetRouter(registry=reg, session_id="q-fleet", window_s=10.0)
+    why = None
+    try:
+        pool = router.add_pool(
+            "lenet", lenet, version="v1", precision=policy,
+            quant_gate=QuantGate(samples=x), feature_shape=x.shape[1:],
+            batch_limit=QUANT_BATCH)
+        y1 = router.output(x[:QUANT_BATCH], model="lenet")
+        pool.quant_gate = QuantGate(top1_budget=0.0, logit_budget=1e-9,
+                                    samples=x)
+        try:
+            router.swap("lenet", LeNet().init_pretrained(flavor="digits"),
+                        "v2")
+        except QuantGateError as e:
+            why = str(e)
+        same = np.array_equal(router.output(x[:QUANT_BATCH], model="lenet"),
+                              y1)
+        text = reg.render()
+        counts = {o: f'dl4j_fleet_quant_gate_total{{model="lenet",'
+                     f'outcome="{o}"}} 1.0' in text for o in ("pass", "fail")}
+        res = {"admitted": pool.gate_results[0].summary(),
+               "swap_refused": why is not None, "refusal": why,
+               "active_version": pool.active_version,
+               "old_version_bitwise": same, "gate_counter": counts}
+    finally:
+        router.shutdown()
+    log(f"  fleet: int8 pool admitted ({res['admitted']}); the swap behind "
+        f"an impossible gate refused: {why is not None}, v1 still active "
+        f"and bitwise: {same}; dl4j_fleet_quant_gate_total pass/fail: "
+        f"{counts}")
+    if not (why is not None and same and res["active_version"] == "v1"
+            and all(counts.values())):
+        raise AssertionError("fleet int8 gate: the swap was not refused, "
+                             "the old version changed, or the counter is "
+                             "wrong")
+    out["fleet"] = res
+
+
+def phase_quant_serve(report, card):
+    out = {}
+    launches = {}
+    rows = quant_exactness()
+    for r in rows:
+        log(f"  {r['op']} x {r['x']} w {r['w']} (K {r['K']}): int32 "
+            f"accumulator exact against int64 {r['exact']}, bitwise the "
+            f"CPU's {r['cpu_bitwise']}")
+    out["exactness"] = rows
+    bad = [r for r in rows if not (r["exact"] and r["cpu_bitwise"])]
+    if bad:
+        raise AssertionError(f"int8 products not exact on the card: {bad}")
+    lenet, x, policy = _quant_lenet(out, card)
+    _quant_lstm(out, card, launches)
+    _quant_fleet(out, card, lenet, x, policy)
+    report["quant_serve"] = out
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# model_library: VAE, AutoEncoder, MoE, custom layers, gradient check,
+# memory, k-means, t-SNE
+# ---------------------------------------------------------------------------
+
+LIB_VAE = dict(n_out=32, encoder_layer_sizes=(256, 256),
+               decoder_layer_sizes=(256, 256))
+LIB_VAE_EPOCHS, LIB_AE_EPOCHS, LIB_FIT_EPOCHS = 3, 2, 3
+LIB_PRETRAIN_BATCH = 128
+# the MoE sequence stack: the BERT geometry's width and heads, 2 blocks
+LIB_MOE = dict(vocab=30522, width=768, heads=12, blocks=2, seq=128,
+               experts=8, hidden=3072, top_k=2, capacity_factor=1.25)
+# 24 steps: the stack's loss stands near ln 30522 for its first 6 (the
+# router has sent every token to 3 of the 8 experts, and capacity drops
+# half the slots), then falls (10.3489 -> 9.1163 in 24 steps on an H100)
+LIB_MOE_BATCH, LIB_MOE_STEPS, LIB_MOE_CHECK_BATCH = 32, 24, 4
+LIB_STEP_RTOL = 1e-4      # one step card vs CPU / kernels vs plain: rel L2
+LIB_CUSTOM_TOL = 1e-6     # custom layers card vs CPU, of each row's largest
+LIB_KMEANS_TOL = 1e-4     # k-means centers card vs CPU, of the largest
+LIB_TSNE_CHECK_STEPS = 20
+LIB_TSNE_TOL = 1e-4       # one exact step card vs CPU, of the largest
+LIB_BH_POINTS, LIB_BH_ITERS = 300, 20
+LIB_MEMORY_BATCH = 128
+
+
+def library_mln(device="cuda"):
+    """Dense + AutoEncoder + MixtureOfExperts + SameDiffLayer + output on
+    12 features: the gradient check's model."""
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        AutoEncoder, DenseLayer, MixtureOfExperts)
+    from deeplearning4j_tpu_torch.nn.layers.misc import SameDiffLayer
+    from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+    conf = (NeuralNetConfiguration.Builder().seed(11).list()
+            .layer(DenseLayer(n_out=8, activation=Activation.TANH))
+            .layer(AutoEncoder(n_out=7, activation=Activation.SIGMOID))
+            .layer(MixtureOfExperts(n_out=7, num_experts=3, hidden=5,
+                                    top_k=2, capacity_factor=2.0,
+                                    activation=Activation.TANH))
+            .layer(SameDiffLayer(
+                param_shapes={"W": (7, 5), "b": (5,)},
+                fn=lambda p, x: torch.tanh(x @ p["W"] + p["b"]),
+                out_type=lambda it: it.__class__(5)))
+            .layer(OutputLayer(n_out=3, loss=LossFunction.MCXENT))
+            .set_input_type(InputType.feed_forward(12)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def library_data(n=6, seed=0):
+    """A batch of ``n`` rows for ``library_mln``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    return DataSet(x, np.eye(3, dtype=np.float32)[np.arange(n) % 3])
+
+
+def _all_digits():
+    """The committed digits, train and test split together: (1797, 784)
+    features in [0, 1] and their labels."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    xa, ya = DigitsDataSetIterator.fetch(train=True)
+    xb, yb = DigitsDataSetIterator.fetch(train=False)
+    return (np.concatenate([xa, xb]).astype(np.float32),
+            np.concatenate([np.asarray(ya), np.asarray(yb)]))
+
+
+def _batches(x, b, y=None):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    return [DataSet(x[i:i + b], None if y is None else y[i:i + b])
+            for i in range(0, len(x) - b + 1, b)]
+
+
+def _tree_rel_l2(a, b):
+    """The relative L2 error of all of ``a``'s leaves against ``b``'s."""
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    fa, fb = flatten_paths(a), flatten_paths(b)
+    num = sum(float((fa[k].double().cpu() - v.double().cpu()).square()
+                    .sum()) for k, v in fb.items())
+    den = sum(float(v.double().cpu().square().sum()) for v in fb.values())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _lib_vae(out, card, x):
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.variational import (
+        BernoulliReconstructionDistribution, VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(18).updater(Adam(1e-3))
+            .list().layer(VariationalAutoencoder(
+                activation=Activation.LEAKYRELU,
+                reconstruction_distribution=(
+                    BernoulliReconstructionDistribution()), **LIB_VAE))
+            .layer(OutputLayer(n_out=10))
+            .set_input_type(InputType.feed_forward(x.shape[1])).build())
+    model = MultiLayerNetwork(conf).init()
+    layer = model.layers[0]
+    cpu = _copy_model(model, "cpu")
+    g = torch.Generator().manual_seed(5)
+    xb = x[:LIB_PRETRAIN_BATCH]
+    eps = torch.randn((LIB_PRETRAIN_BATCH, LIB_VAE["n_out"]), generator=g)
+    # one pretrain step from the same params and noise, card and CPU
+    tx = conf.global_config.updater.to_transform()
+    steps = {}
+    for m, dev in ((model, "cuda"), (cpu, "cpu")):
+        lp = m.params[layer.name]
+        lp2, _, loss = m.pretrain_step(0, tx, lp, tx.init(lp), xb,
+                                       eps=[eps.to(dev)])
+        steps[dev] = (float(loss), lp2)
+    loss_err = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    param_err = _tree_rel_l2(steps["cuda"][1], steps["cpu"][1])
+
+    def elbo():
+        with torch.no_grad():
+            return float(layer.pretrain_loss(
+                model.params[layer.name], torch.from_numpy(xb).cuda(),
+                eps=[eps.cuda()]))
+    before = elbo()
+    t0 = time.perf_counter()
+    model.pretrain(_batches(x, LIB_PRETRAIN_BATCH), epochs=LIB_VAE_EPOCHS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = elbo()
+    with torch.no_grad():
+        lp = model.params[layer.name]
+        xt = torch.from_numpy(x[:64]).cuda()
+        logp = layer.reconstruction_log_probability(
+            lp, xt, generator=torch.Generator(device="cuda").manual_seed(0))
+        gen = layer.generate_at_mean_given_z(lp, torch.zeros(
+            (4, LIB_VAE["n_out"]), device="cuda"))
+    extras_ok = bool(torch.isfinite(logp).all()
+                     and gen.shape == (4, x.shape[1])
+                     and torch.isfinite(gen).all())
+    n_img = LIB_VAE_EPOCHS * (len(x) // LIB_PRETRAIN_BATCH) \
+        * LIB_PRETRAIN_BATCH
+    res = {"elbo_before": before, "elbo_after": after,
+           "pretrain_s": secs, "epochs": LIB_VAE_EPOCHS,
+           "images_per_s": n_img / secs,
+           "step_loss_rel_card_vs_cpu": loss_err,
+           "step_params_rel_l2_card_vs_cpu": param_err,
+           "mean_log_p_x": float(logp.mean()), "extras_ok": extras_ok}
+    log(f"  VAE 784 -> (256, 256) -> 32 (Bernoulli): negative ELBO on a "
+        f"fixed batch {before:.3f} -> {after:.3f} after {LIB_VAE_EPOCHS} "
+        f"epochs ({secs:.2f} s, {res['images_per_s']:.0f} images/s); one "
+        f"step with injected eps card vs CPU: loss {loss_err:.3g}, params "
+        f"{param_err:.3g} rel L2; mean log p(x) {res['mean_log_p_x']:.2f} "
+        f"[{card}]")
+    if not (after < before and loss_err <= LOSS_RTOL
+            and param_err <= LIB_STEP_RTOL and extras_ok):
+        raise AssertionError("VAE: the ELBO did not fall, the step "
+                             "disagrees with the CPU, or the extras fail")
+    out["vae"] = res
+
+
+def _lib_autoencoder(out, card, x, y):
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import AutoEncoder
+    from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(18).updater(Adam(1e-3))
+            .list()
+            .layer(AutoEncoder(n_out=500, activation=Activation.SIGMOID,
+                               corruption_level=0.3))
+            .layer(AutoEncoder(n_out=250, activation=Activation.SIGMOID,
+                               corruption_level=0.3))
+            .layer(OutputLayer(n_out=10))
+            .set_input_type(InputType.feed_forward(x.shape[1])).build())
+    model = MultiLayerNetwork(conf).init()
+    onehot = np.eye(10, dtype=np.float32)[y]
+    data = DataSet(x[:512], onehot[:512])
+    t0 = time.perf_counter()
+    model.pretrain(_batches(x, LIB_PRETRAIN_BATCH), epochs=LIB_AE_EPOCHS)
+    pre_s = time.perf_counter() - t0
+    recon = float(model.score())
+    before = model.score(data)
+    for _ in range(LIB_FIT_EPOCHS):
+        for b in _batches(x, 64, onehot):
+            model.fit(b)
+    after = model.score(data)
+    res = {"pretrain_s": pre_s, "last_reconstruction_loss": recon,
+           "loss_before_fit": before, "loss_after_fit": after}
+    log(f"  AutoEncoder 784-500-250 (corruption 0.3): pretrain "
+        f"{LIB_AE_EPOCHS} epochs a layer in {pre_s:.2f} s (last "
+        f"reconstruction loss {recon:.3f}); supervised loss {before:.4f} -> "
+        f"{after:.4f} after {LIB_FIT_EPOCHS} epochs [{card}]")
+    if not after < before:
+        raise AssertionError("AutoEncoder stack: the supervised loss did not "
+                             "fall after pretraining")
+    out["autoencoder"] = res
+
+
+def moe_stack(compute_dtype, seed=18, device="cuda"):
+    """EmbeddingSequenceLayer(30522 -> 768), LearnedPositionalEmbedding,
+    2 pre-LN TransformerEncoderBlocks (768, 12 heads), MixtureOfExperts
+    (8 experts of 3072, top 2, capacity factor 1.25, GELU),
+    RnnOutputLayer(30522), Adam(1e-4), on ``device`` from ``seed``."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        LearnedPositionalEmbedding, TransformerEncoderBlock)
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        EmbeddingSequenceLayer, MixtureOfExperts)
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    c = LIB_MOE
+    b = (NeuralNetConfiguration.Builder().seed(seed).updater(Adam(1e-4))
+         .compute_dtype(compute_dtype).list()
+         .layer(EmbeddingSequenceLayer(n_in=c["vocab"], n_out=c["width"]))
+         .layer(LearnedPositionalEmbedding(max_len=c["seq"])))
+    for _ in range(c["blocks"]):
+        b = b.layer(TransformerEncoderBlock(n_out=c["width"],
+                                            n_heads=c["heads"], ffn_mult=4))
+    conf = (b.layer(MixtureOfExperts(
+        n_out=c["width"], num_experts=c["experts"], hidden=c["hidden"],
+        top_k=c["top_k"], capacity_factor=c["capacity_factor"],
+        activation=Activation.GELU))
+        .layer(RnnOutputLayer(n_out=c["vocab"]))
+        .set_input_type(InputType.recurrent(1, c["seq"])).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _moe_batch(rng, n):
+    """``n`` random id sequences with random one-hot labels and a ragged
+    padding mask (features and labels)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    c = LIB_MOE
+    ids = rng.integers(0, c["vocab"], (n, c["seq"]))
+    lab = rng.integers(0, c["vocab"], (n, c["seq"]))
+    fm = ragged_mask(n, c["seq"], rng, min_len=c["seq"] // 2)
+    y = np.zeros((n, c["seq"], c["vocab"]), np.float32)
+    y[np.arange(n)[:, None], np.arange(c["seq"])[None, :], lab] = 1.0
+    return DataSet(ids, y, fm, fm)
+
+
+def _lib_moe(out, card, launches):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.parallel.moe import route_top_k
+    c = LIB_MOE
+    rng = np.random.default_rng(18)
+    model = moe_stack("bfloat16")
+    moe_i = len(model.layers) - 2
+    moe_name = model.layers[moe_i].name
+    ds = _moe_batch(rng, LIB_MOE_BATCH)
+    losses, aux, step_launches = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LIB_MOE_STEPS):
+        _, made = _counted(launches, lambda: model.fit(ds))
+        step_launches.append(made)
+        losses.append(model.score())
+        aux.append(float(model.model_state[moe_name]["moe_aux_loss"]))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / LIB_MOE_STEPS
+    want = {k: c["blocks"] for k in ATTN_KERNELS}
+    # routing and masked tokens on the trained stack, with the batch's mask
+    args = model._step_args(ds)
+    with torch.no_grad():
+        h, _ = model._forward(model.params, model.model_state, args[0],
+                              args[2], False, upto=moe_i)
+        y_moe, _ = model._forward(model.params, model.model_state, args[0],
+                                  args[2], False, upto=moe_i + 1)
+        fm = args[2] > 0
+        masked_zero = bool((y_moe[~fm] == 0).all())
+        logits = h.reshape(-1, c["width"]) @ model.params[moe_name][
+            "gate"].to(h.dtype)
+        cap = max(1, int(c["capacity_factor"] * c["top_k"]
+                         * logits.shape[0] / c["experts"]))
+        d, comb, a, z = route_top_k(logits, c["top_k"], cap,
+                                    token_mask=args[2].reshape(-1))
+        valid = int(args[2].sum())
+        routed = int(d.sum())
+        per_expert = d.sum((0, 2)).long().tolist()
+    # one f32 step on a small ragged batch: kernels against plain versions,
+    # and the aux term counted in the loss
+    m32 = moe_stack("float32")
+    m32.set_params(model.params)
+    small = _moe_batch(rng, LIB_MOE_CHECK_BATCH)
+    a32 = m32._step_args(small)
+    loss_k, _, g_k = solver.value_and_grad(m32._loss, m32.train_state, *a32)
+    with plain_flash():
+        loss_p, _, g_p = solver.value_and_grad(m32._loss, m32.train_state,
+                                               *a32)
+    gerr = grad_errors(g_k, g_p)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    with torch.no_grad():
+        total, st = m32._loss(m32.params, m32.model_state, *a32, None, 0)
+        with mock.patch("deeplearning4j_tpu_torch.models."
+                        "multi_layer_network.moe_aux_loss",
+                        lambda s: None):
+            bare, _ = m32._loss(m32.params, m32.model_state, *a32, None, 0)
+    aux32 = float(st[moe_name]["moe_aux_loss"])
+    aux_in_loss = abs(float(total) - float(bare) - aux32) <= 1e-5 * abs(
+        float(total))
+    m_k, m_p = m32.clone(), m32.clone()
+    m_k.fit(small)
+    with plain_flash():
+        m_p.fit(small)
+    param_err = _tree_rel_l2(m_k.params, m_p.params)
+    res = {"batch": LIB_MOE_BATCH, "seq": c["seq"], "steps": LIB_MOE_STEPS,
+           "losses": losses, "aux": aux, "step_ms": step_ms,
+           "tokens_per_s": 1e3 * LIB_MOE_BATCH * c["seq"] / step_ms,
+           "launches_per_step": step_launches, "masked_out_zero": masked_zero,
+           "valid_tokens": valid, "capacity": cap, "dispatched": routed,
+           "dropped": c["top_k"] * valid - routed,
+           "per_expert": per_expert, "combine_sum": float(comb.sum()),
+           "aux_loss_router": float(a), "z_loss_router": float(z),
+           "f32_loss_rel_err": loss_err, "f32_grad_rel_l2": gerr,
+           "f32_step_params_rel_l2": param_err, "aux_in_loss": aux_in_loss,
+           "aux_f32": aux32,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log(f"  MoE stack (2 x 768/12 blocks, 8 experts of 3072, top 2) bf16 at "
+        f"{LIB_MOE_BATCH} x {c['seq']} with a ragged mask: losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}, moe_aux_loss "
+        f"{' '.join(f'{v:.4f}' for v in aux)}; {step_ms:.2f} ms a step, "
+        f"{res['tokens_per_s']:.0f} tokens/s; flash launches a step "
+        f"{step_launches[-1]} [{card}]")
+    log(f"  routing: {valid} valid tokens, capacity {cap}, {routed} "
+        f"dispatched ({res['dropped']} dropped), per expert {per_expert}; "
+        f"masked tokens' MoE output exactly 0: {masked_zero}")
+    log(f"  f32 step at {LIB_MOE_CHECK_BATCH} x {c['seq']}, kernels vs plain: "
+        f"loss {loss_err:.3g}, gradients worst {gerr['worst']:.3g} "
+        f"({gerr['name']}), params after one Adam step {param_err:.3g} rel "
+        f"L2; aux {aux32:.5f} counted in the loss: {aux_in_loss}")
+    if any(m != want for m in step_launches):
+        raise AssertionError(f"MoE stack: flash launches a step "
+                             f"{step_launches}, expected {want}")
+    if not (np.isfinite(losses).all() and np.mean(losses[-4:]) < losses[0]
+            and np.isfinite(aux).all() and masked_zero and aux_in_loss):
+        raise AssertionError("MoE stack: the loss did not fall, the aux "
+                             "loss is not finite or not in the loss, or a "
+                             "masked token's output is not 0")
+    if loss_err > LOSS_RTOL or gerr["worst"] > BERT_GRAD_RTOL \
+            or param_err > LIB_STEP_RTOL:
+        raise AssertionError("MoE stack: the f32 step through the flash "
+                             "kernels disagrees with the plain path")
+    out["moe"] = res
+    del model, m32, m_k, m_p
+    torch.cuda.empty_cache()
+
+
+def _lib_custom(out, card, x):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.gradientcheck import check_model_gradients
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+    from deeplearning4j_tpu_torch.nn.layers.misc import (LambdaLayer,
+                                                         SameDiffLayer)
+    from deeplearning4j_tpu_torch.nn.layers.output import (OutputLayer,
+                                                           RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    conf = (NeuralNetConfiguration.Builder().seed(18).list()
+            .layer(DenseLayer(n_out=64))
+            .layer(LambdaLayer(fn=lambda v: v * torch.sigmoid(v)))
+            .layer(SameDiffLayer(
+                param_shapes={"W": (64, 32), "b": (32,)},
+                fn=lambda p, v: torch.tanh(v @ p["W"] + p["b"]),
+                out_type=lambda it: it.__class__(32)))
+            .layer(OutputLayer(n_out=10))
+            .set_input_type(InputType.feed_forward(x.shape[1])).build())
+    model = MultiLayerNetwork(conf).init()
+    cpu = _copy_model(model, "cpu")
+    err = _row_err(model.output(x[:256]), cpu.output(x[:256]))
+    t0 = time.perf_counter()
+    grad_ok = check_model_gradients(library_mln("cuda"), library_data(),
+                                    max_params_per_leaf=6, verbose=False)
+    gc_s = time.perf_counter() - t0
+    lstm_conf = (NeuralNetConfiguration.Builder().seed(1).list()
+                 .layer(LSTM(n_out=8)).layer(RnnOutputLayer(n_out=3))
+                 .set_input_type(InputType.recurrent(4, 5)).build())
+    rng = np.random.default_rng(0)
+    lds = DataSet(rng.normal(size=(2, 5, 4)).astype(np.float32),
+                  np.eye(3, dtype=np.float32)[rng.integers(0, 3, (2, 5))])
+    lstm_error = None
+    try:
+        check_model_gradients(MultiLayerNetwork(lstm_conf).init(), lds,
+                              verbose=False)
+    except TypeError as e:
+        lstm_error = str(e)
+    res = {"custom_row_rel_err_card_vs_cpu": err,
+           "gradient_check_passed": grad_ok, "gradient_check_s": gc_s,
+           "f64_lstm_type_error": lstm_error}
+    log(f"  LambdaLayer + SameDiffLayer MLN card vs CPU: {err:.3g} of each "
+        f"row's largest; float64 gradient check of dense + AutoEncoder + "
+        f"MoE + SameDiff + output on the card: {grad_ok} ({gc_s:.1f} s); "
+        f"f64 LSTM on the card: TypeError {lstm_error!r}")
+    if err > LIB_CUSTOM_TOL or not grad_ok or lstm_error is None \
+            or "float32 or bfloat16" not in lstm_error:
+        raise AssertionError("custom layers, the gradient check or the f64 "
+                             "LSTM guard failed on the card")
+    out["custom"] = res
+
+
+def _lib_memory(out, card):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.memory import (device_memory_analysis,
+                                                    memory_report)
+    from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.zoo import models as Z
+
+    def resnet():
+        # bench.py:46-56: 64x64x3, 200 classes, bf16, s2d stem, fused
+        # blocks as bench.py trains them, Nesterovs(1e-2, 0.9)
+        return Z.ResNet50(updater=Nesterovs(1e-2, 0.9), fused_blocks=True,
+                          fused_impl="xla", **ZOO_BENCH)
+    confs = {"LeNet": Z.LeNet().conf(), "ResNet50": resnet().conf(),
+             "TextGenerationLSTM": Z.TextGenerationLSTM().conf(),
+             "BERT": bert_model("bfloat16", device="cpu").conf}
+    rep = {}
+    for name, conf in confs.items():
+        r = memory_report(conf, name)
+        rep[name] = {"parameters": r.total_parameters,
+                     "train_bytes_at_32": r.total_bytes(32),
+                     "train_bytes_at_128": r.total_bytes(128)}
+        log(f"  memory_report {name}: {r.total_parameters:,} parameters, "
+            f"train estimate {r.total_bytes(32) / 2**20:.1f} MiB at 32, "
+            f"{r.total_bytes(128) / 2**20:.1f} MiB at 128 (f32)")
+    dev = {}
+    b = LIB_MEMORY_BATCH
+    for name, make, n_out in (("LeNet", lambda: Z.LeNet().init(), 10),
+                              ("ResNet50", lambda: resnet().init(), 200)):
+        model = make()
+        ana = device_memory_analysis(model, batch_size=b, train=True)
+        fwd = device_memory_analysis(model, batch_size=b, train=False)
+        it = (model.conf.network_input_types[0]
+              if hasattr(model.conf, "network_inputs")
+              else model.conf.input_type)
+        xz = np.zeros((b,) + tuple(it.shape()), np.float32)
+        yz = np.zeros((b, n_out), np.float32)
+        model.fit(DataSet(xz, yz))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.fit(DataSet(xz, yz))
+        torch.cuda.synchronize()
+        real = torch.cuda.max_memory_allocated() - base
+        dev[name] = {"train": ana, "forward": fwd,
+                     "real_step_peak_above_resident": real}
+        log(f"  device_memory_analysis {name} at {b}: train step "
+            f"{ana['temp_size_in_bytes'] / 2**20:.1f} MiB above "
+            f"{ana['argument_size_in_bytes'] / 2**20:.1f} MiB of arguments "
+            f"(a real fit step: {real / 2**20:.1f} MiB above resident); "
+            f"forward {fwd['temp_size_in_bytes'] / 2**20:.1f} MiB [{card}]")
+        if not (ana.get("temp_size_in_bytes", 0) > 0
+                and fwd.get("temp_size_in_bytes", 0) > 0):
+            raise AssertionError(f"{name}: device_memory_analysis is empty")
+        del model
+        torch.cuda.empty_cache()
+    out["memory"] = {"report": rep, "device": dev}
+
+
+def _trustworthiness(x, y, k=5):
+    """The trustworthiness T(k) of an embedding ``y`` of ``x`` (Venna and
+    Kaski): 1 - 2 / (n k (2n - 3k - 1)) times the sum, over each point's
+    k embedding neighbours, of how far their rank in the input space lies
+    beyond k."""
+    import numpy as np
+    n = x.shape[0]
+
+    def sq(a):
+        s = (a * a).sum(1)
+        d = s[:, None] + s[None, :] - 2 * a @ a.T
+        np.fill_diagonal(d, np.inf)
+        return d
+    rank = np.empty((n, n), np.int64)
+    order = np.argsort(sq(x.astype(np.float64)), axis=1)
+    rank[np.arange(n)[:, None], order] = np.arange(n)[None, :] + 1
+    nn_y = np.argsort(sq(y.astype(np.float64)), axis=1)[:, :k]
+    r = rank[np.arange(n)[:, None], nn_y]
+    return 1.0 - 2.0 / (n * k * (2 * n - 3 * k - 1)) * np.clip(
+        r - k, 0, None).sum()
+
+
+def _lib_kmeans_tsne(out, card, x, y):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.manifold import tsne as TT
+    from deeplearning4j_tpu_torch.ui import TsneListener, UIServer
+    from deeplearning4j_tpu_torch.ui.storage import InMemoryStatsStorage
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+    lenet = LeNet().init_pretrained(flavor="digits")
+    feats = lenet.feed_forward(x)[-2].float().cpu().numpy()
+    t0 = time.perf_counter()
+    km = KMeansClustering(10, seed=18).apply_to(feats)
+    km_s = time.perf_counter() - t0
+    kc = KMeansClustering(10, seed=18, device="cpu").apply_to(feats)
+    center_err = float(np.abs(km.cluster_centers_ - kc.cluster_centers_)
+                       .max() / np.abs(kc.cluster_centers_).max())
+    purity = float(sum(np.bincount(y[km.labels_ == c]).max()
+                       for c in np.unique(km.labels_)) / len(y))
+    same_labels = bool(np.array_equal(km.labels_, kc.labels_))
+    log(f"  k-means(10) of LeNet's 500-wide features of {len(x)} digits: "
+        f"{km.n_iter_} Lloyd steps in {km_s:.3f} s, inertia "
+        f"{km.inertia_:.1f} (CPU {kc.inertia_:.1f}), purity {purity:.4f}, "
+        f"centers card vs CPU {center_err:.3g} of the largest, labels equal "
+        f"{same_labels} [{card}]")
+    if center_err > LIB_KMEANS_TOL:
+        raise AssertionError("k-means centers on the card disagree with the "
+                             "CPU's")
+    # exact t-SNE of the digits: the first steps card vs CPU from the same
+    # state (a difference grows about tenfold a step under early
+    # exaggeration, so each step is held, not the trajectory), then the
+    # whole run on the card
+    ts = TT.Tsne(seed=18)
+    t0 = time.perf_counter()
+    P = ts._p_matrix(x.astype(np.float64)).astype(np.float32)
+    p_s = time.perf_counter() - t0
+    Pc, Pg = torch.from_numpy(P), torch.from_numpy(P).cuda()
+    y0 = torch.from_numpy(ts._init_y(len(x)).astype(np.float32))
+    state = (y0, torch.zeros_like(y0), torch.ones_like(y0))
+    step_err = 0.0
+    for it in range(LIB_TSNE_CHECK_STEPS):
+        ex, mom = ts._schedule(it)
+        want = TT._tsne_step(Pc * ex if ex != 1.0 else Pc, *state, mom,
+                             ts.learning_rate)
+        got = TT._tsne_step(Pg * ex if ex != 1.0 else Pg,
+                            *(s.cuda() for s in state), mom,
+                            ts.learning_rate)
+        for a, b in zip(got[:3], want[:3]):
+            step_err = max(step_err, float((a.cpu() - b).abs().max()
+                                           / b.abs().max().clamp(min=1e-3)))
+        state = want[:3]
+    t0 = time.perf_counter()
+    emb = ts.fit_transform(x)
+    tsne_s = time.perf_counter() - t0
+    trust = float(_trustworthiness(x, emb))
+    t0 = time.perf_counter()
+    bh = TT.BarnesHutTsne(theta=0.5, n_iter=LIB_BH_ITERS,
+                          seed=18).fit_transform(x[:LIB_BH_POINTS])
+    bh_s = time.perf_counter() - t0
+    log(f"  exact t-SNE of {len(x)} digits ({x.shape[1]}-d): P on the host "
+        f"{p_s:.2f} s; each of the first {LIB_TSNE_CHECK_STEPS} steps card "
+        f"vs CPU from the same state within {step_err:.3g} of the largest; "
+        f"{ts.n_iter} iterations (P included) {tsne_s:.2f} s, KL "
+        f"{ts.kl_divergence_:.4f}, trustworthiness(5) {trust:.4f}; "
+        f"Barnes-Hut (theta 0.5) on {LIB_BH_POINTS} points, {LIB_BH_ITERS} "
+        f"iterations {bh_s:.2f} s [{card}]")
+    if step_err > LIB_TSNE_TOL or not np.isfinite(emb).all() \
+            or not np.isfinite(bh).all():
+        raise AssertionError("t-SNE: a step on the card disagrees with the "
+                             "CPU's, or an embedding is not finite")
+    # TsneListener in a short fit, pushing to a running UIServer
+    srv = UIServer(port=0).attach(InMemoryStatsStorage()).start()
+    try:
+        lst = TsneListener(srv, frequency=2, max_points=200, n_iter=100)
+        lst.set_example(x[:200], y[:200])
+        model = LeNet().init()
+        model.set_listeners(lst)
+        onehot = np.eye(10, dtype=np.float32)[y]
+        for b in _batches(x[:128], 64, onehot[:128]):
+            model.fit(b)
+        joined = lst.join(timeout=120)
+        data = getattr(srv._httpd, "tsne_data", None)
+        n_pts = len(data["points"]) if data else 0
+    finally:
+        srv.stop()
+    log(f"  TsneListener in a LeNet fit: {n_pts} coordinates on the "
+        f"dashboard's t-SNE tab")
+    if not (joined and n_pts == 200):
+        raise AssertionError("TsneListener wrote no coordinates")
+    out["kmeans"] = {"seconds": km_s, "iterations": km.n_iter_,
+                     "inertia": km.inertia_, "cpu_inertia": kc.inertia_,
+                     "purity": purity, "center_rel_err": center_err,
+                     "labels_equal": same_labels}
+    out["tsne"] = {"points": len(x), "p_matrix_s": p_s,
+                   "check_steps": LIB_TSNE_CHECK_STEPS,
+                   "step_rel_err_card_vs_cpu": step_err,
+                   "seconds": tsne_s, "iterations": ts.n_iter,
+                   "kl": ts.kl_divergence_, "trustworthiness_5": trust,
+                   "barnes_hut_s": bh_s, "listener_points": n_pts}
+
+
+def phase_model_library(report, card):
+    import torch
+    out = {}
+    launches = {}
+    x, y = _all_digits()
+    _lib_vae(out, card, x)
+    _lib_autoencoder(out, card, x, y)
+    torch.cuda.reset_peak_memory_stats()
+    _lib_moe(out, card, launches)
+    _lib_custom(out, card, x)
+    _lib_memory(out, card)
+    _lib_kmeans_tsne(out, card, x, y)
+    report["model_library"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,slice,train,"
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
-                    "rnn_tbptt,zoo,keras_import,observed_fit",
+                    "rnn_tbptt,zoo,keras_import,observed_fit,quant_serve,"
+                    "model_library",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -6143,6 +7128,18 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         "flight recorder; NaN and OOM dumps; observers on/off times; traced "
         "serving; TBPTT and BERT fits with telemetry; CSV records into "
         "LeNet", lambda: phase_observed_fit(report, card))
+    run("quant_serve", "int8 serving: int8_conv and int8_dot against int64 "
+        f"products; the committed LeNet behind an int8 ServingEngine at "
+        f"{QUANT_BATCH} (the gate, calibration hashes, against f32); the "
+        "TextGenerationLSTM with an int8 head and f32 LSTMs (lstm_fwd); the "
+        "fleet's int8 pool behind its gate",
+        lambda: phase_quant_serve(report, card))
+    run("model_library", "the VAE and AutoEncoder pretrained on the "
+        "digits; the MoE sequence stack (2 x 768/12 blocks, 8 experts) bf16 "
+        f"at {LIB_MOE_BATCH} x {LIB_MOE['seq']} with a padding mask; custom "
+        "layers; the f64 gradient check; memory reports; k-means and t-SNE "
+        "of the digits; TsneListener",
+        lambda: phase_model_library(report, card))
 
     kernels = []
     for name, k in summary.items():
@@ -6157,7 +7154,10 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         # K-step train call, the imported BERT-base's output, fine-tune
         # and frozen-encoder calls and the Keras attention fixture (flash
         # kernels); and the observed fits' K-step calls (conv and flash
-        # kernels), TBPTT batches (LSTM kernels) and traced serving
+        # kernels), TBPTT batches (LSTM kernels) and traced serving; the
+        # int8 TextGenerationLSTM's engine start (calibration, probe and
+        # warmup), served calls and gate (lstm_fwd); the MoE stack's train
+        # steps (flash kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

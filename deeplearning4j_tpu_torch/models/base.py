@@ -34,7 +34,7 @@ ends; a ``SpanTracer`` (``set_tracer``) records ``etl``,
 ``host_to_device``, ``dispatch`` and ``telemetry_flush`` spans; and
 every exception leaving ``fit`` passes through the flight recorder
 (``set_flight_recorder``, else the process-wide default) before it is
-raised again. Layerwise ``pretrain`` is not ported (ROADMAP).
+raised again.
 """
 
 from __future__ import annotations
@@ -83,6 +83,16 @@ def cast_params(lp: Dict[str, Any], dt: str) -> Dict[str, Any]:
         return lp
     return tree_map(lambda v: v.to(torch.bfloat16) if v.is_floating_point()
                     else v, lp)
+
+
+def moe_aux_loss(state) -> Optional[torch.Tensor]:
+    """The sum of the auxiliary losses that layers surface through their
+    state (MixtureOfExperts' load-balancing and router-z term,
+    ``moe_aux_loss``), which the models add to the training loss; None
+    when no layer has one."""
+    terms = [s["moe_aux_loss"] for s in state.values()
+             if isinstance(s, dict) and "moe_aux_loss" in s]
+    return sum(terms[1:], terms[0]) if terms else None
 
 
 class BaseModel:

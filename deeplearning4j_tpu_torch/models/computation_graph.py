@@ -33,7 +33,8 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
 from deeplearning4j_tpu_torch.models.base import (BaseModel, Tree,
-                                                  cast_params, compute_cast)
+                                                  cast_params, compute_cast,
+                                                  moe_aux_loss)
 from deeplearning4j_tpu_torch.models.multi_layer_network import _pad_time
 from deeplearning4j_tpu_torch.nn.graph.config import \
     ComputationGraphConfiguration
@@ -175,8 +176,9 @@ class ComputationGraph(BaseModel):
         """(total loss, new model state) of one batch in train mode: every
         output's loss in promote(f32, param dtype), bounded by its labels
         mask, else by the features mask its context carries, plus each
-        layer's L1/L2 penalty. The new state (each recurrent node's last
-        carry) is detached."""
+        layer's L1/L2 penalty and the auxiliary losses the layers put in
+        their state (MixtureOfExperts' ``moe_aux_loss``). The new state
+        (each recurrent node's last carry) is detached."""
         inputs = dict(zip(self.conf.network_inputs, features))
         acts, new_state = self._walk(params, model_state, inputs,
                                      self._fmask_dict(fmasks), True,
@@ -202,6 +204,9 @@ class ComputationGraph(BaseModel):
         for n in self._layer_nodes:
             total = total + n.layer.regularization_loss(params.get(n.name,
                                                                    {}))
+        aux = moe_aux_loss(new_state)
+        if aux is not None:
+            total = total + aux.to(acc)
         return total, tree_map(lambda t: t.detach(), new_state)
 
     def _constraint_layers(self):

@@ -17,7 +17,10 @@ layers start from the state the previous segment handed on, with the
 gradients cut at the boundary; a ragged last segment is padded and
 masked. ``rnn_time_step`` is the stateful streaming forward: the caller
 threads each recurrent layer's carry ((h, c) for an LSTM core, h for a
-SimpleRnn).
+SimpleRnn). ``pretrain`` and ``pretrain_layer`` train the layers that
+define ``pretrain_loss`` (``AutoEncoder``, ``VariationalAutoencoder``)
+greedily, one at a time, on the activations of the frozen layers below
+(reference: MultiLayerNetwork.pretrain).
 
 The model lives on one device, chosen at construction: ``cuda`` unless
 the caller passes ``device="cpu"`` (utils/device.py).
@@ -31,13 +34,15 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.models.base import (BaseModel, Tree,
-                                                  cast_params, compute_cast)
+                                                  cast_params, compute_cast,
+                                                  moe_aux_loss)
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.nn.layers.recurrent import carry_core
 from deeplearning4j_tpu_torch.observe.tracer import get_tracer
-from deeplearning4j_tpu_torch.optimize.solver import (build_optimizer,
+from deeplearning4j_tpu_torch.optimize.solver import (apply_updates,
+                                                      build_optimizer,
                                                       make_constrain_fn,
                                                       make_scan_train_step,
                                                       make_train_step)
@@ -166,7 +171,9 @@ class MultiLayerNetwork(BaseModel):
         """(training loss, new state): forward to the last hidden layer
         (from ``carries``' initial states), the output layer's loss on its
         logits with the output layer's parameters in the compute dtype,
-        plus each layer's L1/L2, in promote(f32, loss dtype) (reference:
+        plus each layer's L1/L2 and the auxiliary losses the layers put in
+        their state (MixtureOfExperts' ``moe_aux_loss``), in promote(f32,
+        loss dtype) (reference:
         computeGradientAndScore:2360). The new state (each recurrent
         layer's last carry) is detached."""
         n = len(self.layers)
@@ -193,8 +200,12 @@ class MultiLayerNetwork(BaseModel):
         for l in self.layers:
             reg = reg + l.regularization_loss(params.get(l.name, {}))
         acc = torch.promote_types(torch.float32, loss.dtype)
+        total = loss.to(acc) + reg.to(acc)
+        aux = moe_aux_loss(new_state)
+        if aux is not None:
+            total = total + aux.to(acc)
         new_state = tree_map(lambda t: t.detach(), new_state)
-        return loss.to(acc) + reg.to(acc), new_state
+        return total, new_state
 
     def _constraint_layers(self):
         return self.layers
@@ -356,3 +367,71 @@ class MultiLayerNetwork(BaseModel):
                 else:
                     x, _ = layer.apply(lp, st, x, ctx)
         return x, carries
+
+    # ---- layerwise pretraining ------------------------------------------
+    def pretrain(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
+        """Greedy layerwise unsupervised pretraining of every layer that
+        defines ``pretrain_loss`` (AutoEncoder, VariationalAutoencoder):
+        the reference's MultiLayerNetwork.pretrain(DataSetIterator)."""
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "supports_pretrain", False):
+                self.pretrain_layer(i, iterator, epochs)
+        return self
+
+    def pretrain_layer(self, idx: int, iterator,
+                       epochs: int = 1) -> "MultiLayerNetwork":
+        """Pretrain layer ``idx`` on the activations of the (frozen)
+        layers below it (reference: pretrainLayer(int, DataSetIterator)):
+        its own params, with its updater (else the global one) and a
+        fresh optimizer state, one step a batch. The noise (the VAE's
+        samples, the autoencoder's corruption) comes from the model's
+        generator."""
+        if self.params is None:
+            self.init()
+        layer = self.layers[idx]
+        if not getattr(layer, "supports_pretrain", False):
+            return self
+        g = self.conf.global_config
+        tx = (layer.updater or g.updater).to_transform()
+        lp = self.params[layer.name]
+        opt_state = tx.init(lp)
+        loss = None
+        for _ in range(epochs):
+            for ds in iterator:
+                lp, opt_state, loss = self.pretrain_step(
+                    idx, tx, lp, opt_state, ds.features,
+                    generator=self._generator)
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+        self.params = dict(self.params)
+        self.params[layer.name] = lp
+        if loss is not None:
+            self._last_loss = loss
+        return self
+
+    def pretrain_step(self, idx: int, tx, lp, opt_state, features,
+                      **noise):
+        """One update of layer ``idx``'s params ``lp`` (optimizer ``tx``,
+        state ``opt_state``) on one batch: (new params, new state, loss).
+        ``noise`` goes to the layer's ``pretrain_loss`` (``generator``,
+        or an injected ``eps`` for a VAE, ``keep`` for an autoencoder)."""
+        layer = self.layers[idx]
+        x = self._as_tensor(features)
+        with torch.no_grad():
+            h, _ = self._forward(self.params, self.model_state, x, None,
+                                 False, upto=idx)
+            pp = self._preprocessors.get(idx)
+            if pp is not None:
+                h = pp.apply(h)
+            leaves = tree_leaves(lp)
+            h = h.to(torch.promote_types(h.dtype, leaves[0].dtype))
+        lp_g = tree_map(lambda t: t.detach().requires_grad_(True), lp)
+        with torch.enable_grad():
+            loss = layer.pretrain_loss(lp_g, h, **noise)
+            grads = torch.autograd.grad(loss, tree_leaves(lp_g))
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), lp)
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, opt_state, lp)
+            lp = apply_updates(lp, updates)
+        return lp, opt_state, loss.detach()

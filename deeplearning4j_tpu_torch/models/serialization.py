@@ -44,6 +44,7 @@ def _ensure_registry():
     import deeplearning4j_tpu_torch.nn.layers.objdetect  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.output  # noqa: F401
     import deeplearning4j_tpu_torch.nn.layers.recurrent  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.layers.variational  # noqa: F401
     import deeplearning4j_tpu_torch.nn.graph.vertices  # noqa: F401
     import deeplearning4j_tpu_torch.nn.preprocessors  # noqa: F401
     import deeplearning4j_tpu_torch.nn.config  # noqa: F401

@@ -1,10 +1,11 @@
 """Dense, activation, dropout and embedding layers.
 
 Analogs of the reference's ``DenseLayer``, ``ActivationLayer``,
-``DropoutLayer``, ``EmbeddingLayer``, ``EmbeddingSequenceLayer`` and
-``ElementWiseMultiplicationLayer`` (nn/conf/layers/), and the JAX
-package's shape-only ``ReshapeLayer`` and ``PermuteLayer`` (the Keras
-``Reshape`` and ``Permute``).
+``DropoutLayer``, ``EmbeddingLayer``, ``EmbeddingSequenceLayer``,
+``ElementWiseMultiplicationLayer`` and ``AutoEncoder`` (nn/conf/layers/),
+the JAX package's shape-only ``ReshapeLayer`` and ``PermuteLayer`` (the
+Keras ``Reshape`` and ``Permute``), and its ``MixtureOfExperts`` (top-k
+routed expert FFNs, parallel/moe.py).
 """
 
 from __future__ import annotations
@@ -296,3 +297,113 @@ class ElementWiseMultiplicationLayer(FeedForwardLayer):
         if self.has_bias:
             y = y + params["b"]
         return self.activation.apply(y), state
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class AutoEncoder(FeedForwardLayer):
+    """Denoising autoencoder layer (reference: nn/layers/feedforward/
+    autoencoder/AutoEncoder.java). In a feed-forward stack it is a dense
+    encoder; ``reconstruct`` and pretraining use the tied decoder
+    (``W`` transposed, visible bias ``vb``)."""
+    corruption_level: float = 0.3
+
+    def output_type(self, input_type):
+        return FeedForwardType(self.n_out)
+
+    def initialize(self, generator, input_type):
+        n_in = self.resolved_n_in(input_type)
+        dt = self.param_dtype()
+        return {
+            "W": self.weight_init.init(generator, (n_in, self.n_out), n_in,
+                                       self.n_out, dt),
+            "b": torch.zeros((self.n_out,), dtype=dt),
+            "vb": torch.zeros((n_in,), dtype=dt),
+        }
+
+    def apply(self, params, state, x, ctx):
+        y = torch.matmul(x, params["W"]) + params["b"]
+        return self.activation.apply(y), state
+
+    def reconstruct(self, params, h):
+        v = torch.matmul(h, params["W"].transpose(0, 1)) + params["vb"]
+        return self.activation.apply(v)
+
+    @property
+    def supports_pretrain(self) -> bool:
+        return True
+
+    def pretrain_loss(self, params, x, generator=None, keep=None):
+        """Denoising-reconstruction loss (reference: AutoEncoder
+        .computeGradientAndScore: corrupt, encode, decode, squared
+        error). The corruption keeps each input with probability
+        ``1 - corruption_level``, drawn from ``generator``; ``keep`` (a
+        0/1 mask of x's shape) injects it instead, so a test can feed
+        two packages the same corruption. Without either, x is used
+        uncorrupted, as the JAX package does without a key."""
+        if keep is None and self.corruption_level > 0.0 \
+                and generator is not None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 1.0 - self.corruption_level
+        xc = x if keep is None else torch.where(
+            keep.to(torch.bool), x, torch.zeros_like(x))
+        h = self.activation.apply(torch.matmul(xc, params["W"])
+                                  + params["b"])
+        v = self.activation.apply(
+            torch.matmul(h, params["W"].transpose(0, 1)) + params["vb"])
+        return torch.mean(torch.sum(torch.square(x - v), dim=-1))
+
+
+@register_serializable
+@dataclasses.dataclass(frozen=True)
+class MixtureOfExperts(FeedForwardLayer):
+    """Sparse MoE FFN (the JAX package's; the reference has no analog):
+    top-k routed expert FFNs over the feature dim, with the expert
+    weights stacked (E, ...). The load-balancing and router-z losses
+    come out through the layer state (``moe_aux_loss``), which both model
+    types add to the training loss. A sequence input's (N, T) mask
+    reaches the router: padded tokens are not routed, take no capacity,
+    do not skew the aux loss, and come out as 0."""
+
+    num_experts: int = 4
+    hidden: int = 0              # d_ff; 0 -> 4 * n_out
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.01
+    z_weight: float = 0.001
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if isinstance(input_type, RecurrentType):
+            return RecurrentType(self.n_out, input_type.timesteps)
+        return FeedForwardType(self.n_out)
+
+    def initialize(self, generator, input_type):
+        n_in = self.resolved_n_in(input_type)
+        d_ff = self.hidden or 4 * self.n_out
+        dt = self.param_dtype()
+        e = self.num_experts
+        return {
+            "gate": self.weight_init.init(generator, (n_in, e), n_in, e,
+                                          dt),
+            "w_in": self.weight_init.init(generator, (e, n_in, d_ff), n_in,
+                                          d_ff, dt),
+            "b_in": torch.zeros((e, d_ff), dtype=dt),
+            "w_out": self.weight_init.init(generator, (e, d_ff, self.n_out),
+                                           d_ff, self.n_out, dt),
+            "b_out": torch.zeros((e, self.n_out), dtype=dt),
+        }
+
+    def init_state(self, input_type):
+        return {"moe_aux_loss": torch.zeros((), dtype=torch.float32)}
+
+    def apply(self, params, state, x, ctx):
+        from deeplearning4j_tpu_torch.parallel.moe import moe_ffn
+        x = self.maybe_dropout(x, ctx)
+        tmask = ctx.mask if (ctx.mask is not None and x.ndim == 3) else None
+        out = moe_ffn(x, params["gate"], params["w_in"], params["b_in"],
+                      params["w_out"], params["b_out"], top_k=self.top_k,
+                      capacity_factor=self.capacity_factor,
+                      activation=self.activation.apply, token_mask=tmask)
+        aux = (self.aux_weight * out.aux_loss
+               + self.z_weight * out.router_z_loss)
+        return out.y, {"moe_aux_loss": aux}

@@ -1,15 +1,21 @@
-"""Mask and frozen-wrapper layers.
+"""Mask, frozen-wrapper and custom-function layers.
 
 Analogs of the reference's ``MaskLayer`` (nn/conf/layers/util/MaskLayer
-.java) and ``FrozenLayer`` (nn/conf/layers/misc/FrozenLayer.java), in the
-JAX package's form (its ``nn/layers/misc.py``). The custom-function layers
-of that module (``LambdaLayer``, ``SameDiffLayer``) are not ported yet.
+.java), ``FrozenLayer`` (nn/conf/layers/misc/FrozenLayer.java) and the
+SameDiff layer family (nn/conf/layers/samediff/), in the JAX package's
+form (its ``nn/layers/misc.py``): ``LambdaLayer`` and ``SameDiffLayer``
+run a user's torch function inside a model, differentiated by
+``torch.autograd`` like everything else. Like the JAX package's, the two
+hold a Python function and are not registered for serialization.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, LayerContext
@@ -95,3 +101,64 @@ class FrozenLayer(Layer):
     def __getattr__(self, item):
         # configuration fields (n_out, ...) of the wrapped layer
         return getattr(object.__getattribute__(self, "underlying"), item)
+
+
+@dataclasses.dataclass(frozen=True)
+class LambdaLayer(Layer):
+    """Parameter-free custom function layer (reference:
+    samediff/SameDiffLambdaLayer.java). ``fn(x) -> y`` is a torch
+    function; ``output_type_fn`` maps the input type to the output type
+    when it changes."""
+    fn: Optional[Callable] = None
+    output_type_fn: Optional[Callable] = None
+
+    @property
+    def has_params(self) -> bool:
+        return False
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if self.output_type_fn is not None:
+            return self.output_type_fn(input_type)
+        return input_type
+
+    def apply(self, params, state, x, ctx: LayerContext):
+        return self.fn(x), state
+
+
+@dataclasses.dataclass(frozen=True)
+class SameDiffLayer(Layer):
+    """Custom layer with trainable params (reference:
+    samediff/SameDiffLayer.java: defineLayer + defineParameters).
+
+    - ``param_shapes``: dict name -> shape (defineParameters)
+    - ``fn(params, x) -> y`` in torch (defineLayer)
+    - ``out_type(input_type) -> InputType`` (getOutputType)
+    - ``init_fn(generator, name, shape) -> tensor``, optional custom init
+      (initializeParameters); default: a normal scaled by
+      1/sqrt(fan_in), fan_in being the shape's first dimension
+    """
+    param_shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+    fn: Optional[Callable] = None
+    out_type: Optional[Callable] = None
+    init_fn: Optional[Callable] = None
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if self.out_type is not None:
+            return self.out_type(input_type)
+        return input_type
+
+    def initialize(self, generator, input_type):
+        params = {}
+        for name, shape in sorted((self.param_shapes or {}).items()):
+            shape = tuple(int(d) for d in shape)
+            if self.init_fn is not None:
+                params[name] = self.init_fn(generator, name, shape)
+            else:
+                fan_in = shape[0] if shape else 1
+                params[name] = torch.randn(
+                    shape, generator=generator, dtype=torch.float32).to(
+                        self.param_dtype()) / math.sqrt(max(fan_in, 1.0))
+        return params
+
+    def apply(self, params, state, x, ctx: LayerContext):
+        return self.fn(params, x), state

@@ -253,6 +253,14 @@ class FlightRecorder:
                 "device": str(getattr(model, "device", "?"))}
         except Exception:
             pass
+        try:
+            from deeplearning4j_tpu_torch.nn.memory import memory_report
+            conf = getattr(model, "conf", None)
+            if conf is not None and hasattr(conf, "layers"):
+                out.setdefault("analytic", {}).update(json.loads(
+                    memory_report(conf, type(model).__name__).to_json()))
+        except Exception:
+            pass
         return out
 
     def _environment_section(self, model) -> Dict:

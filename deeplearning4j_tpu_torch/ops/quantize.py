@@ -16,15 +16,18 @@ Conventions (all symmetric, zero-point-free):
 Scale *computation* is host-side numpy (float32), a copy of the JAX
 package's, so the scales and int8 weights are the same bytes in both.
 
-The int8 product (``int8_dot``) is exact without an integer matmul:
-CUDA has no int32 ``matmul`` and ``torch._int_mm`` needs N divisible by
-8. The int8 operands are cast to f32 and multiplied; every product is
-an integer of magnitude <= 127², and every partial sum stays below 2^24
-while K·127² < 2^24 (K <= 1040), so each f32 partial sum is the integer
-itself, in any summation order: the f32 result equals the int32
-accumulation bit for bit. The wrapper raises for a wider K, and on the
-card while TF32 would round the operands. ``int8_conv`` is not ported
-yet (ROADMAP).
+The int8 products (``int8_dot``, ``int8_conv``) give the exact int32
+accumulator without an integer matmul (CUDA has no int32 ``matmul``, and
+``torch._int_mm`` needs more than 16 rows and K, N multiples of 8). The
+contraction is cut into chunks of at most ``INT8_EXACT_K``: within one
+chunk every product is an integer of magnitude <= 127² and every partial
+sum stays below 2^24, so the chunk's f32 product is the integer itself in
+any summation order. Each chunk is converted to int32 and the chunks are
+added in int32, which is the accumulator ``preferred_element_type=
+jnp.int32`` gives at any K. ``int8_conv`` forms its patches by
+``F.unfold`` (im2col) and takes the same product per group; no cuDNN
+convolution is involved, whose FFT and Winograd algorithms are not exact
+on integer operands. On the card both raise while TF32 is on.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 Q_MAX = 127  # symmetric int8: [-127, 127]; -128 unused (keeps |q| symmetric)
 
@@ -103,20 +107,92 @@ def quantize_act(x: torch.Tensor, x_scale) -> torch.Tensor:
     return torch.clamp(q, -Q_MAX, Q_MAX).to(torch.int8)
 
 
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of integer-valued f32 operands in [-127, 127] as the
+    exact int32 accumulator: K in chunks of at most ``INT8_EXACT_K``,
+    each exact in f32, added in int32."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("int8 product: TF32 is on, which rounds the "
+                           "f32 products; set torch.backends.cuda.matmul."
+                           "allow_tf32 = False")
+    k = a.shape[-1]
+    acc = None
+    for lo in range(0, k, INT8_EXACT_K):
+        part = torch.matmul(a[..., lo:lo + INT8_EXACT_K],
+                            b[lo:lo + INT8_EXACT_K]).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def int8_dot(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
              x_scale: torch.Tensor) -> torch.Tensor:
     """``act(x) @ w_q`` in int8 with an exact int32 accumulation and the
     fused dequant-rescale: works on (N, F) and (N, T, F) alike (contracts
     the last axis of x with axis 0 of w_q)."""
-    k = w_q.shape[0]
-    if k > INT8_EXACT_K:
-        raise ValueError(
-            f"int8_dot: contraction {k} > {INT8_EXACT_K}; the f32 route "
-            "is exact only while K·127² < 2^24")
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("int8_dot: TF32 is on, which rounds the int8 "
-                           "operands; set torch.backends.cuda.matmul."
-                           "allow_tf32 = False")
     xq = quantize_act(x, x_scale)
-    y32 = torch.matmul(xq.to(torch.float32), w_q.to(torch.float32))
-    return y32 * (x_scale * w_scale)
+    y32 = _int_matmul(xq.to(torch.float32), w_q.to(torch.float32))
+    return y32.to(torch.float32) * (x_scale * w_scale)
+
+
+def _conv_pads(padding, hw, k, s, d):
+    """((top, bottom), (left, right)) of XLA's padding argument: explicit
+    pairs, "VALID", or "SAME" (output ceil(size / stride), the extra row
+    or column at the end)."""
+    if isinstance(padding, str):
+        if padding == "VALID":
+            return (0, 0), (0, 0)
+        if padding != "SAME":
+            raise ValueError(f"padding must be SAME, VALID or pairs, got "
+                             f"{padding!r}")
+        out = []
+        for ax in (0, 1):
+            n_out = -(-hw[ax] // s[ax])
+            eff_k = (k[ax] - 1) * d[ax] + 1
+            total = max((n_out - 1) * s[ax] + eff_k - hw[ax], 0)
+            out.append((total // 2, total - total // 2))
+        return tuple(out)
+    (t, b), (l, r) = padding
+    return (int(t), int(b)), (int(l), int(r))
+
+
+def int8_conv_accumulator(xq: torch.Tensor, w_q: torch.Tensor, *,
+                          window_strides, padding, rhs_dilation,
+                          feature_group_count: int = 1) -> torch.Tensor:
+    """The exact int32 accumulator of an int8 convolution of quantized
+    NHWC activations ``xq`` (int8) and HWIO weights ``w_q``: im2col by
+    ``F.unfold``, then each group's exact product."""
+    kh, kw, cig, cout = w_q.shape
+    s = tuple(int(v) for v in window_strides)
+    d = tuple(int(v) for v in rhs_dilation)
+    g = int(feature_group_count)
+    n, h, w, c = xq.shape
+    if c != cig * g or cout % g:
+        raise ValueError(f"int8_conv: {c} input channels and {cout} "
+                         f"outputs do not split into {g} groups of a "
+                         f"({kh}, {kw}, {cig}, {cout}) kernel")
+    (t, b), (l, r) = _conv_pads(padding, (h, w), (kh, kw), s, d)
+    xf = F.pad(xq.to(torch.float32).permute(0, 3, 1, 2), (l, r, t, b))
+    ho = (h + t + b - (kh - 1) * d[0] - 1) // s[0] + 1
+    wo = (w + l + r - (kw - 1) * d[1] - 1) // s[1] + 1
+    # (N, C·kh·kw, L): rows ordered channel-major, then kernel row, column
+    cols = F.unfold(xf, (kh, kw), dilation=d, stride=s)
+    cols = cols.view(n, g, cig * kh * kw, ho * wo).transpose(2, 3)
+    # HWIO -> per group (cig·kh·kw, cout/g), rows in unfold's order
+    wf = w_q.to(torch.float32).permute(2, 0, 1, 3).reshape(
+        cig * kh * kw, g, cout // g).transpose(0, 1)
+    outs = [_int_matmul(cols[:, i], wf[i]) for i in range(g)]
+    return torch.cat(outs, dim=-1).view(n, ho, wo, cout)
+
+
+def int8_conv(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+              x_scale: torch.Tensor, *, window_strides, padding,
+              rhs_dilation, feature_group_count: int = 1) -> torch.Tensor:
+    """Int8 convolution with an exact int32 accumulation and the fused
+    dequant, NHWC activations and HWIO weights: the f32 layer's geometry
+    (strides, XLA padding, dilation, groups) forwarded verbatim, so the
+    quantized op computes the same spatial map."""
+    y32 = int8_conv_accumulator(
+        quantize_act(x, x_scale), w_q, window_strides=window_strides,
+        padding=padding, rhs_dilation=rhs_dilation,
+        feature_group_count=feature_group_count)
+    return y32.to(torch.float32) * (x_scale * w_scale)

@@ -34,10 +34,18 @@ layer that makes a fleet of them operable:
   ``generate(session=...)`` routes a resumable session to the pool
   already holding its carry.
 
+- **Int8 pools and their accuracy gate.** A pool whose engines run
+  ``precision`` int8 (a ``PrecisionPolicy``) and that has a
+  ``quant_gate`` (evaluation/quant_gate.py) runs the quantized-vs-f32
+  gate before a version's engines are built, at creation and at every
+  ``swap``: a failing version raises ``QuantGateError``, never warms and
+  never flips, and the active version keeps serving.
+  ``dl4j_fleet_quant_gate_total{model, outcome=pass|fail}`` counts the
+  runs.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue 1 item: retrieval pools (item 13), int8 predict pools and their
-quantization gate (item 11), the persisted AOT cache (item 12) and
-tuned configs (item 16).
+queue 1 item: retrieval pools (item 13), the persisted AOT cache (item
+12) and tuned configs (item 16).
 
 Environment knobs (all read at router construction):
 
@@ -64,6 +72,8 @@ import time
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
 
+from deeplearning4j_tpu_torch.evaluation.quant_gate import (
+    QuantGateError, enforce_quant_gate)
 from deeplearning4j_tpu_torch.observe.latency import LatencyRing
 from deeplearning4j_tpu_torch.observe.registry import default_registry
 from deeplearning4j_tpu_torch.parallel.deadline import Deadline
@@ -127,12 +137,14 @@ class ModelPool:
 
     def __init__(self, name: str, router: "FleetRouter",
                  engine_kwargs: Dict[str, Any], pool_size: int,
-                 slo_ms: Optional[float]):
+                 slo_ms: Optional[float], quant_gate=None):
         self.name = name
         self.router = router
         self.engine_kwargs = dict(engine_kwargs)
         self.pool_size = int(pool_size)
         self.slo_ms = slo_ms
+        self.quant_gate = quant_gate
+        self.gate_results: List[Any] = []   # GateResult per (re)build
         self.lock = threading.Lock()
         self.engines: List[ServingEngine] = []
         self.active_version: Optional[str] = None
@@ -253,6 +265,8 @@ class ModelPool:
                 "windowed_p99_ms": self.windowed_p99_ms,
                 "slo_ms": self.slo_ms,
             }
+        if self.gate_results:
+            out["quant_gate"] = self.gate_results[-1].summary()
         out["requests"] = self.ring.count
         out["latency_ms"] = {f"p{int(k * 100)}": v * 1e3
                              for k, v in self.ring.quantiles().items()}
@@ -384,6 +398,10 @@ class FleetRouter:
         self._c_swap = reg.counter(
             "dl4j_fleet_swap_total",
             "model-version swaps, per model; event=swap|rollback")
+        self._c_gate = reg.counter(
+            "dl4j_fleet_quant_gate_total",
+            "quantization accuracy-gate runs before a version is "
+            "admitted, per model; outcome=pass|fail")
         self._g_depth = reg.gauge(
             "dl4j_fleet_pool_depth",
             "requests submitted to a pool and not yet answered")
@@ -398,37 +416,63 @@ class FleetRouter:
             "engines in the pool's active version")
 
     # ---- pool management -------------------------------------------------
+    def _run_quant_gate(self, name: str, model, version: str,
+                        engine_kwargs: Dict[str, Any], quant_gate):
+        """The hard accuracy gate on the warm-swap path: an int8 pool with
+        a gate must pass its quantized-vs-f32 budget before any engine is
+        built; a failing version never warms, never flips, and the active
+        version is untouched. Returns the GateResult (None when not
+        applicable)."""
+        precision = engine_kwargs.get("precision")
+        if quant_gate is None \
+                or getattr(precision, "mode", precision) != "int8":
+            return None
+        try:
+            result = enforce_quant_gate(
+                model, precision, quant_gate,
+                model_name=f"{name}:{version}", registry=self.registry)
+        except QuantGateError:
+            self._c_gate.inc(1.0, model=name, outcome="fail")
+            raise
+        self._c_gate.inc(1.0, model=name, outcome="pass")
+        return result
+
     def _build_engines(self, name: str, model, version: str,
-                       engine_kwargs: Dict[str, Any], pool_size: int
-                       ) -> List[ServingEngine]:
+                       engine_kwargs: Dict[str, Any], pool_size: int,
+                       quant_gate=None
+                       ) -> Tuple[List[ServingEngine], Any]:
         model = _materialize(model, name, self.device)
+        gate_result = self._run_quant_gate(name, model, version,
+                                           engine_kwargs, quant_gate)
         kw = dict(engine_kwargs)
         kw.setdefault("registry", self.registry)
-        return [ServingEngine(
+        engines = [ServingEngine(
             model, model_version=version,
             session_id=f"{self.session_id}-{name}-{version}-{i}", **kw)
             for i in range(pool_size)]
+        return engines, gate_result
 
     def add_pool(self, name: str, model, *, version: str = "v1",
                  pool_size: int = 1, slo_ms: Optional[float] = None,
                  quant_gate=None, **engine_kwargs) -> ModelPool:
         """Create and warm a pool. ``model`` may be a built model, a
-        zoo model instance/class, a zoo entry name, or a factory. An
-        int8 pool and its ``quant_gate`` are not ported yet."""
-        precision = engine_kwargs.get("precision")
-        if quant_gate is not None \
-                or getattr(precision, "mode", precision) == "int8":
-            raise _not_ported("int8 predict pools and their quant_gate",
-                              11)
+        zoo model instance/class, a zoo entry name, or a factory.
+        ``quant_gate`` (a QuantGate) makes the int8 accuracy gate a hard
+        precondition for this pool, at creation and at every ``swap``,
+        when the engines run precision int8."""
         if pool_size < 1:
             raise ValueError("pool_size must be >= 1")
         with self._pools_lock:
             if name in self._pools:
                 raise ValueError(f"pool {name!r} already exists")
         pool = ModelPool(name, self, engine_kwargs, pool_size,
-                         slo_ms if slo_ms is not None else self.slo_ms)
-        pool.engines = self._build_engines(name, model, version,
-                                           engine_kwargs, pool_size)
+                         slo_ms if slo_ms is not None else self.slo_ms,
+                         quant_gate=quant_gate)
+        pool.engines, gate_result = self._build_engines(
+            name, model, version, engine_kwargs, pool_size,
+            quant_gate=quant_gate)
+        if gate_result is not None:
+            pool.gate_results.append(gate_result)
         pool.active_version = version
         with self._pools_lock:
             self._pools[name] = pool
@@ -559,11 +603,16 @@ class FleetRouter:
         """A/B weight swap: build + warm ``version``'s engines, switch
         the active pointer atomically, keep the previous version warm as
         the rollback standby, and shut down anything older. In-flight
-        requests on the old version complete normally."""
+        requests on the old version complete normally. A pool created
+        with ``quant_gate`` re-runs the accuracy gate here: a failing
+        quantized version raises before any engine is built and the
+        active version keeps serving."""
         pool = self.pool(name)
-        new_engines = self._build_engines(name, model, version,
-                                          pool.engine_kwargs,
-                                          pool.pool_size)
+        new_engines, gate_result = self._build_engines(
+            name, model, version, pool.engine_kwargs, pool.pool_size,
+            quant_gate=pool.quant_gate)
+        if gate_result is not None:
+            pool.gate_results.append(gate_result)
         with pool.lock:
             retired = pool.standby
             pool.standby = (pool.active_version, pool.engines)

@@ -48,10 +48,18 @@ does not depend on what it was batched with; the plain torch ops of the
 stem and head (cuDNN/cuBLAS) may pick another algorithm per batch size,
 which chip_smoke.py measures against ``model.output``.
 
+Precision: ``precision`` is a ``PrecisionPolicy`` (parallel/quant.py)
+or its mode string. ``"int8"`` quantizes a MultiLayerNetwork through
+``quantize_model`` at engine start (calibrated on the policy's samples)
+and commits the quantized params and walk; ``stats()["quant"]`` reports
+the calibration hash, the budget, the fallback layers and each layer's
+error, which also goes to the ``dl4j_quant_layer_error{layer,
+quantized}`` gauge. An int8 engine cannot ``swap_params`` (the weights
+bake calibration scales): the fleet builds a new engine instead.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): more than one replica (item 15), int8 precision (item
-11), the persisted AOT executable cache (item 12) and tuned configs
-(item 16).
+queue 1 item): more than one replica (item 15), the persisted AOT
+executable cache (item 12) and tuned configs (item 16).
 
 Spans: with a ``tracer`` (observe/tracer.py) the engine records the JAX
 engine's spans — ``serve_compile`` (an instant at a bucket's first
@@ -84,6 +92,9 @@ from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
 from deeplearning4j_tpu_torch.optimize.updaters import tree_map
 from deeplearning4j_tpu_torch.parallel.deadline import (Deadline,
                                                         DeadlineExceeded)
+from deeplearning4j_tpu_torch.parallel.quant import (PrecisionPolicy,
+                                                     params_nbytes,
+                                                     quantize_model)
 
 REPLICA = 0          # the one dispatch target (the JAX engine's replica 0)
 
@@ -141,9 +152,10 @@ class ServingEngine:
     feature_shape : per-example feature shape (no batch dim); providing
         it enables the warmup sweep at start
     dtype : feature dtype requests are cast to (default float32)
-    precision : "f32" (default) or "bf16" (cast the committed copy of the
-        float params to bfloat16; the BN running state stays float32), or
-        an object whose ``mode`` is one of them
+    precision : a ``PrecisionPolicy`` or its mode: "f32" (default),
+        "bf16" (cast the committed copy of the float params to bfloat16;
+        the BN running state stays float32) or "int8" (a policy carrying
+        calibration samples: ``PrecisionPolicy.int8(samples)``)
     model_version : opaque version label (the fleet's swap path sets it)
     registry, watchdog : the metrics registry (default: the process one)
         and recompile watchdog (default: one over that registry)
@@ -172,12 +184,10 @@ class ServingEngine:
             raise ValueError("need 1 <= min_bucket <= batch_limit")
         if depth < 1:
             raise ValueError("depth must be >= 1")
-        precision = getattr(precision, "mode", precision)
-        if precision == "int8":
-            raise _not_ported("int8 precision", 11)
-        if precision not in ("f32", "bf16"):
-            raise ValueError(f"precision must be 'f32' or 'bf16', got "
-                             f"{precision!r}")
+        if isinstance(precision, str):
+            precision = PrecisionPolicy(mode=precision)
+        self.policy = precision
+        precision = precision.tag
         self.model = model
         self.device = _concrete(getattr(model, "device", "cpu"))
         n_cards = (torch.cuda.device_count() if self.device.type == "cuda"
@@ -250,6 +260,11 @@ class ServingEngine:
         self._g_precision = reg.gauge(
             "dl4j_serving_precision",
             "1 for the engine's active precision label (f32|bf16|int8)")
+        self._g_quant_err = reg.gauge(
+            "dl4j_quant_layer_error",
+            "per-layer relative L2 quantization error observed on the "
+            "calibration probe batch (int8 engines only; layers over "
+            "the policy budget fell back to f32)")
         self._c_deadline_shed = reg.counter(
             "dl4j_serving_deadline_shed_total",
             "requests shed because their deadline expired before "
@@ -273,11 +288,27 @@ class ServingEngine:
         # folded in); None for a duck-typed .output-only model
         self._committed: Optional[Tuple[Any, Any, Any]] = None
         self._fwd = None
+        self.quantized = None        # QuantizedModel of an int8 engine
+        self._calib_hash: Optional[str] = None
         if hasattr(model, "build_inference_fn"):
             if model.params is None:
                 model.init()
-            self._committed = self._commit(model.params, model.model_state)
-            self._fwd = model.build_inference_fn()
+            params = model.params
+            if precision == "int8":
+                qm = quantize_model(model, self.policy,
+                                    registry=self.registry,
+                                    tracer=self.tracer)
+                self.quantized = qm
+                self._calib_hash = qm.calibration_hash()
+                params = qm.params
+                self._fwd = qm.build_inference_fn()
+                for lname, rep in qm.report.items():
+                    self._g_quant_err.set(
+                        rep["error"], session=session_id, layer=lname,
+                        quantized=str(rep["quantized"]).lower())
+            else:
+                self._fwd = model.build_inference_fn()
+            self._committed = self._commit(params, model.model_state)
         elif precision != "f32":
             raise ValueError(
                 f"precision={precision!r} needs a model exposing "
@@ -361,8 +392,7 @@ class ServingEngine:
         """Bytes of the committed params copy."""
         if self._committed is None:
             return 0
-        return sum(t.numel() * t.element_size()
-                   for t in flatten_paths(self._committed[0]).values())
+        return params_nbytes(self._committed[0])
 
     def committed_host(self) -> Tuple[Any, Any]:
         """Host copies (CPU tensors, never views) of the committed
@@ -387,6 +417,11 @@ class ServingEngine:
         if self._committed is None:
             raise ValueError(
                 "legacy .output-only model: no committed params to swap")
+        if self.quantized is not None:
+            raise ValueError(
+                "int8 engines cannot hot-swap params (weights bake "
+                "calibration scales); build a new engine and use the "
+                "fleet swap path")
         old_p, old_s, _ = self._committed
         if model_state is None:
             model_state = old_s
@@ -588,7 +623,7 @@ class ServingEngine:
         q = self.latency.quantiles()
         with self._carry_lock:
             carried = 1 if self._carry is not None else 0
-        return {
+        out = {
             "session": self.session_id,
             "device": str(self.device),
             "replicas": self.n_replicas,
@@ -606,6 +641,15 @@ class ServingEngine:
             "latency_ms": {f"p{int(k * 100)}": v * 1e3
                            for k, v in q.items()},
         }
+        if self.quantized is not None:
+            out["quant"] = {
+                "calibration": self._calib_hash,
+                "error_budget": self.policy.error_budget,
+                "fallback": list(self.quantized.fallback),
+                "layers": {n: r["error"]
+                           for n, r in self.quantized.report.items()},
+            }
+        return out
 
     # ---- dispatcher ------------------------------------------------------
     def _form_batch(self) -> Optional[List[_Request]]:

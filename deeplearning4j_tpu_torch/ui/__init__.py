@@ -6,9 +6,9 @@ which feeds the training dashboard's ``/train`` pages, ``/api/sessions``
 and the stats receiver), ``storage.py``, ``codec.py``, ``modules.py``,
 ``i18n.py``, ``server.py`` (``UIServer``: ``/metrics``, ``/healthz``,
 the dashboard, module routes with SSE streaming, drain),
-``serving_module.py`` and ``generation_module.py``. ``TsneListener``
-needs ``manifold/tsne.py`` and is not ported (ROADMAP.md, queue 1 item
-9): importing it raises.
+``serving_module.py``, ``generation_module.py`` and ``tsne_listener.py``
+(``TsneListener``, which pushes t-SNE coordinates of a layer's
+activations to the dashboard's t-SNE tab).
 """
 
 from deeplearning4j_tpu_torch.ui.server import UIServer
@@ -18,18 +18,7 @@ from deeplearning4j_tpu_torch.ui.storage import (
     RemoteUIStatsStorageRouter,
     SqliteStatsStorage,
 )
+from deeplearning4j_tpu_torch.ui.tsne_listener import TsneListener
 
 __all__ = ["StatsListener", "InMemoryStatsStorage", "SqliteStatsStorage",
-           "RemoteUIStatsStorageRouter", "UIServer"]
-
-_NOT_PORTED = {"TsneListener": ("ui/tsne_listener.py and manifold/tsne.py",
-                                9)}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        what, item = _NOT_PORTED[name]
-        raise NotImplementedError(
-            f"{name} is not ported yet ({what}; ROADMAP.md, queue 1 item "
-            f"{item})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+           "RemoteUIStatsStorageRouter", "UIServer", "TsneListener"]

@@ -1021,12 +1021,14 @@ def test_generation_stream_does_not_depend_on_its_bucket(card):
         eng.shutdown()
 
 
-@pytest.mark.parametrize("k", [256, 1040])
+@pytest.mark.parametrize("k", [256, 1040, 4608])
 def test_int8_dot_on_the_card_is_exact(card, k):
-    """The f32 route of ``int8_dot`` on the card: the accumulation equals
-    the int64 CPU product exactly, and the rescaled result equals the CPU
-    route's bit for bit, up to K = 1040; K = 1041 and TF32 raise."""
-    from deeplearning4j_tpu_torch.ops.quantize import (int8_dot,
+    """``int8_dot`` on the card: the int32 accumulator equals the int64
+    CPU product exactly at any K (chunks of at most 1040 summed exactly
+    in f32, added in int32), and the rescaled result equals the CPU
+    route's bit for bit; TF32 raises."""
+    from deeplearning4j_tpu_torch.ops.quantize import (_int_matmul,
+                                                       int8_dot,
                                                        quantize_act)
     g = torch.Generator().manual_seed(k)
     x = torch.rand((8, k), generator=g) * 2 - 1
@@ -1036,21 +1038,84 @@ def test_int8_dot_on_the_card_is_exact(card, k):
     ws = torch.rand(77, generator=g) * 0.01
     xs = torch.tensor(1.0 / 127)
     got = int8_dot(x.to(card), wq.to(card), ws.to(card), xs.to(card))
-    acc = (quantize_act(x.to(card), xs.to(card)).float()
-           @ wq.to(card).float()).cpu()
+    acc = _int_matmul(quantize_act(x.to(card), xs.to(card)).float(),
+                      wq.to(card).float()).cpu()
     exact = quantize_act(x, xs).long() @ wq.long()
-    assert torch.equal(acc.long(), exact) and (acc == exact.float()).all()
+    assert acc.dtype == torch.int32 and torch.equal(acc.long(), exact)
     assert torch.equal(got.cpu(), int8_dot(x, wq, ws, xs))
-    with pytest.raises(ValueError, match="1040"):
-        int8_dot(torch.zeros((1, 1041), device=card),
-                 torch.zeros((1041, 3), dtype=torch.int8, device=card),
-                 ws[:3].to(card), xs.to(card))
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with pytest.raises(RuntimeError, match="TF32"):
             int8_dot(x.to(card), wq.to(card), ws.to(card), xs.to(card))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("shape_x,shape_w,stride,pad,dil,groups", [
+    ((32, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0)), (1, 1), 1),
+    ((32, 12, 12, 20), (5, 5, 20, 50), (1, 1), ((0, 0), (0, 0)), (1, 1), 1),
+    ((4, 9, 9, 8), (3, 3, 4, 6), (2, 2), "SAME", (1, 1), 2),
+    ((4, 11, 11, 4), (3, 3, 4, 5), (1, 1), ((2, 2), (1, 1)), (2, 2), 1),
+    ((2, 6, 6, 512), (3, 3, 512, 8), (1, 1), "SAME", (1, 1), 1),
+])
+def test_int8_conv_on_the_card_is_exact(card, shape_x, shape_w, stride,
+                                        pad, dil, groups):
+    """``int8_conv`` on the card at LeNet's shapes, a grouped, a dilated
+    and a K = 4608 case: its int32 accumulator equals the CPU's, which
+    (unpadded, one group) is the int64 product of the same patches, and
+    the rescaled output is bitwise the CPU's."""
+    from deeplearning4j_tpu_torch.ops.quantize import (
+        int8_conv, int8_conv_accumulator, quantize_act)
+    import chip_smoke
+    g = torch.Generator().manual_seed(sum(shape_w))
+    x = torch.randn(shape_x, generator=g)
+    wq = torch.randint(-127, 128, shape_w, generator=g, dtype=torch.int8)
+    ws = torch.rand(shape_w[-1], generator=g) * 0.01
+    xs = torch.tensor(float(x.abs().max()) / 127)
+    kw = dict(window_strides=stride, padding=pad, rhs_dilation=dil,
+              feature_group_count=groups)
+    xq = quantize_act(x, xs)
+    acc = int8_conv_accumulator(xq.to(card), wq.to(card), **kw).cpu()
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, int8_conv_accumulator(xq, wq, **kw))
+    if groups == 1 and pad == ((0, 0), (0, 0)):
+        exact = chip_smoke._int64_conv(xq, wq, stride, dil)
+        assert torch.equal(acc.reshape(exact.shape).long(), exact)
+    got = int8_conv(x.to(card), wq.to(card), ws.to(card), xs.to(card), **kw)
+    assert torch.equal(got.cpu(), int8_conv(x, wq, ws, xs, **kw))
+
+
+def test_f64_lstm_on_the_card_raises_from_the_kernel_wrapper(card):
+    """The gradient check runs in float64; the LSTM kernels take f32 and
+    bf16 only, so an f64 LSTM model on the card raises TypeError from the
+    wrapper (it is checked on the CPU instead)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.gradientcheck import check_model_gradients
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    conf = (NeuralNetConfiguration.Builder().seed(1).list()
+            .layer(LSTM(n_out=8)).layer(RnnOutputLayer(n_out=3))
+            .set_input_type(InputType.recurrent(4, 5)).build())
+    m = MultiLayerNetwork(conf, device=card).init()
+    rng = np.random.default_rng(0)
+    ds = DataSet(rng.normal(size=(2, 5, 4)).astype(np.float32),
+                 np.eye(3, dtype=np.float32)[rng.integers(0, 3, (2, 5))])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        check_model_gradients(m, ds, verbose=False)
+
+
+def test_library_gradient_check_on_the_card(card):
+    """Dense + AutoEncoder + MixtureOfExperts + SameDiffLayer + output in
+    float64 on the card: autograd against central differences."""
+    import chip_smoke
+    from deeplearning4j_tpu_torch.gradientcheck import check_model_gradients
+    assert check_model_gradients(chip_smoke.library_mln(card),
+                                 chip_smoke.library_data(),
+                                 max_params_per_leaf=6, verbose=False)
 
 
 def _small_resnet(seed=123):

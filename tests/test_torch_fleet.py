@@ -391,10 +391,6 @@ def test_session_affinity_routes_to_the_pool_holding_the_carry(gen_model):
     (lambda: FleetRouter(tuned_config=object()), "item 16"),
     (lambda: _router().add_retrieval_pool("n", object()), "item 13"),
     (lambda: _router().neighbors(np.zeros((1, 4)), 1), "item 13"),
-    (lambda: _router().add_pool("q", _tiny_model(), precision="int8",
-                                **_pool_kw()), "item 11"),
-    (lambda: _router().add_pool("q", _tiny_model(), quant_gate=object(),
-                                **_pool_kw()), "item 11"),
 ])
 def test_unported_parts_raise_with_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -553,10 +553,16 @@ def test_int8_dot_matches_jax():
     want = np.asarray(JQ.int8_dot(jnp.asarray(x), jnp.asarray(w_q),
                                   jnp.asarray(w_s), jnp.float32(xs)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="1040"):
-        TQ.int8_dot(torch.zeros((1, 1041)),
-                    torch.zeros((1041, 2), dtype=torch.int8),
-                    torch.ones(2), torch.tensor(1.0))
+    # past the f32 route's exact width (1040) the port sums exact chunks
+    # in int32, as JAX's int32 accumulator does: bitwise equal
+    xk = rng.uniform(-1, 1, (3, 1041)).astype(np.float32)
+    wk, sk = TQ.quantize_weight(rng.normal(0, 0.2, (1041, 2))
+                                .astype(np.float32))
+    got = TQ.int8_dot(torch.from_numpy(xk), torch.from_numpy(wk),
+                      torch.from_numpy(sk), torch.tensor(xs)).numpy()
+    want = np.asarray(JQ.int8_dot(jnp.asarray(xk), jnp.asarray(wk),
+                                  jnp.asarray(sk), jnp.float32(xs)))
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("mode", ["plain", "chunked", "speculative"])

@@ -22,6 +22,7 @@ from deeplearning4j_tpu_torch.models.computation_graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers.fused import FusedBottleneckBlock
 from deeplearning4j_tpu_torch.nn.layers.output import (GlobalPoolingLayer,
                                                        OutputLayer)
+from deeplearning4j_tpu_torch.parallel.quant import QuantizationError
 from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
 
 FEAT = (8, 8, 3)
@@ -158,7 +159,8 @@ def test_rejects_bad_requests_and_options(model):
         ServingEngine(model, batch_limit=0)
     with pytest.raises(ValueError):
         ServingEngine(model, batch_limit=4, min_bucket=5)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # int8 quantizes MultiLayerNetworks only (parallel/quant.py)
+    with pytest.raises(QuantizationError, match="ComputationGraph"):
         ServingEngine(model, precision="int8")
     with ServingEngine(model, batch_limit=4, feature_shape=FEAT) as eng:
         with pytest.raises(ValueError, match="feature shape"):
@@ -260,7 +262,6 @@ def test_swap_params_keeps_the_ladder_warm(model):
     (dict(replicas=2), "item 15"),
     (dict(aot_cache_dir="cache"), "item 12"),
     (dict(tuned_config=object()), "item 16"),
-    (dict(precision="int8"), "item 11"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(model, kw, item):
     with pytest.raises(NotImplementedError, match=item):

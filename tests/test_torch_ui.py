@@ -382,12 +382,14 @@ def test_sse_generation_over_a_fleet_pool():
         fleet.shutdown()
 
 
-# ---- not ported yet --------------------------------------------------------
+# ---- the t-SNE listener ------------------------------------------------------
 
-@pytest.mark.parametrize("name,item", [("TsneListener", "item 9")])
-def test_training_ui_listeners_are_not_ported(name, item):
+def test_tsne_listener_is_exported():
+    """The last training-UI listener (ROADMAP item 9) is ported: the
+    package exports it beside the rest."""
     import deeplearning4j_tpu_torch.ui as ui
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(ui, name)
+    from deeplearning4j_tpu_torch.ui.tsne_listener import TsneListener
+    assert ui.TsneListener is TsneListener
     assert {"UIServer", "InMemoryStatsStorage", "SqliteStatsStorage",
-            "RemoteUIStatsStorageRouter", "StatsListener"} == set(ui.__all__)
+            "RemoteUIStatsStorageRouter", "StatsListener",
+            "TsneListener"} == set(ui.__all__)
