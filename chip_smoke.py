@@ -326,6 +326,45 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    KL and trustworthiness), Barnes-Hut on 300 points; a TsneListener in
    a LeNet fit writing its coordinates to a running UIServer.
 
+20. cluster — the multi-node serving tier (parallel/node.py,
+   parallel/remote.py). The slice ResNet50 (bf16, fused blocks, the
+   ``nontrivial_bn`` weights) on two in-process ``ServingNode``s, each with
+   its own engine (batch limit 32, warmed), one ``NodeRegistry`` and one
+   ``RemoteDispatcher`` over HTTP: 4 clients x 50 requests of 1-32 images,
+   node a drained after 70 answers. Every answer bitwise the answering
+   node's engine's ``output`` on the same request and within 5e-3 of
+   ``model.output``; the drain finishes every admitted request and
+   deregisters; the dispatcher's OK count and the nodes' served counts
+   each equal the requests; 36 + 16 launches a dispatched batch (added to
+   the kernels line); an ``AutoScaler`` tick reads the gossip. Then
+   ``python -m deeplearning4j_tpu_torch serve --join`` on the model's zip:
+   its cold start (spawn to registered, after its warmup, 0 live
+   compiles), split into its warmup (the kernel libraries' first load,
+   timed alone in a fresh process, and the sweep) and imports + restore
+   + HTTP, beside this run's nvcc seconds for the two sources;
+   SIGKILLed halfway through 24 requests over it and node b (every request
+   answered, bitwise b's engine, the failures retried onto b); a rejoin
+   with the same id answering; SIGTERM draining it to exit 0 with its
+   record gone.
+21. neighbors — the retrieval tier (retrieval/, the fleet's retrieval
+   pool, ui/neighbors_module.py). The JAX package's full geometry
+   (benchmarks/neighbors.py): a 1,000,000 x 64 blob corpus (488 blobs,
+   seed 0), shards of 262144, IVF with 256 clusters (k-means on the
+   card) and nprobe 64, built in f32 and in int8; 64 probes near corpus
+   rows at k 10 (k ladder 10, 40). f32 brute ids equal a float64 oracle's
+   except at near ties (a swap's true gap within 1e-6 of |q|^2 + |c|^2:
+   the f32 expanded form rounds at the scale of its terms); recall@10 of
+   int8 brute, IVF f32 and IVF int8 at least 0.95; a repeat bitwise; zero
+   live compiles after warmup; queries/s, p50/p99 and the corpus bytes
+   each arm reads on the card. The committed JAX-saved index
+   (tests/resources/retrieval, tools/retrieval_resources.py): the card's
+   ids equal the port's CPU ids in every arm, distances within 1e-5 of
+   |q|^2 + |c|^2. The f32 index saved to a store: two ``RetrievalNode``s
+   owning shards {0,1} and {2,3}, a ``NeighborsDispatcher``'s merged
+   answer bitwise the single engine's, ``partial: true`` with one node
+   down; ``serve --neighbors-index --join`` on shard 0 answering, then
+   SIGTERM-drained to exit 0.
+
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
 rest of the repository beside it) it exits non-zero and prints no result.
@@ -6943,6 +6982,781 @@ def phase_model_library(report, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# cluster: serve --join nodes over ResNet50 behind the RemoteDispatcher
+# ---------------------------------------------------------------------------
+
+CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 4, 50    # 200 requests of 1-32 images
+CLUSTER_DRAIN_AT = 70          # node a drains once this many have answered
+CLUSTER_SUB_REQUESTS = 24      # through the subprocess's kill and rejoin
+CLUSTER_SEED = 19
+
+
+class _NodeProcess:
+    """``python -m deeplearning4j_tpu_torch serve ... --join`` as a user
+    starts a node; its output read in a thread, its registration read from
+    the registry."""
+
+    def __init__(self, args):
+        self.lines = []
+        self.t_start = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve",
+             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+
+    def wait_registered(self, registry, node_id, timeout):
+        """The node's record with this process's pid (a node registers
+        only after its warmup); returns (record, seconds since spawn)."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            rec = registry.read_all().get(node_id)
+            if rec and rec.get("pid") == self.proc.pid:
+                return rec, time.perf_counter() - self.t_start
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"node {node_id} never registered (exit "
+                             f"{self.proc.poll()}): "
+                             + " | ".join(self.lines[-20:]))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._t.join(timeout=10)
+
+
+def _answering_transport():
+    """The dispatcher's HTTP transport, recording on the calling thread
+    which URL the last attempt went to (predict returns on its first OK
+    attempt, so that is the answering node)."""
+    from deeplearning4j_tpu_torch.parallel import remote
+    seen = threading.local()
+
+    def transport(url, body, timeout_s):
+        seen.url = url
+        return remote._http_transport(url, body, timeout_s)
+    return transport, seen
+
+
+def _cluster_clients(dispatcher, seen, reqs, nodes_by_url, answers,
+                     on_answer=None):
+    """CLUSTER_CLIENTS threads sending ``reqs`` (a list per client)
+    through ``dispatcher``; ``answers[c][i]`` = (output f32, n, node)."""
+    import numpy as np
+    done = [0]
+    lock = threading.Lock()
+    errors = []
+
+    def client(c):
+        try:
+            for i, x in enumerate(reqs[c]):
+                out = dispatcher.predict(x)
+                url = seen.url.split("/api/")[0]
+                answers[c][i] = (np.asarray(out["output"], np.float32),
+                                 out["n"], nodes_by_url.get(url, url))
+                with lock:
+                    done[0] += 1
+                    n = done[0]
+                if on_answer is not None:
+                    on_answer(n)
+        except BaseException as e:      # re-raised by the caller
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(reqs))]
+    for th in threads:
+        th.start()
+    return threads, errors
+
+
+def _dispatch_oks(dispatcher):
+    return {dict(k)["node"]: v
+            for k, v in dispatcher._c_dispatch.series().items()
+            if dict(k).get("outcome") == "ok"}
+
+
+def phase_cluster(report, card):
+    """Two in-process ``ServingNode``s and a ``serve --join`` subprocess
+    over the slice ResNet50 behind one ``RemoteDispatcher`` (module
+    docstring, phase 20). Returns the in-process nodes' kernel launches."""
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.serialization import (
+        params_from_jax, save_model)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.parallel.node import (AutoScaler,
+                                                        NodeRegistry,
+                                                        ServingNode)
+    from deeplearning4j_tpu_torch.parallel.remote import RemoteDispatcher
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "seconds": {}}
+    rng = np.random.default_rng(CLUSTER_SEED)
+    tmp = tempfile.TemporaryDirectory(prefix="cluster_")
+    reg_dir = os.path.join(tmp.name, "registry")
+    registry = NodeRegistry(reg_dir)
+    zip_path = os.path.join(tmp.name, "resnet50.zip")
+    model = ResNet50(**SLICE).init()           # cuda, seeded generator
+    params_from_jax(*nontrivial_bn(model), model.device, model=model)
+    save_model(model, zip_path)
+    per_fwd = {k: sum(n for c, n in path_calls(model.conf, 1).items()
+                      if c.kernel == k) for k in FORWARD}
+    node_args = ["--model", zip_path, "--bf16", "--warmup-shape",
+                 *map(str, _image_shape()), "--batch-limit", "32",
+                 "--ui-port", "0", "--join", reg_dir, "--node-id", "sub"]
+    nodes, dispatcher, sub = [], None, None
+    try:
+        engine_kw = dict(batch_limit=32, feature_shape=_image_shape(),
+                         precision="bf16")
+        for nid in ("a", "b"):
+            nodes.append(ServingNode(
+                model, node_id=nid, registry=registry, model_name="resnet",
+                metrics_registry=MetricsRegistry(), window_s=10.0,
+                device="cuda", **engine_kw))
+        engines = {n.node_id: n.router.pool("resnet").engines[0]
+                   for n in nodes}
+        transport, seen = _answering_transport()
+        dispatcher = RemoteDispatcher(registry, metrics=MetricsRegistry(),
+                                      transport=transport, seed=0,
+                                      timeout_s=120.0)
+        out["seconds"]["setup"] = time.perf_counter() - t_phase
+
+        # ---- 1. traffic over the two in-process nodes, A drained
+        sizes = rng.integers(1, 33, (CLUSTER_CLIENTS, CLUSTER_PER_CLIENT))
+        reqs = [[_pixels(rng, int(n)) for n in row] for row in sizes]
+        flat = [x for row in reqs for x in row]
+        t0 = time.perf_counter()
+        ref = {nid: [e.output(x) for x in flat]
+               for nid, e in engines.items()}
+        direct = [model.output(x).float().cpu().numpy() for x in flat]
+        out["seconds"]["references"] = time.perf_counter() - t0
+        fc.reset_launch_counts()
+        batches0 = {nid: e.dispatch_count for nid, e in engines.items()}
+        answers = [[None] * CLUSTER_PER_CLIENT
+                   for _ in range(CLUSTER_CLIENTS)]
+        drain_now = threading.Event()
+        urls = {n.url: n.node_id for n in nodes}
+        t0 = time.perf_counter()
+        threads, errors = _cluster_clients(
+            dispatcher, seen, reqs, urls, answers,
+            on_answer=lambda n: n >= CLUSTER_DRAIN_AT and drain_now.set())
+        if not drain_now.wait(600):
+            raise AssertionError("cluster traffic stalled before the drain")
+        drained = nodes[0].drain(timeout_s=60.0)
+        left_after_drain = registry.read_all()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        batches = {nid: e.dispatch_count - batches0[nid]
+                   for nid, e in engines.items()}
+        launches = {k: fc.LAUNCHES[k] for k in FORWARD}
+        n_req = len(flat)
+        by_node = {"a": 0, "b": 0}
+        worst = 0.0
+        for i, (x, (a, n, nid)) in enumerate(
+                zip(flat, [a for row in answers for a in row])):
+            if n != len(x) or a.shape != ref[nid][i].shape \
+                    or not np.isfinite(a).all():
+                raise AssertionError(f"request {i}: n {n} for {len(x)} "
+                                     "images, or a misshapen answer")
+            if not np.array_equal(a, ref[nid][i]):
+                raise AssertionError(f"request {i}: node {nid}'s answer "
+                                     "differs from its own engine's output")
+            by_node[nid] += 1
+            worst = max(worst, float(np.abs(a - direct[i]).max()))
+        if worst > 5e-3:
+            raise AssertionError(f"cluster answers differ from model.output "
+                                 f"by {worst} (> 5e-3)")
+        oks = _dispatch_oks(dispatcher)
+        served = {n.node_id: n.router.pool("resnet").ring.count
+                  for n in nodes}
+        if sum(oks.values()) != n_req or sum(served.values()) != n_req:
+            raise AssertionError(f"{n_req} requests, dispatcher OKs {oks}, "
+                                 f"nodes served {served}")
+        if not drained["drained"] or drained["inflight_left"] \
+                or "a" in left_after_drain or by_node["a"] == 0:
+            raise AssertionError(f"node a's drain {drained}, registry "
+                                 f"{sorted(left_after_drain)}, answers "
+                                 f"{by_node}")
+        for k in FORWARD:
+            want = per_fwd[k] * sum(batches.values())
+            if launches[k] != want or not launches[k]:
+                raise AssertionError(f"{k}: {launches[k]} launches for "
+                                     f"{batches} batches, expected {want}")
+        shed = sum(v for k, v in dispatcher._c_dispatch.series().items()
+                   if dict(k).get("outcome") == "shed")
+        images = int(sizes.sum())
+        out["in_process"] = {
+            "requests": n_req, "images": images, "by_node": by_node,
+            "dispatch_ok": oks, "dispatch_shed": shed,
+            "node_served": served, "batches": batches,
+            "launches": launches, "drain": drained,
+            "max_diff_vs_model_output": worst, "wall_s": wall,
+            "images_per_s": images / wall}
+        log(f"  {n_req} requests ({images} images) through the "
+            f"RemoteDispatcher over HTTP, {CLUSTER_CLIENTS} clients: each "
+            f"answer bitwise its node's engine; by node {by_node}; node a "
+            f"drained after {CLUSTER_DRAIN_AT} answers in "
+            f"{drained['seconds']:.3f}s with {drained['inflight_left']} left "
+            f"and deregistered; dispatcher OKs {oks} (503s retried: {shed}),"
+            f" served {served}; max |diff| vs model.output {worst:.3g}; "
+            f"{images / wall:.1f} images/s [{card}]")
+        log(f"  launches {launches} for {batches} batches "
+            f"({per_fwd} a batch)")
+
+        # ---- 2. the autoscaler reads the gossip
+        clock = [0.0]
+        stopped = []
+        scaler = AutoScaler(registry, spawn=lambda: None,
+                            stop=stopped.append, idle_after_s=1.0,
+                            clock=lambda: clock[0])
+        nodes[1]._beat_now()            # gossip b's final counts first
+        ticks = [scaler.tick()]
+        clock[0] += 1.0
+        ticks.append(scaler.tick())
+        gossip = registry.read_all()["b"]["stats"]
+        if ticks != [None, "down"] or stopped not in (["b"], ["sub"]):
+            raise AssertionError(f"autoscaler ticks {ticks}, stopped "
+                                 f"{stopped}")
+        out["autoscaler"] = {"ticks": ticks, "stopped": stopped,
+                             "gossip_b": gossip}
+        log(f"  AutoScaler over the gossip: ticks {ticks}, would stop "
+            f"{stopped}; node b gossips {gossip}")
+
+        # ---- 3. the subprocess node: cold start, SIGKILL, rejoin, SIGTERM
+        sub = _NodeProcess(node_args)
+        rec, cold_total = sub.wait_registered(registry, "sub", 600)
+        code, _, st = _http(rec["url"] + "/api/serving/stats")
+        dev = st.get("device")
+        if code != 200 or st["recompiles_after_warmup"] != 0 \
+                or dev != "cuda:0":
+            raise AssertionError(f"the subprocess node's stats: {code} {st}")
+        load_s = _kernel_load_seconds()
+        cold = {"spawn_to_registered_s": cold_total,
+                "warmup_s": st["warmup_s"],
+                "kernel_load_s": load_s,
+                "warmup_sweep_s": st["warmup_s"] - load_s,
+                "import_restore_serve_s": cold_total - st["warmup_s"],
+                "nvcc_build_s": {k: _build_seconds(k) for k in FORWARD}}
+        out["cold_start"] = cold
+        log(f"  subprocess node cold start: {cold_total:.2f}s from spawn to "
+            f"registered (warm: registers after its sweep, 0 live "
+            f"compiles); its warmup {st['warmup_s']:.3f}s holds the kernel "
+            f"libraries' first load ({load_s:.3f}s in a fresh process, "
+            f"built by this run's build phase) and the sweep "
+            f"({cold['warmup_sweep_s']:.3f}s); imports + restore + HTTP "
+            f"{cold['import_restore_serve_s']:.2f}s; nvcc of the two "
+            f"sources when nothing is built: {cold['nvcc_build_s']} [{card}]")
+        out["subprocess"] = _cluster_subprocess(
+            card, registry, dispatcher, seen, nodes[1], sub, node_args,
+            rng, engines["b"])
+    finally:
+        for n in nodes:
+            n.shutdown()
+        if dispatcher is not None:
+            dispatcher.shutdown()
+        if sub is not None:
+            sub.stop()
+        tmp.cleanup()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"  cluster phase seconds "
+        f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    report["cluster"] = out
+    return out["in_process"]["launches"]
+
+
+def _kernel_load_seconds():
+    """Seconds a fresh process takes to load the two forward kernels'
+    libraries (already built): what a node's first dispatch pays for
+    them, inside its warmup."""
+    code = ("import time; t0 = time.perf_counter(); "
+            "from deeplearning4j_tpu_torch.ops import cuda_build; "
+            "[cuda_build.kernel(k) for k in ('fused_mm', 'fused_c3')]; "
+            "print(time.perf_counter() - t0)")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    return float(out.stdout.split()[-1])
+
+
+def _build_seconds(source):
+    """Seconds this run's build phase took for ``source`` (None when it
+    found the library already built)."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    got = cuda_build.build_log.get(source)
+    return None if got is None else got[0]
+
+
+def _cluster_subprocess(card, registry, dispatcher, seen, node_b, sub,
+                        node_args, rng, engine_b):
+    """Phase 20, step 3: traffic over node b and the subprocess node; the
+    subprocess SIGKILLed mid-stream (its requests retried onto b), a
+    rejoin with the same id, and its SIGTERM drain to exit 0."""
+    import signal
+
+    import numpy as np
+    res = {}
+    sizes = rng.integers(1, 33, (2, CLUSTER_SUB_REQUESTS // 2))
+    reqs = [[_pixels(rng, int(n)) for n in row] for row in sizes]
+    flat = [x for row in reqs for x in row]
+    ref = [engine_b.output(x) for x in flat]
+    sub_url = registry.read_all()["sub"]["url"]
+
+    def run(label, kill_at=None, proc=None):
+        answers = [[None] * len(reqs[0]) for _ in reqs]
+        killed = threading.Event()
+
+        def on_answer(n):
+            if kill_at is not None and n >= kill_at \
+                    and not killed.is_set():
+                killed.set()
+                proc.send_signal(signal.SIGKILL)
+        urls = {node_b.url: "b", registry.read_all()["sub"]["url"]: "sub"}
+        threads, errors = _cluster_clients(dispatcher, seen, reqs, urls,
+                                           answers, on_answer)
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        by = {"b": 0, "sub": 0}
+        for i, (a, n, nid) in enumerate(
+                [a for row in answers for a in row]):
+            if n != len(flat[i]) or not np.array_equal(a, ref[i]):
+                raise AssertionError(f"{label}: request {i} answered by "
+                                     f"{nid} differs from node b's engine")
+            by[nid] = by.get(nid, 0) + 1
+        return by, killed.is_set()
+
+    oks0 = sum(_dispatch_oks(dispatcher).values())
+    errs0 = sum(v for k, v in dispatcher._c_dispatch.series().items()
+                if dict(k).get("outcome") == "error")
+    by, killed = run("SIGKILL", kill_at=len(flat) // 2, proc=sub.proc)
+    sub.proc.wait(timeout=60)
+    errs = sum(v for k, v in dispatcher._c_dispatch.series().items()
+               if dict(k).get("outcome") == "error") - errs0
+    oks = sum(_dispatch_oks(dispatcher).values()) - oks0
+    if not killed or sub.proc.returncode != -signal.SIGKILL \
+            or oks != len(flat) or by["sub"] == 0 or errs == 0:
+        raise AssertionError(f"SIGKILL step: killed {killed}, rc "
+                             f"{sub.proc.returncode}, OKs {oks} of "
+                             f"{len(flat)}, by node {by}")
+    res["sigkill"] = {"by_node": by, "failed_attempts_retried": errs,
+                      "rc": sub.proc.returncode,
+                      "stale_record_left": "sub" in registry.read_all()}
+    log(f"  subprocess node SIGKILLed after {len(flat) // 2} of {len(flat)} "
+        f"answers: every request answered (by node {by}), {errs} failed "
+        f"attempts retried onto b, each answer bitwise b's engine; its "
+        f"record left behind: {res['sigkill']['stale_record_left']}")
+
+    # rejoin with the same id: the new record overwrites the stale one
+    sub2 = _NodeProcess(node_args)
+    try:
+        rec, cold2 = sub2.wait_registered(registry, "sub", 600)
+        if rec["url"] == sub_url and rec["pid"] == sub.proc.pid:
+            raise AssertionError("the rejoin did not replace the record")
+        by2, _ = run("rejoin")
+        if by2["sub"] == 0:
+            raise AssertionError(f"the rejoined node answered nothing: "
+                                 f"{by2}")
+        sub2.proc.send_signal(signal.SIGTERM)
+        rc = sub2.proc.wait(timeout=120)
+        sub2._t.join(timeout=10)
+    finally:
+        sub2.stop()
+    drain_line = [ln for ln in sub2.lines if "SIGTERM drain" in ln]
+    if rc != 0 or not drain_line or "sub" in registry.read_all():
+        raise AssertionError(f"SIGTERM: rc {rc}, {drain_line}, registry "
+                             f"{sorted(registry.read_all())}: "
+                             + " | ".join(sub2.lines[-20:]))
+    res["rejoin"] = {"cold_start_s": cold2, "by_node": by2, "rc": rc,
+                     "drain": drain_line[0]}
+    log(f"  rejoined as 'sub' (new pid, {cold2:.2f}s to registered), "
+        f"answered {by2}; SIGTERM: '{drain_line[0]}', exit {rc}, record "
+        f"gone [{card}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# neighbors: the sharded f32/int8/IVF retrieval tier
+# ---------------------------------------------------------------------------
+
+NN = dict(vectors=1_000_000, dim=64, blobs=488, shard_rows=262144,
+          clusters=256, nprobe=64, batch=64, k=10, k_ladder=(10, 40),
+          seed=0)
+NN_TIMED_BATCHES = 20
+NN_RECALL_FLOOR = 0.95
+# a swap against the float64 oracle is a near tie when the true gap is
+# within this of |q|^2 + |c|^2: the f32 expanded form d^2 = |q|^2 - 2q.c +
+# |c|^2 rounds at the scale of its terms (an ulp of 1152 is 1.2e-4), so a
+# gap of 1e-5 of d^2 itself (3e-5 at d^2 = 2.9) is below its rounding
+NN_NEAR_TIE = 1e-6
+NN_TERM_TOL = 1e-5             # card vs CPU distances, of |q|^2 + |c|^2
+NN_RESOURCES = os.path.join("tests", "resources", "retrieval")
+
+
+def blob_corpus(n, dim, k_blobs, seed=0, spread=0.15):
+    """The JAX package's ``benchmarks/neighbors.py`` corpus (a copy):
+    seeded mixture-of-gaussians, the clustered geometry of embeddings."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k_blobs, dim)).astype(np.float32) * 3.0
+    assign = rng.integers(k_blobs, size=n)
+    pts = centers[assign] + \
+        rng.normal(size=(n, dim)).astype(np.float32) * spread
+    return pts.astype(np.float32)
+
+
+def exact_oracle64(corpus, queries, k, block=65536):
+    """Exact float64 top-k (distances, ids) by blocked full scan."""
+    import numpy as np
+    q = queries.astype(np.float64)
+    q2 = np.sum(q * q, axis=1)[:, None]
+    best_d = np.full((len(q), k), np.inf)
+    best_i = np.full((len(q), k), -1, np.int64)
+    for lo in range(0, len(corpus), block):
+        c = corpus[lo:lo + block].astype(np.float64)
+        d = q2 - 2.0 * (q @ c.T) + np.sum(c * c, axis=1)[None, :]
+        part = np.argpartition(d, k, axis=1)[:, :k]
+        dd = np.concatenate([best_d, np.take_along_axis(d, part, 1)], 1)
+        ii = np.concatenate([best_i, part + lo], axis=1)
+        order = np.lexsort((ii, dd), axis=1)[:, :k]
+        best_d = np.take_along_axis(dd, order, axis=1)
+        best_i = np.take_along_axis(ii, order, axis=1)
+    return best_d, best_i
+
+
+def _d64(corpus, queries, ids):
+    import numpy as np
+    rows = corpus[ids].astype(np.float64)              # [B, k, D]
+    return ((rows - queries[:, None, :].astype(np.float64)) ** 2).sum(-1)
+
+
+def _oracle_check(corpus, queries, ids, od, oi):
+    """The f32 brute arm against the float64 oracle: ids equal, except at
+    a swap of near ties. Returns (rows with ids equal, swaps, the largest
+    gap of a swap relative to the distance, and relative to the expanded
+    form's terms |q|^2 + |c|^2)."""
+    import numpy as np
+    gap = np.abs(_d64(corpus, queries, ids) - od)
+    terms = np.sum(queries.astype(np.float64) ** 2, axis=1)[:, None] + \
+        np.sum(corpus[ids].astype(np.float64) ** 2, axis=-1)
+    swaps = ids != oi
+    if not swaps.any():
+        return int(len(ids)), 0, 0.0, 0.0
+    return (int((~swaps).all(axis=1).sum()), int(swaps.sum()),
+            float((gap / np.maximum(od, 1e-30))[swaps].max()),
+            float((gap / terms)[swaps].max()))
+
+
+def _recall(found, oracle):
+    hits = sum(len(set(int(v) for v in f if v >= 0) & set(int(v) for v in o))
+               for f, o in zip(found, oracle))
+    return hits / float(oracle.size)
+
+
+def _arm_bytes(engine, mode):
+    """Corpus bytes the arm's search reads, resident on the device."""
+    names = (("vectors", "c2", "ids", "row_scales") if mode == "brute" else
+             ("centroids", "clustered", "c_scales", "c_c2", "c_ids"))
+    return sum(t.numel() * t.element_size() for sh in engine._shards
+               for t in (getattr(sh, n) for n in names) if t is not None)
+
+
+def _nn_arm(engine, mode, queries, k):
+    """qps, p50 and a bitwise repeat of one arm at batch len(queries)."""
+    import numpy as np
+    d, i = engine.search(queries, k, mode=mode)
+    d2, i2 = engine.search(queries, k, mode=mode)
+    repeat = d.tobytes() == d2.tobytes() and i.tobytes() == i2.tobytes()
+    ms = []
+    t0 = time.perf_counter()
+    for _ in range(NN_TIMED_BATCHES):
+        t1 = time.perf_counter()
+        engine.search(queries, k, mode=mode)
+        ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    return d, i, {"qps": NN_TIMED_BATCHES * len(queries) / wall,
+                  "p50_ms": float(np.percentile(ms, 50)),
+                  "p99_ms": float(np.percentile(ms, 99)),
+                  "bitwise_repeat": repeat,
+                  "resident_bytes": _arm_bytes(engine, mode)}
+
+
+def phase_neighbors(report, card):
+    """The 1M x 64 index in four arms, the port against its CPU answers
+    on a JAX-saved index, and the cluster tier (module docstring, phase
+    21)."""
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.retrieval.engine import RetrievalEngine
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "geometry": dict(NN), "seconds": {}, "arms": {}}
+    t0 = time.perf_counter()
+    corpus = blob_corpus(NN["vectors"], NN["dim"], NN["blobs"], NN["seed"])
+    rng = np.random.default_rng(NN["seed"] + 1)
+    queries = (corpus[rng.integers(len(corpus), size=NN["batch"])]
+               + rng.normal(size=(NN["batch"], NN["dim"])).astype(
+                   np.float32) * 0.05).astype(np.float32)
+    od, oi = exact_oracle64(corpus, queries, NN["k"])
+    out["seconds"]["corpus_and_oracle"] = time.perf_counter() - t0
+    engines = {}
+    for precision in ("f32", "int8"):
+        t0 = time.perf_counter()
+        index = ShardedCorpusIndex.build(
+            corpus, shard_rows=NN["shard_rows"], precision=precision,
+            ivf_clusters=NN["clusters"], nprobe_hint=NN["nprobe"],
+            seed=NN["seed"], device="cuda")
+        built = time.perf_counter() - t0
+        eng = RetrievalEngine(index, k_ladder=NN["k_ladder"],
+                              max_batch=NN["batch"], nprobe=NN["nprobe"],
+                              registry=MetricsRegistry(),
+                              session_id=f"nn-{precision}", device="cuda")
+        eng.warmup()
+        engines[precision] = eng
+        out["seconds"][f"build_{precision}"] = built
+        out["seconds"][f"warmup_{precision}"] = eng.warmup_seconds
+        log(f"  {precision} index: {len(index.shards)} shards of "
+            f"{NN['shard_rows']}, IVF {NN['clusters']} clusters (cap "
+            f"{index.ivf['cap']}); built in {built:.1f}s, warmup "
+            f"{eng.warmup_seconds:.2f}s over {len(eng._cells)} cells, "
+            f"{eng.resident_bytes / 2**20:.1f} MiB on the card")
+    for precision, mode in (("f32", "brute"), ("int8", "brute"),
+                            ("f32", "ivf"), ("int8", "ivf")):
+        eng = engines[precision]
+        d, i, arm = _nn_arm(eng, mode, queries, NN["k"])
+        arm["recall_at_10"] = _recall(i, oi)
+        if precision == "f32" and mode == "brute":
+            same, swaps, gap_d, gap = _oracle_check(corpus, queries, i, od,
+                                                    oi)
+            arm.update(rows_equal_oracle=same, swaps=swaps,
+                       largest_swap_gap_of_d2=gap_d,
+                       largest_swap_gap_of_terms=gap)
+            if gap > NN_NEAR_TIE:
+                raise AssertionError(
+                    f"f32 brute: {swaps} ids differ from the float64 "
+                    f"oracle, one by a gap of {gap:.3g} of |q|^2 + |c|^2 "
+                    f"(> {NN_NEAR_TIE})")
+        elif arm["recall_at_10"] < NN_RECALL_FLOOR:
+            raise AssertionError(f"{precision} {mode}: recall@10 "
+                                 f"{arm['recall_at_10']:.4f} < "
+                                 f"{NN_RECALL_FLOOR}")
+        if not arm["bitwise_repeat"]:
+            raise AssertionError(f"{precision} {mode}: a repeat differs")
+        out["arms"][f"{mode}-{precision}"] = arm
+        log(f"  {mode}-{precision}: recall@10 {arm['recall_at_10']:.4f}"
+            + (f" (ids equal the float64 oracle in {arm['rows_equal_oracle']}"
+               f" of {NN['batch']} rows, {arm['swaps']} near-tie swaps, "
+               f"largest gap {arm['largest_swap_gap_of_d2']:.2g} of d^2, "
+               f"{arm['largest_swap_gap_of_terms']:.2g} of |q|^2 + |c|^2)"
+               if "swaps" in arm else "")
+            + f", repeat bitwise; {arm['qps']:.0f} queries/s at batch "
+            f"{NN['batch']}, p50 {arm['p50_ms']:.3f} ms, p99 "
+            f"{arm['p99_ms']:.3f} ms; {arm['resident_bytes'] / 2**20:.1f} "
+            f"MiB resident [{card}]")
+    for eng in engines.values():
+        eng.assert_warm()
+    log(f"  live compiles after warmup: "
+        f"{ {p: e.recompiles_after_warmup for p, e in engines.items()} }")
+
+    out["reference"] = _nn_reference(card)
+    tmp = tempfile.TemporaryDirectory(prefix="neighbors_")
+    try:
+        t0 = time.perf_counter()
+        store = ArtifactStore(os.path.join(tmp.name, "store"))
+        ShardedCorpusIndex.build(
+            corpus, shard_rows=NN["shard_rows"], precision="f32",
+            seed=NN["seed"]).save(store, "nn")
+        out["seconds"]["save"] = time.perf_counter() - t0
+        del engines
+        out["cluster"] = _nn_cluster(card, store, tmp.name, queries)
+    finally:
+        tmp.cleanup()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"  neighbors phase seconds "
+        f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    report["neighbors"] = out
+
+
+def _nn_close(got, want, q, c2):
+    """Distances within NN_TERM_TOL of the expanded form's terms |q|^2 +
+    |c|^2 (the form cancels for near neighbours, so two summation orders
+    differ by an ulp of the terms, not of d^2)."""
+    import numpy as np
+    q2 = np.sum(q.astype(np.float64) ** 2, axis=1, keepdims=True)
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return float((err / (q2 + np.abs(c2))).max())
+
+
+def _nn_reference(card):
+    """The committed JAX-saved small index (tools/retrieval_resources.py):
+    the card's answers against the port's CPU answers, every arm."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.retrieval.engine import RetrievalEngine
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        NN_RESOURCES)
+    store = ArtifactStore(root)
+    q = np.load(os.path.join(root, "queries.npy"))
+    res = {}
+    for precision in ("f32", "int8"):
+        key = f"small-{precision}"
+        eng = {dev: RetrievalEngine(
+            ShardedCorpusIndex.load(store, key), k_ladder=(10, 40),
+            max_batch=16, registry=MetricsRegistry(),
+            device=dev).warmup() for dev in ("cuda", "cpu")}
+        norms = np.concatenate([
+            np.sum(s.astype(np.float64) ** 2, axis=1)
+            for s in _refine_or_rows(store, key)])
+        for mode in ("brute", "ivf"):
+            dc, ic = eng["cuda"].search(q, 10, mode=mode)
+            dp, ip = eng["cpu"].search(q, 10, mode=mode)
+            err = _nn_close(dc, dp, q, norms[ip])
+            res[f"{mode}-{precision}"] = {
+                "ids_equal": bool(np.array_equal(ic, ip)),
+                "distance_err_of_terms": err}
+            if not np.array_equal(ic, ip) or err > NN_TERM_TOL:
+                raise AssertionError(
+                    f"{mode}-{precision} on the JAX-saved index: the card's "
+                    f"ids differ from the CPU's or distances by {err:.3g} "
+                    f"of |q|^2 + |c|^2 (> {NN_TERM_TOL})")
+        for e in eng.values():
+            e.assert_warm()
+    log(f"  JAX-saved {NN_RESOURCES} index, 16 queries x 10: the card's ids "
+        f"equal the port's CPU ids in every arm, distances within "
+        f"{max(r['distance_err_of_terms'] for r in res.values()):.3g} of "
+        f"|q|^2 + |c|^2 [{card}]")
+    return res
+
+
+def _refine_or_rows(store, key):
+    """The f32 source rows of each shard of a saved index, in id order."""
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+    idx = ShardedCorpusIndex.load(store, key)
+    return [(s.refine if s.refine is not None else s.vectors[:s.n])
+            for s in idx.shards]
+
+
+def _nn_cluster(card, store, tmp, queries):
+    """Two in-process RetrievalNodes owning shards {0,1} and {2,3}, a
+    NeighborsDispatcher against the single engine, a node down, and one
+    ``serve --neighbors-index --join`` subprocess SIGTERM-drained."""
+    import signal
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.node import NodeRegistry
+    from deeplearning4j_tpu_torch.retrieval.cluster import (
+        NeighborsDispatcher, RetrievalNode)
+    from deeplearning4j_tpu_torch.retrieval.engine import RetrievalEngine
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+
+    res = {}
+    reg_dir = os.path.join(tmp, "registry")
+    registry = NodeRegistry(reg_dir)
+    k = NN["k"]
+
+    def engine(shards=None):
+        return RetrievalEngine(
+            ShardedCorpusIndex.load(store, "nn", shard_ids=shards),
+            k_ladder=(k,), max_batch=NN["batch"],
+            registry=MetricsRegistry(), device="cuda")
+    t0 = time.perf_counter()
+    single = engine().warmup()
+    ids = single.shard_ids                      # {0, 1} and {2, 3} at 1M
+    halves = (ids[:len(ids) // 2], ids[len(ids) // 2:])
+    nodes = [RetrievalNode(engine(s), node_id=f"nn{j}", registry=registry,
+                           metrics_registry=MetricsRegistry(),
+                           device="cuda")
+             for j, s in enumerate(halves)]
+    disp = NeighborsDispatcher(registry, timeout_s=120.0,
+                               metrics=MetricsRegistry())
+    try:
+        res["setup_s"] = time.perf_counter() - t0
+        full = disp.search(queries, k)
+        sd, si = single.search(queries, k)
+        bitwise = full["ids"].tobytes() == si.tobytes() and \
+            full["distances"].tobytes() == sd.tobytes()
+        if full["partial"] or not bitwise:
+            raise AssertionError(f"the dispatcher's merged answer: partial "
+                                 f"{full['partial']}, bitwise the single "
+                                 f"engine {bitwise}")
+        ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            disp.search(queries, k)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        nodes[1].shutdown()
+        part = disp.search(queries, k)
+        if not part["partial"] or part["shards_answered"] != len(halves[0]) \
+                or part["shards_total"] != len(ids):
+            raise AssertionError(f"with node nn1 down: {part['partial']}, "
+                                 f"{part['shards_answered']} of "
+                                 f"{part['shards_total']}")
+        res.update(merged_bitwise_single=bitwise,
+                   fanout_p50_ms=float(np.percentile(ms, 50)),
+                   partial={k2: part[k2] for k2 in
+                            ("partial", "shards_answered", "shards_total")})
+        log(f"  NeighborsDispatcher over nn0 {halves[0]} + nn1 {halves[1]}: "
+            f"merged "
+            f"answer bitwise the single engine's, fan-out p50 "
+            f"{res['fanout_p50_ms']:.2f} ms for {NN['batch']} queries over "
+            f"HTTP; nn1 down: partial {part['partial']}, "
+            f"{part['shards_answered']} of {part['shards_total']} shards "
+            f"[{card}]")
+    finally:
+        disp.shutdown()
+        for n in nodes:
+            n.shutdown()
+        del single
+
+    # the entry point as a node: load shard 0, serve, SIGTERM drain
+    sub = _NodeProcess(["--neighbors-index", "nn", "--artifact-store",
+                        store.root.as_posix(), "--neighbors-shards", "0",
+                        "--neighbors-k-ladder", str(k), "--ui-port", "0",
+                        "--join", reg_dir, "--node-id", "nnsub"])
+    try:
+        rec, cold = sub.wait_registered(registry, "nnsub", 600)
+        code, _, body = _http(rec["url"] + "/api/neighbors",
+                              {"queries": queries[:4].tolist(), "k": k})
+        if code != 200 or rec["stats"]["shards"] != [0]:
+            raise AssertionError(f"the subprocess node answered {code}, "
+                                 f"gossips {rec['stats']}")
+        sub.proc.send_signal(signal.SIGTERM)
+        rc = sub.proc.wait(timeout=120)
+        sub._t.join(timeout=10)
+    finally:
+        sub.stop()
+    drain = [ln for ln in sub.lines if "SIGTERM drain" in ln]
+    if rc != 0 or not drain or "nnsub" in registry.read_all():
+        raise AssertionError(f"neighbors node SIGTERM: rc {rc}, {drain}: "
+                             + " | ".join(sub.lines[-20:]))
+    res["subprocess"] = {"spawn_to_registered_s": cold, "rc": rc,
+                         "drain": drain[0]}
+    log(f"  serve --neighbors-index --join (shard 0): registered "
+        f"{cold:.2f}s after spawn, answered /api/neighbors, SIGTERM "
+        f"'{drain[0]}', exit {rc}, record gone [{card}]")
+    return res
+
+
 def main(argv=None) -> int:
     global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6950,7 +7764,7 @@ def main(argv=None) -> int:
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
                     "rnn_tbptt,zoo,keras_import,observed_fit,quant_serve,"
-                    "model_library",
+                    "model_library,cluster,neighbors",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -7140,6 +7954,18 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         "layers; the f64 gradient check; memory reports; k-means and t-SNE "
         "of the digits; TsneListener",
         lambda: phase_model_library(report, card))
+    run("cluster", "ResNet50 64x64x3/200 bf16 on two ServingNodes behind a "
+        f"RemoteDispatcher over HTTP ({CLUSTER_CLIENTS * CLUSTER_PER_CLIENT} "
+        "requests of 1-32 images, a drain), the AutoScaler, then a serve "
+        "--join subprocess: cold start, SIGKILL, rejoin, SIGTERM",
+        lambda: phase_cluster(report, card))
+    # retrieval runs no kernel of SOURCES (a matmul and a top-k)
+    run("neighbors", f"{NN['vectors']} x {NN['dim']} blob corpus, shards "
+        f"of {NN['shard_rows']}, IVF {NN['clusters']} / nprobe "
+        f"{NN['nprobe']}, f32 and int8, batch {NN['batch']} at k "
+        f"{NN['k']}; the JAX-saved index card vs CPU; RetrievalNodes, the "
+        "NeighborsDispatcher and a serve --neighbors-index --join "
+        "subprocess", lambda: phase_neighbors(report, card))
 
     kernels = []
     for name, k in summary.items():
@@ -7157,7 +7983,8 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         # kernels), TBPTT batches (LSTM kernels) and traced serving; the
         # int8 TextGenerationLSTM's engine start (calibration, probe and
         # warmup), served calls and gate (lstm_fwd); the MoE stack's train
-        # steps (flash kernels)
+        # steps (flash kernels); the two in-process cluster nodes' batches
+        # behind the RemoteDispatcher (conv kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

@@ -9,6 +9,13 @@ engine (or the fleet front door) and the UI server, so that
     python -m deeplearning4j_tpu_torch serve --model model.zip \
         --warmup-shape 64 64 3 --batch-limit 32 --ui-port 9000
 
+``--join DIR`` runs the same model as a cluster node (parallel/node.py):
+it heartbeats into the registry directory, answers a RemoteDispatcher,
+and SIGTERM drains it (finish in-flight, deregister, exit 0).
+``--neighbors-index KEY --artifact-store DIR`` serves a saved retrieval
+index instead of a model (``POST /api/neighbors``; with ``--join`` as a
+RetrievalNode gossiping its shards).
+
 The parser is the JAX package's (``python -m deeplearning4j_tpu``) with
 every flag, so its command lines parse unchanged, plus ``--device``
 (``cuda`` unless ``cpu`` is asked for; without a card the command exits
@@ -25,27 +32,20 @@ import time
 from typing import List, Optional
 
 # dest of each flag whose machinery is not ported -> (what, ROADMAP item)
-_NODE = ("the multi-node fleet (parallel/node.py)", 12)
 _TUNED = ("measured tuned configs from an artifact store (TunedConfig)",
           16)
 _ONLINE = ("online learning (online/)", 16)
-_RETRIEVAL = ("retrieval serving (retrieval/)", 13)
 _NOT_PORTED = {
-    "join": _NODE, "node_id": _NODE, "drain_timeout": _NODE,
-    "model_key": _NODE,
     "aot_cache_dir": ("the persisted AOT executable cache", 12),
     "no_pipeline": ("the blocking dispatcher (an A/B arm of the "
                     "pipelined one)", 12),
-    "artifact_store": _TUNED, "tuned_config": _TUNED, "no_tuned": _TUNED,
+    "tuned_config": _TUNED, "no_tuned": _TUNED,
     "online": _ONLINE, "stream_endpoint": _ONLINE, "stream_topic": _ONLINE,
     "promote_interval_s": _ONLINE, "min_delta": _ONLINE,
     "score_budget_s": _ONLINE, "rollback_p99_factor": _ONLINE,
     "rollback_p99_floor_ms": _ONLINE, "rollback_score_delta": _ONLINE,
     "sentinel_window_s": _ONLINE, "holdout_every": _ONLINE,
     "holdout_max": _ONLINE,
-    "neighbors_index": _RETRIEVAL, "neighbors_shards": _RETRIEVAL,
-    "neighbors_k_ladder": _RETRIEVAL, "neighbors_batch": _RETRIEVAL,
-    "nprobe": _RETRIEVAL,
 }
 
 
@@ -295,6 +295,25 @@ def _refuse_unported(args) -> None:
                 f"(ROADMAP.md, queue 1 item {item})")
 
 
+def _refuse_tuned_store(args) -> None:
+    """The JAX CLI loads a measured TunedConfig it finds under the
+    default key of ``--artifact-store``; the port cannot, and must not
+    serve on without it silently. A store without one goes on, as the
+    JAX CLI falls through to the committed defaults."""
+    from deeplearning4j_tpu_torch.optimize.autotune import (
+        TUNED_KEY, TUNED_MANIFEST)
+    if args.artifact_store is None:
+        return
+    path = os.path.join(args.artifact_store, "objects", TUNED_KEY,
+                        TUNED_MANIFEST)
+    if os.path.exists(path):
+        raise SystemExit(
+            f"serve: --artifact-store {args.artifact_store} holds a tuned "
+            f"config ({path}); loading it needs measured tuned configs "
+            "(TunedConfig), which are not ported yet (ROADMAP.md, queue 1 "
+            "item 16)")
+
+
 def _wait(args) -> None:
     try:
         if args.duration is not None:
@@ -316,14 +335,18 @@ def cmd_serve(args, block: bool = True):
     if not isinstance(args, argparse.Namespace):
         args = _build_parser().parse_args(list(args))
     _refuse_unported(args)
-    if not args.model:
-        raise SystemExit("--model is required")
+    _refuse_tuned_store(args)
+    if not args.model and not args.neighbors_index:
+        raise SystemExit("--model is required (or --neighbors-index to "
+                         "serve a retrieval index)")
     import numpy as np
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device is available; pass "
                          "--device cpu to serve on the CPU explicitly")
+    if args.neighbors_index:
+        return _cmd_serve_neighbors(args, block)
 
     from deeplearning4j_tpu_torch.models.serialization import restore_model
     from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
@@ -355,6 +378,8 @@ def cmd_serve(args, block: bool = True):
             feature_shape=(tuple(args.warmup_shape)
                            if args.warmup_shape else None))
     name = os.path.splitext(os.path.basename(args.model))[0] or "default"
+    if args.join:
+        return _serve_node(args, model, name, replicas, mode, kwargs, block)
 
     fleet = None
     if args.slo_ms is not None and mode == InferenceMode.BATCHED:
@@ -474,6 +499,134 @@ def cmd_serve(args, block: bool = True):
             gen_engine.shutdown()
         server.stop()
     return 0
+
+
+def _block_then(args, stop) -> int:
+    try:
+        _wait(args)
+    finally:
+        stop()
+    return 0
+
+
+def _serve_node(args, model, name, replicas, mode, kwargs, block):
+    """``--join``: the model as a cluster node — FleetRouter + engine
+    behind the HTTP surface, heartbeating into the shared registry;
+    SIGTERM drains it (finish in-flight, deregister, exit 0)."""
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.parallel.inference import InferenceMode
+    from deeplearning4j_tpu_torch.parallel.node import (
+        NodeRegistry, ServingNode, install_sigterm_drain)
+    if mode != InferenceMode.BATCHED:
+        raise SystemExit("--join requires --inference-mode batched")
+    if args.generate:
+        raise SystemExit(
+            "--generate is not supported in --join node mode; run it as a "
+            "standalone serve process")
+    store = ArtifactStore(args.artifact_store) \
+        if args.artifact_store else None
+    node_kwargs = {k: v for k, v in kwargs.items() if k != "replicas"}
+    node = ServingNode(
+        model, node_id=args.node_id or str(os.getpid()),
+        registry=NodeRegistry(args.join), model_name=name,
+        version=args.model_version, slo_ms=args.slo_ms,
+        artifact_store=store, model_key=args.model_key,
+        pool_size=(1 if replicas == "auto" else int(replicas)),
+        ui_port=args.ui_port, batch_limit=args.batch_limit,
+        queue_limit=args.queue_limit, timeout_ms=args.timeout_ms,
+        device=args.device, **node_kwargs)
+    install_sigterm_drain(node, timeout_s=args.drain_timeout)
+    print(f"node {node.node_id} serving {args.model} at {node.url} "
+          f"(registry={args.join}"
+          + (f", artifact_store={args.artifact_store}"
+             if args.artifact_store else "") + ")")
+    print(f"  predict:  POST {node.url}/api/predict "
+          '{"features": [[...], ...]}')
+    print(f"  metrics:  {node.url}/metrics")
+    sys.stdout.flush()
+    if not block:
+        return node, node.server
+    return _block_then(args, node.shutdown)
+
+
+def _cmd_serve_neighbors(args, block: bool):
+    """Retrieval mode of ``serve``: load a saved ShardedCorpusIndex from
+    the artifact store and serve POST /api/neighbors through a
+    FleetRouter retrieval pool. ``--join`` runs it as a gossiping
+    RetrievalNode instead (shard ownership in the heartbeat, SIGTERM
+    drain). ``block=False`` returns ``(front, server)``."""
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.retrieval.engine import RetrievalEngine
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+
+    if not args.artifact_store:
+        raise SystemExit("--neighbors-index requires --artifact-store")
+    store = ArtifactStore(args.artifact_store)
+    shard_ids = None
+    if args.neighbors_shards:
+        shard_ids = [int(s) for s in
+                     args.neighbors_shards.split(",") if s != ""]
+    # an explicit --neighbors-k-ladder wins, else the committed
+    # (1, 10, 100)
+    ladder = None if args.neighbors_k_ladder is None else tuple(
+        int(k) for k in args.neighbors_k_ladder.split(",") if k != "")
+    index = ShardedCorpusIndex.load(store, args.neighbors_index,
+                                    shard_ids=shard_ids)
+    engine = RetrievalEngine(index, k_ladder=ladder,
+                             max_batch=args.neighbors_batch,
+                             nprobe=args.nprobe,
+                             session_id=f"nn-{args.neighbors_index}",
+                             device=args.device)
+
+    if args.join:
+        from deeplearning4j_tpu_torch.parallel.node import (
+            NodeRegistry, install_sigterm_drain)
+        from deeplearning4j_tpu_torch.retrieval.cluster import RetrievalNode
+        node = RetrievalNode(
+            engine, node_id=args.node_id or str(os.getpid()),
+            registry=NodeRegistry(args.join), slo_ms=args.slo_ms,
+            ui_port=args.ui_port, store=store,
+            index_key=args.neighbors_index, device=args.device)
+        install_sigterm_drain(node, timeout_s=args.drain_timeout)
+        print(f"node {node.node_id} serving index "
+              f"{args.neighbors_index} (shards "
+              f"{list(engine.shard_ids)}) at {node.url} "
+              f"(registry={args.join})")
+        sys.stdout.flush()
+        if not block:
+            return node, node.server
+        return _block_then(args, node.shutdown)
+
+    from deeplearning4j_tpu_torch.parallel.fleet import FleetRouter
+    from deeplearning4j_tpu_torch.ui.neighbors_module import NeighborsModule
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    from deeplearning4j_tpu_torch.ui.storage import InMemoryStatsStorage
+    engine.warmup()
+    router = FleetRouter(slo_ms=args.slo_ms,
+                         session_id=f"nn-{args.neighbors_index}",
+                         device=args.device)
+    router.add_retrieval_pool("neighbors", engine, slo_ms=args.slo_ms)
+    server = UIServer(port=args.ui_port)
+    server.attach(InMemoryStatsStorage())
+    server.register_module(NeighborsModule(
+        router=router, model="neighbors", store=store,
+        index_key=args.neighbors_index))
+    server.start()
+    print(f"serving index {args.neighbors_index} "
+          f"({engine.index.n_total} vectors, "
+          f"{len(engine.shard_ids)} shards) at {server.url}")
+    print(f"  neighbors: POST {server.url}/api/neighbors "
+          '{"vector": [...], "k": 10}')
+    print(f"  stats:     GET  {server.url}/api/neighbors/stats")
+    print(f"  metrics:   {server.url}/metrics")
+    sys.stdout.flush()
+    if not block:
+        return router, server
+
+    def stop():
+        server.stop()
+        router.shutdown()
+    return _block_then(args, stop)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -5,8 +5,8 @@ deeplearning4j-nearestneighbors-parent): ``KMeansClustering`` seeds on the
 host and runs its Lloyd steps on the device (the distance matrix one
 matmul, the centroid update a one-hot matmul); the space-partitioning
 trees (VPTree, KDTree, SpTree) and LSH are host-side numpy, copied. The
-clustering server (``clustering/server.py``) is a shim over retrieval and
-comes with it (ROADMAP.md, queue 1 item 13).
+clustering server (``clustering/server.py``, ``NearestNeighborsServer``)
+is a shim over the retrieval engine (retrieval/).
 """
 
 from deeplearning4j_tpu_torch.clustering.kdtree import KDTree

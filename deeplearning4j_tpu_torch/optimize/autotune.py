@@ -2,8 +2,9 @@
 
 From the JAX package's ``optimize/autotune.py``: the ``Tunable`` record,
 the serving and generation entries of its registry
-(``serving.batch_limit``, ``generation.max_slots`` and
-``generation.prefill_chunk``, with the JAX package's committed defaults)
+(``serving.batch_limit``, ``generation.max_slots``,
+``generation.prefill_chunk``, ``retrieval.nprobe`` and
+``retrieval.k_ladder``, with the JAX package's committed defaults)
 and ``resolve_tuned``'s precedence, explicit argument > tuned config >
 committed default. The port has no measured ``TunedConfig`` and no
 process-wide one yet (ROADMAP, queue 1 item 16): a caller that passes a
@@ -43,10 +44,32 @@ REGISTRY: Dict[str, Tunable] = {t.name: t for t in (
             "chunked-prefill scan width (pow2 chunk ladder below it "
             "is warmed); 0 = one-tick-per-token prefill",
             higher_is_better=False),
+    Tunable("retrieval.nprobe", 64, (4, 8, 16, 32, 64), "qps",
+            "IVF clusters probed per query; the recall@k floor is a "
+            "CONSTRAINT on the sweep, not a tunable — a candidate "
+            "below the floor can never win, whatever its qps",
+            constraint="recall@10 >= 0.95 vs the exact f32 oracle"),
+    Tunable("retrieval.k_ladder", (1, 10, 100), ((1, 10, 100), (10, 100)),
+            "qps",
+            "warmed k rungs; a request's k pads up to the next rung"),
 )}
+
+# the ArtifactStore key and manifest of a measured TunedConfig, the JAX
+# package's: what the serve CLI looks for before it refuses a store
+# that holds one
+TUNED_KEY = "tuned_config"
+TUNED_MANIFEST = "tuned.json"
 
 _NOT_PORTED = ("measured tuned configs (TunedConfig) are not ported yet "
                "(ROADMAP.md, queue 1 item 16)")
+
+
+def tuned_value(name: str, tuned=None) -> Any:
+    """The measured value for ``name``, or None when nothing tuned covers
+    it. The port has no process config; a tuned config raises."""
+    if tuned is not None:
+        raise NotImplementedError(_NOT_PORTED)
+    return None
 
 
 def resolve_tuned(explicit: Any, tuned, name: str) -> Any:

@@ -43,9 +43,13 @@ layer that makes a fleet of them operable:
   ``dl4j_fleet_quant_gate_total{model, outcome=pass|fail}`` counts the
   runs.
 
+- **Retrieval pools.** ``add_retrieval_pool`` puts a RetrievalEngine
+  (retrieval/engine.py) behind the same admission control, shedding on
+  its per-query p99; ``neighbors`` searches through it.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue 1 item: retrieval pools (item 13), the persisted AOT cache (item
-12) and tuned configs (item 16).
+queue 1 item: the persisted AOT cache (item 12) and tuned configs (item
+16).
 
 Environment knobs (all read at router construction):
 
@@ -351,6 +355,63 @@ class GenerationPool:
         return out
 
 
+class RetrievalPool:
+    """Admission-controlled front for one RetrievalEngine (nearest-
+    neighbor serving — retrieval/engine.py). Shares ModelPool's AIMD
+    controller verbatim; the latency signal is the engine's per-QUERY
+    ring and the SLO is whole-query wall time (fan-out + merge
+    included). ``pending`` counts admitted searches until they return —
+    search is synchronous, so the queue bound caps concurrent
+    searches."""
+
+    def __init__(self, name: str, router: "FleetRouter", engine,
+                 slo_ms: Optional[float] = None):
+        self.name = name
+        self.router = router
+        self.engine = engine
+        self.slo_ms = slo_ms
+        self.ring = engine.query_ring   # recorded by the engine per search
+        self.lock = threading.Lock()
+        self.pending = 0
+        self.shed_fraction = 0.0
+        self.windowed_p99_ms: Optional[float] = None
+        self._last_tick = time.monotonic()
+        self._rand = random.Random()
+
+    # same AIMD + admission body as ModelPool (see GenerationPool's
+    # note: sharing the code keeps the front doors' shedding behavior
+    # from drifting apart)
+    _tick_controller = ModelPool._tick_controller
+    admit = ModelPool.admit
+
+    def search(self, queries, k: int,
+               mode: Optional[str] = None,
+               deadline: Optional[Deadline] = None, **kw):
+        """Admit, then run the engine search; returns
+        ``(distances, ids)``. Synchronous — the admission slot is held
+        for the whole fan-out + merge."""
+        self.admit(deadline)
+        r = self.router
+        try:
+            return self.engine.search(queries, k, mode=mode,
+                                      deadline=deadline, **kw)
+        finally:
+            with self.lock:
+                self.pending -= 1
+                r._g_depth.set(self.pending, model=self.name)
+
+    def stats(self) -> Dict[str, Any]:
+        with self.lock:
+            out = {
+                "pending": self.pending,
+                "shed_fraction": self.shed_fraction,
+                "windowed_p99_ms": self.windowed_p99_ms,
+                "slo_ms": self.slo_ms,
+            }
+        out["engine"] = self.engine.stats()
+        return out
+
+
 class FleetRouter:
     """Front door over named ModelPools. Thread-safe."""
 
@@ -383,6 +444,7 @@ class FleetRouter:
             else int(_env_float("DL4J_FLEET_MAX_PENDING", 256))
         self._pools: Dict[str, ModelPool] = {}
         self._gen_pools: Dict[str, GenerationPool] = {}
+        self._retr_pools: Dict[str, RetrievalPool] = {}
         self._pools_lock = threading.Lock()
         self._shutdown = False
 
@@ -585,18 +647,55 @@ class FleetRouter:
                 best, best_rank = p, rank
         return best
 
-    # ---- retrieval serving (not ported) ---------------------------------
+    # ---- retrieval serving -----------------------------------------------
     def add_retrieval_pool(self, name: str, engine, *,
-                           slo_ms: Optional[float] = None):
-        raise _not_ported("retrieval pools", 13)
+                           slo_ms: Optional[float] = None
+                           ) -> RetrievalPool:
+        """Register a RetrievalEngine behind the same admission front
+        door as the predict pools (shared ``dl4j_fleet_*`` series, same
+        env knobs). ``slo_ms`` arms AIMD shedding over the engine's
+        windowed per-query p99."""
+        with self._pools_lock:
+            if name in self._retr_pools or name in self._pools \
+                    or name in self._gen_pools:
+                raise ValueError(f"pool {name!r} already exists")
+        pool = RetrievalPool(name, self, engine, slo_ms=slo_ms)
+        with self._pools_lock:
+            self._retr_pools[name] = pool
+        self._g_depth.set(0.0, model=name)
+        self._c_admitted.inc(0.0, model=name)
+        return pool
 
-    def retrieval_pool(self, name: Optional[str] = None):
-        raise _not_ported("retrieval pools", 13)
+    def retrieval_pool(self, name: Optional[str] = None
+                       ) -> RetrievalPool:
+        with self._pools_lock:
+            if name is None:
+                if len(self._retr_pools) != 1:
+                    raise ValueError(
+                        "model name required: the router serves "
+                        f"retrieval pools {sorted(self._retr_pools)}")
+                return next(iter(self._retr_pools.values()))
+            p = self._retr_pools.get(name)
+        if p is None:
+            raise ValueError(f"no retrieval pool named {name!r}; "
+                             f"have {sorted(self._retr_pools)}")
+        return p
 
-    def neighbors(self, queries, k: int, model: Optional[str] = None,
+    @property
+    def retrieval_pools(self) -> Dict[str, RetrievalPool]:
+        with self._pools_lock:
+            return dict(self._retr_pools)
+
+    def neighbors(self, queries, k: int,
+                  model: Optional[str] = None,
                   mode: Optional[str] = None,
                   deadline: Optional[Deadline] = None, **kw):
-        raise _not_ported("retrieval pools", 13)
+        """Admission-controlled nearest-neighbor search; returns
+        ``(distances, ids)``."""
+        if self._shutdown:
+            raise RuntimeError("FleetRouter is shut down")
+        return self.retrieval_pool(model).search(
+            queries, k, mode=mode, deadline=deadline, **kw)
 
     # ---- version lifecycle -----------------------------------------------
     def swap(self, name: str, model, version: str) -> ModelPool:
@@ -722,6 +821,10 @@ class FleetRouter:
         if gen:
             out["generation"] = {name: p.stats()
                                  for name, p in gen.items()}
+        retr = self.retrieval_pools
+        if retr:
+            out["retrieval"] = {name: p.stats()
+                                for name, p in retr.items()}
         return out
 
     def assert_warm(self):
@@ -736,6 +839,8 @@ class FleetRouter:
                 e.assert_warm()
         for gp in self.generation_pools.values():
             gp.engine.assert_warm()
+        for rp in self.retrieval_pools.values():
+            rp.engine.assert_warm()
 
     # ---- lifecycle -------------------------------------------------------
     def shutdown(self):
@@ -750,6 +855,8 @@ class FleetRouter:
                 e.shutdown()
         for gp in self.generation_pools.values():
             gp.engine.shutdown()
+        for rp in self.retrieval_pools.values():
+            rp.engine.shutdown()
 
     def __enter__(self):
         return self

@@ -1,12 +1,13 @@
 """Observability over HTTP: stats collection and storage, the dashboard
-server and its module routes (serving, fleet, generation).
+server and its module routes (serving, fleet, generation, neighbors).
 
 The port of the JAX package's ``ui/``: ``stats.py`` (``StatsListener``,
 which feeds the training dashboard's ``/train`` pages, ``/api/sessions``
 and the stats receiver), ``storage.py``, ``codec.py``, ``modules.py``,
 ``i18n.py``, ``server.py`` (``UIServer``: ``/metrics``, ``/healthz``,
 the dashboard, module routes with SSE streaming, drain),
-``serving_module.py``, ``generation_module.py`` and ``tsne_listener.py``
+``serving_module.py``, ``generation_module.py``,
+``neighbors_module.py`` and ``tsne_listener.py``
 (``TsneListener``, which pushes t-SNE coordinates of a layer's
 activations to the dashboard's t-SNE tab).
 """

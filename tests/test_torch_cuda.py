@@ -1796,3 +1796,125 @@ def test_no_sync_between_telemetry_flushes_on_the_card(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert tc.fetch_count == 6 and len(tc.history) == 16
+
+
+# ---- retrieval and the cluster tier on the card -----------------------------
+
+_NN_STORE = __import__("pathlib").Path(__file__).resolve().parent / \
+    "resources" / "retrieval"
+
+
+def _nn_engine(key, device):
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.retrieval.engine import RetrievalEngine
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+    return RetrievalEngine(
+        ShardedCorpusIndex.load(ArtifactStore(str(_NN_STORE)), key),
+        k_ladder=(10, 40), max_batch=16, registry=MetricsRegistry(),
+        device=device).warmup()
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+@pytest.mark.parametrize("mode", ["brute", "ivf"])
+def test_retrieval_on_the_card_matches_the_cpu(card, precision, mode):
+    """The committed JAX-saved index: the card's ids are the port's CPU
+    ids (which the CPU tests hold to the JAX package's); distances within
+    1e-5 of |q|^2 + |c|^2 (the expanded form cancels near a neighbour)."""
+    q = np.load(_NN_STORE / "queries.npy")
+    got = _nn_engine(f"small-{precision}", card)
+    want = _nn_engine(f"small-{precision}", "cpu")
+    dc, ic = got.search(q, 10, mode=mode)
+    dp, ip = want.search(q, 10, mode=mode)
+    assert np.array_equal(ic, ip)
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.retrieval.index import ShardedCorpusIndex
+    rows = np.concatenate([s.vectors[:s.n] for s in ShardedCorpusIndex.load(
+        ArtifactStore(str(_NN_STORE)), "small-f32").shards])
+    c2 = np.sum(rows.astype(np.float64) ** 2, axis=1)[ip]
+    scale = np.sum(q.astype(np.float64) ** 2, 1)[:, None] + c2
+    assert (np.abs(dc.astype(np.float64) - dp) <= 1e-5 * scale).all()
+    d2, i2 = got.search(q, 10, mode=mode)
+    assert d2.tobytes() == dc.tobytes() and i2.tobytes() == ic.tobytes()
+    got.assert_warm()
+    assert got.stats()["device"].startswith("cuda")
+
+
+@pytest.mark.parametrize("fn", ["brute_topk_f32", "brute_topk_int8",
+                                "ivf_topk_f32", "ivf_topk_int8"])
+def test_retrieval_ties_on_the_card(card, fn):
+    """A tie-heavy integer corpus (every distance exact): the card's ids
+    are the CPU's, in lax.top_k's order."""
+    from deeplearning4j_tpu_torch.retrieval import kernels as tk
+    rng = np.random.default_rng(7)
+    r, d, kc, m = 4096, 4, 16, 256
+    c = rng.integers(-2, 3, size=(r, d)).astype(np.float32)
+    q = rng.integers(-2, 3, size=(64, d)).astype(np.float32)
+    ids = np.arange(r, dtype=np.int32)
+    c2 = np.sum(c * c, axis=1)
+    cl, c_ids = c.reshape(kc, m, d), ids.reshape(kc, m)
+    cents = cl.mean(axis=1).round()
+    args = {"brute_topk_f32": (c, c2, ids),
+            "brute_topk_int8": (c.astype(np.int8), np.ones(r, np.float32),
+                                c2, ids),
+            "ivf_topk_f32": (cents, cl, c2.reshape(kc, m), c_ids),
+            "ivf_topk_int8": (cents, cl.astype(np.int8),
+                              np.ones((kc, m), np.float32),
+                              c2.reshape(kc, m), c_ids)}[fn]
+    extra = (6,) if fn.startswith("ivf") else ()
+    t = [torch.from_numpy(a) for a in (q, *args)]
+    for k in (10, 40):
+        dp, ip = getattr(tk, fn)(*t, k, *extra)
+        dc, ic = getattr(tk, fn)(*[a.to(card) for a in t], k, *extra)
+        assert torch.equal(ic.cpu(), ip) and torch.equal(dc.cpu(), dp)
+
+
+def test_topk_smallest_order_on_the_card(card):
+    from deeplearning4j_tpu_torch.retrieval.kernels import topk_smallest
+    d = torch.tensor([[0.0, -0.0, float("inf"), -1.0, 0.0, float("inf")]],
+                     device=card).repeat(3, 1000)
+    v, p = topk_smallest(d, 12)
+    vc, pc = topk_smallest(d.cpu(), 12)
+    assert torch.equal(p.cpu(), pc) and torch.equal(v.cpu(), vc)
+    assert p[0, :4].tolist() == [3, 9, 15, 21]
+
+
+def test_int8_retrieval_refuses_tf32_on_the_card(card):
+    eng = _nn_engine("small-int8", card)
+    q = np.load(_NN_STORE / "queries.npy")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for mode in ("brute", "ivf"):
+            with pytest.raises(RuntimeError, match="TF32"):
+                eng.search(q, 10, mode=mode)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_serving_node_and_dispatcher_on_the_card(card, tmp_path):
+    """A ServingNode on the card behind a RemoteDispatcher over HTTP:
+    answers bitwise the node's engine, the drain deregisters."""
+    from deeplearning4j_tpu_torch.models.serialization import restore_model
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.node import (NodeRegistry,
+                                                        ServingNode)
+    from deeplearning4j_tpu_torch.parallel.remote import RemoteDispatcher
+    zip_path = _NN_STORE.parents[2] / "deeplearning4j_tpu" / "zoo" / \
+        "weights" / "lenet_digits.zip"
+    model = restore_model(str(zip_path))
+    reg = NodeRegistry(str(tmp_path / "reg"))
+    node = ServingNode(model, node_id="c1", registry=reg, device="cuda",
+                       metrics_registry=MetricsRegistry(), batch_limit=8,
+                       feature_shape=(784,))
+    d = RemoteDispatcher(reg, metrics=MetricsRegistry())
+    try:
+        x = np.random.default_rng(0).uniform(0, 1, (5, 784)).astype(
+            np.float32)
+        eng = node.router.pool("default").engines[0]
+        assert np.array_equal(np.asarray(d.output(x), np.float32),
+                              eng.output(x))
+        node.assert_warm()
+        assert node.drain(10.0)["drained"] and reg.read_all() == {}
+    finally:
+        d.shutdown()
+        node.shutdown()

@@ -389,8 +389,6 @@ def test_session_affinity_routes_to_the_pool_holding_the_carry(gen_model):
 @pytest.mark.parametrize("make,item", [
     (lambda: FleetRouter(aot_cache_dir="x"), "item 12"),
     (lambda: FleetRouter(tuned_config=object()), "item 16"),
-    (lambda: _router().add_retrieval_pool("n", object()), "item 13"),
-    (lambda: _router().neighbors(np.zeros((1, 4)), 1), "item 13"),
 ])
 def test_unported_parts_raise_with_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -379,19 +379,16 @@ def test_parser_has_every_jax_flag_plus_device():
     assert _options(tbuild) == sorted(_options(jbuild) + ["--device"])
     args = tbuild().parse_args(["serve", "--model", "m.zip"])
     assert args.device == "cuda" and args.ui_port == 9000
-    assert not hasattr(args, "join")        # unported: absent unless given
+    assert args.join is None
+    assert not hasattr(args, "online")      # unported: absent unless given
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--join", "reg"], 12), (["--node-id", "n1"], 12),
-    (["--drain-timeout", "30"], 12), (["--model-key", "k"], 12),
     (["--aot-cache-dir", "cache"], 12), (["--no-pipeline"], 12),
-    (["--artifact-store", "store"], 16), (["--tuned-config"], 16),
+    (["--tuned-config"], 16),
     (["--no-tuned"], 16), (["--online"], 16),
     (["--stream-endpoint", "127.0.0.1:1"], 16),
-    (["--holdout-max", "3"], 16), (["--sentinel-window-s", "1"], 16),
-    (["--neighbors-index", "idx"], 13), (["--nprobe", "2"], 13),
-    (["--neighbors-batch", "64"], 13)])
+    (["--holdout-max", "3"], 16), (["--sentinel-window-s", "1"], 16)])
 def test_unported_flags_exit_with_their_roadmap_item(flag, item):
     from deeplearning4j_tpu_torch.__main__ import cmd_serve
     with pytest.raises(SystemExit,

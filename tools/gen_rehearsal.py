@@ -11,6 +11,8 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py zoo
     python3 tools/gen_rehearsal.py keras
     python3 tools/gen_rehearsal.py observed
+    python3 tools/gen_rehearsal.py cluster
+    python3 tools/gen_rehearsal.py neighbors
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -55,6 +57,16 @@ call. What exists only on the card is stubbed: sync debug mode is a
 no-op, ``mem_get_info`` raises the OOM the phase provokes, the dump's
 memory section gets a device entry, and the profiler's hand-written
 kernel count is a constant. Every other gate of the phase runs.
+
+``cluster`` runs ``phase_cluster`` the same way (every ``"cuda"``
+turned to ``"cpu"``, every ``serve`` subprocess given ``--device cpu``)
+with the ResNet50 cut to 32×32 with 10 classes, 2 clients x 12 requests
+and 12 through the subprocess, and ``fused_mm``/``fused_c3`` counting a
+launch for each plain call, so every gate of the phase runs.
+
+``neighbors`` runs ``phase_neighbors`` the same way with the corpus cut
+to 20000 x 64 (shards of 8192, 32 clusters, nprobe 8, batch 16), so
+every gate of the phase runs.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -311,9 +323,45 @@ def observed() -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+class _CpuNodes:
+    """chip_smoke's node subprocesses with ``--device cpu``."""
+
+    @staticmethod
+    def patch(smoke):
+        class CpuNode(smoke._NodeProcess):
+            def __init__(self, args):
+                super().__init__(list(args) + ["--device", "cpu"])
+        smoke._NodeProcess = CpuNode
+
+
+def cluster() -> None:
+    from deeplearning4j_tpu_torch.ops import fused_conv
+    smoke = _cpu_smoke("cpu_all")
+    _CpuNodes.patch(smoke)
+    smoke._kernel_load_seconds = lambda: 0.0      # no nvcc, no libraries
+    _count_launches(fused_conv, ("fused_mm", "fused_c3"))
+    smoke.SLICE = dict(smoke.SLICE, height=32, width=32, num_classes=10)
+    smoke.CLUSTER_CLIENTS, smoke.CLUSTER_PER_CLIENT = 2, 12
+    smoke.CLUSTER_DRAIN_AT, smoke.CLUSTER_SUB_REQUESTS = 8, 12
+    t0 = time.perf_counter()
+    print(smoke.phase_cluster({}, "CPU rehearsal"))
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
+def neighbors() -> None:
+    smoke = _cpu_smoke("cpu_all")
+    _CpuNodes.patch(smoke)
+    smoke.NN = dict(smoke.NN, vectors=20000, blobs=16, shard_rows=8192,
+                    clusters=32, nprobe=8, batch=16)
+    t0 = time.perf_counter()
+    smoke.phase_neighbors({}, "CPU rehearsal")
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def main(argv) -> int:
     if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
-                                   "keras", "observed"):
+                                   "keras", "observed", "cluster",
+                                   "neighbors"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -328,6 +376,10 @@ def main(argv) -> int:
         keras()
     elif argv[0] == "observed":
         observed()
+    elif argv[0] == "cluster":
+        cluster()
+    elif argv[0] == "neighbors":
+        neighbors()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
