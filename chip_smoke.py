@@ -364,6 +364,31 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    answer bitwise the single engine's, ``partial: true`` with one node
    down; ``serve --neighbors-index --join`` on shard 0 answering, then
    SIGTERM-drained to exit 0.
+22. embeddings — the NLP and graph embedding tier (nlp/, graph/,
+   utils/native.py; plain torch steps, none of the eleven kernels). The
+   native pair generator must build (g++ at first use into build/native)
+   and be in use. Word2Vec at benchmarks/baseline_suite.py:464-520's
+   geometry: 3M zipf(1.05) tokens over 100k words from default_rng(0) in
+   sentences of 40, layer 128, window 5, negative 5, batch 65536, seed 3,
+   pairgen "auto"; four arms (SGNS with shared negatives, HS, CBOW, SGNS
+   with device pair generation). Each arm: tokens/s of the fit drained by
+   reading one element, peak memory; its first superchunk (the first
+   flush for device pairs, on the card's draws) from the initial tables
+   on the card against the CPU path (EMB_PARITY_TOL of each table's
+   largest entry), twice on the card bitwise, once with every sync an
+   error (torch.cuda.set_sync_debug_mode); torch ops a chunk and the
+   card's busy share over superchunks (torch.profiler); the host-pair
+   arms' overlapped producer bitwise the serial loop on the first 500k
+   tokens. Planted topics (20 x 50 words, 200k tokens): in-topic cosine
+   above cross-topic for SGNS, HS and CBOW; write_full_model and
+   read_full_model keep the card-trained vectors. ParagraphVectors at
+   baseline_suite.py:523-615's geometry (20k docs x 100 tokens, 50k
+   words) DBOW and DM, tokens/s; infer_vector + predict of 200 held
+   documents of 10 labelled planted topics beat chance by
+   EMB_PREDICT_MARGIN. GloVe on the first 500k tokens: the loss falls over
+   5 epochs, one step repeats bitwise. DeepWalk and Node2Vec on two
+   communities of 5000 vertices, walks of 40: mean similarity within above
+   across.
 
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
@@ -7757,6 +7782,477 @@ def _nn_cluster(card, store, tmp, queries):
     return res
 
 
+EMB = dict(vocab=100_000, tokens=3_000_000, sentence=40, zipf=1.05,
+           corpus_seed=0, layer=128, window=5, negative=5, batch=65536,
+           seed=3, serial_tokens=500_000,
+           topics=20, topic_words=50, topic_tokens=200_000, topic_epochs=3,
+           pv_docs=20_000, pv_len=100, pv_vocab=50_000,
+           label_topics=10, label_docs=2000, label_len=50, label_held=200,
+           label_epochs=5, glove_tokens=500_000, glove_epochs=5,
+           graph_side=5000, graph_degree=10, graph_cross=0.01, walk=40)
+EMB_PARITY_TOL = 1e-5     # card vs CPU after a superchunk, of each table's largest
+EMB_PREDICT_MARGIN = 0.3  # held-out predict accuracy over chance (1 / labels)
+EMB_ARMS = {"sgns": {}, "hs": {"use_hierarchic_softmax": True},
+            "cbow": {"use_cbow": True},
+            "sgns_device_pairs": {"device_pair_generation": True}}
+
+
+def zipf_sentences(v, n, length, a, seed):
+    """``n`` tokens drawn zipf(``a``) over ``v`` words from
+    ``default_rng(seed)``, in sentences of ``length`` (the JAX package's
+    benchmarks/baseline_suite.py corpus)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    freq = 1.0 / np.arange(1, v + 1) ** a
+    freq /= freq.sum()
+    words = np.char.add("w", rng.choice(v, size=n, p=freq).astype("U7"))
+    return [words[i:i + length].tolist() for i in range(0, n, length)]
+
+
+def topic_sentences(topics, per_topic, tokens, length, seed):
+    """Planted topics: each sentence draws its words from one topic's
+    ``per_topic`` words. Returns (sentences, topic of each sentence)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = tokens // length
+    topic = rng.integers(0, topics, n)
+    ids = topic[:, None] * per_topic + rng.integers(0, per_topic,
+                                                    (n, length))
+    return [[f"t{i}" for i in row] for row in ids], topic
+
+
+def topic_cosines(model, topics, per_topic):
+    """(mean in-topic cosine, mean cross-topic cosine) over every pair of
+    the planted words."""
+    import numpy as np
+    mat = model.word_vectors_matrix
+    rows = [model.vocab.index_of(f"t{i}") for i in range(topics * per_topic)]
+    v = mat[rows].astype(np.float64)
+    v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+    cos = v @ v.T
+    t = np.arange(topics * per_topic) // per_topic
+    same = (t[:, None] == t[None, :]) & ~np.eye(len(t), dtype=bool)
+    cross = t[:, None] != t[None, :]
+    return float(cos[same].mean()), float(cos[cross].mean())
+
+
+def _rel_err(got, ref):
+    import numpy as np
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _count_ops(fn):
+    """Torch operators one call of ``fn`` dispatches (its host's work; on
+    the card one launch or more each)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _no_sync(fn):
+    """``fn()`` with every synchronizing CUDA call an error."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def w2v_model(kw, device, **extra):
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    return Word2Vec(**{**dict(layer_size=EMB["layer"],
+                              window_size=EMB["window"],
+                              negative=EMB["negative"], min_word_frequency=1,
+                              epochs=1, batch_size=EMB["batch"],
+                              seed=EMB["seed"], pairgen="auto"),
+                       **kw, **extra}, device=device)
+
+
+def _recorder(store):
+    """Wrap a callable to keep its first call's arguments."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            if not store:
+                store.append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def _emb_arm(card, name, kw, seqs, n_tokens):
+    """One Word2Vec arm at the full geometry: the timed fit, then its
+    first superchunk card against CPU, twice on the card and once with
+    every sync an error, its ops, busy share and memory."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp import skipgram as sk
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import host_array
+
+    arm = {"kw": kw, "seconds": {}}
+    t0 = time.perf_counter()
+    m = w2v_model(kw, "cuda")
+    m.build_vocab(seqs)
+    m._init_tables()
+    snap = (host_array(m.syn0), host_array(m.syn1))
+    arm["seconds"]["vocab"] = time.perf_counter() - t0
+    first = []
+    device_pairs = kw.get("device_pair_generation", False)
+    if device_pairs:
+        orig = sk.skipgram_token_update
+        sk.skipgram_token_update = _recorder(first)(orig)
+    else:
+        m._dispatch_chunks = _recorder(first)(m._dispatch_chunks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        m.fit(seqs)
+        float(m.syn0[0, 0])          # drain the card inside the timer
+        wall = time.perf_counter() - t0
+    finally:
+        if device_pairs:
+            sk.skipgram_token_update = orig
+        else:
+            del m._dispatch_chunks
+    arm["seconds"]["fit"] = wall
+    arm["tokens_per_s"] = n_tokens / wall
+    arm["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    if not np.isfinite(host_array(m.syn0)).all():
+        raise AssertionError(f"{name}: non-finite syn0 after the fit")
+    (args, kwargs), = first
+
+    if device_pairs:
+        tokens, lengths, b, negs, lr = args[2:7]
+
+        def superchunk(model):
+            dev = model.syn0.device
+            sk.skipgram_token_update(
+                model.syn0, model.syn1, tokens.to(dev), lengths.to(dev),
+                b.to(dev), negs.to(dev), lr, **kwargs)
+        chunks = 1
+    else:
+        prep = args[0]
+
+        def superchunk(model):
+            model._dispatch_chunks(prep)
+        # a prep's lrs (last, or before the shared negatives) are > 0
+        # exactly in its filled chunks
+        chunks = int(np.count_nonzero(prep[-2] if prep[0] == "shared"
+                                      else prep[-1]))
+
+    def run_on(model):
+        model.set_tables(*snap)
+        superchunk(model)
+        return host_array(model.syn0), host_array(model.syn1)
+
+    t0 = time.perf_counter()
+    card_a = run_on(m)
+    card_b = run_on(m)
+    cpu = w2v_model(kw, "cpu")
+    cpu.vocab, cpu._table = m.vocab, m._table
+    if m.use_hs:
+        cpu._ensure_hs_matrices()
+    cpu_t = run_on(cpu)
+    arm["seconds"]["parity"] = time.perf_counter() - t0
+    arm["parity_err"] = [_rel_err(a, r) for a, r in zip(card_a, cpu_t)]
+    arm["bitwise_repeat"] = all(np.array_equal(a, r)
+                                for a, r in zip(card_a, card_b))
+    if max(arm["parity_err"]) > EMB_PARITY_TOL:
+        raise AssertionError(f"{name}: card vs CPU after one superchunk "
+                             f"{arm['parity_err']} > {EMB_PARITY_TOL}")
+    if not arm["bitwise_repeat"]:
+        raise AssertionError(f"{name}: a superchunk differs between two "
+                             "runs on the card")
+    m.set_tables(*snap)
+    _no_sync(lambda: superchunk(m))
+    arm["no_sync"] = True
+    arm["ops_per_chunk"] = _count_ops(lambda: superchunk(m)) / chunks
+    prof = profile_calls(lambda: superchunk(m), card,
+                         f"{name} superchunks", n=3, warmup=1)
+    arm["busy"] = prof["device_ms"] / prof["wall_ms"]
+    arm["superchunk_ms"] = prof["wall_ms"]
+    arm["chunks"] = chunks
+    log(f"  {name}: {arm['tokens_per_s']:.0f} tokens/s ({n_tokens} tokens "
+        f"in {wall:.2f}s, vocab {arm['seconds']['vocab']:.1f}s), peak "
+        f"{arm['peak_mib']:.0f} MiB; superchunk of {chunks} chunks card vs "
+        f"CPU {max(arm['parity_err']):.2e} of the largest entry, repeat "
+        f"bitwise, no sync; {arm['ops_per_chunk']:.0f} torch ops a chunk, "
+        f"{prof['wall_ms']:.1f} ms a superchunk, busy "
+        f"{100 * arm['busy']:.1f}% [{card}]")
+    return arm, m
+
+
+def _emb_serial(name, kw, seqs):
+    """The overlapped producer against the serial loop: bitwise tables."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import host_array
+    tables = []
+    for overlap in (True, False):
+        m = w2v_model(kw, "cuda", overlap_pairgen=overlap)
+        m.fit(seqs)
+        tables.append((host_array(m.syn0), host_array(m.syn1)))
+    same = all(np.array_equal(a, b) for a, b in zip(*tables))
+    if not same:
+        raise AssertionError(f"{name}: the overlapped producer's tables "
+                             "differ from the serial loop's")
+    return same
+
+
+def _emb_topics(out, card):
+    """The quality gate on planted topics, and save/restore."""
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import serializer
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import host_array
+    seqs, _ = topic_sentences(EMB["topics"], EMB["topic_words"],
+                              EMB["topic_tokens"], EMB["sentence"], 1)
+    out["topics"] = {}
+    sgns = None
+    for name, kw in (("sgns", {}), ("hs", {"use_hierarchic_softmax": True}),
+                     ("cbow", {"use_cbow": True})):
+        m = w2v_model(kw, "cuda", epochs=EMB["topic_epochs"],
+                      batch_size=512)
+        m.fit(seqs)
+        inside, cross = topic_cosines(m, EMB["topics"], EMB["topic_words"])
+        out["topics"][name] = {"in_topic": inside, "cross_topic": cross}
+        log(f"  planted topics {name}: mean cosine in-topic {inside:.4f}, "
+            f"cross-topic {cross:.4f}")
+        if not inside > cross:
+            raise AssertionError(f"{name}: in-topic cosine {inside:.4f} "
+                                 f"not above cross-topic {cross:.4f}")
+        sgns = sgns or m
+    with tempfile.TemporaryDirectory(prefix="w2v_") as tmp:
+        path = os.path.join(tmp, "w2v.npz")
+        serializer.write_full_model(sgns, path)
+        back = serializer.read_full_model(path, device="cuda")
+        same = (np.array_equal(host_array(back.syn0), host_array(sgns.syn0))
+                and np.array_equal(host_array(back.syn1),
+                                   host_array(sgns.syn1))
+                and back.vocab.words() == sgns.vocab.words())
+    if not same:
+        raise AssertionError("write_full_model/read_full_model changed "
+                             "the card-trained vectors")
+    out["save_restore_equal"] = True
+    log("  write_full_model -> read_full_model on the card: vectors equal")
+
+
+def _emb_paragraphs(out, card):
+    """ParagraphVectors at the suite's geometry (DBOW and DM), then
+    infer_vector + predict on labelled planted topics."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import \
+        ParagraphVectors
+    from deeplearning4j_tpu_torch.nlp.sentence_iterators import \
+        LabelledDocument
+    n_tok = EMB["pv_docs"] * EMB["pv_len"]
+    words = zipf_sentences(EMB["pv_vocab"], n_tok, EMB["pv_len"],
+                           EMB["zipf"], EMB["corpus_seed"])
+    docs = [LabelledDocument(" ".join(w), [f"DOC_{i}"])
+            for i, w in enumerate(words)]
+    out["pv"] = {}
+    for dm in (False, True):
+        pv = ParagraphVectors(dm=dm, layer_size=EMB["layer"],
+                              window_size=EMB["window"],
+                              negative=EMB["negative"], min_word_frequency=1,
+                              epochs=1, batch_size=EMB["batch"],
+                              seed=EMB["seed"], device="cuda")
+        t0 = time.perf_counter()
+        pv.fit(docs)
+        float(pv.syn0[0, 0])
+        wall = time.perf_counter() - t0
+        if not torch.isfinite(pv.syn0).all():
+            raise AssertionError(f"ParagraphVectors dm={dm}: non-finite")
+        key = "dm" if dm else "dbow"
+        out["pv"][key] = {"tokens_per_s": n_tok / wall, "seconds": wall}
+        log(f"  ParagraphVectors {key}: {n_tok / wall:.0f} tokens/s "
+            f"({EMB['pv_docs']} docs x {EMB['pv_len']}, vocab "
+            f"{pv.vocab.num_words()}, {wall:.2f}s) [{card}]")
+    seqs, topic = topic_sentences(EMB["label_topics"], EMB["topic_words"],
+                                  EMB["label_docs"] * EMB["label_len"],
+                                  EMB["label_len"], 2)
+    held = EMB["label_held"]
+    train = [LabelledDocument(" ".join(s), [f"T{t}"])
+             for s, t in zip(seqs[held:], topic[held:])]
+    pv = ParagraphVectors(layer_size=EMB["layer"], window_size=EMB["window"],
+                          negative=EMB["negative"], epochs=EMB["label_epochs"],
+                          seed=EMB["seed"], device="cuda")
+    pv.fit(train)
+    hits = sum(pv.predict(" ".join(s)) == f"T{t}"
+               for s, t in zip(seqs[:held], topic[:held]))
+    acc, chance = hits / held, 1.0 / EMB["label_topics"]
+    out["pv"]["predict"] = {"accuracy": acc, "chance": chance,
+                            "margin": acc - chance}
+    log(f"  ParagraphVectors predict on {held} held documents of "
+        f"{EMB['label_topics']} planted topics: accuracy {acc:.3f}, chance "
+        f"{chance:.3f}, margin {acc - chance:.3f} (gate "
+        f"{EMB_PREDICT_MARGIN})")
+    if acc - chance < EMB_PREDICT_MARGIN:
+        raise AssertionError(f"ParagraphVectors predict accuracy {acc:.3f} "
+                             f"does not beat chance {chance:.3f} by "
+                             f"{EMB_PREDICT_MARGIN}")
+
+
+def _emb_glove(out, card, seqs):
+    """GloVe on the corpus's first tokens: the loss falls; one step
+    repeats bitwise on the card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp import glove as gl
+    n = EMB["glove_tokens"] // EMB["sentence"]
+    g = gl.Glove(layer_size=EMB["layer"], window_size=EMB["window"],
+                 epochs=EMB["glove_epochs"], batch_size=EMB["batch"],
+                 seed=EMB["seed"], device="cuda")
+    t0 = time.perf_counter()
+    g.fit(seqs[:n])
+    wall = time.perf_counter() - t0
+    losses = g.epoch_losses
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    rng = np.random.default_rng(5)
+    v = g.vocab.num_words()
+    freq = 1.0 / np.arange(1, v + 1) ** EMB["zipf"]
+    rows, cols = (torch.from_numpy(rng.choice(v, EMB["batch"],
+                                              p=freq / freq.sum())).cuda()
+                  for _ in range(2))
+    logx = torch.from_numpy(rng.random(EMB["batch"]).astype(np.float32)
+                            ).cuda()
+    weight = torch.rand(EMB["batch"], device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+
+    def state():
+        gen = torch.Generator("cuda").manual_seed(2)
+        w = [torch.rand((v, EMB["layer"]), device="cuda", generator=gen)
+             for _ in range(2)]
+        b = [torch.rand(v, device="cuda", generator=gen) for _ in range(2)]
+        return w + b + [torch.full_like(x, 1e-8) for x in w + b]
+
+    runs = []
+    for _ in range(2):
+        s = state()
+        loss = gl._glove_step(*s, rows, cols, logx, weight, 0.05)
+        runs.append([x.cpu() for x in s] + [loss.cpu()])
+    repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+    out["glove"] = {"epoch_losses": losses, "loss_falls": falls,
+                    "step_bitwise_repeat": repeat, "seconds": wall,
+                    "tokens_per_s": n * EMB["sentence"] * len(losses) / wall}
+    log(f"  GloVe on {n * EMB['sentence']} tokens (vocab {v}): epoch losses "
+        f"{[round(x, 5) for x in losses]}, {wall:.2f}s for "
+        f"{len(losses)} epochs; one step at batch {EMB['batch']} bitwise "
+        f"on a repeat: {repeat} [{card}]")
+    if not falls:
+        raise AssertionError(f"GloVe loss does not fall: {losses}")
+    if not repeat:
+        raise AssertionError("a GloVe step differs between two runs")
+
+
+def two_communities(side, degree, cross, seed):
+    """Two communities of ``side`` vertices: each vertex links to
+    ``degree // 2`` random vertices of its own side, and with probability
+    ``cross`` to one of the other side."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.default_rng(seed)
+    g = Graph(2 * side)
+    for v in range(2 * side):
+        base = (v // side) * side
+        for u in rng.integers(0, side, degree // 2):
+            if base + u != v:
+                g.add_edge(v, int(base + u))
+        if rng.random() < cross:
+            g.add_edge(v, int((side - base) + rng.integers(0, side)))
+    return g
+
+
+def _emb_graph(out, card):
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Node2Vec
+    side = EMB["graph_side"]
+    g = two_communities(side, EMB["graph_degree"], EMB["graph_cross"], 4)
+    rng = np.random.default_rng(6)
+    a = rng.integers(0, 2 * side, 4000)
+    b = rng.integers(0, 2 * side, 4000)
+    same = (a // side) == (b // side)
+    out["graph"] = {}
+    for cls, kw in ((DeepWalk, {}), (Node2Vec, {"p": 1.0, "q": 0.5})):
+        t0 = time.perf_counter()
+        m = cls(vector_size=EMB["layer"], window_size=EMB["window"],
+                walk_length=EMB["walk"], seed=EMB["seed"], device="cuda",
+                **kw)
+        m.fit(g)
+        wall = time.perf_counter() - t0
+        mat = m.word_vectors_matrix.astype(np.float64)
+        rows = np.array([m.vocab.index_of(str(v)) for v in range(2 * side)])
+        u = mat[rows] / np.maximum(np.linalg.norm(mat[rows], axis=1,
+                                                  keepdims=True), 1e-12)
+        cos = np.einsum("id,id->i", u[a], u[b])
+        inside, across = float(cos[same].mean()), float(cos[~same].mean())
+        out["graph"][cls.__name__] = {"within": inside, "across": across,
+                                      "seconds": wall}
+        log(f"  {cls.__name__} on two communities of {side} (walks of "
+            f"{EMB['walk']}): mean similarity within {inside:.4f}, across "
+            f"{across:.4f}, {wall:.1f}s [{card}]")
+        if not inside > across:
+            raise AssertionError(f"{cls.__name__}: within {inside:.4f} not "
+                                 f"above across {across:.4f}")
+
+
+def phase_embeddings(report, card):
+    """The NLP and graph embedding tier (module docstring, phase 22)."""
+    import torch
+    from deeplearning4j_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "geometry": dict(EMB), "seconds": {}, "arms": {}}
+    t0 = time.perf_counter()
+    if not native.pairgen_available():
+        raise AssertionError("the native pair generator did not build: "
+                             "the card would be measured on the numpy "
+                             "producer")
+    out["seconds"]["native_build"] = time.perf_counter() - t0
+    log(f"  native pair generator: {native.library_path()} "
+        f"({out['seconds']['native_build']:.1f}s)")
+    t0 = time.perf_counter()
+    seqs = zipf_sentences(EMB["vocab"], EMB["tokens"], EMB["sentence"],
+                          EMB["zipf"], EMB["corpus_seed"])
+    out["seconds"]["corpus"] = time.perf_counter() - t0
+    prefix = seqs[:EMB["serial_tokens"] // EMB["sentence"]]
+    for name, kw in EMB_ARMS.items():
+        t0 = time.perf_counter()
+        arm, _m = _emb_arm(card, name, kw, seqs, EMB["tokens"])
+        if not kw.get("device_pair_generation"):
+            arm["overlap_equals_serial"] = _emb_serial(name, kw, prefix)
+            log(f"  {name}: the overlapped producer equals the serial loop "
+                f"bitwise on the first {EMB['serial_tokens']} tokens")
+        out["arms"][name] = arm
+        out["seconds"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    for step, fn in (("topics", lambda: _emb_topics(out, card)),
+                     ("paragraph_vectors",
+                      lambda: _emb_paragraphs(out, card)),
+                     ("glove", lambda: _emb_glove(out, card, seqs)),
+                     ("graph", lambda: _emb_graph(out, card))):
+        t0 = time.perf_counter()
+        fn()
+        out["seconds"][step] = time.perf_counter() - t0
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"  embeddings phase seconds "
+        f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    report["embeddings"] = out
+
+
 def main(argv=None) -> int:
     global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7764,7 +8260,7 @@ def main(argv=None) -> int:
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
                     "rnn_tbptt,zoo,keras_import,observed_fit,quant_serve,"
-                    "model_library,cluster,neighbors",
+                    "model_library,cluster,neighbors,embeddings",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -7966,6 +8462,14 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         f"{NN['k']}; the JAX-saved index card vs CPU; RetrievalNodes, the "
         "NeighborsDispatcher and a serve --neighbors-index --join "
         "subprocess", lambda: phase_neighbors(report, card))
+    # the embedding tier runs no kernel of SOURCES (its steps are plain
+    # torch, as the JAX package leaves them to XLA)
+    run("embeddings", f"Word2Vec {EMB['tokens']} zipf tokens over "
+        f"{EMB['vocab']} words, layer {EMB['layer']}, window "
+        f"{EMB['window']}, batch {EMB['batch']}: {', '.join(EMB_ARMS)}; "
+        "planted topics; ParagraphVectors DBOW/DM; GloVe; DeepWalk and "
+        "Node2Vec; save/restore. No launch of the eleven kernels",
+        lambda: phase_embeddings(report, card))
 
     kernels = []
     for name, k in summary.items():

@@ -1918,3 +1918,116 @@ def test_serving_node_and_dispatcher_on_the_card(card, tmp_path):
     finally:
         d.shutdown()
         node.shutdown()
+
+
+# ---- the embedding tier's device steps (nlp/skipgram.py, GloVe) ----------
+
+def _emb_inputs(seed=0, v=300, d=64, b=2048, k=6):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    syn0 = (rng.normal(size=(v, d)) * 0.3).astype(f32)
+    syn1 = (rng.normal(size=(v, d)) * 0.3).astype(f32)
+    # zipf-like rows: many duplicates in every scatter
+    p = 1.0 / np.arange(1, v + 1)
+    ids = lambda *shape: rng.choice(v, size=shape, p=p / p.sum()).astype(
+        np.int32)
+    labels = np.zeros((b, k), f32)
+    labels[:, 0] = 1.0
+    mask = np.ones((b, k), f32)
+    mask[b - 100:] = 0.0
+    cm = (rng.random((b, 10)) < 0.7).astype(f32)
+    return dict(syn0=syn0, syn1=syn1, centers=ids(b), targets=ids(b, k),
+                labels=labels, mask=mask, context=ids(b, 10), cmask=cm,
+                cen3=ids(3, b), ctx3=ids(3, b), tgt3=ids(3, b, k),
+                negs3=ids(3, 4, 5), nv=np.array([b, 1500, 0], np.int32),
+                lrs=np.array([0.05, 0.03, 0.01], f32))
+
+
+def _emb_step(name, x, dev):
+    """Run step ``name`` on ``dev`` from the numpy inputs; return the
+    tables it updated, on the CPU."""
+    from deeplearning4j_tpu_torch.nlp import skipgram as sk
+    t = {k: torch.from_numpy(np.array(a)).to(dev) for k, a in x.items()}
+    s0, s1 = t["syn0"], t["syn1"]
+    if name == "skipgram":
+        sk.skipgram_step(s0, s1, t["centers"], t["targets"], t["labels"],
+                         t["mask"], 0.5)
+    elif name == "cbow":
+        sk.cbow_step(s0, s1, t["context"], t["cmask"], t["targets"],
+                     t["labels"], t["mask"], 0.5)
+    elif name == "scan":
+        sk.skipgram_scan_step(s0, s1, t["cen3"], t["tgt3"], t["nv"],
+                              t["lrs"])
+    elif name == "shared":
+        sk.skipgram_scan_step_shared(s0, s1, t["cen3"], t["ctx3"],
+                                     t["negs3"], t["nv"], t["lrs"])
+    elif name == "infer":
+        vec = s0[0].clone()
+        sk.infer_step(vec, s1, t["targets"], t["labels"], t["mask"], 1.0)
+        return [vec.cpu()]
+    elif name == "glove":
+        from deeplearning4j_tpu_torch.nlp.glove import _glove_step
+        st = [s0, s1, s0[:, 0].clone(), s1[:, 0].clone()]
+        st += [torch.full_like(a, 1e-8) for a in st]
+        loss = _glove_step(*st, t["centers"], t["targets"][:, 0],
+                           t["lrs"][0].expand(len(t["centers"])),
+                           t["mask"][:, 0], 0.05)
+        return [a.cpu() for a in st] + [loss.cpu()]
+    return [s0.cpu(), s1.cpu()]
+
+
+@pytest.mark.parametrize("name", ["skipgram", "cbow", "scan", "shared",
+                                  "infer", "glove"])
+def test_embedding_step_on_the_card_matches_the_cpu(card, name):
+    """Each device step on the card against its CPU path (1e-5 of each
+    table's largest entry: the same float32 sums in another order),
+    and bitwise on a second run."""
+    x = _emb_inputs()
+    got = _emb_step(name, x, card)
+    ref = _emb_step(name, x, "cpu")
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+    again = _emb_step(name, x, card)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_embedding_superchunk_has_no_host_sync(card):
+    """A Word2Vec superchunk (upload and eight chunk steps) runs with
+    every synchronizing CUDA call an error, then trains on."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    rng = np.random.default_rng(1)
+    sents = [" ".join(f"w{i}" for i in rng.integers(0, 200, 40))
+             for _ in range(400)]
+    for kw in ({}, {"use_hierarchic_softmax": True}, {"use_cbow": True}):
+        preps = []
+        m = Word2Vec(layer_size=32, window_size=5, negative=5, seed=3,
+                     device=card, **kw)
+        m._dispatch_chunks = preps.append
+        m.fit(sents)
+        del m._dispatch_chunks
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m._dispatch_chunks(preps[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(m.syn0).all()
+
+
+def test_device_pair_draws_on_the_card(card):
+    from deeplearning4j_tpu_torch.nlp import skipgram as sk
+    table = torch.from_numpy(np.repeat(np.arange(4), [10, 20, 30, 40]).astype(
+        np.int32)).to(card)
+    g = torch.Generator(device=card).manual_seed(5)
+    b, negs = sk.token_draws((64, 40), table, window=5, n_neg=5,
+                             generator=g)
+    assert b.device.type == "cuda" and int(b.min()) == 1 \
+        and int(b.max()) == 5
+    counts = torch.bincount(b.flatten().long(), minlength=6)[1:].double()
+    assert ((counts / counts.sum() - 0.2).abs() < 0.02).all()
+    freq = torch.bincount(negs.flatten().long(), minlength=4).double()
+    assert torch.allclose(freq / freq.sum(), torch.tensor(
+        [0.1, 0.2, 0.3, 0.4], dtype=torch.float64, device=card), atol=0.01)
+    g2 = torch.Generator(device=card).manual_seed(5)
+    assert torch.equal(negs, sk.token_draws((64, 40), table, window=5,
+                                            n_neg=5, generator=g2)[1])

@@ -41,6 +41,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "'ui.generation_module', 'streaming.serde', "
             "'nn.layers.output', 'nn.layers.feedforward', "
             "'nn.graph.vertices', 'nn.graph.config', 'nn.preprocessors', "
+            "'nlp.skipgram', 'nlp.sequence_vectors', 'nlp.word2vec', "
+            "'nlp.paragraph_vectors', 'nlp.glove', 'nlp.serializer', "
+            "'nlp.pairgen', 'nlp.vocab', 'nlp.cluster', 'utils.native', "
+            "'datasets.corpus', 'graph.deepwalk', 'graph.node2vec', "
+            "'graph.walks', 'graph.vectors', "
             "'models.computation_graph')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -13,6 +13,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py observed
     python3 tools/gen_rehearsal.py cluster
     python3 tools/gen_rehearsal.py neighbors
+    python3 tools/gen_rehearsal.py embeddings [ARM ...]
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -67,6 +68,14 @@ launch for each plain call, so every gate of the phase runs.
 ``neighbors`` runs ``phase_neighbors`` the same way with the corpus cut
 to 20000 x 64 (shards of 8192, 32 clusters, nprobe 8, batch 16), so
 every gate of the phase runs.
+
+``embeddings`` runs ``phase_embeddings`` the same way (every ``"cuda"``
+turned to ``"cpu"``) at a cut size (60k tokens over 2000 words, layer
+32, batch 4096; 4 planted topics; 400 ParagraphVectors documents; two
+communities of 300 vertices), with the card's memory counters and sync
+debug mode stubbed, so every other gate of the phase runs (naming arms,
+e.g. ``sgns``, runs only those Word2Vec arms); its times say nothing
+about the card.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -358,10 +367,30 @@ def neighbors() -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+def embeddings(only=()) -> None:
+    smoke = _cpu_smoke("cpu_all")
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.empty_cache = lambda: None
+    torch.cuda.set_sync_debug_mode = lambda mode: None
+    smoke.EMB_ARMS = {k: v for k, v in smoke.EMB_ARMS.items()
+                      if not only or k in only}
+    smoke.EMB = dict(smoke.EMB, vocab=2000, tokens=60_000, layer=32,
+                     batch=4096, serial_tokens=20_000, topics=4,
+                     topic_tokens=20_000, pv_docs=400, pv_len=50,
+                     pv_vocab=1000, label_topics=4, label_docs=300,
+                     label_held=40, glove_tokens=20_000, graph_side=300,
+                     walk=20)
+    t0 = time.perf_counter()
+    report = {}
+    smoke.phase_embeddings(report, "CPU rehearsal")
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def main(argv) -> int:
     if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
                                    "keras", "observed", "cluster",
-                                   "neighbors"):
+                                   "neighbors", "embeddings"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -380,6 +409,8 @@ def main(argv) -> int:
         cluster()
     elif argv[0] == "neighbors":
         neighbors()
+    elif argv[0] == "embeddings":
+        embeddings(argv[1:])
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
