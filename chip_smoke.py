@@ -389,6 +389,45 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    5 epochs, one step repeats bitwise. DeepWalk and Node2Vec on two
    communities of 5000 vertices, walks of 40: mean similarity within above
    across.
+23. online — online learning (online/, streaming/broker.py,
+   ui/online_module.py) on the slice ResNet50 (bf16, fused blocks, s2d
+   stem, 200 classes) at batch 32. An ``OnlineServing`` over a
+   ``TcpTransport`` broker served in this process; a publisher thread
+   sends labelled batches (each label a fixed function of its pixels,
+   from a seed: the argmax of a random projection of the 4 x 4 channel
+   means over 10 classes) while two client threads are served. The three
+   model copies and the engine's committed copy share no storage. Gates:
+   the learner takes at least 20 steps, and kernels 1-6 launch in the
+   learner (1-2 in its thread, the backward's 3-6 in the device thread
+   PyTorch's autograd runs a CUDA backward on), 1-2 in the serving
+   dispatcher's thread and in the scorer's (launches tallied by thread); ``promoter.run_once`` promotes a
+   snapshot before a deadline, the pool's committed params then equal the
+   snapshot bitwise, and a served batch equals a forward of the eval
+   clone loaded with the snapshot within the slice phase's padded-vs-
+   direct bound (5e-3); a degraded candidate (the output layer's W x 25)
+   forced in makes ``sentinel.check()`` return ``score`` (or ``nan``) and
+   the committed params equal the pre-swap ones bitwise. ``python -m
+   deeplearning4j_tpu_torch serve --online --stream-endpoint`` on the
+   model's zip in a subprocess answers ``/api/predict``,
+   ``/api/online/stats`` (learner alive, iterations rising),
+   ``/api/online/promote`` (counted) and ``/api/online/rollback``. A
+   ``ConvolutionalListener`` on a LeNet fit of the committed digits on
+   the card: its PNGs decode to the CPU listener's grids (same
+   parameters) within one gray level. Measured: the learner's images/s
+   while serving, the serving p50/p99 during learning, the seconds of a
+   scoring pass.
+24. aot_cache — the persisted kernel cache (parallel/aot_cache.py) in
+   fresh processes on the slice ResNet50 engine (bf16), each pointing
+   ``cuda_build.BUILD_DIR`` at its own empty directory in its own code:
+   a cold process builds the two forward libraries (``build_log``) and
+   saves them to an ``ArtifactStore`` key; a ``serve --join`` node given
+   ``--artifact-store`` warms from the key's directory with no ``nvcc``
+   and answers bitwise what the cold process answered (cuDNN
+   deterministic in both); a run with another feature shape falls
+   through to a build and names ``serving.feature_shape``; a corrupted
+   blob is quarantined, its library rebuilt and republished, and the
+   answer is bitwise the cold one. Measured: the spawn-to-``assert_warm``
+   seconds of the cold process and the warm node, the nvcc seconds.
 
 It prints the kernels' JSON line, then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a card (or without the
@@ -4407,6 +4446,16 @@ def _zoo_yolo2(out, card):
         f"{dets[:1]}")
     if not np.isfinite(losses).all() or not losses[1:].min() < losses[0]:
         raise AssertionError("YOLO2's loss did not fall")
+    if not same:
+        # where the two decodes part: the first differing position, and
+        # the confidences around it on either device
+        i = next((j for j, (a, b) in enumerate(zip(dets, host))
+                  if (a.example, a.predicted_class)
+                  != (b.example, b.predicted_class)),
+                 min(len(dets), len(host)))
+        log(f"  YOLO2 decodes part at box {i} of {len(dets)} (card) and "
+            f"{len(host)} (CPU): card {dets[max(i - 1, 0):i + 2]}, CPU "
+            f"{host[max(i - 1, 0):i + 2]}")
     if not dets or not same:
         raise AssertionError("get_predicted_objects returned no box, or "
                              "other boxes than the CPU's decode")
@@ -8253,6 +8302,644 @@ def phase_embeddings(report, card):
     report["embeddings"] = out
 
 
+# ---- phase 23: online learning ------------------------------------------
+
+ONLINE_BATCH = 32             # the learner's micro-batch, the engine's limit
+ONLINE_MIN_STEPS = 20         # learner steps before the promotion gates
+ONLINE_CLASSES = 10           # labels used out of the 200: a prior to learn
+ONLINE_SEED = 23
+ONLINE_HOLDOUT_EVERY = 4
+ONLINE_HOLDOUT_MAX = 128
+ONLINE_SERVE_TOL = 5e-3       # the slice phase's padded-vs-direct bound
+ONLINE_DEGRADE = 25.0         # the degraded candidate's output W scale
+ONLINE_DEADLINE_S = 120.0
+ONLINE_CLI_TOPIC = "train-cli"
+CONV_FIT_STEPS = 4
+
+
+def online_labels(seed=ONLINE_SEED):
+    """Labels as a fixed function of the pixels (from ``seed``): the
+    argmax of a random projection of the 4 x 4 grid of channel means,
+    over ONLINE_CLASSES of the 200 classes, so a holdout loss can fall."""
+    import numpy as np
+    proj = np.random.default_rng(seed).normal(
+        size=(4 * 4 * SLICE["channels"], ONLINE_CLASSES))
+    h, w, c = _image_shape()
+
+    def label(x):
+        n = len(x)
+        pooled = x.reshape(n, 4, h // 4, 4, w // 4, c).mean((2, 4))
+        cls = np.argmax(pooled.reshape(n, -1) @ proj, 1)
+        return np.eye(SLICE["num_classes"], dtype=np.float32)[cls]
+    return label
+
+
+class _Publisher:
+    """A thread publishing labelled slice-model batches: to ``topic``
+    while fewer than 6 wait unconsumed in ``stream``, and to
+    ``cli_topic`` at most every 0.2 s."""
+
+    def __init__(self, transport, topic, stream, cli_topic):
+        import numpy as np
+        from deeplearning4j_tpu_torch.online import publish_samples
+        self.published = 0
+        self._stop = threading.Event()
+        label, rng = online_labels(), np.random.default_rng(ONLINE_SEED)
+
+        def run():
+            t_cli = 0.0
+            while not self._stop.is_set():
+                x = _pixels(rng, ONLINE_BATCH)
+                if self.published - stream.batches_consumed < 6:
+                    publish_samples(transport, topic, x, label(x))
+                    self.published += 1
+                if time.perf_counter() - t_cli > 0.2:
+                    publish_samples(transport, cli_topic, x, label(x))
+                    t_cli = time.perf_counter()
+                self._stop.wait(0.005)
+        self._t = threading.Thread(target=run, daemon=True,
+                                   name="online-publisher")
+        self._t.start()
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(10)
+
+
+def _by_thread(fc):
+    """Wrap ``fc._count`` so each launch is also tallied by the kind of
+    thread that made it: the learner (its forward), autograd's device
+    thread (the backward of a step: PyTorch runs a CUDA backward on a
+    worker thread of its own, and only the learner runs one here), the
+    serving dispatcher, the scorer on this thread; the global counters
+    are unchanged. Returns (tallies, restore)."""
+    import collections
+    real = fc._count
+    tallies = {"learner": collections.Counter(),
+               "learner_backward": collections.Counter(),
+               "serving": collections.Counter(),
+               "scoring": collections.Counter()}
+    main = threading.current_thread()
+
+    def counted(name):
+        real(name)
+        t = threading.current_thread()
+        if t.name == "online-learner":
+            tallies["learner"][name] += 1
+        elif t.name.startswith("serving-dispatch"):
+            tallies["serving"][name] += 1
+        elif t is main:
+            tallies["scoring"][name] += 1
+        else:
+            tallies["learner_backward"][name] += 1
+    fc._count = counted
+
+    def restore():
+        fc._count = real
+    return tallies, restore
+
+
+def _trees_bitwise(a, b):
+    import torch
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    fa, fb = flatten_paths(a), flatten_paths(b)
+    return set(fa) == set(fb) and all(
+        torch.equal(fa[k].cpu(), torch.as_tensor(fb[k]).cpu()) for k in fa)
+
+
+def _online_cli(zip_path, port):
+    """``serve --online`` on the model's zip, fed from ``port``."""
+    return _ServeProcess(
+        ["--model", zip_path, "--warmup-shape", *map(str, _image_shape()),
+         "--batch-limit", str(ONLINE_BATCH), "--ui-port", "0", "--online",
+         "--stream-endpoint", f"127.0.0.1:{port}", "--stream-topic",
+         ONLINE_CLI_TOPIC, "--holdout-every", str(ONLINE_HOLDOUT_EVERY),
+         "--holdout-max", str(ONLINE_HOLDOUT_MAX),
+         "--promote-interval-s", "3600"], last="online:")
+
+
+def _online_cli_gates(cli, out):
+    """Gate 4: the subprocess answers predict, stats, promote and
+    rollback; its learner is alive, its iterations rise, the promotion
+    is counted."""
+    import numpy as np
+    url = cli.wait_ready(ONLINE_DEADLINE_S)
+    x = _pixels(np.random.default_rng(5), 2)
+    code, ans, n, _ = _predict(url, x)
+    if code != 200 or ans.shape != (2, SLICE["num_classes"]) or n != 2:
+        raise AssertionError(f"serve --online predict answered {code}")
+    first, deadline = None, time.perf_counter() + ONLINE_DEADLINE_S
+    while True:
+        code, _, st = _http(url + "/api/online/stats")
+        it = st["learner"]["iterations"]
+        if code != 200 or not st["learner"]["alive"]:
+            raise AssertionError(f"serve --online's learner is not alive: "
+                                 f"{st}")
+        first = it if first is None else first
+        if it > first and st["stream"]["holdout_examples"] > 0:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"serve --online's learner does not "
+                                 f"advance: {st}")
+        time.sleep(0.2)
+    code, _, d = _http(url + "/api/online/promote", {"force": True})
+    if code != 200 or not d["promoted"]:
+        raise AssertionError(f"serve --online promote answered {code}: {d}")
+    code, _, st2 = _http(url + "/api/online/stats")
+    if (st2["promotion"]["promotions"] != 1 or not st2["learner"]["alive"]
+            or st2["learner"]["iterations"] < it):
+        raise AssertionError(f"serve --online stats after the promotion: "
+                             f"{st2}")
+    code, _, rb = _http(url + "/api/online/rollback", {})
+    if code != 200 or rb["active_version"] != "v0":
+        raise AssertionError(f"serve --online rollback answered {code}: "
+                             f"{rb}")
+    out["cli"] = {"iterations": [first, it, st2["learner"]["iterations"]],
+                  "promotion": d["version"], "score_s": d["score_seconds"]}
+    log(f"  serve --online: predict 200, learner iterations {first} -> "
+        f"{st2['learner']['iterations']}, promote {d['version']} "
+        f"(forced, {d['score_seconds']:.2f}s), rollback to "
+        f"{rb['active_version']}")
+
+
+def _conv_listener(out, card):
+    """Gate 5: ConvolutionalListener on a LeNet fit of the committed
+    digits on the card; its PNGs decode to the CPU listener's grids
+    (same parameters, same example) within one gray level."""
+    import base64
+    import zlib
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.ui.convolutional import \
+        ConvolutionalListener
+    from deeplearning4j_tpu_torch.ui.storage import InMemoryStatsStorage
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+
+    def gray(b64):
+        raw = base64.b64decode(b64)
+        pos, w, h, idat = 8, 0, 0, b""
+        while pos < len(raw):
+            n = int.from_bytes(raw[pos:pos + 4], "big")
+            tag, body = raw[pos + 4:pos + 8], raw[pos + 8:pos + 8 + n]
+            if tag == b"IHDR":
+                w, h = int.from_bytes(body[:4], "big"), \
+                    int.from_bytes(body[4:8], "big")
+            elif tag == b"IDAT":
+                idat += body
+            pos += 12 + n
+        img = np.frombuffer(zlib.decompress(idat), np.uint8)
+        return img.reshape(h, w + 1)[:, 1:].astype(int)
+
+    x, y = _all_digits()
+    model = LeNet().init_pretrained(flavor="digits")      # on the card
+    storage = InMemoryStatsStorage()
+    listener = ConvolutionalListener(storage, "conv", frequency=1)
+    listener.set_example(x[:1])
+    model.set_listeners(listener)
+    for i in range(CONV_FIT_STEPS):
+        sl = slice(64 * i, 64 * (i + 1))
+        model.fit(DataSet(x[sl], np.eye(10, dtype=np.float32)[y[sl]]))
+    card_ups = [u for u in storage.get_all_updates("conv")
+                if u.get("type") == "activations"]
+    cpu = LeNet().init_pretrained(flavor="digits", device="cpu")
+    cpu.set_params({k: {kk: v.cpu() for kk, v in d.items()}
+                    for k, d in model.params.items()},
+                   {k: {kk: v.cpu() for kk, v in d.items()}
+                    for k, d in model.model_state.items()})
+    cpu_storage = InMemoryStatsStorage()
+    ConvolutionalListener(cpu_storage, "conv", frequency=1).set_example(
+        x[:1]).iteration_done(cpu, model.iteration, 0, 0.0, 0.0, 64)
+    want = cpu_storage.get_all_updates("conv")[-1]["activations_png"]
+    got = card_ups[-1]["activations_png"]
+    worst = max(int(np.abs(gray(got[k]) - gray(want[k])).max())
+                for k in want)
+    log(f"  ConvolutionalListener: {len(card_ups)} activation updates over "
+        f"{CONV_FIT_STEPS} card steps, {len(got)} layers; the last against "
+        f"the CPU listener's grids: max {worst} gray level(s)")
+    if len(card_ups) != CONV_FIT_STEPS or list(got) != list(want) \
+            or worst > 1:
+        raise AssertionError("ConvolutionalListener on the card differs "
+                             "from the CPU's")
+    out["conv_listener"] = {"updates": len(card_ups), "layers": len(got),
+                            "max_gray_levels": worst}
+
+
+def phase_online(report, card):
+    """Online learning on the slice ResNet50 (module docstring, phase 23).
+    Returns the kernels' launches of its main path: the learner's,
+    the serving pool's and the scorer's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.serialization import (
+        flatten_paths, params_from_jax, save_model)
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.online import Candidate, OnlineServing
+    from deeplearning4j_tpu_torch.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.streaming.broker import TcpTransport
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "seconds": {}}
+    tmp = tempfile.TemporaryDirectory(prefix="online_")
+    broker = TcpTransport().serve()
+    model = ResNet50(**SLICE).init()           # cuda, seeded generator
+    params_from_jax(*nontrivial_bn(model, seed=ONLINE_SEED), model.device,
+                    model=model)
+    zip_path = os.path.join(tmp.name, "resnet50.zip")
+    save_model(model, zip_path)
+    cli = _online_cli(zip_path, broker.port)
+    online = publisher = None
+    stop_clients = threading.Event()
+    lat_ms, clients = [], []
+    restore = lambda: None
+    try:
+        online = OnlineServing(
+            model, TcpTransport(port=broker.port), topic="train",
+            model_name="resnet", feature_shape=_image_shape(),
+            batch_limit=ONLINE_BATCH, holdout_every=ONLINE_HOLDOUT_EVERY,
+            holdout_max=ONLINE_HOLDOUT_MAX, holdout_batch=ONLINE_BATCH,
+            registry=MetricsRegistry())
+        engine = online.pool.engines[0]
+        ptrs = [{t.data_ptr() for t in flatten_paths(tree).values()}
+                for tree in (model.params, online.promoter.eval_model.params,
+                             engine.model.params, engine._committed[0])]
+        if any(ptrs[i] & ptrs[j] for i in range(4) for j in range(i + 1, 4)):
+            raise AssertionError("the online model copies share storage")
+        out["seconds"]["setup"] = time.perf_counter() - t_phase
+
+        # ---- 1. the learner trains while requests are served
+        tallies, restore = _by_thread(fc)
+        fc.reset_launch_counts()
+        online.start(background_promotion=False)
+        publisher = _Publisher(TcpTransport(port=broker.port), "train",
+                               online.stream, cli_topic=ONLINE_CLI_TOPIC)
+
+        def client(seed):
+            rng = np.random.default_rng(seed)
+            while not stop_clients.is_set():
+                x = _pixels(rng, int(rng.integers(1, ONLINE_BATCH + 1)))
+                t0 = time.perf_counter()
+                online.output(x)
+                lat_ms.append((time.perf_counter() - t0) * 1e3)
+        clients = [threading.Thread(target=client, args=(s,), daemon=True)
+                   for s in (1, 2)]
+        t_learn = time.perf_counter()
+        it0 = online.learner.iterations
+        for th in clients:
+            th.start()
+        deadline = time.perf_counter() + ONLINE_DEADLINE_S
+        while (online.learner.iterations < ONLINE_MIN_STEPS
+               or online.stream.holdout_examples < ONLINE_BATCH):
+            if not online.learner.alive or time.perf_counter() > deadline:
+                raise AssertionError(f"the learner stalled: {online.stats()} "
+                                     f"{online.learner.error!r}")
+            time.sleep(0.05)
+        steps = online.learner.iterations - it0
+        learn_s = time.perf_counter() - t_learn
+        served = len(lat_ms)
+        q = _ms_quantiles(list(lat_ms))
+        out["learner_images_per_s"] = steps * ONLINE_BATCH / learn_s
+        out["serving_while_learning_ms"] = q
+        log(f"  learner: {steps} steps of {ONLINE_BATCH} in {learn_s:.1f}s "
+            f"while serving ({out['learner_images_per_s']:.1f} images/s); "
+            f"{served} requests of 1-{ONLINE_BATCH} images served meanwhile, "
+            f"p50 {q['p50']:.2f} ms, p99 {q['p99']:.2f} ms")
+
+        # ---- 2. a good promotion, committed bitwise from its snapshot
+        decision, snap = None, None
+        while decision is None or not decision.promoted:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"no promotion before the deadline: "
+                                     f"{decision}")
+            snap = online.learner.snapshot(timeout=10)
+            if snap is not None:
+                decision = online.promoter.run_once(candidate=snap)
+                log(f"  promotion at iteration {snap.iteration}: "
+                    f"{decision.reason} (candidate "
+                    f"{decision.candidate_score:.4f}, active "
+                    f"{decision.active_score:.4f}, scored in "
+                    f"{decision.score_seconds:.2f}s)")
+        stop_clients.set()
+        for th in clients:
+            th.join(30)
+        committed = engine.committed_host()
+        if not (_trees_bitwise(committed[0], snap.params)
+                and _trees_bitwise(committed[1], snap.model_state)):
+            raise AssertionError("the promoted params differ from the "
+                                 "candidate's snapshot")
+        x = _pixels(np.random.default_rng(6), 7)
+        served_x = online.output(x)
+        online.promoter._load_eval(snap.params, snap.model_state)
+        before = dict(tallies["scoring"])
+        direct = online.promoter.eval_model.output(x).float().cpu().numpy()
+        compared = {k: tallies["scoring"][k] - before.get(k, 0)
+                    for k in tallies["scoring"]}
+        serve_err = float(np.abs(served_x - direct).max())
+        log(f"  promoted {decision.version}: committed params bitwise the "
+            f"snapshot; a served batch of 7 against the snapshot's direct "
+            f"forward |diff| {serve_err:.3g} (bound {ONLINE_SERVE_TOL})")
+        if not np.isfinite(served_x).all() or serve_err > ONLINE_SERVE_TOL:
+            raise AssertionError("served answers differ from the snapshot's "
+                                 "forward")
+        out["promotion"] = {"iteration": snap.iteration,
+                            "candidate_score": decision.candidate_score,
+                            "active_score": decision.active_score,
+                            "score_seconds": decision.score_seconds,
+                            "served_vs_direct": serve_err}
+
+        # ---- 3. a degraded candidate, forced in and rolled back bitwise
+        pre = engine.committed_host()
+        bad_params = {k: {kk: v.clone() for kk, v in d.items()}
+                      for k, d in snap.params.items()}
+        bad_params["out"]["W"] *= ONLINE_DEGRADE
+        bad = Candidate(bad_params, snap.model_state, snap.iteration,
+                        snap.samples_seen, time.time())
+        forced = online.promoter.run_once(candidate=bad, force=True)
+        verdict = online.sentinel.check()
+        after = engine.committed_host()
+        log(f"  degraded candidate (output W x{ONLINE_DEGRADE}): "
+            f"{forced.reason} at score {forced.candidate_score:.4f}; "
+            f"sentinel {verdict!r}; active version "
+            f"{online.pool.active_version}")
+        if not forced.promoted or verdict not in ("score", "nan") \
+                or not _trees_bitwise(after[0], pre[0]) \
+                or not _trees_bitwise(after[1], pre[1]):
+            raise AssertionError("the degraded candidate was not rolled "
+                                 "back to the pre-swap params bitwise")
+        online.router.assert_warm()
+        out["rollback"] = {"forced_score": forced.candidate_score,
+                           "verdict": verdict}
+        restore()
+        # the main path's launches, less the comparison forward's
+        launches = {k: fc.LAUNCHES[k] - compared.get(k, 0)
+                    for k in fc.LAUNCHES}
+        tallies["scoring"].subtract(compared)
+        out["launches"] = {k: dict(v) for k, v in tallies.items()}
+        log(f"  launches by thread: "
+            f"{ {k: dict(v) for k, v in tallies.items()} }")
+        trained = tallies["learner"] + tallies["learner_backward"]
+        if (any(trained[k] == 0 for k in fc.LAUNCHES)
+                or any(tallies[w][k] == 0 for w in ("learner", "serving",
+                                                    "scoring")
+                       for k in FORWARD)):
+            raise AssertionError("kernels 1-6 did not all launch in the "
+                                 "learner, or 1-2 in serving and scoring")
+        online.stop()
+        online = None
+        out["seconds"]["in_process"] = time.perf_counter() - t_phase
+
+        # ---- 4. serve --online in a subprocess (the publisher feeds its
+        # topic still; the stopped learner's backlog holds the other)
+        t0 = time.perf_counter()
+        _online_cli_gates(cli, out)
+        out["seconds"]["cli"] = time.perf_counter() - t0
+
+        # ---- 5. ConvolutionalListener on the card
+        t0 = time.perf_counter()
+        _conv_listener(out, card)
+        out["seconds"]["conv_listener"] = time.perf_counter() - t0
+    finally:
+        restore()
+        stop_clients.set()
+        if publisher is not None:
+            publisher.stop()
+        if online is not None:
+            online.stop()
+        cli.stop()
+        broker.close()
+        tmp.cleanup()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    report["online"] = out
+    return launches
+
+
+# ---- phase 24: the persisted kernel cache --------------------------------
+
+AOT_KEY = "resnet50"
+AOT_SHAPE_OTHER = (32, 32, 3)     # another feature shape: a named mismatch
+# the subprocesses' own code: BUILD_DIR at their own empty directory
+# before the first kernel call, cuDNN deterministic, then an engine (or a
+# serve --join node) over the model's zip with the store's cache dir
+AOT_CHILD = r'''
+import json, sys, time
+from pathlib import Path
+spec = json.loads(sys.argv[1])
+import numpy as np
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from deeplearning4j_tpu_torch.ops import cuda_build
+cuda_build.BUILD_DIR = Path(spec["build_dir"])
+if spec["mode"] == "node":
+    from deeplearning4j_tpu_torch.__main__ import cmd_serve
+    node, server = cmd_serve(["serve", *spec["args"]], block=False)
+    node.router.assert_warm()
+    eng = node.router.pool(spec["name"]).engines[0]
+    print(json.dumps({"warm": True, "url": node.url,
+                      "build_log": sorted(cuda_build.build_log),
+                      "aot": eng.stats()["aot_cache"]}), flush=True)
+    time.sleep(600)
+from deeplearning4j_tpu_torch.models.serialization import restore_model
+from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+model = restore_model(spec["zip"], device=spec["device"])
+eng = ServingEngine(model, batch_limit=32, feature_shape=tuple(spec["shape"]),
+                    precision="bf16", model_version="v1",
+                    aot_cache_dir=spec["cache_dir"])
+eng.assert_warm()
+print(json.dumps({"warm": True}), flush=True)
+x = np.load(spec["x"])
+if x.shape[1:] == tuple(spec["shape"]):
+    np.save(spec["out"], eng.output(x))
+stats = eng.stats()["aot_cache"]
+eng.shutdown()
+print(json.dumps({"build_log": sorted(cuda_build.build_log), "aot": stats,
+                  "nvcc_s": {k: v[0] for k, v in cuda_build.build_log.items()}}),
+      flush=True)
+'''
+
+
+class _AotChild:
+    """One AOT_CHILD subprocess; its JSON lines read in a thread, the
+    seconds from its spawn to its warm line recorded."""
+
+    def __init__(self, spec):
+        self.lines, self.json = [], []
+        self.warm_s = None
+        self._warm = threading.Event()
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", AOT_CHILD, json.dumps(spec)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if line.startswith("{"):
+                doc = json.loads(line)
+                self.json.append(doc)
+                if doc.get("warm") and self.warm_s is None:
+                    self.warm_s = time.perf_counter() - self._t0
+                    self._warm.set()
+        self._warm.set()
+
+    def wait_warm(self, timeout=300):
+        if not self._warm.wait(timeout) or self.warm_s is None:
+            raise AssertionError("a cache subprocess did not warm up: "
+                                 + " | ".join(self.lines[-20:]))
+        return self.json[0]
+
+    def result(self, timeout=300):
+        self.proc.wait(timeout)
+        self._t.join(10)
+        if self.proc.returncode != 0:
+            raise AssertionError("a cache subprocess failed: "
+                                 + " | ".join(self.lines[-20:]))
+        return self.json[-1]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._t.join(10)
+
+
+def phase_aot_cache(report, card):
+    """The persisted kernel cache across fresh processes (module
+    docstring, phase 24). Its kernels launch in subprocesses, outside
+    this process's counters."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.serialization import (
+        params_from_jax, save_model)
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "seconds": {}}
+    tmp = tempfile.TemporaryDirectory(prefix="aot_")
+    root = tmp.name
+    model = ResNet50(**SLICE).init()
+    params_from_jax(*nontrivial_bn(model, seed=24), model.device, model=model)
+    zip_path = os.path.join(root, "resnet50.zip")
+    save_model(model, zip_path)
+    del model
+    store = ArtifactStore(os.path.join(root, "store"))
+    key_dir = store.cache_dir(AOT_KEY)
+    x_path = os.path.join(root, "x.npy")
+    np.save(x_path, _pixels(np.random.default_rng(24), 7))
+
+    def spec(name, shape=_image_shape(), cache_dir=key_dir):
+        return {"mode": "engine", "device": "cuda", "zip": zip_path,
+                "shape": list(shape),
+                "cache_dir": cache_dir, "x": x_path,
+                "out": os.path.join(root, f"{name}.npy"),
+                "build_dir": os.path.join(root, f"kernels-{name}")}
+    children = []
+    try:
+        # ---- cold: builds both forward libraries, then saves them
+        cold = _AotChild(spec("cold"))
+        children.append(cold)
+        cold.wait_warm()
+        got = cold.result()
+        want = np.load(os.path.join(root, "cold.npy"))
+        log(f"  cold process: spawn to assert_warm {cold.warm_s:.2f}s; "
+            f"nvcc built {got['build_log']} "
+            f"({ {k: round(v, 2) for k, v in got['nvcc_s'].items()} } s); "
+            f"cache {got['aot']['state']}, saved {got['aot']['saved']}")
+        if sorted(got["build_log"]) != sorted(FORWARD) \
+                or got["aot"]["state"] != "cold" \
+                or got["aot"]["saved"] != len(FORWARD):
+            raise AssertionError(f"the cold process did not build and save "
+                                 f"the forward libraries: {got}")
+        out["cold"] = {"spawn_to_warm_s": cold.warm_s, **got}
+
+        # ---- beside each other: a warm serve --join node on the store;
+        # a run with another feature shape, and a run with one blob
+        # corrupted, each on a copy of the key's directory
+        other_dir = os.path.join(root, "other")
+        shutil.copytree(key_dir, other_dir)
+        bad_dir = os.path.join(root, "corrupted")
+        shutil.copytree(key_dir, bad_dir)
+        blob = os.path.join(bad_dir, cuda_build.library_path(
+            "fused_c3").name)
+        with open(blob, "r+b") as f:
+            f.seek(4096)
+            b = f.read(1)
+            f.seek(4096)
+            f.write(bytes([b[0] ^ 0xFF]))
+        mismatch = _AotChild(spec("mismatch", AOT_SHAPE_OTHER, other_dir))
+        children.append(mismatch)
+        corrupt = _AotChild(spec("corrupt", cache_dir=bad_dir))
+        children.append(corrupt)
+        name = os.path.splitext(os.path.basename(zip_path))[0]
+        node = _AotChild({
+            "mode": "node", "name": name,
+            "build_dir": os.path.join(root, "kernels-warm"),
+            "args": ["--model", zip_path, "--bf16", "--warmup-shape",
+                     *map(str, _image_shape()), "--batch-limit", "32",
+                     "--ui-port", "0", "--join", os.path.join(root, "reg"),
+                     "--node-id", "warm", "--artifact-store",
+                     str(store.root), "--model-key", AOT_KEY,
+                     "--device", "cuda"]})
+        children.append(node)
+        doc = node.wait_warm()
+        code, ans, n, _ = _predict(doc["url"], np.load(x_path))
+        node_equal = code == 200 and np.array_equal(ans, want)
+        log(f"  warm serve --join node: spawn to assert_warm "
+            f"{node.warm_s:.2f}s; nvcc ran for {doc['build_log']}; cache "
+            f"{doc['aot']['state']}, {doc['aot']['hits']} libraries "
+            f"restored; its answer bitwise the cold process's {node_equal}")
+        if doc["build_log"] or doc["aot"]["state"] != "warm" \
+                or doc["aot"]["hits"] != len(FORWARD) or not node_equal:
+            raise AssertionError(f"the warm node: {doc}, answer {code}")
+        node.stop()
+        out["warm"] = {"spawn_to_warm_s": node.warm_s, **doc}
+
+        mismatch.wait_warm()
+        got = mismatch.result()
+        log(f"  feature shape {AOT_SHAPE_OTHER}: cache "
+            f"{got['aot']['state']} ({got['aot']['reason']}); nvcc built "
+            f"{got['build_log']}")
+        if got["aot"]["state"] != "mismatch" \
+                or "'serving.feature_shape'" not in got["aot"]["reason"] \
+                or sorted(got["build_log"]) != sorted(FORWARD):
+            raise AssertionError(f"the mismatched run: {got}")
+        out["mismatch"] = got
+
+        corrupt.wait_warm()
+        got = corrupt.result()
+        again = np.load(os.path.join(root, "corrupt.npy"))
+        log(f"  corrupted fused_c3 blob: cache {got['aot']['state']} "
+            f"({got['aot']['reason']}), quarantined "
+            f"{got['aot']['quarantined']}, restored {got['aot']['libraries']}"
+            f", nvcc rebuilt {got['build_log']}, republished "
+            f"{os.path.exists(blob)}; answer bitwise the cold one "
+            f"{np.array_equal(again, want)}")
+        if got["aot"]["quarantined"] != 1 \
+                or got["build_log"] != ["fused_c3"] \
+                or not os.path.exists(blob + ".quarantine") \
+                or not os.path.exists(blob) \
+                or not np.array_equal(again, want):
+            raise AssertionError(f"the corrupted blob: {got}")
+        out["corrupt"] = got
+    finally:
+        for c in children:
+            c.stop()
+        tmp.cleanup()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    report["aot_cache"] = out
+
+
 def main(argv=None) -> int:
     global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8260,7 +8947,8 @@ def main(argv=None) -> int:
                     "lstm_serve,lstm_train,bert_serve,bert_train,"
                     "digits_eval,digits_train,generate,serve_http,"
                     "rnn_tbptt,zoo,keras_import,observed_fit,quant_serve,"
-                    "model_library,cluster,neighbors,embeddings",
+                    "model_library,cluster,neighbors,embeddings,online,"
+                    "aot_cache",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -8470,6 +9158,17 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         "planted topics; ParagraphVectors DBOW/DM; GloVe; DeepWalk and "
         "Node2Vec; save/restore. No launch of the eleven kernels",
         lambda: phase_embeddings(report, card))
+    run("online", "online learning on the ResNet50 64x64x3/200 bf16: "
+        f"OnlineServing over a TCP broker, batch {ONLINE_BATCH}, the learner "
+        "(kernels 1-6) training while the pool (1-2) serves; a good "
+        "promotion, a degraded one rolled back, serve --online in a "
+        "subprocess, ConvolutionalListener on LeNet",
+        lambda: phase_online(report, card))
+    # the cache's kernels launch in its subprocesses, outside the counters
+    run("aot_cache", "the persisted kernel cache: cold and warm processes "
+        "on the ResNet50 engine (a serve --join node warm from the store), "
+        "another feature shape, a corrupted blob",
+        lambda: phase_aot_cache(report, card))
 
     kernels = []
     for name, k in summary.items():

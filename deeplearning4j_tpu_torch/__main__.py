@@ -14,7 +14,14 @@ it heartbeats into the registry directory, answers a RemoteDispatcher,
 and SIGTERM drains it (finish in-flight, deregister, exit 0).
 ``--neighbors-index KEY --artifact-store DIR`` serves a saved retrieval
 index instead of a model (``POST /api/neighbors``; with ``--join`` as a
-RetrievalNode gossiping its shards).
+RetrievalNode gossiping its shards). ``--online --stream-endpoint
+HOST:PORT`` trains the restored model off a broker topic while a clone
+serves (online/), with ``GET /api/online/stats`` and ``POST
+/api/online/promote|rollback``. ``--artifact-store`` auto-discovers a
+measured tuned config (``--tuned-config KEY`` names its key,
+``--no-tuned`` skips it), and ``--aot-cache-dir`` (or a node's artifact
+store) persists the built kernel libraries so a fresh process runs no
+``nvcc``.
 
 The parser is the JAX package's (``python -m deeplearning4j_tpu``) with
 every flag, so its command lines parse unchanged, plus ``--device``
@@ -32,20 +39,9 @@ import time
 from typing import List, Optional
 
 # dest of each flag whose machinery is not ported -> (what, ROADMAP item)
-_TUNED = ("measured tuned configs from an artifact store (TunedConfig)",
-          16)
-_ONLINE = ("online learning (online/)", 16)
 _NOT_PORTED = {
-    "aot_cache_dir": ("the persisted AOT executable cache", 12),
     "no_pipeline": ("the blocking dispatcher (an A/B arm of the "
                     "pipelined one)", 12),
-    "tuned_config": _TUNED, "no_tuned": _TUNED,
-    "online": _ONLINE, "stream_endpoint": _ONLINE, "stream_topic": _ONLINE,
-    "promote_interval_s": _ONLINE, "min_delta": _ONLINE,
-    "score_budget_s": _ONLINE, "rollback_p99_factor": _ONLINE,
-    "rollback_p99_floor_ms": _ONLINE, "rollback_score_delta": _ONLINE,
-    "sentinel_window_s": _ONLINE, "holdout_every": _ONLINE,
-    "holdout_max": _ONLINE,
 }
 
 
@@ -70,7 +66,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    "visible card; one card is ported) (reference: "
                    "--workers)")
     s.add_argument("--batch-limit", type=int, default=None,
-                   help="max examples per device batch (default 32)")
+                   help="max examples per device batch (default: the "
+                   "tuned-config value when one loads, else 32)")
     s.add_argument("--queue-limit", type=int, default=128,
                    help="bound on queued request chunks")
     s.add_argument("--timeout-ms", type=float, default=5.0,
@@ -96,10 +93,10 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--dtype", default="float32",
                    help="request feature dtype")
     s.add_argument("--aot-cache-dir", default=None, metavar="DIR",
-                   help="persist the warmed AOT executable table here; "
-                   "a fresh process reaches assert_warm() in a "
-                   "fraction of the warmup sweep (falls through to "
-                   "live compile on any fingerprint mismatch)")
+                   help="persist the built kernel libraries the served "
+                   "forward reaches here; a fresh process restores them "
+                   "and runs no nvcc (falls through to a live build on "
+                   "any fingerprint mismatch)")
     s.add_argument("--slo-ms", type=float, default=None, metavar="MS",
                    help="serve behind the fleet front door with this "
                    "p99 SLO: admission control + windowed-p99 shedding "
@@ -232,7 +229,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="continuous-batching slot count: concurrent "
                    "sequences decoding in one device batch; the "
                    "warmup sweeps the pow2 bucket ladder up to this "
-                   "(default 8)")
+                   "(default: the tuned-config value when one loads, "
+                   "else 8)")
     g.add_argument("--gen-max-new", type=int, default=256, metavar="N",
                    help="default per-request max generated tokens")
     g.add_argument("--gen-precision", default="f32",
@@ -251,7 +249,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    metavar="C",
                    help="chunked prefill: consume prompts in dispatches "
                    "of up to C tokens (pow2 ladder, warmed) instead of "
-                   "one tick per char; 0 disables (default 0)")
+                   "one tick per char; 0 disables (default: the "
+                   "tuned-config value when one loads, else 0)")
     g.add_argument("--gen-speculative", type=int, default=0,
                    metavar="K",
                    help="speculative decode: n-gram draft proposes up "
@@ -295,23 +294,38 @@ def _refuse_unported(args) -> None:
                 f"(ROADMAP.md, queue 1 item {item})")
 
 
-def _refuse_tuned_store(args) -> None:
-    """The JAX CLI loads a measured TunedConfig it finds under the
-    default key of ``--artifact-store``; the port cannot, and must not
-    serve on without it silently. A store without one goes on, as the
-    JAX CLI falls through to the committed defaults."""
-    from deeplearning4j_tpu_torch.optimize.autotune import (
-        TUNED_KEY, TUNED_MANIFEST)
-    if args.artifact_store is None:
-        return
-    path = os.path.join(args.artifact_store, "objects", TUNED_KEY,
-                        TUNED_MANIFEST)
-    if os.path.exists(path):
-        raise SystemExit(
-            f"serve: --artifact-store {args.artifact_store} holds a tuned "
-            f"config ({path}); loading it needs measured tuned configs "
-            "(TunedConfig), which are not ported yet (ROADMAP.md, queue 1 "
-            "item 16)")
+def _load_tuned_for_serve(args):
+    """Resolve the machine-measured TunedConfig for this serve process.
+
+    With ``--artifact-store`` the tuned artifact is auto-discovered
+    under the default key; ``--tuned-config [KEY]`` names another key,
+    and ``--no-tuned`` skips it. The loaded (or fallen-through) config
+    installs process-wide, so every engine built below — serving pools,
+    generation, retrieval, the device feeder — resolves its un-flagged
+    knobs from it. The expectation is machine-level (no weights
+    binding): a config measured on this device with this torch and CUDA
+    applies to whatever model this node serves; any fingerprint-field
+    mismatch (a config the JAX package wrote included) means the
+    committed defaults."""
+    if args.artifact_store is None or args.no_tuned:
+        return None
+    from deeplearning4j_tpu_torch.observe.flight_recorder import (
+        default_flight_recorder)
+    from deeplearning4j_tpu_torch.optimize import autotune
+    from deeplearning4j_tpu_torch.parallel.aot_cache import ArtifactStore
+    cfg = autotune.load_tuned(
+        ArtifactStore(args.artifact_store),
+        expect=autotune.fingerprint(device=args.device),
+        key=args.tuned_config or autotune.TUNED_KEY,
+        recorder=default_flight_recorder())
+    autotune.set_process_tuned(cfg)
+    if cfg.load_outcome == "loaded":
+        print(f"tuned config: loaded {sorted(cfg.values)} from "
+              f"{args.artifact_store}")
+    else:
+        print(f"tuned config: {cfg.load_outcome} "
+              f"({cfg.load_reason}) — committed defaults in effect")
+    return cfg
 
 
 def _wait(args) -> None:
@@ -329,13 +343,12 @@ def cmd_serve(args, block: bool = True):
     """Start engine + UI server. ``args`` is the parsed namespace or an
     argument list (``["serve", "--model", ...]``). ``block=False``
     returns ``(front, server)`` for in-process use (tests, notebooks) —
-    front is the ParallelInference facade, or the FleetRouter when
-    ``--slo-ms`` puts the fleet front door up. Both expose
-    ``shutdown()``."""
+    front is the ParallelInference facade, the FleetRouter when
+    ``--slo-ms`` puts the fleet front door up, or the OnlineServing
+    runtime with ``--online``. Each exposes ``shutdown()``."""
     if not isinstance(args, argparse.Namespace):
         args = _build_parser().parse_args(list(args))
     _refuse_unported(args)
-    _refuse_tuned_store(args)
     if not args.model and not args.neighbors_index:
         raise SystemExit("--model is required (or --neighbors-index to "
                          "serve a retrieval index)")
@@ -345,6 +358,9 @@ def cmd_serve(args, block: bool = True):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device is available; pass "
                          "--device cpu to serve on the CPU explicitly")
+    # the measured tuned config (auto-discovered from --artifact-store)
+    # installs process-wide before any engine is built
+    tuned = _load_tuned_for_serve(args)
     if args.neighbors_index:
         return _cmd_serve_neighbors(args, block)
 
@@ -357,14 +373,14 @@ def cmd_serve(args, block: bool = True):
         FleetModule, ServingModule)
     from deeplearning4j_tpu_torch.ui.storage import InMemoryStatsStorage
 
-    # un-flagged knobs resolve to the committed defaults here, so every
+    # un-flagged knobs resolve through the tuned config here, so every
     # construction and banner below sees real values
-    args.batch_limit = int(resolve_tuned(args.batch_limit, None,
+    args.batch_limit = int(resolve_tuned(args.batch_limit, tuned,
                                          "serving.batch_limit"))
-    args.gen_slots = int(resolve_tuned(args.gen_slots, None,
+    args.gen_slots = int(resolve_tuned(args.gen_slots, tuned,
                                        "generation.max_slots"))
     args.gen_prefill_chunk = int(resolve_tuned(
-        args.gen_prefill_chunk, None, "generation.prefill_chunk"))
+        args.gen_prefill_chunk, tuned, "generation.prefill_chunk"))
     model = restore_model(args.model, device=args.device)
     replicas = args.replicas if args.replicas == "auto" \
         else int(args.replicas)
@@ -374,7 +390,7 @@ def cmd_serve(args, block: bool = True):
         kwargs = dict(
             replicas=replicas, depth=args.depth,
             precision="bf16" if args.bf16 else "f32",
-            dtype=np.dtype(args.dtype),
+            dtype=np.dtype(args.dtype), aot_cache_dir=args.aot_cache_dir,
             feature_shape=(tuple(args.warmup_shape)
                            if args.warmup_shape else None))
     name = os.path.splitext(os.path.basename(args.model))[0] or "default"
@@ -382,7 +398,13 @@ def cmd_serve(args, block: bool = True):
         return _serve_node(args, model, name, replicas, mode, kwargs, block)
 
     fleet = None
-    if args.slo_ms is not None and mode == InferenceMode.BATCHED:
+    online = None
+    if args.online:
+        online = _serve_online(args, model, name, mode, kwargs)
+        fleet = online.router
+        engine = online.pool.engines[0]
+        front = online
+    elif args.slo_ms is not None and mode == InferenceMode.BATCHED:
         # fleet front door: admission control + SLO shedding wrap the
         # engine; the pool is named after the model file
         from deeplearning4j_tpu_torch.parallel.fleet import FleetRouter
@@ -450,6 +472,9 @@ def cmd_serve(args, block: bool = True):
         # the route merge; ServingModule keeps /api/serving/stats live
         server.register_module(FleetModule(fleet))
     server.register_module(ServingModule(engine))
+    if online is not None:
+        from deeplearning4j_tpu_torch.ui.online_module import OnlineModule
+        server.register_module(OnlineModule(online))
     if gen_engine is not None:
         from deeplearning4j_tpu_torch.ui.generation_module import (
             GenerationModule)
@@ -461,8 +486,9 @@ def cmd_serve(args, block: bool = True):
     print(f"serving {args.model} at {server.url} "
           f"(mode={mode.value}, replicas={replicas}, "
           f"batch_limit={args.batch_limit}"
-          + (f", slo={args.slo_ms}ms" if fleet is not None else "")
-          + ")")
+          + (f", slo={args.slo_ms}ms" if args.slo_ms is not None else "")
+          + (f", aot_cache={args.aot_cache_dir}"
+             if args.aot_cache_dir else "") + ")")
     print(f"  metrics:  {server.url}/metrics")
     print(f"  health:   {server.url}/healthz")
     print(f"  predict:  POST {server.url}/api/predict "
@@ -471,6 +497,9 @@ def cmd_serve(args, block: bool = True):
     if fleet is not None:
         print(f"  fleet:    GET  {server.url}/api/fleet/stats, "
               f"POST {server.url}/api/fleet/swap|rollback")
+    if online is not None:
+        print(f"  online:   GET  {server.url}/api/online/stats, "
+              f"POST {server.url}/api/online/promote|rollback")
     if gen_engine is not None:
         print(f"  generate: POST {server.url}/api/generate "
               '{"prompt": "...", "stream": true}  (SSE token stream, '
@@ -499,6 +528,37 @@ def cmd_serve(args, block: bool = True):
             gen_engine.shutdown()
         server.stop()
     return 0
+
+
+def _serve_online(args, model, name, mode, kwargs):
+    """``--online``: train-and-serve in one process (online/runtime.py):
+    the restored model trains off the broker topic at
+    ``--stream-endpoint`` while a clone serves behind the fleet front
+    door, with holdout-gated promotion and the regression sentinel."""
+    from deeplearning4j_tpu_torch.online import OnlineServing
+    from deeplearning4j_tpu_torch.parallel.inference import InferenceMode
+    from deeplearning4j_tpu_torch.streaming.broker import TcpTransport
+    if mode != InferenceMode.BATCHED:
+        raise SystemExit("--online requires --inference-mode batched")
+    if args.stream_endpoint is None:
+        raise SystemExit("--online requires --stream-endpoint HOST:PORT")
+    host, _, port = args.stream_endpoint.rpartition(":")
+    transport = TcpTransport(host or "127.0.0.1", int(port))
+    kw = {k: v for k, v in kwargs.items() if k != "feature_shape"}
+    online = OnlineServing(
+        model, transport, topic=args.stream_topic, model_name=name,
+        feature_shape=kwargs.get("feature_shape"),
+        batch_limit=args.batch_limit, queue_limit=args.queue_limit,
+        timeout_ms=args.timeout_ms, slo_ms=args.slo_ms,
+        promote_interval_s=args.promote_interval_s,
+        min_delta=args.min_delta, score_budget_s=args.score_budget_s,
+        rollback_p99_factor=args.rollback_p99_factor,
+        rollback_p99_floor_s=args.rollback_p99_floor_ms / 1000.0,
+        rollback_score_delta=args.rollback_score_delta,
+        sentinel_window_s=args.sentinel_window_s,
+        holdout_every=args.holdout_every, holdout_max=args.holdout_max,
+        **kw)
+    return online.start()
 
 
 def _block_then(args, stop) -> int:

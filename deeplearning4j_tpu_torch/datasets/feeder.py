@@ -233,7 +233,8 @@ class DeviceFeeder:
     device : the model's device, resolved as every entry point resolves
         it (``None`` means ``cuda``, which needs a card); ``cuda`` stages
         through pinned slots and a side stream, ``cpu`` stages nothing
-    depth : staged batches held ahead of the consumer (default 2)
+    depth : staged batches held ahead of the consumer (default: the
+        installed tuned config's ``feeder.depth``, else 2)
     byte_budget : optional soft cap on staged bytes; refill stops above
         it (at least one item is always staged)
     k_steps : >1 groups K batches into one stacked (K, B, ...) item for
@@ -262,7 +263,14 @@ class DeviceFeeder:
                  = None,
                  group_remainder: str = "split", transport=None,
                  tracer=None, registry=None, session_id: str = "train"):
-        depth = DEFAULT_DEPTH if depth is None else int(depth)
+        if depth is None:
+            # built directly (fit() resolves its own): the installed
+            # process TunedConfig's depth, else the committed double buffer
+            from deeplearning4j_tpu_torch.optimize.autotune import (
+                tuned_value)
+            tuned = tuned_value("feeder.depth")
+            depth = DEFAULT_DEPTH if tuned is None else int(tuned)
+        depth = int(depth)
         if depth < 1:
             raise ValueError("feeder depth must be >= 1")
         if k_steps < 1:

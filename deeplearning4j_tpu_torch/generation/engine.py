@@ -275,9 +275,9 @@ class GenerationEngine:
                  sampling: Optional[str] = None,
                  session_store=None,
                  tuned_config=None):
-        # explicit kwargs > committed defaults (a tuned config raises:
-        # the port cannot build one yet); the slot ladder, resize pairs
-        # and chunk ladder of the warm set all derive from them
+        # explicit kwargs > tuned config (this engine's, else the
+        # process-wide one) > committed defaults; the slot ladder, resize
+        # pairs and chunk ladder of the warm set all derive from them
         from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
         max_slots = int(resolve_tuned(max_slots, tuned_config,
                                       "generation.max_slots"))

@@ -19,8 +19,11 @@ each batch's predictions to the host once and accumulate them in the
 numpy evaluation classes (evaluation/evaluation.py). ``score`` and
 ``compute_loss`` read the loss. The iteration count is a host int,
 advanced by each step (the JAX package's host mirror of its device
-scalar). The port has no autotune, so ``k_steps`` and ``prefetch`` are
-the caller's or the defaults (1 and ``feeder.DEFAULT_DEPTH``).
+scalar). ``k_steps`` and ``prefetch`` left at None take the tuned
+``fit.k_steps`` and ``feeder.depth`` of an installed process
+``TunedConfig`` (optimize/autotune.py), else the defaults (1 and
+``feeder.DEFAULT_DEPTH``); an explicit argument wins, and a tuned k the
+feeder cannot serve degrades to 1 where an explicit one raises.
 ``conf_global`` is the configuration's global part and ``clone`` a
 copy that trains on independently (``_clone_into``).
 
@@ -58,6 +61,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 from deeplearning4j_tpu_torch.observe.flight_recorder import \
     default_flight_recorder
 from deeplearning4j_tpu_torch.observe.tracer import get_tracer
+from deeplearning4j_tpu_torch.optimize.autotune import tuned_value
 from deeplearning4j_tpu_torch.optimize.solver import (TrainState,
                                                       make_constrain_fn,
                                                       make_tbptt_train_step)
@@ -263,17 +267,30 @@ class BaseModel:
             self._fit_batch(data)
             return self
         iterator = data
+        # left at None, k_steps and prefetch take the installed process
+        # TunedConfig's values, else the committed defaults
+        k_tuned = False
+        if k_steps is None:
+            k_steps = tuned_value("fit.k_steps")
+            k_tuned = k_steps is not None
         k = 1 if k_steps is None else int(k_steps)
         if k < 1:
             raise ValueError("k_steps must be >= 1")
+        if prefetch is None:
+            prefetch = tuned_value("feeder.depth")
         depth = DEFAULT_DEPTH if prefetch is None else int(prefetch)
         feed = (depth > 0 and self._feed_supported()
                 and getattr(iterator, "async_supported", True))
         if k > 1 and not feed:
-            raise ValueError(
-                "k_steps > 1 needs the device feeder: prefetch must be >= 1, "
-                "the iterator async-capable (no AsyncShield), and the model "
-                "not configured for TBPTT")
+            if k_tuned:
+                # a machine-tuned k never breaks a fit the feeder cannot
+                # serve: implicit tuning degrades, explicit asks raise
+                k = 1
+            else:
+                raise ValueError(
+                    "k_steps > 1 needs the device feeder: prefetch must be "
+                    ">= 1, the iterator async-capable (no AsyncShield), and "
+                    "the model not configured for TBPTT")
         source = iterator
         if (feed and isinstance(iterator, DataSetIterator)
                 and not isinstance(iterator, AsyncDataSetIterator)):

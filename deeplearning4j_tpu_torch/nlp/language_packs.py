@@ -36,11 +36,20 @@ def _load_dict(name: str) -> Optional[set]:
     return None
 
 
-# the bundled dictionaries are the JAX package's data files, read as data
-# (nothing of that package is imported)
-_BUNDLED_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "deeplearning4j_tpu", "nlp", "data")
+# the bundled dictionaries: copies of the JAX package's data files, byte
+# for byte, shipped in this package's nlp/data/
+_BUNDLED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data")
+
+
+def _bundled_path(name: str) -> str:
+    """The path of bundled file ``name``; a missing one raises (the
+    tokenizers would otherwise split differently without a word)."""
+    path = os.path.join(_BUNDLED_DIR, name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"bundled dictionary {name} is missing from {_BUNDLED_DIR}")
+    return path
 
 
 import functools
@@ -54,26 +63,21 @@ def _load_bundled_freq(name: str) -> dict:
     reference's vendored Ansj/Kuromoji dictionaries. Cached: 60k lines
     per parse, and callers copy before mutating."""
     import gzip
-    path = os.path.join(_BUNDLED_DIR, name)
     out = {}
-    if os.path.exists(path):
-        with gzip.open(path, "rt", encoding="utf-8") as fh:
-            for line in fh:
-                parts = line.split()
-                if len(parts) == 2:
-                    out[parts[0]] = float(parts[1])
-                elif len(parts) == 1:
-                    out[parts[0]] = 0.0
+    with gzip.open(_bundled_path(name), "rt", encoding="utf-8") as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) == 2:
+                out[parts[0]] = float(parts[1])
+            elif len(parts) == 1:
+                out[parts[0]] = 0.0
     return out
 
 
 @functools.lru_cache(maxsize=4)
 def _load_bundled_words(name: str) -> frozenset:
     import gzip
-    path = os.path.join(_BUNDLED_DIR, name)
-    if not os.path.exists(path):
-        return frozenset()
-    with gzip.open(path, "rt", encoding="utf-8") as fh:
+    with gzip.open(_bundled_path(name), "rt", encoding="utf-8") as fh:
         return frozenset(line.strip() for line in fh if line.strip())
 
 
@@ -231,14 +235,12 @@ def _load_bundled_pos(name: str) -> dict:
     """surface → (coarse POS, reading or '*') from the bundled lexicon
     (generated by nlp/data/gen_dicts.py from the ipadic fixture)."""
     import gzip
-    path = os.path.join(_BUNDLED_DIR, name)
     out = {}
-    if os.path.exists(path):
-        with gzip.open(path, "rt", encoding="utf-8") as fh:
-            for line in fh:
-                parts = line.rstrip("\n").split("\t")
-                if len(parts) == 3:
-                    out[parts[0]] = (parts[1], parts[2])
+    with gzip.open(_bundled_path(name), "rt", encoding="utf-8") as fh:
+        for line in fh:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) == 3:
+                out[parts[0]] = (parts[1], parts[2])
     return out
 
 

@@ -27,11 +27,15 @@ from typing import Dict, List, Optional, Sequence
 
 from deeplearning4j_tpu_torch.nlp.language_packs import CAS, Annotation
 
+# the namespace URIs are part of the file format: the annotation types'
+# URI is the JAX package's, so XMI moves between the two packages whole
 _NS = {
     "xmi": "http://www.omg.org/XMI",
     "cas": "http:///uima/cas.ecore",
-    "dl4j": "http:///deeplearning4j_tpu_torch.ecore",
+    "dl4j": "http:///deeplearning4j_tpu.ecore",
 }
+# the URI this package wrote before it took the reference's; still read
+_OLD_DL4J_URIS = ("http:///deeplearning4j_tpu_torch.ecore",)
 
 
 class TypeDescription:
@@ -204,10 +208,10 @@ def from_xmi(xml: str,
     for el in root:
         if el is sofa:
             continue
-        tag = el.tag
-        if not tag.startswith(f"{{{_NS['dl4j']}}}"):
+        uri, _, tname = el.tag[1:].partition("}")
+        if not el.tag.startswith("{") or (
+                uri != _NS["dl4j"] and uri not in _OLD_DL4J_URIS):
             continue
-        tname = tag[len(f"{{{_NS['dl4j']}}}"):]
         begin = int(el.get("begin", 0))
         end = int(el.get("end", 0))
         feats = {k: v for k, v in el.attrib.items()

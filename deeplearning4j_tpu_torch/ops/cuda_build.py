@@ -12,12 +12,19 @@ of the flags, so a changed source is rebuilt and a stale library is never
 loaded. ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
 
+A built library can also come from elsewhere: ``install`` writes one's
+bytes (the persisted kernel cache's, parallel/aot_cache.py) to the path
+``library_path`` names, and ``kernel`` then loads it as it loads one it
+built. ``record_sources`` collects the sources whose kernels the
+calling thread launches inside it (what a served forward reaches).
+
 Nothing here runs at import: the CPU tests import every module, and only
 a machine with a card and ``nvcc`` ever builds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -68,6 +75,8 @@ _HELPERS = {"dl4j_tile_m": [], "dl4j_split_count": [_I],
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# per thread: the set record_sources() is filling, if any
+_recording = threading.local()
 # name -> (seconds, ptxas report) of the build this process ran
 build_log: Dict[str, tuple] = {}
 
@@ -125,10 +134,43 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return paths
 
 
+def install(source: str, data: bytes) -> Path:
+    """Put the bytes of ``source``'s built library where ``library_path``
+    names it (atomically; an existing file is kept, being the same
+    build), so that ``kernel`` loads it without running ``nvcc``. The
+    caller vouches that ``data`` was built from this tree's sources and
+    flags (the persisted cache checks the digest and a checksum)."""
+    out = library_path(source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_bytes(data)
+        os.replace(tmp, out)
+    return out
+
+
+@contextlib.contextmanager
+def record_sources():
+    """Yield a set that collects the source of every kernel the calling
+    thread asks for (each launch does) until the block ends."""
+    seen: set = set()
+    outer = getattr(_recording, "seen", None)
+    _recording.seen = seen
+    try:
+        yield seen
+    finally:
+        _recording.seen = outer
+        if outer is not None:
+            outer |= seen
+
+
 def kernel(name: str):
     """The C entry point of kernel ``name``, built and loaded on first
     use; its argtypes are set and it returns ``cudaGetLastError()``."""
     source = SOURCE_OF[name]
+    seen = getattr(_recording, "seen", None)
+    if seen is not None:
+        seen.add(source)
     lib = _libs.get(source)
     if lib is None:
         with _lock:

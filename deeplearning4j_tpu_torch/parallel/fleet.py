@@ -47,9 +47,10 @@ layer that makes a fleet of them operable:
   (retrieval/engine.py) behind the same admission control, shedding on
   its per-query p99; ``neighbors`` searches through it.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue 1 item: the persisted AOT cache (item 12) and tuned configs (item
-16).
+- **Persisted kernel cache and tuned configs.** ``aot_cache_dir=``
+  gives each pool's engines ``<dir>/<pool name>`` as their persisted
+  kernel cache (parallel/aot_cache.py); ``tuned_config=`` sizes every
+  engine the router builds, unless an engine argument says otherwise.
 
 Environment knobs (all read at router construction):
 
@@ -98,12 +99,6 @@ class ShedError(RuntimeError):
             f"(model={model!r}, reason={reason}): {detail}")
         self.model = model
         self.reason = reason
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"FleetRouter: {what} is not ported yet (ROADMAP.md, queue 1 "
-        f"item {item})")
 
 
 def _env_float(name: str, default: float) -> float:
@@ -422,11 +417,8 @@ class FleetRouter:
                  tuned_config=None,
                  registry=None, session_id: str = "fleet",
                  device=None):
-        if aot_cache_dir is not None:
-            raise _not_ported("the persisted AOT cache (aot_cache_dir)",
-                              12)
-        if tuned_config is not None:
-            raise _not_ported("tuned configs (tuned_config)", 16)
+        self.aot_cache_dir = aot_cache_dir
+        self.tuned_config = tuned_config
         self.slo_ms = slo_ms
         self.session_id = session_id
         # where zoo-name and zoo-class pools are initialized (default:
@@ -507,6 +499,11 @@ class FleetRouter:
         gate_result = self._run_quant_gate(name, model, version,
                                            engine_kwargs, quant_gate)
         kw = dict(engine_kwargs)
+        if self.aot_cache_dir is not None:
+            kw.setdefault("aot_cache_dir",
+                          os.path.join(self.aot_cache_dir, name))
+        if self.tuned_config is not None:
+            kw.setdefault("tuned_config", self.tuned_config)
         kw.setdefault("registry", self.registry)
         engines = [ServingEngine(
             model, model_version=version,

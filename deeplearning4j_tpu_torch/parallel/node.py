@@ -25,10 +25,10 @@ JAX package's.
   the dispatcher's ``on_no_nodes`` demand signal restarts the first
   node.
 
-Not ported yet: the persisted AOT executable cache. Given an
-``artifact_store``, a node passes ``aot_cache_dir`` on to its engines as
-the JAX node does, and the port's engine raises naming ROADMAP.md queue
-1 item 12.
+Given an ``artifact_store``, a node passes its key's directory on to its
+engines as ``aot_cache_dir``, as the JAX node does: the engines warm from
+the persisted kernel libraries there (parallel/aot_cache.py), and the
+first node to warm up publishes them.
 
 The HTTP dispatch half (circuit breakers, retries, hedging) lives in
 parallel/remote.py.
@@ -285,9 +285,8 @@ class ServingNode(_GossipNode):
 
     ``device`` is where the node serves: the card unless ``"cpu"``; a
     built model must already lie there. ``artifact_store``/``model_key``
-    name the shared AOT cache dir the JAX node warms from; the port's
-    engine has no persisted executables yet and raises on it (ROADMAP.md
-    queue 1 item 12).
+    name the shared cache dir the node's engines warm from (the key
+    defaults to ``model_name``).
     """
 
     def __init__(self, model, *, node_id: str, registry: NodeRegistry,

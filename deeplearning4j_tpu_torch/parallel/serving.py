@@ -57,9 +57,21 @@ error, which also goes to the ``dl4j_quant_layer_error{layer,
 quantized}`` gauge. An int8 engine cannot ``swap_params`` (the weights
 bake calibration scales): the fleet builds a new engine instead.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): more than one replica (item 15), the persisted AOT
-executable cache (item 12) and tuned configs (item 16).
+Tuned configs: ``batch_limit`` left at None takes ``tuned_config``'s
+``serving.batch_limit``, else the installed process config's, else 32
+(optimize/autotune.py).
+
+Persisted kernel cache: with ``aot_cache_dir`` (and a ``feature_shape``)
+the engine fingerprints its committed params and serving contract and
+restores, before its warmup, the kernel libraries a matching entry holds
+(parallel/aot_cache.py), so a warm process runs no ``nvcc``; a cold or
+mismatched cache is filled after the warmup with the libraries the
+warmup's forwards reached. ``dl4j_serving_aot_cache_total{event=hit|
+miss|save}`` counts libraries, and ``stats()["aot_cache"]`` reports the
+cache's state and the field a mismatch diverged on.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue
+1 item): more than one replica (item 15).
 
 Spans: with a ``tracer`` (observe/tracer.py) the engine records the JAX
 engine's spans — ``serve_compile`` (an instant at a bucket's first
@@ -88,8 +100,12 @@ from deeplearning4j_tpu_torch.observe.latency import LatencyRing
 from deeplearning4j_tpu_torch.observe.recompile import RecompileWatchdog
 from deeplearning4j_tpu_torch.observe.registry import default_registry
 from deeplearning4j_tpu_torch.observe.tracer import NULL_TRACER
+from deeplearning4j_tpu_torch.ops import cuda_build
 from deeplearning4j_tpu_torch.optimize.autotune import resolve_tuned
 from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+from deeplearning4j_tpu_torch.parallel.aot_cache import AOTExecutableCache
+from deeplearning4j_tpu_torch.parallel.aot_cache import \
+    fingerprint as aot_fingerprint
 from deeplearning4j_tpu_torch.parallel.deadline import (Deadline,
                                                         DeadlineExceeded)
 from deeplearning4j_tpu_torch.parallel.quant import (PrecisionPolicy,
@@ -156,7 +172,12 @@ class ServingEngine:
         "bf16" (cast the committed copy of the float params to bfloat16;
         the BN running state stays float32) or "int8" (a policy carrying
         calibration samples: ``PrecisionPolicy.int8(samples)``)
-    model_version : opaque version label (the fleet's swap path sets it)
+    aot_cache_dir : the persisted kernel cache's directory (module
+        docstring); needs ``feature_shape``
+    model_version : opaque version label (the fleet's swap path sets it),
+        part of the cache's fingerprint
+    tuned_config : a ``TunedConfig`` sizing ``batch_limit`` when it is
+        left at None
     registry, watchdog : the metrics registry (default: the process one)
         and recompile watchdog (default: one over that registry)
     tracer : an ``observe.SpanTracer`` for the engine's spans (default:
@@ -175,9 +196,6 @@ class ServingEngine:
                  watchdog=None, session_id: str = "serve"):
         batch_limit = int(resolve_tuned(batch_limit, tuned_config,
                                         "serving.batch_limit"))
-        if aot_cache_dir is not None:
-            raise _not_ported("the persisted AOT executable cache "
-                              "(aot_cache_dir)", 12)
         if batch_limit < 1:
             raise ValueError("batch_limit must be >= 1")
         if not 1 <= min_bucket <= batch_limit:
@@ -315,6 +333,18 @@ class ServingEngine:
                 "build_inference_fn (committed params); "
                 f"{type(model).__name__} only has .output")
 
+        # ---- persisted kernel cache --------------------------------------
+        self.aot_cache = None
+        self._cache_fp = None
+        self._c_aot = reg.counter(
+            "dl4j_serving_aot_cache_total",
+            "persisted kernel cache events: hit = a kernel library "
+            "restored from the cache, miss = one it could not supply "
+            "(built live), save = a library persisted after warmup")
+        if aot_cache_dir is not None and self._committed is not None \
+                and self.feature_shape is not None:
+            self._open_aot_cache(aot_cache_dir)
+
         # ---- dispatch machinery ------------------------------------------
         self._compiled: set = set()        # buckets dispatched at least once
         self._compile_lock = threading.Lock()
@@ -343,23 +373,70 @@ class ServingEngine:
         do_warmup = (self.feature_shape is not None if warmup is None
                      else bool(warmup))
         self.warmup_seconds = 0.0
+        # the kernel sources the warmup's forwards reached
+        self._reached: set = set()
         if do_warmup:
             if self.feature_shape is None:
                 raise ValueError("warmup needs feature_shape (and dtype)")
             t0 = time.perf_counter()
-            for bucket in self.ladder:
-                out = self._run(np.zeros((bucket,) + self.feature_shape,
-                                         self.dtype), bucket)
-                del out
+            with cuda_build.record_sources() as reached:
+                for bucket in self.ladder:
+                    out = self._run(np.zeros((bucket,) + self.feature_shape,
+                                             self.dtype), bucket)
+                    del out
+            self._reached = reached
             if self._stream is not None:
                 self._stream.synchronize()
             self.warmup_seconds = time.perf_counter() - t0
             self.tracer.add_span("serve_warmup", t0, time.perf_counter(),
                                  cat="serve", buckets=len(self.ladder),
                                  replicas=self.n_replicas)
+            if (self.aot_cache is not None
+                    and self.aot_cache.state in ("cold", "mismatch")):
+                self.save_aot_cache()
         self._warmed = True
         self._dispatcher.start()
         self._completer.start()
+
+    # ---- persisted kernel cache ------------------------------------------
+    def _open_aot_cache(self, cache_dir: str):
+        """Fingerprint the committed params and the serving contract and
+        restore the kernel libraries of a matching cache entry (before
+        the warmup, so that its first launches load them)."""
+        params, state, _ = self._committed
+        self.aot_cache = AOTExecutableCache(cache_dir,
+                                            registry=self.registry)
+        self._cache_fp = aot_fingerprint(
+            params, state, feature_shape=self.feature_shape,
+            dtype=self.dtype, ladder=self.ladder, precision=self.precision,
+            calibration=self._calib_hash, model_version=self.model_version,
+            device=self.device)
+        self.aot_cache.try_load(self._cache_fp)
+        for event, n in (("hit", self.aot_cache.hits),
+                         ("miss", self.aot_cache.misses)):
+            self._c_aot.inc(float(n), event=event, **self._lab)
+        if self.aot_cache.state == "mismatch" and self.quantized is not None:
+            # a rejected int8 entry's reason (stale calibration?) rides
+            # into any later crash dump
+            from deeplearning4j_tpu_torch.observe.flight_recorder import (
+                default_flight_recorder)
+            rec = default_flight_recorder()
+            if rec is not None:
+                rec.note(f"aot_cache_rejected_{self.session_id}", {
+                    "dir": str(cache_dir), "precision": self.precision,
+                    "calibration": self._calib_hash,
+                    "reason": self.aot_cache.reason})
+
+    def save_aot_cache(self) -> int:
+        """Persist the kernel libraries the warmup reached under the
+        engine's fingerprint (called after the warmup when the cache was
+        cold or stale). Returns the number of libraries saved."""
+        if self.aot_cache is None:
+            return 0
+        n = self.aot_cache.save(self._cache_fp, self._reached)
+        if n:
+            self._c_aot.inc(float(n), event="save", **self._lab)
+        return n
 
     # ---- committed params ------------------------------------------------
     def _on_device(self):
@@ -641,6 +718,8 @@ class ServingEngine:
             "latency_ms": {f"p{int(k * 100)}": v * 1e3
                            for k, v in q.items()},
         }
+        if self.aot_cache is not None:
+            out["aot_cache"] = self.aot_cache.stats()
         if self.quantized is not None:
             out["quant"] = {
                 "calibration": self._calib_hash,

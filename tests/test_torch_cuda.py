@@ -2031,3 +2031,103 @@ def test_device_pair_draws_on_the_card(card):
     g2 = torch.Generator(device=card).manual_seed(5)
     assert torch.equal(negs, sk.token_draws((64, 40), table, window=5,
                                             n_neg=5, generator=g2)[1])
+
+
+# ---- the online tier and the kernel cache on the card ---------------------
+
+
+def _online_mlp(card, seed=1):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+    from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(seed)
+            .updater(Adam(1e-2)).list()
+            .layer(DenseLayer(n_out=16))
+            .layer(OutputLayer(n_out=3, loss=LossFunction.MCXENT))
+            .set_input_type(InputType.feed_forward(5)).build())
+    return MultiLayerNetwork(conf, device=card).init()
+
+
+def test_online_snapshot_promotion_and_rollback_on_the_card(card):
+    """A learner on the card: its snapshot is a CPU copy taken between
+    steps, committed bitwise by a promotion and restored bitwise by a
+    rollback; the copies share no storage."""
+    import threading
+    import time
+
+    from deeplearning4j_tpu_torch.models.serialization import flatten_paths
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.online import (OnlineServing,
+                                                 publish_samples)
+    from deeplearning4j_tpu_torch.streaming.broker import InProcessTransport
+    transport = InProcessTransport()
+    online = OnlineServing(_online_mlp(card), transport, model_name="m",
+                           feature_shape=(5,), batch_limit=8,
+                           holdout_every=2, registry=MetricsRegistry())
+    w = np.random.default_rng(3).normal(size=(5, 3)).astype(np.float32)
+    stop = threading.Event()
+
+    def feed():
+        g = np.random.default_rng(4)
+        while not stop.is_set():
+            x = g.normal(size=(8, 5)).astype(np.float32)
+            publish_samples(transport, "train", x,
+                            np.eye(3, dtype=np.float32)[np.argmax(x @ w, 1)])
+            stop.wait(0.005)
+    pub = threading.Thread(target=feed, daemon=True)
+    try:
+        ptrs = [{t.data_ptr() for t in flatten_paths(tree).values()}
+                for tree in (online.model.params,
+                             online.promoter.eval_model.params,
+                             online.pool.engines[0]._committed[0])]
+        assert not (ptrs[0] & ptrs[1] or ptrs[0] & ptrs[2]
+                    or ptrs[1] & ptrs[2])
+        online.start(background_promotion=False)
+        pub.start()
+        deadline = time.time() + 60
+        while online.learner.iterations < 10 \
+                or online.stream.holdout_examples == 0:
+            assert time.time() < deadline and online.learner.alive
+            time.sleep(0.02)
+        before = online.pool.engines[0].committed_host()
+        snap = online.learner.snapshot(timeout=10)
+        assert snap is not None
+        assert all(t.device.type == "cpu"
+                   for t in flatten_paths(snap.params).values())
+        d = online.promoter.run_once(candidate=snap, force=True)
+        assert d.promoted
+        got = online.pool.engines[0].committed_host()
+        for k, t in flatten_paths(snap.params).items():
+            assert torch.equal(flatten_paths(got[0])[k], t)
+        online.router.rollback_params("m")
+        back = online.pool.engines[0].committed_host()
+        for k, t in flatten_paths(before[0]).items():
+            assert torch.equal(flatten_paths(back[0])[k], t)
+    finally:
+        stop.set()
+        if pub.is_alive():
+            pub.join(10)
+        online.stop()
+
+
+def test_the_served_forward_records_its_kernel_sources(card):
+    """What the kernel cache persists: the sources the engine's warmup
+    reaches on the card (the fused ResNet50 blocks' two forward
+    libraries)."""
+    from deeplearning4j_tpu_torch.observe.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.parallel.serving import ServingEngine
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+    model = ResNet50(num_classes=10, height=32, width=32, channels=3,
+                     fused_blocks=True, fused_impl="pallas", s2d_stem=True,
+                     compute_dtype="bfloat16").init(device=card)
+    with ServingEngine(model, batch_limit=2, feature_shape=(32, 32, 3),
+                       registry=MetricsRegistry()) as eng:
+        assert eng._reached == {"fused_mm", "fused_c3"}
+    assert all(cuda_build.library_path(s).exists()
+               for s in ("fused_mm", "fused_c3"))

@@ -386,13 +386,23 @@ def test_session_affinity_routes_to_the_pool_holding_the_carry(gen_model):
 
 # ---- not ported yet ----------------------------------------------------
 
-@pytest.mark.parametrize("make,item", [
-    (lambda: FleetRouter(aot_cache_dir="x"), "item 12"),
-    (lambda: FleetRouter(tuned_config=object()), "item 16"),
-])
-def test_unported_parts_raise_with_their_roadmap_item(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def test_unported_parts_raise_with_their_roadmap_item(tmp_path):
+    """The router's ``aot_cache_dir`` and ``tuned_config``, which raised
+    until the kernel cache and tuned configs were ported, now reach its
+    engines: ``<dir>/<pool>`` as each engine's cache and the tuned
+    ``serving.batch_limit`` where the pool leaves it unset."""
+    from deeplearning4j_tpu_torch.optimize.autotune import TunedConfig
+    fleet = FleetRouter(aot_cache_dir=str(tmp_path / "aot"),
+                        tuned_config=TunedConfig({"serving.batch_limit": 4}),
+                        registry=MetricsRegistry())
+    try:
+        pool = fleet.add_pool("m", _tiny_model(), feature_shape=(N_IN,))
+        eng = pool.engines[0]
+        assert eng.batch_limit == 4 and eng.ladder == [1, 2, 4]
+        assert eng.stats()["aot_cache"]["dir"] == str(tmp_path / "aot" / "m")
+        assert (tmp_path / "aot" / "m" / "manifest.json").exists()
+    finally:
+        fleet.shutdown()
 
 
 def test_concurrent_clients_through_the_router():

@@ -303,10 +303,25 @@ def test_vocab_identity_and_committed():
 
 
 def test_engine_refuses_a_tuned_config_and_a_foreign_store(model):
+    """A tuned config (refused until tuned configs were ported) now sizes
+    the slots and the prefill chunk, an explicit argument still wins; a
+    session store on another device is refused."""
     from deeplearning4j_tpu_torch.generation import SessionStore
-    with pytest.raises(NotImplementedError, match="item 16"):
-        GenerationEngine(model, tuned_config=object(),
-                         registry=MetricsRegistry())
+    from deeplearning4j_tpu_torch.optimize.autotune import TunedConfig
+    tuned = TunedConfig({"generation.max_slots": 2,
+                         "generation.prefill_chunk": 4})
+    eng = GenerationEngine(model, tuned_config=tuned,
+                           registry=MetricsRegistry())
+    try:
+        assert (eng.max_slots, eng._prefill_chunk) == (2, 4)
+    finally:
+        eng.shutdown()
+    eng = GenerationEngine(model, tuned_config=tuned, max_slots=4,
+                           registry=MetricsRegistry())
+    try:
+        assert (eng.max_slots, eng._prefill_chunk) == (4, 4)
+    finally:
+        eng.shutdown()
     spec = extract_decode_spec(model)
     store = SessionStore(spec, registry=MetricsRegistry(), device="cpu")
     store.device = torch.device("meta")

@@ -12,8 +12,8 @@ cancel/deadline retirement, the pruned resize-pair warmup sweep, and
 int8 carry quantization. The small model is the JAX file's, built with
 ``device="cpu"``.
 
-Left out, waiting for ROADMAP queue 1 item 12 (``GenerationPool`` and
-session affinity): ``test_fleet_session_affinity``.
+The JAX file's ``test_fleet_session_affinity`` is
+``tests/test_torch_fleet.py``'s session-affinity test.
 
 Against the JAX package: ``counter_keys``, ``NGramDraft.propose`` and
 the int8 carry rows of ``SessionStore`` are equal bit for bit.

@@ -18,7 +18,7 @@ Contracts under test:
   must hold, queue pressure scales up, idleness retires nodes down to
   ``min_nodes``, traffic resets idleness;
 - a node serves on the card unless ``device="cpu"``; an artifact store
-  reaches the engine's ``aot_cache_dir``, which is not ported (item 12).
+  reaches the engine as its persisted kernel cache (``aot_cache_dir``).
 """
 
 import json
@@ -299,14 +299,24 @@ def test_node_refuses_a_model_on_another_device(tmp_path):
 
 
 def test_artifact_store_reaches_the_unported_aot_cache(tmp_path):
+    """A node's artifact store reaches its engine as the persisted kernel
+    cache of its key (unported until the cache was): the first node
+    publishes the entry, a second node on the same key warms from it."""
     store = ArtifactStore(str(tmp_path / "store"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServingNode(_tiny_model(), node_id="w1",
-                    registry=NodeRegistry(str(tmp_path / "reg")),
-                    artifact_store=store, model_key="m", device="cpu",
-                    metrics_registry=MetricsRegistry(), batch_limit=8,
-                    feature_shape=(N_IN,))
-    assert os.path.isdir(store.cache_dir("m"))
+    states = []
+    for nid in ("w1", "w2"):
+        with ServingNode(_tiny_model(), node_id=nid,
+                         registry=NodeRegistry(str(tmp_path / "reg")),
+                         artifact_store=store, model_key="m", device="cpu",
+                         metrics_registry=MetricsRegistry(), batch_limit=8,
+                         feature_shape=(N_IN,)) as node:
+            aot = node.router.pool("default").engines[0].stats()[
+                "aot_cache"]
+            assert aot["dir"] == store.cache_dir("m")
+            states.append(aot["state"])
+    assert states == ["cold", "warm"]
+    assert store.stats()["keys"]["m"] == {"published": True,
+                                          "precisions": {"f32": 0}}
 
 
 def test_node_stats_and_warm(tmp_path):

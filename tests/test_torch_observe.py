@@ -211,15 +211,16 @@ def test_splitmix_constants_and_mixer_match_jax():
 def test_tunable_defaults_and_precedence_match_jax():
     from deeplearning4j_tpu.optimize import autotune as jat
     from deeplearning4j_tpu_torch.optimize import autotune as tat
-    for name in ("serving.batch_limit", "generation.max_slots",
-                 "generation.prefill_chunk"):
+    assert set(tat.REGISTRY) == set(jat.REGISTRY)
+    for name in jat.REGISTRY:
         assert tat.REGISTRY[name] == tat.Tunable(
             **jat.REGISTRY[name].__dict__)
         assert tat.resolve_tuned(None, None, name) == \
             jat.resolve_tuned(None, None, name)
         assert tat.resolve_tuned(5, None, name) == 5
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tat.resolve_tuned(5, object(), name)
+        assert tat.resolve_tuned(5, tat.TunedConfig({name: 7}), name) == 5
+        assert tat.resolve_tuned(None, tat.TunedConfig({name: 7}),
+                                 name) == 7
 
 
 def test_gate_result_matches_jax():

@@ -46,6 +46,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "'nlp.pairgen', 'nlp.vocab', 'nlp.cluster', 'utils.native', "
             "'datasets.corpus', 'graph.deepwalk', 'graph.node2vec', "
             "'graph.walks', 'graph.vectors', "
+            "'online.stream', 'online.learner', 'online.promoter', "
+            "'online.sentinel', 'online.runtime', 'streaming.broker', "
+            "'streaming.routes', 'ui.online_module', 'ui.png', "
+            "'ui.components', 'ui.convolutional', 'optimize.autotune', "
+            "'parallel.aot_cache', "
             "'models.computation_graph')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -796,19 +796,31 @@ def test_cli_serves_a_saved_index(corpus, tmp_path, capsys):
 
 
 def test_cli_neighbors_needs_a_store_and_refuses_a_tuned_one(tmp_path):
-    with pytest.raises(SystemExit, match="requires --artifact-store"):
-        _serve(["--neighbors-index", "idx"])
+    """A neighbors index needs a store. A store's foreign tuned config
+    (refused until tuned configs were ported) now loads as a named
+    mismatch and the committed defaults serve."""
+    from deeplearning4j_tpu_torch.optimize import autotune
+    for argv in (["--neighbors-index", "idx"],
+                 ["--neighbors-index", "idx", "--tuned-config"]):
+        with pytest.raises(SystemExit, match="requires --artifact-store"):
+            _serve(argv)
     store_dir = tmp_path / "store"
     tuned = store_dir / "objects" / "tuned_config"
     tuned.mkdir(parents=True)
     (tuned / "tuned.json").write_text("{}")
-    for argv in (["--neighbors-index", "idx"],
-                 ["--model", os.path.join(ROOT, "tests", "resources",
-                                          "regression", "mlp_v1.zip")]):
-        with pytest.raises(SystemExit, match=r"tuned config.*item 16"):
-            _serve([*argv, "--artifact-store", str(store_dir)])
-    with pytest.raises(SystemExit, match=r"--tuned-config.*item 16"):
-        _serve(["--neighbors-index", "idx", "--tuned-config"])
+    try:
+        front, server = _serve(
+            ["--model", os.path.join(ROOT, "tests", "resources",
+                                     "regression", "mlp_v1.zip"),
+             "--artifact-store", str(store_dir)])
+        front.shutdown()
+        server.stop()
+        cfg = autotune.process_tuned()
+        assert (cfg.load_outcome, cfg.values) == ("mismatch", {})
+        assert "'format_version'" in cfg.load_reason
+        assert front.engine.batch_limit == 32
+    finally:
+        autotune.set_process_tuned(None)
 
 
 def test_cli_store_without_tuned_config_goes_on(tmp_path):

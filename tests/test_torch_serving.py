@@ -260,8 +260,6 @@ def test_swap_params_keeps_the_ladder_warm(model):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(replicas=2), "item 15"),
-    (dict(aot_cache_dir="cache"), "item 12"),
-    (dict(tuned_config=object()), "item 16"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(model, kw, item):
     with pytest.raises(NotImplementedError, match=item):

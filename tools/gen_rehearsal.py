@@ -14,6 +14,8 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py cluster
     python3 tools/gen_rehearsal.py neighbors
     python3 tools/gen_rehearsal.py embeddings [ARM ...]
+    python3 tools/gen_rehearsal.py online
+    python3 tools/gen_rehearsal.py aot
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -76,6 +78,19 @@ communities of 300 vertices), with the card's memory counters and sync
 debug mode stubbed, so every other gate of the phase runs (naming arms,
 e.g. ``sgns``, runs only those Word2Vec arms); its times say nothing
 about the card.
+
+``online`` runs ``phase_online`` the same way (every ``"cuda"`` turned
+to ``"cpu"``, the ``serve --online`` subprocess given ``--device cpu``)
+with the ResNet50 cut to 32×32 with 10 classes and the six conv
+wrappers counting a launch for each plain call, so every gate of the
+phase runs.
+
+``aot`` runs ``phase_aot_cache`` the same way with the ResNet50 cut
+likewise. The CPU's forward reaches no kernel library, so each cache
+subprocess's code gets a prelude that has its warmup reach
+``fused_mm`` and ``fused_c3`` and "build" a stand-in library for each
+(bytes, and an entry in ``build_log``) where none exists: the cache's
+save, restore, mismatch and quarantine gates then run as on the card.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -387,10 +402,58 @@ def embeddings(only=()) -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+def online() -> None:
+    from deeplearning4j_tpu_torch.ops import fused_conv
+    smoke = _cpu_smoke("cpu_all")
+
+    class CpuServe(smoke._ServeProcess):
+        def __init__(self, args, last):
+            super().__init__(list(args) + ["--device", "cpu"], last)
+    smoke._ServeProcess = CpuServe
+    _count_launches(fused_conv, tuple(fused_conv.LAUNCHES))
+    smoke.SLICE = dict(smoke.SLICE, height=32, width=32, num_classes=10)
+    t0 = time.perf_counter()
+    report = {}
+    print(smoke.phase_online(report, "CPU rehearsal"))
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
+_AOT_PRELUDE = """
+import contextlib
+_real_record = cuda_build.record_sources
+@contextlib.contextmanager
+def _record():
+    with _real_record() as seen:
+        yield seen
+        for s in ("fused_mm", "fused_c3"):
+            seen.add(s)
+            if not cuda_build.library_path(s).exists():
+                cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                cuda_build.library_path(s).write_bytes(
+                    ("stand-in " + s).encode() * 2000)
+                cuda_build.build_log[s] = (0.0, "")
+cuda_build.record_sources = _record
+"""
+
+
+def aot() -> None:
+    smoke = _cpu_smoke("cpu_all")
+    anchor = 'cuda_build.BUILD_DIR = Path(spec["build_dir"])\n'
+    assert anchor in smoke.AOT_CHILD
+    smoke.AOT_CHILD = smoke.AOT_CHILD.replace(anchor, anchor + _AOT_PRELUDE)
+    smoke.SLICE = dict(smoke.SLICE, height=32, width=32, num_classes=10)
+    smoke.AOT_SHAPE_OTHER = (16, 16, 3)
+    t0 = time.perf_counter()
+    report = {}
+    smoke.phase_aot_cache(report, "CPU rehearsal")
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def main(argv) -> int:
     if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
                                    "keras", "observed", "cluster",
-                                   "neighbors", "embeddings"):
+                                   "neighbors", "embeddings", "online",
+                                   "aot"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -411,6 +474,10 @@ def main(argv) -> int:
         neighbors()
     elif argv[0] == "embeddings":
         embeddings(argv[1:])
+    elif argv[0] == "online":
+        online()
+    elif argv[0] == "aot":
+        aot()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
