@@ -36,7 +36,8 @@ copy and the enqueue of the asynchronous copy, not the transfer on the
 wire) and ``feed_stall`` spans whenever the queue ran dry. The
 ``prepare`` (``DataSet -> DataSet``) and ``group_prepare`` (``[DataSet]
 -> (f, l, fm, lm)``) hooks run on the host before normalization and
-stacking, for the parallel wrapper (ROADMAP.md, queue 1 item 15).
+stacking: the parallel wrapper pads each batch and takes its rank's rows
+there (parallel/wrapper.py).
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import ConvolutionalType, InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
-from deeplearning4j_tpu_torch.ops import fused_conv
+from deeplearning4j_tpu_torch.ops import batch_stats, fused_conv
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
 
@@ -175,7 +175,12 @@ class FusedBottleneckBlock(Layer):
     def _batch_bn_form(self, params, state, new_state, name, stats,
                        count):
         """(scale, shift) of BN ``name``'s batch-statistics normalize from
-        the conv's (Σy, Σy²); the running averages go to ``new_state``."""
+        the conv's (Σy, Σy²); the running averages go to ``new_state``.
+        Inside ``ops.batch_stats.summed`` (the parallel wrapper's global
+        batch) the sums and the count are the global batch's."""
+        group = batch_stats.current()
+        if group is not None:
+            stats, count = group.fn(stats), count * group.world
         inv, shift, mean, var = fused_conv.stats_to_scale_shift(
             stats, count, params[f"{name}_gamma"], params[f"{name}_beta"],
             self.eps)

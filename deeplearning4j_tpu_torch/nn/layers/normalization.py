@@ -19,6 +19,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.ops import batch_stats
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
 
 
@@ -59,8 +60,16 @@ class BatchNormalization(Layer):
         if ctx.train and not self.use_global_stats_in_train:
             dims = tuple(range(x.ndim - 1))
             xf = x.to(sdt)
-            mean = xf.mean(dim=dims)
-            var = xf.var(dim=dims, unbiased=False)
+            group = batch_stats.current()
+            if group is not None:
+                # the global batch's moments, two-pass as the local ones:
+                # sums over the parallel wrapper's ranks (ops/batch_stats)
+                n = xf.numel() // xf.shape[-1] * group.world
+                mean = group.fn(xf.sum(dim=dims)) / n
+                var = group.fn(((xf - mean) ** 2).sum(dim=dims)) / n
+            else:
+                mean = xf.mean(dim=dims)
+                var = xf.var(dim=dims, unbiased=False)
             d = self.decay
             new_state = {
                 "mean": (d * state["mean"] + (1 - d) * mean.detach()).float(),

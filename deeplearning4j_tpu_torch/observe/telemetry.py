@@ -42,14 +42,19 @@ differ). The number of rows a ring holds is host-known (one per recorded
 step), so ``TelemetryBuffer.count`` is a host int; the histogram ring's
 count depends on the data and stays on the card.
 
-Per-device replica rows (the JAX package's ``ReplicaRing``, written by
-its parallel wrapper) wait for that wrapper: ``replicas > 1`` raises
-(ROADMAP.md, queue 1 item 15).
+Per-device replica rows (``ReplicaRing``, ``replicas > 1``) are written
+by the parallel wrapper (parallel/wrapper.py): a parameter fingerprint
+per rank under SHARED_GRADIENTS, each worker's mean loss and gradient
+norm under AVERAGING and ASYNC_ELASTIC. The rows are the same in every
+rank (the wrapper reduces them over the group first); they sit in the
+same blob and are fetched in the same transfer. Their count is host-known
+too (one per recorded round).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -74,12 +79,6 @@ _MEAN_ABS_SAMPLE = 65536
 _HIST_SAMPLE = 16384
 
 
-def _not_ported_replicas() -> NotImplementedError:
-    return NotImplementedError(
-        "per-replica telemetry rows (ReplicaRing) wait for the parallel "
-        "wrapper, which is not ported yet (ROADMAP.md, queue 1 item 15)")
-
-
 class HistRing(NamedTuple):
     """``counts[i % capacity]`` holds the per-layer param/grad/update
     histograms of the i-th recorded histogram step; views of the
@@ -88,6 +87,14 @@ class HistRing(NamedTuple):
     ranges: Any     # f32[capacity, n_layers, len(HIST_KINDS), 2]
     iters: Any      # i32[capacity]
     count: Any      # i32[1], on the card (the data decides it)
+
+
+class ReplicaRing(NamedTuple):
+    """Per-device rows from the parallel wrapper (views of the buffer's
+    one tensor): ``rows[i % capacity]`` is the i-th recorded row."""
+    rows: Any       # f32[capacity, n_workers, n_replica_metrics]
+    iters: Any      # i32[capacity]
+    count: int
 
 
 class TelemetryBuffer(NamedTuple):
@@ -99,6 +106,7 @@ class TelemetryBuffer(NamedTuple):
     count: int
     hist: Any = ()  # HistRing when histograms are enabled
     blob: Any = None
+    replica: Any = ()   # ReplicaRing when replica rows are enabled
 
 
 def has_buffer(telemetry) -> bool:
@@ -122,8 +130,6 @@ class TelemetrySpec:
         if hist_bins < 2 or hist_capacity < 1 or hist_interval < 1:
             raise ValueError("histogram config must be positive "
                              "(bins >= 2)")
-        if int(replicas) > 1:
-            raise _not_ported_replicas()
         self.capacity = int(capacity)
         self.per_layer = per_layer
         self.layer_names = tuple(layer_names) if per_layer else ()
@@ -151,6 +157,10 @@ class TelemetrySpec:
             parts += [("h_counts", (hc, nl, nk, self.hist_bins)),
                       ("h_ranges", (hc, nl, nk, 2)),
                       ("h_iters", (hc,)), ("h_count", (1,))]
+        if self.replicas > 1:
+            parts += [("r_rows", (cap, self.replicas,
+                                  len(self.replica_metrics))),
+                      ("r_iters", (cap,))]
         out, off = {}, 0
         for name, shape in parts:
             out[name] = (off, shape)
@@ -158,7 +168,7 @@ class TelemetrySpec:
         out["_total"] = (off, ())
         return out
 
-    def _views(self, blob, count: int):
+    def _views(self, blob, count: int, replica_count: int = 0):
         """A TelemetryBuffer of views into ``blob`` (a card tensor, or
         the host copy a flush fetched, as numpy)."""
         lay = self._layout()
@@ -175,8 +185,12 @@ class TelemetrySpec:
         if self.histograms:
             hist = HistRing(part("h_counts"), part("h_ranges"),
                             part("h_iters", True), part("h_count", True))
+        replica: Any = ()
+        if self.replicas > 1:
+            replica = ReplicaRing(part("r_rows"), part("r_iters", True),
+                                  replica_count)
         return TelemetryBuffer(part("rows"), part("iters", True), count,
-                               hist, blob)
+                               hist, blob, replica)
 
     def init(self, device=None) -> TelemetryBuffer:
         blob = torch.zeros((self._layout()["_total"][0],),
@@ -185,6 +199,8 @@ class TelemetrySpec:
         buf.iters.fill_(-1)
         if self.histograms:
             buf.hist.iters.fill_(-1)
+        if self.replicas > 1:
+            buf.replica.iters.fill_(-1)
         return buf
 
     # ---- runs inside the train step ---------------------------------------
@@ -230,6 +246,20 @@ class TelemetrySpec:
             self._record_hist(plan, buf.hist, buf.count, nonfinite, pn, g,
                               upd, iteration)
         return buf._replace(count=buf.count + 1)
+
+    @torch.no_grad()
+    def record_replica(self, buf: TelemetryBuffer, *, values,
+                       iteration: int) -> TelemetryBuffer:
+        """Append one per-device row (``values``: [n_workers,
+        n_replica_metrics], the same in every rank). A buffer without a
+        replica ring is returned as it is."""
+        rep = buf.replica
+        if not isinstance(rep, ReplicaRing):
+            return buf
+        idx = rep.count % self.capacity
+        rep.rows[idx] = values.to(torch.float32)
+        rep.iters[idx].fill_(int(iteration) + 1)
+        return buf._replace(replica=rep._replace(count=rep.count + 1))
 
     def _plan(self, grads, params, prev_params, dev) -> "_Plan":
         key = (_structure(grads), _structure(params),
@@ -472,6 +502,7 @@ class TelemetryCollector:
         self.dropped_rows = 0
         self._read_count = 0
         self._hist_read = 0
+        self._replica_read = 0
         self._pending = 0
         self._last_flush_time: Optional[float] = None
 
@@ -494,9 +525,39 @@ class TelemetryCollector:
         return self.spec
 
     def enable_replicas(self, n_workers: int,
-                        metrics: Tuple[str, ...] = ("loss", "grad_norm")):
-        """Per-device rows come with the parallel wrapper (item 15)."""
-        raise _not_ported_replicas()
+                        metrics: Tuple[str, ...] = ("loss", "grad_norm")
+                        ) -> bool:
+        """Turn on the per-device row ring (the parallel wrapper calls
+        this before its first dispatch). Returns True when the spec
+        changed: the caller then rebinds any existing buffer
+        (``rebind_buffer``) so the new ring exists."""
+        if self.spec is None:
+            raise RuntimeError("spec_for(model) must run before "
+                               "enable_replicas")
+        n = int(n_workers)
+        metrics = tuple(metrics)
+        changed = (self.spec.replicas != n
+                   or self.spec.replica_metrics != metrics)
+        self.spec.replicas = n
+        self.spec.replica_metrics = metrics
+        return changed
+
+    def rebind_buffer(self, train_state, device=None):
+        """Replace the buffer after a spec change: flush what the old
+        ring still holds, then a fresh ring in the new layout and reset
+        read cursors."""
+        if self.spec is None:
+            raise RuntimeError("spec_for(model) must run before "
+                               "rebind_buffer")
+        if has_buffer(train_state.telemetry):
+            self.flush(train_state)
+            device = train_state.telemetry.blob.device
+        self._read_count = 0
+        self._hist_read = 0
+        self._replica_read = 0
+        self._pending = 0
+        return self.ensure_buffer(train_state._replace(telemetry=()),
+                                  device)
 
     def ensure_buffer(self, train_state, device=None):
         """The train state with a ring buffer on ``device`` (the
@@ -534,7 +595,9 @@ class TelemetryCollector:
         if not has_buffer(buf):
             return []
         blob = buf.blob.cpu().numpy()       # the single transfer
-        host = self.spec._views(blob, buf.count)
+        host = self.spec._views(
+            blob, buf.count, buf.replica.count
+            if isinstance(buf.replica, ReplicaRing) else 0)
         self.fetch_count += 1
         self._pending = 0
         now = time.perf_counter()
@@ -560,9 +623,14 @@ class TelemetryCollector:
                 records.append(rec)
             self._read_count = total
             self.history.extend(records)
+        # the replica ring advances on its own cadence (an AVERAGING
+        # round records only replica rows): decode it even when no base
+        # rows landed
         self._decode_hist(host)
+        rep_records = self._decode_replica(host)
         if records:
             self._publish(records, new, now)
+        self._publish_replica(rep_records)
         self._last_flush_time = now
         return records
 
@@ -592,6 +660,62 @@ class TelemetryCollector:
         self._hist_read = total
         self.hist_history.extend(out)
         return out
+
+    def _decode_replica(self, host) -> List[dict]:
+        """New per-device rows of an already-fetched buffer."""
+        if not isinstance(host.replica, ReplicaRing) or self.spec is None:
+            return []
+        rep = host.replica
+        total = int(rep.count)
+        new = total - self._replica_read
+        if new <= 0:
+            return []
+        start = self._replica_read + max(0, new - self.spec.capacity)
+        out = []
+        for j in range(start, total):
+            idx = j % self.spec.capacity
+            rec: Dict[str, Any] = {"iteration": int(rep.iters[idx])}
+            for m, name in enumerate(self.spec.replica_metrics):
+                rec[name] = [float(v) for v in rep.rows[idx, :, m]]
+            out.append(rec)
+        self._replica_read = total
+        self.replica_history.extend(out)
+        return out
+
+    def _publish_replica(self, records: List[dict]):
+        """Per-device gauges and the cross-replica divergence: the
+        relative spread (max - min over workers, over the mean magnitude)
+        of ``grad_norm`` when recorded, else of the last replica metric;
+        about 0 on replicas in step."""
+        if not records or self.spec is None:
+            return
+        r = self.registry
+        s = self.session_id
+        names = self.spec.replica_metrics
+        last = records[-1]
+        nonfinite = sum(1 for rec in records for name in names
+                        for v in rec[name] if not math.isfinite(v))
+        if nonfinite:
+            r.counter("dl4j_nonfinite_values_total", "non-finite values "
+                      "seen in gradients/loss").inc(nonfinite, session=s)
+        for name in names:
+            g = r.gauge(f"dl4j_replica_{name}",
+                        f"per-device {name} from the parallel wrapper")
+            for w, v in enumerate(last[name]):
+                g.set(v, session=s, replica=str(w))
+        div_col = "grad_norm" if "grad_norm" in names else names[-1]
+        div = 0.0
+        for rec in records:
+            vals = [v for v in rec[div_col] if math.isfinite(v)]
+            if len(vals) >= 2:
+                scale = sum(abs(v) for v in vals) / len(vals)
+                div = max(div,
+                          (max(vals) - min(vals)) / (scale + 1e-12))
+            elif len(vals) < len(rec[div_col]):
+                div = float("inf")   # a non-finite replica IS divergence
+        r.gauge("dl4j_replica_divergence", "relative max pairwise "
+                "spread of per-replica grad norms (0 = replicas in "
+                "sync)").set(div, session=s)
 
     def _publish(self, records: List[dict], n_steps: int, now: float):
         r = self.registry
@@ -632,3 +756,6 @@ class TelemetryCollector:
         "layers": {name: {param/grad/update: {counts, min, max}}}}``), or
         None before the first flush of a histogram-enabled ring."""
         return self.hist_history[-1] if self.hist_history else None
+
+    def last_replica_record(self) -> Optional[dict]:
+        return self.replica_history[-1] if self.replica_history else None

@@ -126,13 +126,16 @@ def value_and_grad(loss_fn: LossFn, ts: TrainState, features, labels,
     return loss.detach(), new_ms, gtree
 
 
-def _update(loss_fn: LossFn, tx: GradientTransformation, ts: TrainState,
-            features, labels, fmask, lmask, generator,
-            constrain_fn=None, shadow=None, telemetry=None):
+def train_update(loss_fn: LossFn, tx: GradientTransformation,
+                 ts: TrainState, features, labels, fmask, lmask, generator,
+                 constrain_fn=None, shadow=None, telemetry=None,
+                 reduce=None):
     """(new train state, loss) of one optimizer step. With ``shadow`` (a
     low-precision copy of ``ts.params``) the forward and backward run on
     the shadow and its gradients are cast to the masters' dtypes before
-    the update; ``constrain_fn`` projects the new parameters;
+    the update; ``reduce`` (``(grads, loss) -> (grads, loss)``) then
+    runs on the gradients and the loss (the parallel wrapper sums both
+    over its ranks there); ``constrain_fn`` projects the new parameters;
     ``telemetry`` (a ``TelemetrySpec``) appends one row to the ring the
     train state carries, from this step's loss, gradients, new
     parameters and ``ts.params`` (still the previous ones: the update is
@@ -143,6 +146,8 @@ def _update(loss_fn: LossFn, tx: GradientTransformation, ts: TrainState,
     with torch.no_grad():
         if shadow is not None:
             grads = tree_map(lambda g, p: g.to(p.dtype), grads, ts.params)
+        if reduce is not None:
+            grads, loss = reduce(grads, loss)
         updates, new_opt = tx.update(grads, ts.opt_state, ts.params)
         new_params = apply_updates(ts.params, updates)
         if constrain_fn is not None:
@@ -171,8 +176,9 @@ def make_train_step(loss_fn: LossFn, tx: GradientTransformation,
     device (no host sync)."""
     def step(ts: TrainState, features, labels, fmask=None, lmask=None,
              generator=None):
-        return _update(loss_fn, tx, ts, features, labels, fmask, lmask,
-                       generator, constrain_fn, telemetry=telemetry)
+        return train_update(loss_fn, tx, ts, features, labels, fmask,
+                            lmask, generator, constrain_fn,
+                            telemetry=telemetry)
     return step
 
 
@@ -192,8 +198,9 @@ def make_tbptt_train_step(loss_fn: LossFn, tx: GradientTransformation,
              generator=None, carries=None):
         def lf(*args):
             return loss_fn(*args, carries=carries)
-        ts, loss = _update(lf, tx, ts, features, labels, fmask, lmask,
-                           generator, constrain_fn, telemetry=telemetry)
+        ts, loss = train_update(lf, tx, ts, features, labels, fmask,
+                                lmask, generator, constrain_fn,
+                                telemetry=telemetry)
         return ts, loss, carries_of(ts.model_state)
     return step
 
@@ -242,10 +249,10 @@ def make_scan_train_step(loss_fn: LossFn, tx: GradientTransformation,
                 shadow = shadow_cast(ts.params)
         losses = []
         for i in range(first.shape[0]):
-            ts, loss = _update(loss_fn, tx, ts, _at(features, i),
-                               _at(labels, i), _at(fmask, i), _at(lmask, i),
-                               generator, constrain_fn, shadow,
-                               telemetry=telemetry)
+            ts, loss = train_update(loss_fn, tx, ts, _at(features, i),
+                                    _at(labels, i), _at(fmask, i),
+                                    _at(lmask, i), generator, constrain_fn,
+                                    shadow, telemetry=telemetry)
             if shadow_cast is not None:
                 with torch.no_grad():
                     shadow = shadow_cast(ts.params)

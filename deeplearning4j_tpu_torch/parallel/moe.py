@@ -21,7 +21,8 @@ Semantics kept from the JAX package:
   rounding far below the step.
 
 Expert parallelism (the expert mesh axis and its sharding constraints)
-is ROADMAP queue 1 item 15: ``set_default_mesh`` raises naming it.
+is the second half of ROADMAP queue 1 item 15: ``set_default_mesh``
+raises naming it.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ EXPERT_AXIS = "expert"
 
 def set_default_mesh(mesh, axis: str = EXPERT_AXIS) -> None:
     """The JAX package installs a mesh for expert sharding here; the port
-    runs on one device until multi-device training is ported."""
+    has data parallelism (parallel/wrapper.py) but no sharding of a
+    model over devices yet."""
     raise NotImplementedError(
         "parallel.moe.set_default_mesh: expert sharding over a mesh is "
-        "not ported yet (ROADMAP.md, queue 1 item 15)")
+        "not ported yet (ROADMAP.md, queue 1 item 15, its second half)")
 
 
 @dataclasses.dataclass

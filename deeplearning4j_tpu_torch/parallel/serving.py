@@ -71,7 +71,7 @@ miss|save}`` counts libraries, and ``stats()["aot_cache"]`` reports the
 cache's state and the field a mismatch diverged on.
 
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue
-1 item): more than one replica (item 15).
+1 item): more than one replica (item 15, its second half).
 
 Spans: with a ``tracer`` (observe/tracer.py) the engine records the JAX
 engine's spans — ``serve_compile`` (an instant at a bucket's first
@@ -115,7 +115,7 @@ from deeplearning4j_tpu_torch.parallel.quant import (PrecisionPolicy,
 REPLICA = 0          # the one dispatch target (the JAX engine's replica 0)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"ServingEngine: {what} is not ported yet (ROADMAP.md, queue 1 "
         f"item {item})")
@@ -213,7 +213,7 @@ class ServingEngine:
         n = n_cards if replicas == "auto" else int(replicas)
         if n > 1:
             raise _not_ported(f"serving on {n} replicas (replicas="
-                              f"{replicas!r})", 15)
+                              f"{replicas!r})", "15, its second half")
         if n < 1:
             raise ValueError(f"replicas={replicas!r} must be >= 1")
         self.n_replicas = 1

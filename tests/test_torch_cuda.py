@@ -2131,3 +2131,103 @@ def test_the_served_forward_records_its_kernel_sources(card):
         assert eng._reached == {"fused_mm", "fused_c3"}
     assert all(cuda_build.library_path(s).exists()
                for s in ("fused_mm", "fused_c3"))
+
+
+# ---- the data-parallel wrapper at one NCCL rank (parallel/wrapper.py) ----
+
+@pytest.fixture
+def nccl_one_rank(card, tmp_path):
+    """A process group of one NCCL rank on the card, for this test."""
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        initialize_distributed, shutdown_distributed)
+    initialize_distributed("nccl", 0, 1, store_path=str(tmp_path / "store"),
+                           timeout_s=60.0, device=card)
+    # the stem convolution's default cuDNN backward differs from run to
+    # run in the last bits; these tests compare steps bitwise
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = deterministic
+    shutdown_distributed()
+
+
+def _wrapper_run(card, mode, steps=4):
+    """(plain trees, plain losses, wrapper model, launches) of ``steps``
+    steps of 4 rows on a 32x32 bf16 fused ResNet50, plain fit against the
+    wrapper in ``mode`` (averaging frequency ``steps``)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models.serialization import (
+        flatten_paths, params_from_jax)
+    from deeplearning4j_tpu_torch.parallel.wrapper import (ParallelWrapper,
+                                                           TrainingMode)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    def fresh():
+        m = ResNet50(num_classes=10, height=32, width=32, fused_blocks=True,
+                     s2d_stem=True, compute_dtype="bfloat16").init(card)
+        params_from_jax(p0, s0, card, model=m)
+        return m
+    first = ResNet50(num_classes=10, height=32, width=32, fused_blocks=True,
+                     s2d_stem=True, compute_dtype="bfloat16").init(card)
+    p0 = {k: {n: v.cpu().numpy() for n, v in lp.items()}
+          for k, lp in first.params.items()}
+    s0 = {k: {n: v.cpu().numpy() for n, v in lp.items()}
+          for k, lp in first.model_state.items()}
+    rng = np.random.default_rng(0)
+    batches = [DataSet(rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32),
+                       np.eye(10, dtype=np.float32)[rng.integers(0, 10, 4)])
+               for _ in range(steps)]
+    plain, losses = fresh(), []
+    for b in batches:
+        plain.fit(b)
+        losses.append(plain._last_loss)
+    m = fresh()
+    w = (ParallelWrapper.builder(m).training_mode(TrainingMode[mode])
+         .workers(1).averaging_frequency(steps).build())
+    fc.reset_launch_counts()
+    w.fit(ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
+    trees = lambda model: {f"{g}/{k}": v for g in ("params", "model_state",
+                                                   "opt_state")
+                           for k, v in flatten_paths(getattr(model, g))
+                           .items()}
+    return trees(plain), losses, m, trees(m), launches
+
+
+@pytest.mark.parametrize("mode", ["SHARED_GRADIENTS", "AVERAGING"])
+def test_one_nccl_rank_takes_the_plain_fit_steps_bitwise(card, nccl_one_rank,
+                                                         mode):
+    """At one rank every collective is the identity: the wrapper's steps
+    through kernels 1-6 are the plain fit's, bitwise (parameters, BN
+    state, updater state, the dispatch's loss)."""
+    ref, losses, m, got, launches = _wrapper_run(card, mode)
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        assert torch.equal(got[k], v), k
+    want = (losses[-1] if mode == "SHARED_GRADIENTS"
+            else torch.stack(losses).mean())
+    assert float(m._last_loss) == float(want)
+    assert launches == {"fused_mm": 144, "fused_c3": 64,
+                        "fused_mm_bwd": 144, "fused_c3_bwd": 52,
+                        "fused_c3_bwd_in": 12, "fused_c3_bwd_w": 12}
+
+
+def test_one_nccl_rank_async_elastic_is_averaging_but_for_its_merge(
+        card, nccl_one_rank):
+    """ASYNC_ELASTIC without stragglers at one rank: its merge θ + (l − θ)
+    rounds where l − θ is not exact: half an ulp of l − θ (at most twice
+    the leaf's largest entry) and half an ulp of the sum, so each
+    parameter leaf is within 2 f32 ulps of its largest entry of
+    AVERAGING's; the BN state and the updater state, merged as
+    (1 · l) / 1, are bitwise."""
+    _, _, _, avg, _ = _wrapper_run(card, "AVERAGING")
+    _, _, _, asy, launches = _wrapper_run(card, "ASYNC_ELASTIC")
+    for k, v in avg.items():
+        if k.startswith("params/"):
+            ulp = float(np.spacing(np.float32(v.abs().max().item())))
+            assert (asy[k] - v).abs().max().item() <= 2 * ulp, k
+        else:
+            assert torch.equal(asy[k], v), k
+    assert launches["fused_mm"] == 144

@@ -50,7 +50,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "'online.sentinel', 'online.runtime', 'streaming.broker', "
             "'streaming.routes', 'ui.online_module', 'ui.png', "
             "'ui.components', 'ui.convolutional', 'optimize.autotune', "
-            "'parallel.aot_cache', "
+            "'parallel.aot_cache', 'parallel.mesh', 'parallel.sharding', "
+            "'parallel.magic_queue', 'parallel.compression', "
+            "'parallel.wrapper', 'parallel.checkpoint', "
+            "'parallel.cluster', 'parallel.launch', "
             "'models.computation_graph')}\n"
             "assert need <= set(sys.modules), need - set(sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -30,6 +30,11 @@ from deeplearning4j_tpu_torch.models.serialization import (params_from_jax,
                                                            save_model)
 from deeplearning4j_tpu_torch.zoo.models import ResNet50, fold_stem_weights
 
+# one intra-op thread a test process: the suite runs its workers side
+# by side on the machine's cores, and a torch thread pool per worker
+# oversubscribes them (small ops then wait on spinning threads)
+torch.set_num_threads(1)
+
 CFG = dict(num_classes=10, height=32, width=32, channels=3,
            fused_blocks=True, s2d_stem=True)
 
@@ -65,6 +70,15 @@ def jax_model():
     return jm, p, s, x
 
 
+@pytest.fixture(scope="module")
+def jax_f32_acts(jax_model):
+    """The JAX model's f32 activations on the fixture input, computed once
+    (its Pallas kernels run in interpret mode, tens of seconds a walk) for
+    the slice check and the checkpoint check that both compare with it."""
+    jm, _, _, x = jax_model
+    return _jax_acts(jm, x)
+
+
 def _jax_acts(jm, x):
     acts, _ = jm._walk(jm.train_state.params, jm.train_state.model_state,
                        {"in": jnp.asarray(x)}, {"__default__": None}, False,
@@ -82,12 +96,16 @@ def _torch_acts(tm, x):
 
 @pytest.mark.parametrize("dtype,feat_tol,prob_tol", [
     ("float32", 1e-5, 1e-5), ("bfloat16", 5e-2, 5e-3)])
-def test_resnet50_slice_matches_jax(jax_model, dtype, feat_tol, prob_tol):
+def test_resnet50_slice_matches_jax(jax_model, jax_f32_acts, dtype, feat_tol,
+                                    prob_tol):
     jm, p, s, x = jax_model
     cfg = dict(CFG, compute_dtype=dtype)
-    jg = JGraph(JResNet50(**cfg).conf())
-    jg.train_state = jm.train_state
-    want = _jax_acts(jg, x)
+    if dtype == "float32":          # CFG's own dtype: the fixture's model
+        want = jax_f32_acts
+    else:
+        jg = JGraph(JResNet50(**cfg).conf())
+        jg.train_state = jm.train_state
+        want = _jax_acts(jg, x)
     tm = ResNet50(**cfg).init(device="cpu")
     params_from_jax(p, s, "cpu", model=tm)
     got = _torch_acts(tm, x)
@@ -133,12 +151,13 @@ def test_params_from_jax_rejects_name_mismatches(jax_model):
         params_from_jax(bad, s, "cpu", model=tm)
 
 
-def test_jax_checkpoint_restores_in_the_port(jax_model, tmp_path):
+def test_jax_checkpoint_restores_in_the_port(jax_model, jax_f32_acts,
+                                            tmp_path):
     jm, _, _, x = jax_model
     path = str(tmp_path / "jax.zip")
     jax_save(jm, path)
     tm = restore_model(path, device="cpu")
-    want = _jax_acts(jm, x)
+    want = jax_f32_acts
     got = _torch_acts(tm, x)
     np.testing.assert_allclose(got["out"], want["out"], atol=1e-5, rtol=0)
 

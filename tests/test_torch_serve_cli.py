@@ -46,6 +46,27 @@ REL = 1e-5
 NEAR_TIE = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _empty_default_registries():
+    """Both packages' process-wide metrics registries empty during each
+    test, then as they were: the tests compare the two servers'
+    ``/metrics`` series, and a series an earlier test in the same
+    process left in one registry (an AOT cache counter) parted them."""
+    from deeplearning4j_tpu.observe.registry import default_registry as jr
+    from deeplearning4j_tpu_torch.observe.registry import \
+        default_registry as tr
+    saved = []
+    for r in (jr(), tr()):
+        with r._lock:
+            saved.append((r, dict(r._metrics)))
+            r._metrics.clear()
+    yield
+    for r, metrics in saved:
+        with r._lock:
+            r._metrics.clear()
+            r._metrics.update(metrics)
+
+
 def _cli(pkg):
     if pkg == "jax":
         from deeplearning4j_tpu.__main__ import _build_parser, cmd_serve

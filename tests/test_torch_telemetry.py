@@ -265,7 +265,19 @@ def test_ring_layout_is_one_tensor_and_replicas_wait_for_item_15():
             buf.blob.untyped_storage().data_ptr()
     assert buf.iters.dtype == buf.hist.count.dtype == torch.int32
     assert (buf.iters == -1).all() and buf.count == 0
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TelemetrySpec(("a",), replicas=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TelemetryCollector().enable_replicas(2)
+    # the replica ring (item 15's data-parallel half, ported) is views of
+    # the same tensor, fetched in the same transfer
+    rspec = TelemetrySpec(("a",), capacity=4, replicas=2)
+    rbuf = rspec.init("cpu")
+    for part in (rbuf.replica.rows, rbuf.replica.iters):
+        assert part.untyped_storage().data_ptr() == \
+            rbuf.blob.untyped_storage().data_ptr()
+    assert rbuf.replica.rows.shape == (4, 2, 2)
+    assert (rbuf.replica.iters == -1).all() and rbuf.replica.count == 0
+    rbuf = rspec.record_replica(rbuf, values=torch.tensor([[1., 2.],
+                                                           [3., 4.]]),
+                                iteration=6)
+    assert rbuf.replica.count == 1 and int(rbuf.replica.iters[0]) == 7
+    tc = TelemetryCollector(flush_interval=1, capacity=4)
+    with pytest.raises(RuntimeError, match="spec_for"):
+        tc.enable_replicas(2)

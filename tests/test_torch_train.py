@@ -36,6 +36,11 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.models.serialization import (
     opt_state_from_jax, params_from_jax, restore_model, save_model)
 
+# one intra-op thread a test process: the suite runs its workers side
+# by side on the machine's cores, and a torch thread pool per worker
+# oversubscribes them (small ops then wait on spinning threads)
+torch.set_num_threads(1)
+
 LOSS_REL, TREE_REL = 1e-5, 1e-4
 
 

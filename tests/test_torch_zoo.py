@@ -65,6 +65,11 @@ from deeplearning4j_tpu_torch.nn.graph.config import \
 from deeplearning4j_tpu_torch.optimize import solver
 from deeplearning4j_tpu_torch.optimize.updaters import Adam
 
+# one intra-op thread a test process: the suite runs its workers side
+# by side on the machine's cores, and a torch thread pool per worker
+# oversubscribes them (small ops then wait on spinning threads)
+torch.set_num_threads(1)
+
 _ensure_registry()
 
 OUT_TOL, LOSS_REL, GRAD_REL, PARAM_REL = 1e-5, 1e-5, 1e-4, 1e-4
@@ -325,9 +330,12 @@ def check_zoo_model(case):
         ((torch.from_numpy(x),), (torch.from_numpy(y),)) if graph
         else (torch.from_numpy(x), torch.from_numpy(y))))
     assert lt.item() == pytest.approx(float(lj), rel=loss_rel)
-    updates, _ = jm._tx.update(gj, jts.opt_state, jts.params)
+    # the update as one compiled call: eagerly, optax dispatches (and
+    # compiles) each of its ops for every leaf, slower than the gradient
+    step = jax.jit(lambda g, o, p: optax.apply_updates(
+        p, jm._tx.update(g, o, p)[0]))
     pj = _flat(jax.tree_util.tree_map(
-        np.asarray, optax.apply_updates(jts.params, updates)))
+        np.asarray, step(gj, jts.opt_state, jts.params)))
     gj = jax.tree_util.tree_map(np.asarray, gj)
     total = _check_grads(gt, gj, grad_rel)
 

@@ -10,6 +10,10 @@ float64. Prints each table's largest difference relative to
 its largest entry. Run from a tree's root, on the CPU (about 30 s):
 
     python3 tools/emb_noise.py [TOKENS]     # default 600000
+
+With ``--card`` the same float32 superchunk also runs on the card, and
+its difference from the float64 reference and from the CPU's float32
+result (``chip_smoke.py``'s parity gate, EMB_PARITY_TOL) is printed too.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ sys.path.insert(0, str(Path.cwd()))
 def main(argv) -> int:
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.nlp import skipgram as sk
+    card = "--card" in argv
+    argv = [a for a in argv if a != "--card"]
     tokens = int(argv[0]) if argv else 600_000
     seqs = cs.zipf_sentences(cs.EMB["vocab"], tokens, cs.EMB["sentence"],
                              cs.EMB["zipf"], cs.EMB["corpus_seed"])
@@ -37,11 +43,12 @@ def main(argv) -> int:
     m.fit(seqs)
     cen, ctx, nv, lrs, negs = (torch.from_numpy(a) for a in preps[0][1:])
 
-    def run(dtype):
-        s0, s1 = (t.to(dtype).clone() for t in start)
-        sk.skipgram_scan_step_shared(s0, s1, cen, ctx, negs, nv,
-                                     lrs.to(dtype))
-        return s0, s1
+    def run(dtype, device="cpu"):
+        s0, s1 = (t.to(device, dtype).clone() for t in start)
+        sk.skipgram_scan_step_shared(
+            s0, s1, *(t.to(device) for t in (cen, ctx, negs, nv)),
+            lrs.to(device, dtype))
+        return s0.cpu(), s1.cpu()
 
     ref = run(torch.float64)
     f64_sums = run(torch.float32)
@@ -51,12 +58,19 @@ def main(argv) -> int:
         f32_sums = run(torch.float32)
     finally:
         sk._running_sum = running
-    for name, got in (("float64 running sums", f64_sums),
-                      ("float32 running sums", f32_sums)):
+    rows = [("float64 running sums", f64_sums, ref),
+            ("float32 running sums", f32_sums, ref)]
+    if card:
+        on_card = run(torch.float32, "cuda")
+        rows += [("the card, float64 running sums", on_card, ref),
+                 ("the card against the CPU's float32", on_card, f64_sums)]
+    print(f"{tokens} tokens, {m.vocab.num_words()} words")
+    for name, got, want in rows:
         errs = [float((g - r.float()).abs().max() / r.abs().max())
-                for g, r in zip(got, ref)]
+                for g, r in zip(got, want)]
+        against = "float64" if want is ref else "the CPU"
         print(f"{name}: syn0 {errs[0]:.3g}, syn1 {errs[1]:.3g} of the "
-              "largest entry against float64")
+              f"largest entry against {against}")
     return 0
 
 

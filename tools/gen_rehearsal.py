@@ -16,6 +16,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py embeddings [ARM ...]
     python3 tools/gen_rehearsal.py online
     python3 tools/gen_rehearsal.py aot
+    python3 tools/gen_rehearsal.py data_parallel
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -91,6 +92,12 @@ subprocess's code gets a prelude that has its warmup reach
 ``fused_mm`` and ``fused_c3`` and "build" a stand-in library for each
 (bytes, and an entry in ``build_log``) where none exists: the cache's
 save, restore, mismatch and quarantine gates then run as on the card.
+
+``data_parallel`` runs ``phase_data_parallel``: its ranks are spawned
+processes, so the rewritten source goes to ``build/rehearsal/
+dp_rehearsal.py`` for them to import, with "nccl" turned to "gloo" and
+the six conv wrappers counting in every process; the ResNet50 is cut to
+32x32 with 10 classes and 8 rows a step (16 over the two ranks).
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -449,11 +456,55 @@ def aot() -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+_DP_PRELUDE = """
+def _rehearsal_counting():
+    from deeplearning4j_tpu_torch.ops import fused_conv as _fc
+    for _name in ("fused_mm", "fused_c3", "fused_mm_bwd", "fused_c3_bwd",
+                  "fused_c3_bwd_in", "fused_c3_bwd_w"):
+        def counted(*a, _fn=getattr(_fc, _name), _n=_name, **kw):
+            _fc._count(_n)
+            return _fn(*a, **kw)
+        setattr(_fc, _name, counted)
+_rehearsal_counting()
+"""
+
+
+def data_parallel() -> None:
+    """``phase_data_parallel`` on the CPU: its ranks are spawned, so the
+    rewritten source is a file (``build/rehearsal/dp_rehearsal.py``, a
+    name the repository's own chip_smoke cannot shadow) that they import
+    by name; every "cuda" is "cpu", "nccl" is "gloo", the
+    wrappers of kernels 1-6 count a launch for each plain call (in the
+    ranks too), and the ResNet50 is cut to 32x32 with 10 classes, 8 rows
+    a step."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    src = src.replace('"cuda"', '"cpu"').replace(".cuda()", ".cpu()")
+    src = src.replace("torch.cuda.synchronize()", "None")
+    src = src.replace('"nccl"', '"gloo"')
+    src = src.replace("themselves\n    cuda_build.build()\n",
+                      "themselves\n")
+    for call in ("ResNet50(**SLICE).init()",
+                 "ResNet50(**dict(SLICE, compute_dtype=dtype)).init()"):
+        src = src.replace(call, call[:-1] + 'device="cpu")')
+    anchor = "_T_START = time.perf_counter()\n"
+    src = src.replace(anchor, anchor + _DP_PRELUDE)
+    out = ROOT / "build" / "rehearsal"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "dp_rehearsal.py").write_text(src)
+    sys.path.insert(0, str(out))
+    import dp_rehearsal as smoke
+    smoke.SLICE = dict(smoke.SLICE, height=32, width=32, num_classes=10)
+    smoke.DP_BATCH, smoke.DP_ROWS = 8, 8
+    t0 = time.perf_counter()
+    smoke.phase_data_parallel({}, "CPU rehearsal")
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def main(argv) -> int:
     if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
                                    "keras", "observed", "cluster",
                                    "neighbors", "embeddings", "online",
-                                   "aot"):
+                                   "aot", "data_parallel"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -478,6 +529,8 @@ def main(argv) -> int:
         online()
     elif argv[0] == "aot":
         aot()
+    elif argv[0] == "data_parallel":
+        data_parallel()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
