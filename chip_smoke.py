@@ -116,7 +116,7 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
 12. generate — ``GenerationEngine`` over the committed TextGenerationLSTM
    (f32, 8 slots, TF32 off; its tick is plain torch and launches none of
    the eleven kernels). 16 corpus prompts of 20 chars, submitted
-   staggered, 128 new tokens each: every greedy stream equals
+   staggered, 32 new tokens each (128 before PR 24): every greedy stream equals
    ``reference_decode`` on the card (the ``lstm_fwd`` path) up to the
    oracle's first near tie (top-2 probability gap < LSTM_PROB_TOL). One
    seeded sampled request alone at bucket 1 equals itself among 7
@@ -133,7 +133,8 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    start the system. The slice ResNet50 (bf16, nontrivial BN from a
    seed) saved to a zip and served in process by ``cmd_serve(...,
    block=False)``: ``POST /api/predict`` with 1, 7, 32 and 45 images (45
-   splits), then 4 client threads × 16 requests of 1-32 images, every
+   splits), then 4 client threads × 8 requests of 1-32 images (16
+   before PR 24), every
    answer bitwise the served engine's ``output`` on the same rows and
    ``n`` right, 36 + 16 launches a dispatched batch (added to the kernels
    line). Behind ``--slo-ms`` (the fleet front door): ``/api/fleet/swap``
@@ -271,12 +272,14 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    listener allocating past ``mem_get_info`` inside ``fit`` (the OOM
    surfaces, one ``oom`` dump with the allocator's numbers, one more step
    after ``empty_cache``). ms per step and the busy share with every
-   observer on and with none, 3 interleaved epochs each. The ResNet50
+   observer on and with none, a warm epoch then OBS_REPEATS timed ones
+   each, interleaved. The ResNet50
    ``ServingEngine`` with a tracer: 32 requests bitwise the untraced
    engine's, each batch's queue_wait, batch_form, dispatch, device and
    fetch spans. The rnn_tbptt model (segments of 50, 32 x 1000 chars), 2
    batches by ``fit`` with telemetry: 2 + 2 LSTM launches a segment, the
-   rows' losses bitwise the segments'. The bert_train model, 2 calls of
+   rows' losses bitwise the segments'. The bert_train model, 1 call (2
+   before PR 24) of
    ``fit(iterator, k_steps=4)`` with telemetry and a tracer: 48 launches
    of each flash kernel a call, the losses bitwise the same K-step calls
    made directly (with the feeder's ones labels mask). The committed
@@ -332,7 +335,8 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    parallel/remote.py). The slice ResNet50 (bf16, fused blocks, the
    ``nontrivial_bn`` weights) on two in-process ``ServingNode``s, each with
    its own engine (batch limit 32, warmed), one ``NodeRegistry`` and one
-   ``RemoteDispatcher`` over HTTP: 4 clients x 15 requests of 1-32 images,
+   ``RemoteDispatcher`` over HTTP: 4 clients x 10 requests of 1-32 images
+   (15 before PR 24),
    node a drained after 20 answers. Every answer bitwise the answering
    node's engine's ``output`` on the same request and within 5e-3 of
    ``model.output``; the drain finishes every admitted request and
@@ -462,6 +466,45 @@ Phases, in order; any failure exits non-zero and nothing is passed over:
    iteration; a peer asleep past the deadline while beating is a
    straggler (both exit 0). The in-process runs' and the ranks' launches
    count; the plain references' do not.
+26. model_parallel — model parallelism (parallel/tensor_parallel.py,
+   ring_attention.py, pipeline.py, moe.py) in one group of two gloo ranks
+   on the card (spawned; rank 0 also takes each arm's one-process
+   reference, whose launches do not count). Tensor parallelism: the
+   BERT-base graph of modelimport/bert.py:27-28 from its committed
+   configuration (seeded weights) with the fine-tune head, 32 x 128, on
+   {data 1, model 2}: 6 heads a rank; f32 against the replicated model
+   (the encoder's output within 1e-5 of its largest entry, the loss
+   within 1e-5, every gradient leaf within 1e-4 rel L2), 12 launches each
+   of kernels 9-11 for the step; bf16 (the fine-tune's compute dtype), 4
+   ``fit`` steps of the split model at the fine-tune's Adam(2e-5): finite
+   losses, 12 launches each a step and rank. Sequence parallelism at N 8, T 512 (BERT's max_len), H
+   12, Dh 64: ring and Ulysses, causal or with a ragged key mask, f32 and
+   bf16, each rank half the sequence: outputs and q/k/v gradients against
+   ``flash_attention`` on the whole sequence (f32 1e-5 and 1e-4 of the
+   largest entry, bf16 Y_TOL's 1e-2), Ulysses through kernels 9-11 on 6
+   heads. The pipeline: ``PipelinedTransformerLM`` (vocab 30522, width
+   768, 12 heads, 12 layers, max_len 128) over a pipe axis of 2 (6
+   stages a rank, circular, M 2, remat on as the model defaults, so each
+   stage's forward runs again in the backward under
+   ``torch.utils.checkpoint``), 16 x 128, f32: loss and gradients
+   against pipelined=False within 1e-5 and 1e-4, one SGD step each and
+   the loss after it within 1e-5; 24 launches of kernel 9 a rank (12
+   stage applications and their 12 recomputations) and 12 each of
+   kernels 10 and 11. Experts: the MoE stack's expert layer
+   of phase 19 (8 experts of 3072 at width 768, top 2, capacity factor
+   1.25) on 32 x 128 tokens leaning towards expert 0, 4 experts and half
+   the tokens a rank: output within 1e-5 of its largest entry, aux and z
+   losses within 1e-5, the capacity drops (the slots the split layer's
+   own dispatch left empty, summed over the ranks) nonzero and equal to
+   the unsplit layer's. The
+   3D mesh, the LSTM and conv-chain plans stay in the CPU tests: 8 ranks
+   would take 8 CUDA contexts on the one card, and those plans run no
+   kernel (plain torch). PR 24 cut depth to pay for this phase:
+   ``generate``'s streams 32 new tokens (128), ``serve_http``'s clients 8
+   requests each (16) and its latency 10 requests (20), ``neighbors``' 10
+   timed batches (20), ``observed_fit``'s timed epochs 1 an arm (2),
+   ``cluster``'s requests 10 a client (15), and this phase's unsplit bf16
+   BERT fit in rank 0 (4 steps beside the split ones, never gated).
 
 It prints the phases' total seconds and the script's wall time, the
 kernels' JSON line, then the card's name and power limit,
@@ -577,11 +620,12 @@ LSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 LSTM_PROB_TOL = 1e-4
 LSTM_SERVE_WINDOWS, GEN_PROMPT, GEN_CHARS = 128, 20, 200
 # the generation engine (generate): the committed model, f32, 8 slots;
-# 16 corpus prompts of 20 chars, 128 new tokens each, staggered; greedy
+# 16 corpus prompts of 20 chars, 32 new tokens each (cut from 128 in PR
+# 24, with the time of phase 26), staggered; greedy
 # streams must equal reference_decode's up to the oracle's first near tie
 # (top-2 probability gap < LSTM_PROB_TOL); every mode against plain
 # decode bitwise; the int8 head's gate at a top-1 budget of 0.03
-GEN_SLOTS, GEN_STREAMS, GEN_PROMPT_CHARS, GEN_NEW = 8, 16, 20, 128
+GEN_SLOTS, GEN_STREAMS, GEN_PROMPT_CHARS, GEN_NEW = 8, 16, 20, 32
 GEN_CHUNK, GEN_SPEC_K, GEN_LONG_PROMPT, GEN_SEED = 64, 3, 150, 11
 GEN_INT8_BUDGET = 0.03
 # serve_http: the ResNet50 zip over /api/predict (the fixed sizes, then
@@ -591,8 +635,10 @@ GEN_INT8_BUDGET = 0.03
 # row within LSTM_SERVE_TOL of its largest probability of model.output:
 # the same f32 forward, whose cuBLAS input projection may take another
 # algorithm at the served bucket), and the subprocess's --duration
-SERVE_SIZES, SERVE_CLIENTS, SERVE_PER_CLIENT = (1, 7, 32, 45), 4, 16
-SERVE_LATENCY_REPS, SERVE_WINDOWS, SERVE_DURATION = 20, 8, 30
+# (PR 24 cut the clients' requests from 16 to 8 and the latency requests
+# from 20 to 10, with the time of phase 26)
+SERVE_SIZES, SERVE_CLIENTS, SERVE_PER_CLIENT = (1, 7, 32, 45), 4, 8
+SERVE_LATENCY_REPS, SERVE_WINDOWS, SERVE_DURATION = 10, 8, 30
 SERVE_SEED, LSTM_SERVE_TOL = 13, 1e-5
 # training: seed 123, batch 128 x 60, Adam(2e-3) + clip 5, K = 4 steps per
 # call, 24 steps; one f32 step's gradients through the kernels vs the plain
@@ -5475,7 +5521,7 @@ OBS_BATCH, OBS_K, OBS_CALLS, OBS_EPOCHS = 128, 4, 2, 2   # 8 steps an epoch
 OBS_FLUSH, OBS_HIST_INTERVAL = 8, 4
 OBS_HELD_OUT = 256
 OBS_GRAD_RTOL = 1e-5
-OBS_REPEATS = 2
+OBS_REPEATS = 1                 # 2 before PR 24
 OBS_TBPTT_BATCHES = 2
 OBS_BERT_CALLS = 2
 OBS_SERVE_REQUESTS = 16
@@ -7161,7 +7207,7 @@ def phase_model_library(report, card):
 # cluster: serve --join nodes over ResNet50 behind the RemoteDispatcher
 # ---------------------------------------------------------------------------
 
-CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 4, 15    # 60 requests of 1-32 images
+CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 4, 10    # 40 requests of 1-32 images
 CLUSTER_DRAIN_AT = 20          # node a drains once this many have answered
 CLUSTER_SUB_REQUESTS = 12      # through the subprocess's kill and rejoin
 CLUSTER_SEED = 19
@@ -7570,7 +7616,7 @@ def _cluster_subprocess(card, registry, dispatcher, seen, node_b, sub,
 NN = dict(vectors=1_000_000, dim=64, blobs=488, shard_rows=262144,
           clusters=256, nprobe=64, batch=64, k=10, k_ladder=(10, 40),
           seed=0)
-NN_TIMED_BATCHES = 20
+NN_TIMED_BATCHES = 10           # 20 before PR 24
 NN_RECALL_FLOOR = 0.95
 # a swap against the float64 oracle is a near tie when the true gap is
 # within this of |q|^2 + |c|^2: the f32 expanded form d^2 = |q|^2 - 2q.c +
@@ -9622,6 +9668,473 @@ def phase_data_parallel(report, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26: model parallelism (tensor, sequence, pipeline, expert)
+# ---------------------------------------------------------------------------
+
+MP_RANKS = 2                      # gloo ranks on the one card
+MP_SEED = 26
+MP_JOIN_S = 420.0                 # the group's join deadline
+MP_GROUP_S = 180.0                # every collective's timeout
+MP_BERT_BATCH = 32                # the BERT-base graph at 32 x 128
+MP_BF16_STEPS = 4
+MP_SEQ = dict(n=8, t=512, h=12, dh=64)      # BERT's max_len
+MP_LM = dict(vocab=30522, width=768, heads=12, layers=12, max_len=128,
+             batch=16, lr=0.1)
+MP_MOE_TOKENS = 32 * 128          # the MoE stack's batch of phase 19
+# f32 split against one process on the same state: the forward within
+# MP_FWD_TOL of its largest entry, losses within MP_LOSS_RTOL, each
+# gradient leaf within MP_GRAD_RTOL relative L2; the sequence arms'
+# outputs and q/k/v gradients against flash_attention on the whole
+# sequence within (out, grads) x the largest entry: f32 the same bounds,
+# bf16 Y_TOL's (a bf16 ulp of the rounded output, the ring's f32 body
+# against the kernel's bf16 products)
+MP_FWD_TOL, MP_LOSS_RTOL, MP_GRAD_RTOL = 1e-5, 1e-5, 1e-4
+MP_SEQ_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+
+
+def _uncounted(fn):
+    """``fn()`` with the flash kernels' launch counts left as they were:
+    the one-process references are not the main path."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    import torch
+    before = dict(fa.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    fa.LAUNCHES.update(before)
+    return out
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _of_max(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(
+        1e-30)).item()
+
+
+def _mp_tp(rank, res):
+    """Megatron tensor parallelism over the imported BERT-base graph with
+    the fine-tune head, on {data 1, model 2}: f32 forward, loss and
+    gradients against the replicated model in rank 0, then 4 bf16 fit
+    steps of the split model."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.modelimport.keras import _import_archive
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.parallel.mesh import create_mesh
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        gather_tree, plan_tp, shard_train_state)
+    enc_model = _import_archive(keras_resource("bert_base"), "cuda")
+    enc = enc_model.conf.network_outputs[0]
+    vocab = enc_model.params["tok_embed"]["W"].shape[0]
+    (ids, pos), (y,) = _bert_batch(np.random.default_rng(MP_SEED),
+                                   MP_BERT_BATCH, BERT["seq"], vocab)
+    inputs = dict(zip(enc_model.conf.network_inputs, (ids, pos)))
+    m = _bert_graft(enc_model, "float32", 1e-4)
+    args = ((ids, pos), (y,), None, None)
+
+    def hidden(model):
+        with torch.inference_mode():
+            acts, _ = model._walk(model.params, model.model_state, inputs)
+        return acts[enc]
+    ref = None
+    if rank == 0:
+        ref = _uncounted(lambda: (hidden(m),) + solver.value_and_grad(
+            m._loss, m.train_state, *args)[::2])
+    mesh = create_mesh({"data": 1, "model": MP_RANKS})
+    plan = plan_tp(m, mesh)
+    shard_train_state(m, plan)
+    heads = (m.params["l0_mha"]["Wqkv"].shape[1]
+             // (3 * BERT["width"] // BERT["heads"]))
+    h = hidden(m)
+    before = dict(fa.LAUNCHES)
+    loss, _, g = solver.value_and_grad(m._loss, m.train_state, *args)
+    torch.cuda.synchronize()
+    f32_launches = {k: v - before[k] for k, v in fa.LAUNCHES.items()}
+    whole = gather_tree(g, plan.param_shardings, mesh)
+    out = {"local_heads": heads, "f32_launches": f32_launches,
+           "split_layers": sorted(plan.parts)}
+    if rank == 0:
+        out.update(fwd_of_max=_of_max(h, ref[0]),
+                   loss_rel=_rel(loss, ref[1]),
+                   grads=grad_errors(whole, ref[2]))
+    del m, g, whole, ref
+    # bf16 at the fine-tune's rate (benchmarks/baseline_suite.py:296-356),
+    # split the same way, 4 fit steps
+    data = MultiDataSet([ids, pos], [y])
+    m16 = _bert_graft(enc_model, "bfloat16", 2e-5)
+    del enc_model
+    shard_train_state(m16, plan_tp(m16, mesh))
+    per_step, losses = [], []
+    for _ in range(MP_BF16_STEPS):
+        before = dict(fa.LAUNCHES)
+        m16.fit(data)
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in fa.LAUNCHES.items()})
+        losses.append(float(m16._last_loss))
+    out.update(bf16_losses=losses, bf16_launches_per_step=per_step)
+    res["tp"] = out
+
+
+def _mp_seq(rank, res):
+    """Ring and Ulysses attention at N 8, T 512, H 12, Dh 64 over the two
+    ranks, causal or with a ragged key mask, f32 and bf16: outputs and
+    q/k/v gradients against flash_attention on the whole sequence."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import ring_attention as RA
+    from deeplearning4j_tpu_torch.parallel.mesh import (all_gather,
+                                                        create_mesh)
+    mesh = create_mesh({RA.SEQ_AXIS: MP_RANKS})
+    ax = mesh.axis(RA.SEQ_AXIS)
+    c = MP_SEQ
+    tl = c["t"] // MP_RANKS
+    rows = slice(ax.index * tl, (ax.index + 1) * tl)
+    arms = {}
+    for dtype in ("float32", "bfloat16"):
+        for fn in ("ring", "ulysses"):
+            for kind in ("causal", "masked"):
+                g = torch.Generator(device="cuda").manual_seed(MP_SEED)
+                dt = getattr(torch, dtype)
+                q, k, v = (torch.randn((c["n"], c["t"], c["h"], c["dh"]),
+                                       generator=g, device="cuda").to(dt)
+                           for _ in range(3))
+                w = torch.randn(q.shape, generator=g, device="cuda")
+                mask = None
+                if kind == "masked":
+                    mask = torch.from_numpy(ragged_mask(
+                        c["n"], c["t"], np.random.default_rng(MP_SEED),
+                        min_len=c["t"] // 4)).cuda()
+                causal = kind == "causal"
+
+                def run(q, k, v, m, f):
+                    q, k, v = (a.detach().requires_grad_() for a in (q, k, v))
+                    o = f(q, k, v, m)
+                    (o.float() * w_of(o)).sum().backward()
+                    return o.detach(), q.grad, k.grad, v.grad
+                w_of = lambda o: w if o.shape[1] == c["t"] else w[:, rows]
+                ref = None
+                if rank == 0:
+                    ref = _uncounted(lambda: run(
+                        q, k, v, mask, lambda a, b, cc, m: fa.flash_attention(
+                            a, b, cc, mask=m, causal=causal)))
+                split = getattr(RA, f"{fn}_self_attention")
+                before = dict(fa.LAUNCHES)
+                t0 = time.perf_counter()
+                got = run(q[:, rows], k[:, rows], v[:, rows],
+                          None if mask is None else mask[:, rows],
+                          lambda a, b, cc, m: split(a, b, cc, mesh, mask=m,
+                                                    causal=causal))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                made = {k_: n - before[k_] for k_, n in fa.LAUNCHES.items()}
+                whole = [all_gather(t.contiguous(), 1, ax.group)
+                         for t in got]
+                arm = {"seconds": secs, "launches": made}
+                if rank == 0:
+                    arm.update(out_of_max=_of_max(whole[0], ref[0]),
+                               grads_of_max=max(_of_max(a, b) for a, b in
+                                                zip(whole[1:], ref[1:])))
+                arms[f"{fn}_{kind}_{dtype}"] = arm
+    res["seq"] = arms
+
+
+def _mp_pipe(rank, res):
+    """PipelinedTransformerLM at BERT-base width (12 layers, vocab 30522,
+    max_len 128) over a pipe axis of 2 (R 6, circular, M 2), 16 x 128,
+    f32: the loss and gradients against pipelined=False in rank 0, then
+    one SGD step on both sides and the loss after it."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.optimize.updaters import tree_map
+    from deeplearning4j_tpu_torch.parallel.mesh import (all_gather,
+                                                        create_mesh)
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        PipelinedTransformerLM)
+    c = MP_LM
+    mesh = create_mesh({"pipe": MP_RANKS})
+    # remat on, the model's default: every stage is recomputed in the
+    # backward under torch.utils.checkpoint
+    lm = PipelinedTransformerLM(vocab=c["vocab"], width=c["width"],
+                                n_heads=c["heads"], n_layers=c["layers"],
+                                max_len=c["max_len"], mesh=mesh)
+    whole = lm.init(MP_SEED, device="cuda")
+    rng = np.random.default_rng(MP_SEED)
+    toks = torch.from_numpy(rng.integers(0, c["vocab"], (c["batch"],
+                                                          c["max_len"])))
+    toks = toks.cuda()
+    tgts = torch.roll(toks, -1, dims=1)
+
+    def loss_grads(p, pipelined):
+        p = tree_map(lambda a: a.detach().requires_grad_(), p)
+        loss = lm.loss(p, toks, tgts, pipelined=pipelined)
+        loss.backward()
+        return p, loss.detach(), tree_map(lambda a: a.grad, p)
+
+    def sgd(p, g):
+        return tree_map(lambda a, b: (a - c["lr"] * b).detach(), p, g)
+    ref = None
+    if rank == 0:
+        def reference():
+            p, loss, g = loss_grads(whole, False)
+            with torch.no_grad():
+                loss2 = lm.loss(sgd(p, g), toks, tgts, pipelined=False)
+            return loss, g, loss2
+        ref = _uncounted(reference)
+    local = lm.shard_params(whole)
+    del whole
+    before = dict(fa.LAUNCHES)
+    t0 = time.perf_counter()
+    p, loss, g = loss_grads(local, True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    made = {k: v - before[k] for k, v in fa.LAUNCHES.items()}
+    ax = mesh.axis("pipe")
+    gathered = dict(g)
+    gathered["blocks"] = tree_map(lambda a: all_gather(a, 0, ax.group),
+                                  g["blocks"])
+    # the step after the SGD update, timed warm
+    t0 = time.perf_counter()
+    _, loss2, _ = loss_grads(sgd(p, g), True)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    out = {"seconds": secs, "warm_seconds": warm, "launches": made,
+           "stages_on_rank": lm.repeats, "microbatches":
+           lm.num_microbatches, "remat": lm.remat}
+    if rank == 0:
+        out.update(loss_rel=_rel(loss, ref[0]),
+                   grads=grad_errors(gathered, ref[1]),
+                   step_loss_rel=_rel(loss2, ref[2]),
+                   losses=[float(loss), float(loss2)])
+    res["pipe"] = out
+
+
+def _mp_experts(rank, res):
+    """The MoE stack's expert layer of phase 19 (8 experts of 3072 at
+    width 768, top 2, capacity factor 1.25) on 32 x 128 tokens, 4 experts
+    and half the tokens a rank: the output, aux and z losses and the
+    capacity drops against the unsplit layer in rank 0."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import \
+        MixtureOfExperts
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.parallel import moe as TM
+    from deeplearning4j_tpu_torch.parallel.mesh import (all_gather,
+                                                        all_reduce_,
+                                                        create_mesh)
+    c = LIB_MOE
+    layer = MixtureOfExperts(n_out=c["width"], num_experts=c["experts"],
+                             hidden=c["hidden"], top_k=c["top_k"],
+                             capacity_factor=c["capacity_factor"],
+                             activation=Activation.GELU)
+    g = torch.Generator().manual_seed(MP_SEED)
+    p = {k: v.cuda() for k, v in layer.initialize(
+        g, RecurrentType(c["width"], c["seq"])).items()}
+    # tokens leaning towards expert 0, so that its capacity drops some
+    x = torch.randn((MP_MOE_TOKENS, c["width"]), generator=g).cuda()
+    x = x + 3.0 * p["gate"][:, 0] / p["gate"][:, 0].norm()
+    kw = dict(top_k=c["top_k"], capacity_factor=c["capacity_factor"],
+              activation=Activation.GELU.apply)
+    cap = max(1, int(c["capacity_factor"] * c["top_k"] * MP_MOE_TOKENS
+                     / c["experts"]))
+    slots = c["top_k"] * MP_MOE_TOKENS
+    ref = None
+    if rank == 0:
+        with torch.no_grad():
+            ref = TM.moe_ffn(x, p["gate"], p["w_in"], p["b_in"], p["w_out"],
+                             p["b_out"], **kw)
+    mesh = create_mesh({TM.EXPERT_AXIS: MP_RANKS})
+    ax = mesh.axis(TM.EXPERT_AXIS)
+    e, t = c["experts"] // MP_RANKS, MP_MOE_TOKENS // MP_RANKS
+    mine = lambda a, n: a[ax.index * n:(ax.index + 1) * n]
+    TM.set_default_mesh(mesh)
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = TM.moe_ffn(mine(x, t), p["gate"], mine(p["w_in"], e),
+                             mine(p["b_in"], e), mine(p["w_out"], e),
+                             mine(p["b_out"], e), **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        TM.set_default_mesh(None)
+    y = all_gather(out.y.contiguous(), 0, ax.group)
+    # the slots the split layer's own dispatch filled, over both ranks
+    dispatched = all_reduce_(out.dispatched.reshape(1).clone(),
+                             group=ax.group)
+    res_e = {"seconds": secs, "experts_on_rank": e, "capacity": cap,
+             "dropped": slots - round(dispatched.item())}
+    if rank == 0:
+        res_e.update(y_of_max=_of_max(y, ref.y),
+                     aux_rel=_rel(out.aux_loss, ref.aux_loss),
+                     z_rel=_rel(out.router_z_loss, ref.router_z_loss),
+                     ref_dropped=slots - round(ref.dispatched.item()))
+    res["experts"] = res_e
+
+
+def mp_rank(rank, world, out_dir):
+    """One rank of the two on the card (gloo): every arm in turn (tensor,
+    sequence, pipeline, expert parallelism), each rank's flash launches
+    counted from zero; rank 0 also takes the one-process references."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"seconds": {}}
+    # torch.utils.checkpoint imports torch._dynamo at its first call: a
+    # one-time cost, taken here and not in the pipeline arm's timed step
+    t0 = time.perf_counter()
+    import torch._dynamo  # noqa: F401
+    res["seconds"]["imports"] = time.perf_counter() - t0
+    fa.reset_launch_counts()
+    for name, arm in (("tp", _mp_tp), ("seq", _mp_seq), ("pipe", _mp_pipe),
+                      ("experts", _mp_experts)):
+        t0 = time.perf_counter()
+        arm(rank, res)
+        torch.cuda.empty_cache()
+        res["seconds"][name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    res["launches"] = dict(fa.LAUNCHES)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _mp_gates(r0, ranks):
+    """The phase's failures, as messages (empty when every arm passes)."""
+    bad = []
+    tp = r0["tp"]
+    want = {k: BERT["blocks"] for k in ATTN_KERNELS}
+    if tp["fwd_of_max"] > MP_FWD_TOL or tp["loss_rel"] > MP_LOSS_RTOL or \
+            tp["grads"]["worst"] > MP_GRAD_RTOL:
+        bad.append(f"tensor parallel f32 against the replicated model: "
+                   f"forward {tp['fwd_of_max']:.3g}, loss "
+                   f"{tp['loss_rel']:.3g}, worst gradient "
+                   f"{tp['grads']['worst']:.3g} ({tp['grads']['name']})")
+    for r, rk in enumerate(ranks):
+        t = rk["tp"]
+        if t["local_heads"] != BERT["heads"] // MP_RANKS or \
+                t["f32_launches"] != want or \
+                any(s != want for s in t["bf16_launches_per_step"]) or \
+                not all(math.isfinite(v) for v in t["bf16_losses"]):
+            bad.append(f"rank {r}: {t['local_heads']} heads, f32 launches "
+                       f"{t['f32_launches']}, bf16 a step "
+                       f"{t['bf16_launches_per_step']}, losses "
+                       f"{t['bf16_losses']} (want {want} on "
+                       f"{BERT['heads'] // MP_RANKS} heads, finite)")
+        for name, arm in rk["seq"].items():
+            if name.startswith("ulysses") and (
+                    arm["launches"]["flash_fwd"] < 1
+                    or arm["launches"]["flash_bwd_dq"] < 1):
+                bad.append(f"rank {r}: {name} launched {arm['launches']}")
+        # each of a rank's R stages a microbatch: one causal block, its
+        # forward recomputed in the backward under remat
+        pp = rk["pipe"]
+        apps = pp["stages_on_rank"] * pp["microbatches"]
+        want_pp = {"flash_fwd": 2 * apps, "flash_bwd_dkv": apps,
+                   "flash_bwd_dq": apps}
+        if not pp["remat"] or pp["launches"] != want_pp:
+            bad.append(f"rank {r}: the pipeline (remat {pp['remat']}) "
+                       f"launched {pp['launches']}, want {want_pp} with "
+                       "remat")
+    for name, arm in r0["seq"].items():
+        fo, fg = MP_SEQ_TOL[name.rsplit("_", 1)[1]]
+        if arm["out_of_max"] > fo or arm["grads_of_max"] > fg:
+            bad.append(f"{name}: output {arm['out_of_max']:.3g} (bound "
+                       f"{fo}), gradients {arm['grads_of_max']:.3g} "
+                       f"(bound {fg}) of the largest entry")
+    pp = r0["pipe"]
+    if pp["loss_rel"] > MP_LOSS_RTOL or pp["step_loss_rel"] > MP_LOSS_RTOL \
+            or pp["grads"]["worst"] > MP_GRAD_RTOL:
+        bad.append(f"pipeline against pipelined=False: loss "
+                   f"{pp['loss_rel']:.3g}, after a step "
+                   f"{pp['step_loss_rel']:.3g}, worst gradient "
+                   f"{pp['grads']['worst']:.3g} ({pp['grads']['name']})")
+    ex = r0["experts"]
+    if ex["y_of_max"] > MP_FWD_TOL or ex["aux_rel"] > MP_LOSS_RTOL or \
+            ex["z_rel"] > MP_LOSS_RTOL or ex["ref_dropped"] <= 0 or \
+            ex["dropped"] != ex["ref_dropped"]:
+        bad.append(f"experts against the unsplit layer: output "
+                   f"{ex['y_of_max']:.3g}, aux {ex['aux_rel']:.3g}, z "
+                   f"{ex['z_rel']:.3g}, dropped {ex['dropped']} vs "
+                   f"{ex['ref_dropped']}")
+    return bad
+
+
+def phase_model_parallel(report, card):
+    """Model parallelism on the card (module docstring, phase 26): one
+    group of two gloo ranks runs every arm. Returns the ranks' flash
+    launches (the main path)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.parallel.launch import spawn_ranks
+    t_phase = time.perf_counter()
+    # the ranks load these libraries and never compile one themselves
+    cuda_build.build()
+    tmp = tempfile.TemporaryDirectory(prefix="model_parallel_")
+    codes = spawn_ranks(mp_rank, MP_RANKS, (tmp.name,), run_dir=tmp.name,
+                        backend="gloo", timeout_s=MP_JOIN_S,
+                        group_timeout_s=MP_GROUP_S, name="mp")
+    if codes != [0] * MP_RANKS:
+        raise AssertionError(f"the model-parallel group exited {codes}")
+    ranks = [json.load(open(os.path.join(tmp.name, f"rank{r}.json")))
+             for r in range(MP_RANKS)]
+    tmp.cleanup()
+    r0 = ranks[0]
+    tp, pp, ex = r0["tp"], r0["pipe"], r0["experts"]
+    log(f"  tensor parallel, BERT-base graph + fine-tune head at "
+        f"{MP_BERT_BATCH} x {BERT['seq']} on {{data 1, model {MP_RANKS}}}: "
+        f"{tp['local_heads']} heads a rank; f32 against the replicated "
+        f"model: forward {tp['fwd_of_max']:.3g} of the largest entry, loss "
+        f"{tp['loss_rel']:.3g}, gradients rel L2 worst "
+        f"{tp['grads']['worst']:.3g} ({tp['grads']['name']}), all "
+        f"{tp['grads']['all']:.3g}; launches of the f32 step "
+        f"{tp['f32_launches']}; bf16 losses "
+        f"{' '.join(f'{v:.4f}' for v in tp['bf16_losses'])}, "
+        f"launches a step {tp['bf16_launches_per_step'][-1]} [{card}]")
+    for name, arm in r0["seq"].items():
+        log(f"  {name} at {MP_SEQ}: output {arm['out_of_max']:.3g}, "
+            f"q/k/v gradients {arm['grads_of_max']:.3g} of the largest "
+            f"entry against flash_attention on the whole sequence; "
+            f"{arm['seconds'] * 1e3:.1f} ms forward + backward, launches "
+            f"{ {k: v for k, v in arm['launches'].items() if v} }")
+    log(f"  pipeline, LM {MP_LM} over pipe {MP_RANKS} (R {pp['stages_on_rank']}"
+        f", M {pp['microbatches']}): loss {pp['loss_rel']:.3g}, gradients "
+        f"rel L2 worst {pp['grads']['worst']:.3g} ({pp['grads']['name']}), "
+        f"after one SGD step {pp['step_loss_rel']:.3g} (losses "
+        f"{pp['losses']}); forward + backward {pp['seconds']:.2f} s cold, "
+        f"{pp['warm_seconds']:.3f} s warm; launches of a step "
+        f"{pp['launches']}")
+    log(f"  experts, 8 of 3072 at 768 over {MP_RANKS} ranks "
+        f"({ex['experts_on_rank']} each), {MP_MOE_TOKENS} tokens: output "
+        f"{ex['y_of_max']:.3g} of the largest entry, aux {ex['aux_rel']:.3g}"
+        f", z {ex['z_rel']:.3g}, dropped {ex['dropped']} (unsplit "
+        f"{ex['ref_dropped']}) at capacity {ex['capacity']}; "
+        f"{ex['seconds'] * 1e3:.1f} ms")
+    for r, rk in enumerate(ranks):
+        log(f"  rank {r}: arm seconds "
+            f"{ {k: round(v, 1) for k, v in rk['seconds'].items()} }, "
+            f"flash launches {rk['launches']}")
+    bad = _mp_gates(r0, ranks)
+    report["model_parallel"] = {"card": card, "ranks": ranks,
+                                "seconds": time.perf_counter() - t_phase}
+    if bad:
+        raise AssertionError("; ".join(bad))
+    launches = {}
+    for rk in ranks:
+        for k, v in rk["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main(argv=None) -> int:
     global _RUN_LOG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -9630,7 +10143,7 @@ def main(argv=None) -> int:
                     "digits_eval,digits_train,generate,serve_http,"
                     "rnn_tbptt,zoo,keras_import,observed_fit,quant_serve,"
                     "model_library,cluster,neighbors,embeddings,online,"
-                    "aot_cache,data_parallel",
+                    "aot_cache,data_parallel,model_parallel",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the served forward, the train steps, "
@@ -9857,6 +10370,12 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         f"the card (f32, {DP_RANKS} x {DP_ROWS} rows) and a sharded "
         "checkpoint, the collective watchdog in subprocesses",
         lambda: phase_data_parallel(report, card))
+    run("model_parallel", f"tensor parallelism over the BERT-base graph "
+        f"({MP_BERT_BATCH} x {BERT['seq']}, f32 and bf16), ring and Ulysses "
+        f"attention at {MP_SEQ}, the pipelined LM ({MP_LM['layers']} x "
+        f"{MP_LM['width']}, vocab {MP_LM['vocab']}) and the expert layer, "
+        f"{MP_RANKS} gloo ranks on the card",
+        lambda: phase_model_parallel(report, card))
     total = sum(report["phase_seconds"].values())
     log(f"[total] phases {total:.1f}s, script wall "
         f"{time.perf_counter() - _T_START:.1f}s")
@@ -9880,7 +10399,8 @@ def _run(args, phases, report, phase, torch, cuda_build) -> int:
         # steps (flash kernels); the two in-process cluster nodes' batches
         # behind the RemoteDispatcher (conv kernels); the data-parallel
         # wrapper's steps in this process and in its two ranks (conv
-        # kernels)
+        # kernels); the model-parallel ranks' split BERT steps, Ulysses
+        # calls and pipeline stages (flash kernels)
         entry["launches"] = launches[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):

@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.datasets.feeder import (DEFAULT_DEPTH,
 from deeplearning4j_tpu_torch.datasets.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.evaluation.evaluation import (
     Evaluation, RegressionEvaluation)
+from deeplearning4j_tpu_torch.ops import tensor_split
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     carry_core, first_bidirectional_name, warn_tbptt_bidirectional)
 from deeplearning4j_tpu_torch.observe.flight_recorder import \
@@ -130,6 +131,16 @@ class BaseModel:
         # set by a listener (the early-stopping trainer's iteration
         # conditions) to end the running fit after the current dispatch
         self._stop_requested = False
+        # a tensor-parallel plan (parallel/tensor_parallel.py): its layers
+        # run on this rank's slices with their split points open
+        self._tp_plan = None
+
+    def _split(self, name: str):
+        """The split points of layer ``name`` under the tensor-parallel
+        plan (ops/tensor_split.py), or nothing without one."""
+        plan = self._tp_plan
+        return tensor_split.split(None if plan is None
+                                  else plan.split_spec(name))
 
     # ---- listeners and observability -------------------------------------
     def set_listeners(self, *listeners):

@@ -154,12 +154,13 @@ class ComputationGraph(BaseModel):
                 acts[name] = (x, lp, ctx)
                 continue
             st = model_state.get(name, {})
-            if carries is not None and name in carries:
-                acts[name], new_state[name] = node.layer.apply(
-                    lp, st, x, ctx, initial_state=carries[name])
-            else:
-                acts[name], new_state[name] = node.layer.apply(lp, st, x,
-                                                               ctx)
+            with self._split(name):
+                if carries is not None and name in carries:
+                    acts[name], new_state[name] = node.layer.apply(
+                        lp, st, x, ctx, initial_state=carries[name])
+                else:
+                    acts[name], new_state[name] = node.layer.apply(
+                        lp, st, x, ctx)
         return acts, new_state
 
     def _fmask_dict(self, fmasks) -> Dict[str, Optional[torch.Tensor]]:
@@ -198,8 +199,9 @@ class ComputationGraph(BaseModel):
             lmask = lmasks[i] if lmasks and i < len(lmasks) else None
             if lmask is not None:
                 ctx = dataclasses.replace(ctx, mask=lmask)
-            loss = node.layer.compute_loss(
-                lp, model_state.get(out_name, {}), x, labels[i], ctx)
+            with self._split(out_name):
+                loss = node.layer.compute_loss(
+                    lp, model_state.get(out_name, {}), x, labels[i], ctx)
             total = total + loss.to(acc)
         for n in self._layer_nodes:
             total = total + n.layer.regularization_loss(params.get(n.name,

@@ -157,11 +157,12 @@ class MultiLayerNetwork(BaseModel):
             lp = cast_params(params.get(layer.name, {}), dt)
             lp = layer.apply_weight_noise(lp, ctx)
             st = model_state.get(layer.name, {})
-            if carries is not None and layer.name in carries:
-                x, new_state[layer.name] = layer.apply(
-                    lp, st, x, ctx, initial_state=carries[layer.name])
-            else:
-                x, new_state[layer.name] = layer.apply(lp, st, x, ctx)
+            with self._split(layer.name):
+                if carries is not None and layer.name in carries:
+                    x, new_state[layer.name] = layer.apply(
+                        lp, st, x, ctx, initial_state=carries[layer.name])
+                else:
+                    x, new_state[layer.name] = layer.apply(lp, st, x, ctx)
             if collect:
                 acts.append(x)
         return (acts if collect else x), new_state
@@ -194,8 +195,9 @@ class MultiLayerNetwork(BaseModel):
         out_lp = cast_params(params.get(out.name, {}),
                              self.conf.global_config.compute_dtype)
         out_lp = out.apply_weight_noise(out_lp, ctx)
-        loss = out.compute_loss(out_lp, model_state.get(out.name, {}), x,
-                                labels, ctx)
+        with self._split(out.name):
+            loss = out.compute_loss(out_lp, model_state.get(out.name, {}),
+                                    x, labels, ctx)
         reg = torch.zeros((), dtype=torch.float32, device=loss.device)
         for l in self.layers:
             reg = reg + l.regularization_loss(params.get(l.name, {}))
@@ -290,7 +292,9 @@ class MultiLayerNetwork(BaseModel):
                 ctx = LayerContext(train=False, mask=fmask)
                 lp = cast_params(params.get(out.name, {}),
                                  self.conf.global_config.compute_dtype)
-                y, _ = out.apply(lp, model_state.get(out.name, {}), h, ctx)
+                with self._split(out.name):
+                    y, _ = out.apply(lp, model_state.get(out.name, {}), h,
+                                     ctx)
             return y
         return fwd
 

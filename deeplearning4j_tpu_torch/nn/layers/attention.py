@@ -26,7 +26,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (FeedForwardLayer, Layer,
                                                      LayerContext)
 from deeplearning4j_tpu_torch.nn.layers.normalization import \
     LayerNormalization
-from deeplearning4j_tpu_torch.ops import flash_attention
+from deeplearning4j_tpu_torch.ops import flash_attention, tensor_split
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
@@ -93,13 +93,16 @@ class SelfAttentionLayer(FeedForwardLayer):
         return params
 
     def _qkv(self, params, x):
-        """q, k, v (N, T, H, Dh): strided views of the packed projection."""
-        qkv = torch.matmul(x, params["Wqkv"])
+        """q, k, v (N, T, H, Dh): strided views of the packed projection.
+        H is the heads the packed columns hold: all of them, or this
+        rank's share under tensor parallelism (the columns are head-major,
+        so a contiguous slice is whole heads)."""
+        qkv = torch.matmul(tensor_split.copy_in(x, "attn"), params["Wqkv"])
         if self.has_bias:
             qkv = qkv + params["bqkv"]
-        n, t, _ = qkv.shape
-        h, dh = self.n_heads, self.n_out // self.n_heads
-        qkv = qkv.reshape(n, t, h, 3, dh)
+        n, t, cols = qkv.shape
+        dh = self.n_out // self.n_heads
+        qkv = qkv.reshape(n, t, cols // (3 * dh), 3, dh)
         return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
     def apply(self, params, state, x, ctx: LayerContext):
@@ -108,7 +111,8 @@ class SelfAttentionLayer(FeedForwardLayer):
         o = flash_attention.flash_attention(q, k, v, mask=ctx.mask,
                                             causal=self.causal)
         n, t = o.shape[0], o.shape[1]
-        y = torch.matmul(o.reshape(n, t, self.n_out), params["Wo"])
+        y = torch.matmul(o.reshape(n, t, -1), params["Wo"])
+        y = tensor_split.reduce_out(y, "attn")
         if self.has_bias:
             y = y + params["bo"]
         if ctx.mask is not None:
@@ -206,11 +210,11 @@ class TransformerEncoderBlock(FeedForwardLayer):
         a, _ = attn.apply(params["attn"], {}, h, ctx)
         x = x + a
         h, _ = ln2.apply(params["ln2"], {}, x, ctx)
-        f = torch.matmul(h, params["W1"])
+        f = torch.matmul(tensor_split.copy_in(h, "ffn"), params["W1"])
         if self.has_bias:
             f = f + params["b1"]
         f = self.ffn_activation.apply(f)
-        f = torch.matmul(f, params["W2"])
+        f = tensor_split.reduce_out(torch.matmul(f, params["W2"]), "ffn")
         if self.has_bias:
             f = f + params["b2"]
         y = x + f

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.nn.inputs import (
     RecurrentType,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import FeedForwardLayer, Layer
+from deeplearning4j_tpu_torch.ops import tensor_split
 from deeplearning4j_tpu_torch.utils.serde import (register_enum,
                                                   register_serializable)
 
@@ -137,9 +138,13 @@ class ConvolutionLayer(FeedForwardLayer):
                                  self.padding))
         (t, b), (l, r) = _pads(self.convolution_mode, x.shape[1:3], k, s, d,
                                p)
+        # under tensor parallelism W may be an output- or input-channel
+        # slice (ops/tensor_split.py); outside, these are identities
+        x = tensor_split.copy_in(tensor_split.gather_in(x, "conv"), "conv")
         xp = F.pad(_nchw(x), (l, r, t, b))
         w = params["W"].permute(3, 2, 0, 1)          # HWIO -> OIHW
         y = _nhwc(F.conv2d(xp, w, stride=s, dilation=d, groups=self.groups))
+        y = tensor_split.reduce_out(y, "conv")
         if self.has_bias:
             y = y + params["b"]
         return self.activation.apply(y), state

@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.inputs import (ConvolutionalType,
                                                 FeedForwardType, InputType,
                                                 RecurrentType)
 from deeplearning4j_tpu_torch.nn.layers.base import FeedForwardLayer, Layer
+from deeplearning4j_tpu_torch.ops import tensor_split
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
 
@@ -44,10 +45,13 @@ class DenseLayer(FeedForwardLayer):
         return params
 
     def pre_output(self, params, x):
-        y = torch.matmul(x, params["W"])
+        # under tensor parallelism W may be a column or a row slice
+        # (ops/tensor_split.py); outside, the split points are identities
+        y = torch.matmul(tensor_split.copy_in(x, "dense"), params["W"])
+        y = tensor_split.reduce_out(y, "dense")
         if self.has_bias:
             y = y + params["b"]
-        return y
+        return tensor_split.gather_out(y, "dense")
 
     def apply(self, params, state, x, ctx):
         x = self.maybe_dropout(x, ctx)

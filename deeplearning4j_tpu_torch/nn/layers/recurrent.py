@@ -39,6 +39,7 @@ import torch
 from deeplearning4j_tpu_torch.nn.inputs import (FeedForwardType, InputType,
                                                 RecurrentType)
 from deeplearning4j_tpu_torch.nn.layers.base import FeedForwardLayer, Layer
+from deeplearning4j_tpu_torch.ops import tensor_split
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.fused_lstm import lstm_fused
 from deeplearning4j_tpu_torch.utils.serde import register_serializable
@@ -91,7 +92,8 @@ class LSTM(FeedForwardLayer):
         the configured column layout."""
         nh = self.n_out
         if self.gate_layout == "hidden_major":
-            z4 = z.reshape(z.shape[0], nh, 4)
+            # this rank's hidden units under tensor parallelism
+            z4 = z.reshape(z.shape[0], z.shape[-1] // 4, 4)
             return z4[..., 0], z4[..., 1], z4[..., 2], z4[..., 3]
         return (z[:, :nh], z[:, nh:2 * nh], z[:, 2 * nh:3 * nh],
                 z[:, 3 * nh:])
@@ -111,8 +113,12 @@ class LSTM(FeedForwardLayer):
 
     def _cell(self, params, carry, zx_t, mask_t):
         h_prev, c_prev = carry
-        hy, c = self.gate_update(zx_t + h_prev @ params["Wh"], c_prev,
-                                 params)
+        hy, c = self.gate_update(
+            zx_t + tensor_split.copy_in(h_prev, "lstm") @ params["Wh"],
+            c_prev, params)
+        # under tensor parallelism h is gathered whole each tick, for the
+        # next tick's product and the output; c stays this rank's
+        hy = tensor_split.gather_out(hy, "lstm")
         if mask_t is not None:
             hy = _apply_mask_step(mask_t, hy, h_prev)
             c = _apply_mask_step(mask_t, c, c_prev)
@@ -134,10 +140,13 @@ class LSTM(FeedForwardLayer):
         n, t, _ = x.shape
         h = self.n_out
         # the input projection for all timesteps in one matmul
-        zx = torch.matmul(x, params["Wx"]) + params["b"]
+        zx = torch.matmul(tensor_split.copy_in(x, "lstm"), params["Wx"]) \
+            + params["b"]
         if initial_state is None:
             h0 = torch.zeros((n, h), dtype=x.dtype, device=x.device)
-            c0 = torch.zeros((n, h), dtype=x.dtype, device=x.device)
+            # this rank's hidden units under tensor parallelism
+            c0 = torch.zeros((n, params["Wh"].shape[1] // 4), dtype=x.dtype,
+                             device=x.device)
         else:
             h0, c0 = initial_state
         mask = ctx.mask

@@ -10,13 +10,21 @@ a checkpoint written by either package restores in the other.
   and the ``COMMITTED`` marker by one rename. A data-parallel leaf is
   whole in every rank, so rank 0 writes it (the JAX package's
   ``replica_id == 0`` piece) and the other ranks write empty files.
+  With ``mesh`` and ``specs`` (partition specs of the split leaves, as
+  ``parallel/tensor_parallel.py`` and ``PipelinedTransformerLM`` give
+  them), a split leaf is written as this rank's piece at its offset in
+  the whole leaf, by the rank at index 0 of every axis the leaf is not
+  split over, and the manifest records the whole shape.
   ``emergency=True`` is the peer-loss path: no barrier (a dead peer would
   never join it); this rank alone writes a complete committed checkpoint
   into ``step_XXXX.em{rank}``.
 - :func:`restore_sharded` reads format 2 (or the legacy single-npz
-  format 1) into an initialized model, whatever the world size that
-  wrote it; a missing leaf or a shape mismatch raises, entries the model
-  has no leaf for are warned about.
+  format 1) into an initialized model, whatever the world size and the
+  layout that wrote it; with ``mesh`` and ``param_shardings`` every rank
+  reads its own region of each split leaf (the target layout may differ
+  from the saved one: a 2×2×2 checkpoint restores onto 1×2×4). A missing
+  leaf or a shape mismatch raises, entries the model has no leaf for are
+  warned about.
 - :class:`ElasticTrainer` wraps ``fit`` with periodic checkpoints, an
   emergency save when the fit raises, and ``resume()``.
 
@@ -44,6 +52,8 @@ from deeplearning4j_tpu_torch.optimize.solver import TrainState
 from deeplearning4j_tpu_torch.parallel.mesh import barrier, rank, world_size
 from deeplearning4j_tpu_torch.parallel.sharding import \
     infer_param_shardings
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import (mirror_specs,
+                                                              spec_leaves)
 
 _GROUPS = ("params", "model_state", "opt_state")
 
@@ -65,12 +75,39 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _region(shape, spec, mesh) -> tuple:
+    """This rank's (start offsets, piece shape) of a whole leaf of
+    ``shape`` split by ``spec`` over ``mesh``."""
+    start, piece = [], []
+    for dim, w in enumerate(shape):
+        name = spec[dim] if dim < len(spec) else None
+        a = mesh.axis(name) if name is not None else None
+        if a is None or a.size == 1:
+            start.append(0)
+            piece.append(w)
+        else:
+            start.append(a.index * (w // a.size))
+            piece.append(w // a.size)
+    return start, piece
+
+
+def _writes(spec, mesh) -> bool:
+    """Whether this rank writes its piece of a leaf split by ``spec``:
+    the replica at index 0 of every axis the leaf is not split over."""
+    used = {a for a in spec if a is not None}
+    return all(mesh.index(a) == 0 for a in mesh.axis_names
+               if a not in used)
+
+
 def save_sharded(train_state: TrainState, directory: str,
                  step: Optional[int] = None,
-                 emergency: bool = False) -> str:
+                 emergency: bool = False, mesh=None,
+                 specs: Optional[Dict[str, Any]] = None) -> str:
     """Write params, model_state, opt_state and the iteration under
     ``directory`` (one subdirectory a step); returns its path. Every rank
-    calls it, except with ``emergency=True``."""
+    calls it, except with ``emergency=True``. ``specs`` maps a group
+    ("params", "model_state", "opt_state") to the spec tree of its split
+    leaves over ``mesh`` (the others are whole)."""
     it = int(train_state.iteration) if step is None else int(step)
     pidx = rank()
     name = f"step_{it:010d}" + (f".em{pidx}" if emergency else "")
@@ -81,6 +118,9 @@ def save_sharded(train_state: TrainState, directory: str,
         return path
     tmp = path + ".tmp"
     writer = pidx == 0 or emergency
+    if specs and (mesh is None or emergency):
+        raise ValueError("split leaves need the mesh, and an emergency "
+                         "save is whole leaves only")
     if writer:
         if os.path.isdir(tmp):
             shutil.rmtree(tmp)
@@ -92,6 +132,7 @@ def save_sharded(train_state: TrainState, directory: str,
                 "groups": {}, "dtypes": {}, "shapes": {}}
     for group in _GROUPS:
         leaves = _flatten(getattr(train_state, group))
+        split = spec_leaves((specs or {}).get(group, {}))
         arrays: Dict[str, np.ndarray] = {}
         index: Dict[str, Dict[str, Any]] = {}
         names = []
@@ -101,12 +142,21 @@ def save_sharded(train_state: TrainState, directory: str,
             names.append(k)
             if v.dtype == torch.bfloat16:
                 manifest["dtypes"][f"{group}/{k}"] = "bfloat16"
-            manifest["shapes"][f"{group}/{k}"] = list(v.shape)
-            if writer:
+            spec = split.get(k, ())
+            if any(a is not None and mesh.axis(a).size > 1 for a in spec):
+                whole = [w * (mesh.axis(spec[d]).size if d < len(spec)
+                              and spec[d] is not None else 1)
+                         for d, w in enumerate(v.shape)]
+                start, _ = _region(whole, spec, mesh)
+                mine = _writes(spec, mesh)
+            else:
+                whole, start, mine = list(v.shape), [0] * v.dim(), writer
+            manifest["shapes"][f"{group}/{k}"] = whole
+            if mine:
                 a = _to_host(v)
                 arrays[f"{k}::0"] = a
                 index[f"{k}::0"] = {"leaf": k, "dtype": str(a.dtype),
-                                    "start": [0] * a.ndim}
+                                    "start": start}
         np.savez(os.path.join(tmp, f"{group}.proc{pidx:04d}.npz"), **arrays)
         with open(os.path.join(tmp, f"{group}.proc{pidx:04d}.idx.json"),
                   "w") as f:
@@ -259,20 +309,26 @@ def restore_sharded(model, path: str, mesh=None,
                     param_shardings=None) -> TrainState:
     """Restore a checkpoint (either package's, format 1 or 2, any world
     size) into ``model``, which must be initialized (its trees give the
-    names, shapes, dtypes and device). ``mesh`` and ``param_shardings``
-    are checked as the JAX package checks them; every data-parallel leaf
-    lands whole in this rank."""
+    names, shapes, dtypes and device: this rank's slices for split
+    leaves). With ``mesh`` and ``param_shardings`` (a spec tree matching
+    the params) each rank reads its region of every split parameter and
+    of the updater leaves that mirror one; without, every leaf lands
+    whole in this rank."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     dtypes = manifest.get("dtypes", {})
     ts = model.train_state
+    split: Dict[str, Dict[str, tuple]] = {}
     if param_shardings is not None:
-        if set(flatten_paths(param_shardings)) != \
-                set(flatten_paths(ts.params)):
+        if set(spec_leaves(param_shardings)) != set(_flatten(ts.params)):
             raise ValueError(
                 "param_shardings tree structure does not match the "
                 "model's params: a silent zip misalignment would restore "
                 "arrays with the wrong layouts")
+        if mesh is not None:
+            split["params"] = spec_leaves(param_shardings)
+            split["opt_state"] = spec_leaves(mirror_specs(
+                ts.opt_state, ts.params, param_shardings))
     elif mesh is not None:
         infer_param_shardings(ts.params, mesh)
 
@@ -289,12 +345,19 @@ def restore_sharded(model, path: str, mesh=None,
             if key in stored:
                 consumed.add(key)
                 shape = reader.shapes.get(key)
-                if isinstance(node, torch.Tensor) and shape is not None \
-                        and tuple(node.shape) != tuple(shape):
+                region, want = None, shape
+                spec = split.get(group, {}).get(key, ())
+                if shape is not None and any(a is not None for a in spec):
+                    start, want = _region(shape, spec, mesh)
+                    region = tuple(slice(a, a + w)
+                                   for a, w in zip(start, want))
+                if isinstance(node, torch.Tensor) and want is not None \
+                        and tuple(node.shape) != tuple(want):
                     raise ValueError(
-                        f"checkpoint leaf {key} has shape {tuple(shape)}, "
-                        f"model expects {tuple(node.shape)}")
-                return _from_host(reader.read(key),
+                        f"checkpoint leaf {key} has shape {tuple(shape)} "
+                        f"(this rank's region {tuple(want)}), model "
+                        f"expects {tuple(node.shape)}")
+                return _from_host(reader.read(key, region),
                                   dtypes.get(f"{group}/{key}") == "bfloat16",
                                   node)
             if isinstance(node, torch.Tensor) and node.numel() > 0:

@@ -20,9 +20,19 @@ Semantics kept from the JAX package:
   float32: central differences at eps 1e-6 need the router's own
   rounding far below the step.
 
-Expert parallelism (the expert mesh axis and its sharding constraints)
-is the second half of ROADMAP queue 1 item 15: ``set_default_mesh``
-raises naming it.
+Expert parallelism: after ``set_default_mesh(mesh, axis)`` the experts
+are split over the axis's ranks (rank j holds experts ``[j*E/P,
+(j+1)*E/P)``: ``w_in``, ``b_in``, ``w_out``, ``b_out`` carry E/P
+experts, ``gate_w`` all E) and each rank holds its own tokens. The router
+runs on every rank over all tokens (the (T, E) logits are all-gathered,
+their cotangent summed back over the axis), so capacity is claimed in the
+global token order and the drops are the unsplit layer's. Each rank
+scatters its tokens into the (E, C, d) capacity buffer, one all-to-all
+sends each expert's slots to the rank holding it (a slot is claimed by
+one token, so the sum of the received buffers is the unsplit one), the
+rank runs its experts' FFN, and one all-to-all returns every expert's
+output to every rank, which combines its tokens. The aux and z losses
+are the whole batch's on every rank.
 """
 
 from __future__ import annotations
@@ -33,16 +43,30 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.parallel.mesh import (all_gather,
+                                                    all_to_all_chunks,
+                                                    gather_sum_from_axis)
+
 EXPERT_AXIS = "expert"
+
+_default_mesh = None
+_default_axis: str = EXPERT_AXIS
 
 
 def set_default_mesh(mesh, axis: str = EXPERT_AXIS) -> None:
-    """The JAX package installs a mesh for expert sharding here; the port
-    has data parallelism (parallel/wrapper.py) but no sharding of a
-    model over devices yet."""
-    raise NotImplementedError(
-        "parallel.moe.set_default_mesh: expert sharding over a mesh is "
-        "not ported yet (ROADMAP.md, queue 1 item 15, its second half)")
+    """Install the mesh whose ``axis`` splits the experts (None: every
+    expert in this process). Training code sets it once; layers then split
+    without threading a mesh through their (serializable) configs."""
+    global _default_mesh, _default_axis
+    _default_mesh = mesh
+    _default_axis = axis
+
+
+def _expert_axis():
+    m = _default_mesh
+    if m is None or int(m.shape.get(_default_axis, 1)) <= 1:
+        return None
+    return m.axis(_default_axis)
 
 
 @dataclasses.dataclass
@@ -50,6 +74,10 @@ class MoEOutput:
     y: torch.Tensor              # (tokens..., d_out) combined expert outputs
     aux_loss: torch.Tensor       # load-balancing loss (scalar)
     router_z_loss: torch.Tensor  # router logit magnitude penalty (scalar)
+    # (token, expert) assignments of this rank's tokens that found a
+    # capacity slot (scalar); top_k times the valid tokens, less its sum
+    # over the expert axis, is the number dropped
+    dispatched: torch.Tensor
 
 
 def _gelu_tanh(v: torch.Tensor) -> torch.Tensor:
@@ -130,8 +158,13 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor,
     orig_shape = x.shape
     d = orig_shape[-1]
     xt = x.reshape(-1, d)
-    t = xt.shape[0]
     e = gate_w.shape[-1]
+    ax = _expert_axis()
+    parts = 1 if ax is None else ax.size
+    if w_in.shape[0] * parts != e:
+        raise ValueError(f"{w_in.shape[0]} experts on each of {parts} "
+                         f"ranks, but the router has {e}")
+    t = xt.shape[0] * parts
     capacity = max(1, int(capacity_factor * top_k * t / e))
 
     flat_mask = None
@@ -140,15 +173,33 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor,
                                        orig_shape[:-1]).reshape(-1)
 
     logits = xt @ gate_w.to(xt.dtype)
+    if ax is not None:
+        # every rank routes every token: capacity in the global order
+        logits = gather_sum_from_axis(logits, ax, 0)
+        if flat_mask is not None:
+            flat_mask = all_gather(flat_mask.contiguous(), 0, ax.group)
     dispatch, combine, aux, z = route_top_k(logits, top_k, capacity,
                                             token_mask=flat_mask)
+    if ax is not None:
+        rows = slice(ax.index * xt.shape[0], (ax.index + 1) * xt.shape[0])
+        dispatch, combine = dispatch[rows], combine[rows]
+    dispatched = dispatch.sum()
     dispatch = dispatch.to(xt.dtype)
     combine = combine.to(xt.dtype)
 
     expert_in = torch.einsum("tec,td->ecd", dispatch, xt)
+    if ax is not None:
+        # each rank's slots of each expert to the rank holding it
+        expert_in = sum(all_to_all_chunks(
+            list(torch.chunk(expert_in, parts, dim=0)), ax))
     h = activation(torch.einsum("ecd,edf->ecf", expert_in, w_in)
                    + b_in[:, None, :].to(xt.dtype))
     expert_out = (torch.einsum("ecf,efd->ecd", h, w_out)
                   + b_out[:, None, :].to(xt.dtype))
+    if ax is not None:
+        # every expert's output back to every rank
+        expert_out = torch.cat(all_to_all_chunks([expert_out] * parts, ax),
+                               dim=0)
     y = torch.einsum("tec,ecd->td", combine, expert_out)
-    return MoEOutput(y.reshape(orig_shape[:-1] + (y.shape[-1],)), aux, z)
+    return MoEOutput(y.reshape(orig_shape[:-1] + (y.shape[-1],)), aux, z,
+                     dispatched)

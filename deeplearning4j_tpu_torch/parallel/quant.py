@@ -47,6 +47,7 @@ from deeplearning4j_tpu_torch.models.base import cast_params, compute_cast
 from deeplearning4j_tpu_torch.nn.inputs import RecurrentType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerContext
 from deeplearning4j_tpu_torch.ops import quantize as qz
+from deeplearning4j_tpu_torch.ops import tensor_split
 from deeplearning4j_tpu_torch.optimize.updaters import tree_leaves
 
 _MODES = ("f32", "bf16", "int8")
@@ -163,10 +164,15 @@ def _quant_apply(layer, kind: str) -> Callable:
     no dropout, no state)."""
     if kind == "dense":
         def run(lp, x):
-            y = qz.int8_dot(x, lp["W_q"], lp["w_scale"], lp["x_scale"])
+            # the split points of DenseLayer.pre_output (a column or row
+            # slice of W_q under a tensor-parallel plan)
+            y = qz.int8_dot(tensor_split.copy_in(x, "dense"), lp["W_q"],
+                            lp["w_scale"], lp["x_scale"])
+            y = tensor_split.reduce_out(y, "dense")
             if layer.has_bias:
                 y = y + lp["b"]
-            return layer.activation.apply(y)
+            return layer.activation.apply(tensor_split.gather_out(y,
+                                                                  "dense"))
         return run
     from deeplearning4j_tpu_torch.nn.layers.convolution import (
         ConvolutionMode, _pair)
@@ -175,9 +181,11 @@ def _quant_apply(layer, kind: str) -> Callable:
                else ((p[0], p[0]), (p[1], p[1])))
 
     def run(lp, x):
+        x = tensor_split.copy_in(tensor_split.gather_in(x, "conv"), "conv")
         y = qz.int8_conv(x, lp["W_q"], lp["w_scale"], lp["x_scale"],
                          window_strides=s, padding=padding,
                          rhs_dilation=d, feature_group_count=layer.groups)
+        y = tensor_split.reduce_out(y, "conv")
         if layer.has_bias:
             y = y + lp["b"]
         return layer.activation.apply(y)
@@ -216,15 +224,18 @@ def _inference_walk(model, params, model_state, x, fmask,
             ctx = LayerContext(train=False, mask=mask)
             run = qmap.get(layer.name)
             lp = params.get(layer.name, {})
-            if run is not None:
-                x = run(lp, x)
-                continue
-            lp = cast_params(lp, g.compute_dtype)
-            if not last:
-                # the same (no-op at inference) weight-noise hook as
-                # _forward
-                lp = layer.apply_weight_noise(lp, ctx)
-            x, _ = layer.apply(lp, model_state.get(layer.name, {}), x, ctx)
+            # a tensor-parallel plan's split points, as in _forward
+            with model._split(layer.name):
+                if run is not None:
+                    x = run(lp, x)
+                    continue
+                lp = cast_params(lp, g.compute_dtype)
+                if not last:
+                    # the same (no-op at inference) weight-noise hook as
+                    # _forward
+                    lp = layer.apply_weight_noise(lp, ctx)
+                x, _ = layer.apply(lp, model_state.get(layer.name, {}), x,
+                                   ctx)
     return x
 
 
@@ -417,10 +428,14 @@ def quantize_model(model, policy: PrecisionPolicy, *, registry=None,
             kind = _quant_kind(layer)
             if kind is None or layer.name not in calib.scales:
                 params_q[layer.name] = lp
-                x, _ = layer.apply(
-                    lp if last else cast_params(lp, g.compute_dtype),
-                    mstate.get(layer.name, {}), x, ctx)
+                with model._split(layer.name):
+                    x, _ = layer.apply(
+                        lp if last else cast_params(lp, g.compute_dtype),
+                        mstate.get(layer.name, {}), x, ctx)
                 continue
+            # under a tensor-parallel plan W is this rank's slice: its
+            # per-column scales and the calibrated input scale are the
+            # slice's, and the partial products are summed dequantized
             w = lp["W"].detach().to("cpu", torch.float32).numpy()
             w_q, w_scale = qz.quantize_weight(w)
             lq = {"W_q": torch.as_tensor(w_q, device=dev),
@@ -429,8 +444,9 @@ def quantize_model(model, policy: PrecisionPolicy, *, registry=None,
                       np.float32(calib.scales[layer.name]), device=dev)}
             if layer.has_bias and "b" in lp:
                 lq["b"] = lp["b"].detach().to(torch.float32).clone()
-            y_f, _ = layer.apply(lp, mstate.get(layer.name, {}), x, ctx)
-            y_q = _quant_apply(layer, kind)(lq, x)
+            with model._split(layer.name):
+                y_f, _ = layer.apply(lp, mstate.get(layer.name, {}), x, ctx)
+                y_q = _quant_apply(layer, kind)(lq, x)
             err = _rel_l2(y_q, y_f)
             ok = err <= policy.error_budget
             report[layer.name] = {"kind": kind, "error": err,

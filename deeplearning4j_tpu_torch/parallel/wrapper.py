@@ -35,8 +35,14 @@ labels mask) and split along its first axis in rank order, as a
 With one rank every collective is the identity: SHARED_GRADIENTS and
 AVERAGING then take the plain ``fit`` steps bitwise.
 
-Tensor parallelism (``tensor_parallel=True``) is the second half of
-ROADMAP.md item 15 and raises.
+- **tensor_parallel=True** (SHARED_GRADIENTS only) runs over a ``{data,
+  model}`` mesh whose size is the group's: ``parallel/tensor_parallel``'s
+  Megatron plan splits the model over the ``model`` axis (each rank keeps
+  its slices of the parameters, BN state and updater state; the layers
+  issue the plan's all-reduces), the ranks of one ``model`` line take the
+  same rows, and the loss, the gradients and the BN statistics are summed
+  over the ``data`` axis only: split leaves stay split. The updater must be
+  elementwise (no gradient normalization across a split leaf).
 
 An attached ``CollectiveWatchdog`` (parallel/cluster.py) marks every
 dispatch in flight (``guard``), and an exception out of a collective goes
@@ -68,7 +74,7 @@ from deeplearning4j_tpu_torch.optimize.solver import (TrainState,
                                                       make_constrain_fn,
                                                       train_update)
 from deeplearning4j_tpu_torch.optimize.updaters import tree_leaves, tree_map
-from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, SECOND_HALF,
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                                     all_reduce_, count_calls,
                                                     create_mesh,
                                                     global_batch_stats, rank,
@@ -122,9 +128,10 @@ class ElasticOptions:
 
 # ---- trees flattened for one collective per dtype ---------------------------
 
-def _reduce_leaves(leaves, scale: Optional[float] = None):
-    """The float leaves summed over the group (divided by ``scale`` when
-    given), one all-reduce per dtype; other leaves as they are."""
+def _reduce_leaves(leaves, scale: Optional[float] = None, group=None):
+    """The float leaves summed over the group (or ``group``; divided by
+    ``scale`` when given), one all-reduce per dtype; other leaves as they
+    are."""
     out = list(leaves)
     by_dtype = {}
     for i, t in enumerate(leaves):
@@ -132,7 +139,7 @@ def _reduce_leaves(leaves, scale: Optional[float] = None):
             by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        all_reduce_(flat)
+        all_reduce_(flat, group=group)
         if scale is not None:
             flat = flat / scale
         off = 0
@@ -204,15 +211,13 @@ class ParallelWrapper:
             raise ValueError(
                 f"tensor_parallel requires SHARED_GRADIENTS mode, not"
                 f" {mode.name}")
-        if tensor_parallel:
-            raise NotImplementedError(f"tensor_parallel=True: {SECOND_HALF}")
         self.model = model
         self.mesh = mesh if mesh is not None else create_mesh()
-        if self.num_workers != world_size():
+        if self.mesh.size != world_size():
             raise ValueError(
-                f"the mesh's data axis has {self.num_workers} workers but "
-                f"the process group has {world_size()} ranks: each rank "
-                "is one worker")
+                f"the mesh {self.mesh.shape} holds {self.mesh.size} ranks "
+                f"but the process group has {world_size()}: each rank is "
+                "one device of the mesh")
         self.mode = mode
         self.averaging_frequency = int(averaging_frequency)
         self.average_updaters = average_updaters
@@ -221,9 +226,17 @@ class ParallelWrapper:
                                 is not None else ElasticOptions())
         self._watchdog = watchdog
         self._shard = batch_shardings(self.mesh)
+        self._data = self.mesh.axis(DATA_AXIS)
         self._elastic = None        # ASYNC_ELASTIC per-worker state
         if model.params is None:
             model.init()
+        if tensor_parallel:
+            from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+                plan_tp, shard_train_state)
+            if MODEL_AXIS not in self.mesh.shape:
+                raise ValueError("tensor_parallel needs a mesh with a "
+                                 f"'model' axis; got {self.mesh.shape}")
+            shard_train_state(model, plan_tp(model, self.mesh))
 
     # ---- builder --------------------------------------------------------
     class Builder:
@@ -266,8 +279,8 @@ class ParallelWrapper:
             return self
 
         def tensor_parallel(self, flag: bool = True):
-            """Megatron parameter sharding over a ``model`` axis: the
-            second half of ROADMAP.md item 15 (``build`` raises)."""
+            """Megatron tensor parallelism over the mesh's ``model`` axis
+            (parallel/tensor_parallel.py)."""
             self._tp = flag
             return self
 
@@ -312,7 +325,9 @@ class ParallelWrapper:
         count = (lm0.float().sum() if lm0 is not None else
                  torch.full((), float(lead.shape[0]), dtype=torch.float32,
                             device=lead.device))
-        total = all_reduce_(count.clone().reshape(1)).reshape(())
+        group = self._data.group
+        total = all_reduce_(count.clone().reshape(1),
+                            group=group).reshape(())
         share = count / torch.clamp(total, min=1.0)
 
         def weighted_loss(*args):
@@ -320,16 +335,18 @@ class ParallelWrapper:
             return loss * share.to(loss.dtype), new_ms
 
         def summed(grads, loss):
-            red = _reduce_leaves(tree_leaves(grads) + [loss.reshape(1)])
+            red = _reduce_leaves(tree_leaves(grads) + [loss.reshape(1)],
+                                 group=group)
             return _rebuild(grads, red[:-1]), red[-1].reshape(())
 
         spec = m._telemetry_spec()
-        with global_batch_stats(w):
+        with global_batch_stats(w, group):
             ts, loss = train_update(
                 weighted_loss, m._tx, ts, features, labels, fmask, lmask,
                 generator, make_constrain_fn(m._constraint_layers()),
                 telemetry=spec, reduce=summed)
-        if w > 1 and spec is not None and has_buffer(ts.telemetry):
+        if w > 1 and spec is not None and has_buffer(ts.telemetry) and \
+                not self.tensor_parallel:
             with torch.no_grad():
                 # the replicas agree when their parameters do: an L2
                 # fingerprint per rank, gathered over the group
@@ -435,7 +452,7 @@ class ParallelWrapper:
         rank (its gradients are reduced before any code sees them)."""
         m = self.model
         tel = m.telemetry
-        if tel is None or self.num_workers <= 1:
+        if tel is None or self.num_workers <= 1 or self.tensor_parallel:
             return
         metrics = (("loss", "grad_norm")
                    if self.mode in (TrainingMode.AVERAGING,
@@ -624,9 +641,11 @@ class ParallelWrapper:
 
     def collective_census(self, batch: DataSet):
         """The collectives one SHARED_GRADIENTS step issues for this
-        batch (the JAX package counts the compiled step's collective
-        HLOs): ``{"all-reduce": n}``. The step runs on the model's state
-        and its result is dropped."""
+        batch, by kind, forward and backward (the JAX package counts the
+        compiled step's collective HLOs): ``{"all-reduce": n,
+        "all-gather": n, ...}``, the tensor-parallel plan's with the data
+        axis's. The step runs on the model's state and its result is
+        dropped."""
         if self.mode is not TrainingMode.SHARED_GRADIENTS:
             raise ValueError("collective_census audits the sync step")
         m = self.model
@@ -636,7 +655,10 @@ class ParallelWrapper:
         with count_calls() as calls:
             self._sync_step(m.train_state._replace(telemetry=()), *args,
                             m._generator)
-        return {"all-reduce": calls["all_reduce"]} if calls else {}
+        names = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                 "all_to_all": "all-to-all",
+                 "ppermute": "collective-permute"}
+        return {names[k]: n for k, n in calls.items() if n}
 
     # ---- ASYNC_ELASTIC --------------------------------------------------
     def _init_elastic_state(self):

@@ -87,8 +87,25 @@ def test_moe_ffn_matches_jax(act, masked):
 
 
 def test_expert_mesh_raises_naming_item_15():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TM.set_default_mesh(object())
+    """Expert sharding over a mesh is ported (item 15's second half:
+    tests/test_torch_expert_parallel.py holds it against the JAX package
+    over gloo ranks). In one process: a one-rank expert mesh changes
+    nothing, and experts that do not split over the axis raise."""
+    from deeplearning4j_tpu_torch.parallel.mesh import create_mesh
+    g = torch.Generator().manual_seed(0)
+    x, gate = torch.randn(16, 8, generator=g), torch.randn(8, 4, generator=g)
+    w_in, w_out = torch.randn(4, 8, 6, generator=g), torch.randn(
+        4, 6, 8, generator=g)
+    b_in, b_out = torch.zeros(4, 6), torch.zeros(4, 8)
+    want = TM.moe_ffn(x, gate, w_in, b_in, w_out, b_out).y
+    TM.set_default_mesh(create_mesh({TM.EXPERT_AXIS: 1}))
+    try:
+        got = TM.moe_ffn(x, gate, w_in, b_in, w_out, b_out).y
+        with pytest.raises(ValueError, match="experts"):
+            TM.moe_ffn(x, gate, w_in[:3], b_in[:3], w_out[:3], b_out[:3])
+    finally:
+        TM.set_default_mesh(None)
+    assert torch.equal(got, want)
 
 
 def _moe_conf(seq=False, updater=None):

@@ -220,15 +220,17 @@ def test_global_batch_stats_hold_only_in_the_thread_that_opened_them():
 
 
 def test_second_half_of_item_15_still_raises():
-    with pytest.raises(NotImplementedError, match="item 15, its second"):
-        TM.create_3d_mesh(1, 1, 1)
+    """Of item 15's second half only serving with replicas > 1 still
+    raises (tests/test_torch_serving.py pins it): the mesh, the sharding
+    rules and the wrapper's tensor parallelism build now."""
+    assert TM.create_3d_mesh(1, 1, 1).shape == {"data": 1, "model": 1,
+                                                 "pipe": 1}
     from deeplearning4j_tpu_torch.parallel.sharding import \
         infer_param_shardings
-    with pytest.raises(NotImplementedError, match="item 15, its second"):
-        infer_param_shardings({}, TM.create_mesh({"data": 4, "model": 2},
-                                                 range(8)))
-    with pytest.raises(NotImplementedError, match="item 15, its second"):
-        ParallelWrapper(None, tensor_parallel=True)
+    tree = {"l": {"W": torch.zeros(3, 4), "b": torch.zeros(4)}}
+    assert infer_param_shardings(tree, TM.create_mesh(
+        {"data": 4, "model": 2}, range(8))) == {"l": {"W": (None, "model"),
+                                                     "b": ()}}
     with pytest.raises(ValueError, match="SHARED_GRADIENTS"):
         ParallelWrapper(None, mode=TrainingMode.AVERAGING,
                         tensor_parallel=True)

@@ -17,6 +17,7 @@ alike); run it from a tree's root on any machine:
     python3 tools/gen_rehearsal.py online
     python3 tools/gen_rehearsal.py aot
     python3 tools/gen_rehearsal.py data_parallel
+    python3 tools/gen_rehearsal.py model_parallel
 
 ``rehearse`` runs ``phase_generate`` end to end on the CPU with the
 committed model: chip_smoke's source is executed with its ``"cuda"``
@@ -98,6 +99,12 @@ processes, so the rewritten source goes to ``build/rehearsal/
 dp_rehearsal.py`` for them to import, with "nccl" turned to "gloo" and
 the six conv wrappers counting in every process; the ResNet50 is cut to
 32x32 with 10 classes and 8 rows a step (16 over the two ranks).
+
+``model_parallel`` runs ``phase_model_parallel`` the same way
+(``build/rehearsal/mp_rehearsal.py``; the flash wrappers count a launch
+for each plain call) at cut sizes: the BERT-base graph at 2 x 128, the
+sequence arms at T 64, the LM at 4 layers and 2 x 16 tokens, the expert
+layer on 256 tokens.
 
 ``ops`` counts the top-level torch ops of one f32 tick at 8 slots
 (``torch.profiler`` on the CPU): the host's work a tick, which on the card
@@ -500,11 +507,54 @@ def data_parallel() -> None:
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
 
 
+_MP_PRELUDE = """
+def _rehearsal_counting():
+    from deeplearning4j_tpu_torch.ops import flash_attention as _fa
+    for _name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        def counted(*a, _fn=getattr(_fa, _name), _n=_name, **kw):
+            _fa._count(_n)
+            return _fn(*a, **kw)
+        setattr(_fa, _name, counted)
+_rehearsal_counting()
+"""
+
+
+def model_parallel() -> None:
+    """``phase_model_parallel`` on the CPU, as ``data_parallel`` runs its
+    phase (``build/rehearsal/mp_rehearsal.py``, imported by the spawned
+    ranks; every "cuda" the CPU; the flash wrappers counting a launch for
+    each plain call), at cut sizes: the BERT-base graph at 2 x 128, the
+    sequence arms at T 64, the LM at 4 layers, 2 x 16 tokens, the expert
+    layer on 256 tokens."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    src = src.replace('"cuda"', '"cpu"').replace(".cuda()", ".cpu()")
+    src = src.replace("torch.cuda.synchronize()", "None")
+    src = src.replace("themselves\n    cuda_build.build()\n",
+                      "themselves\n")
+    anchor = "_T_START = time.perf_counter()\n"
+    src = src.replace(anchor, anchor + _MP_PRELUDE)
+    src = src.replace("MP_BERT_BATCH = 32 ", "MP_BERT_BATCH = 2 ")
+    src = src.replace("MP_SEQ = dict(n=8, t=512,", "MP_SEQ = dict(n=2, t=64,")
+    src = src.replace("MP_LM = dict(vocab=30522, width=768, heads=12, "
+                      "layers=12, max_len=128,\n             batch=16,",
+                      "MP_LM = dict(vocab=30522, width=768, heads=12, "
+                      "layers=4, max_len=16,\n             batch=2,")
+    src = src.replace("MP_MOE_TOKENS = 32 * 128 ", "MP_MOE_TOKENS = 256 ")
+    out = ROOT / "build" / "rehearsal"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "mp_rehearsal.py").write_text(src)
+    sys.path.insert(0, str(out))
+    import mp_rehearsal as smoke
+    t0 = time.perf_counter()
+    smoke.phase_model_parallel({}, "CPU rehearsal")
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s on the CPU")
+
+
 def main(argv) -> int:
     if not argv or argv[0] not in ("rehearse", "serve", "ops", "rnn", "zoo",
                                    "keras", "observed", "cluster",
                                    "neighbors", "embeddings", "online",
-                                   "aot", "data_parallel"):
+                                   "aot", "data_parallel", "model_parallel"):
         print(__doc__)
         return 2
     if argv[0] == "ops":
@@ -531,6 +581,8 @@ def main(argv) -> int:
         aot()
     elif argv[0] == "data_parallel":
         data_parallel()
+    elif argv[0] == "model_parallel":
+        model_parallel()
     else:
         rehearse(int(argv[1]) if len(argv) > 1 else 32)
     return 0
